@@ -1,0 +1,162 @@
+"""Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
+library with a plain C interface, bound with ``ctypes``: a file that
+includes PyTorch's headers takes minutes to compile, a plain one seconds,
+and the build runs at first use inside every fresh checkout.  The
+compilers are started together, one per source.  Libraries are cached in
+``_build/`` next to this file (git-ignored), named by a hash of the
+source and flags, so an edited source rebuilds and an unchanged one
+loads at once.
+
+Nothing here runs at import: ``load()`` builds on its first call, from the
+wrapper that first launches a kernel.  A failed build raises.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SOURCES = ("gatherk", "rgrow", "pair")
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# argument types of every C entry point (pointers and the stream as void*,
+# 64-bit sizes as long long: ctypes would otherwise pass 32-bit ints)
+SIGNATURES = {
+    "gatherk": {
+        "gk_launch": [_P] * 9 + [_L, _I, _I, _I, _L, _L, _L, _L, _I, _P],
+        "ggk_launch": [_P] * 10 + [_L, _I, _I, _I, _L, _L, _L, _L, _I, _P],
+    },
+    "rgrow": {
+        "rgrow_launch": [_P] * 8 + [_L, _I, _I, _I, _I, _L, _L, _L, _I, _P],
+    },
+    "pair": {
+        "pair_launch": [_P] * 6 + [_I, _I, _I, _L, _L, _L, _I, _P],
+    },
+}
+
+
+class Kernels:
+    """The loaded libraries: one attribute per C entry point, plus the
+    build's wall seconds and the compilers' ``-Xptxas -v`` reports."""
+
+    def __init__(self, libs, seconds, reports):
+        self.seconds = seconds
+        self.reports = reports
+        self._libs = libs
+        for name, fns in SIGNATURES.items():
+            for fn, argtypes in fns.items():
+                f = getattr(libs[name], fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+                setattr(self, fn, f)
+
+
+_LOADED = None
+
+
+def _nvcc():
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _target(name):
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build():
+    """Compile every source whose library is missing, all in parallel.
+    Returns (seconds, {source: compiler report})."""
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in SOURCES:
+        out = _target(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    reports, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        reports[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return time.perf_counter() - t0, reports
+
+
+def load():
+    """Build (first call only) and load the kernels."""
+    global _LOADED
+    if _LOADED is None:
+        seconds, reports = build()
+        libs = {name: ctypes.CDLL(str(_target(name))) for name in SOURCES}
+        _LOADED = Kernels(libs, seconds, reports)
+    return _LOADED
+
+
+def check(rc, name):
+    """Raise on a launch the CUDA runtime refused (checked right after each
+    launch; a fault during the run surfaces at the next synchronize)."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def check_operands(name, tensors, shapes):
+    """Validate a wrapper's operands: one device (CPU or CUDA), float32,
+    the expected shapes, contiguous.  Returns the device."""
+    dev = tensors[0].device
+    for t, shp in zip(tensors, shapes):
+        if t.device != dev:
+            raise ValueError(f"{name}: operands on different devices")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: operands must be float32, got {t.dtype}")
+        if tuple(t.shape) != tuple(shp):
+            raise ValueError(f"{name}: operand shape {tuple(t.shape)}, "
+                             f"expected {tuple(shp)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev
+
+
+def slice_width(x_batched, w_batched, x, w):
+    """The slice width of a call whose operands may carry a leading width
+    axis (1 when neither does)."""
+    if x_batched and w_batched and x.shape[0] != w.shape[0]:
+        raise ValueError("slice widths of the two operands differ")
+    if x_batched:
+        return x.shape[0]
+    return w.shape[0] if w_batched else 1
+
+
+def stream_of(t):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def ptr(t):
+    return ctypes.c_void_p(t.data_ptr())

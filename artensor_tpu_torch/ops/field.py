@@ -1,0 +1,151 @@
+"""Split-complex field: complex tensors as (re, im) pairs of real tensors.
+
+Port of ``SplitField`` (``artensor_tpu/ops/field.py:31-173``).  A value is a
+tuple ``(re, im)`` of float tensors in the JAX package's flat physical shape
+``(d0, rest)`` (``runtime/lowering.py::physical_shape``).  The hand-written
+kernels take re and im as separate buffers, so keeping the pair (instead of
+a native complex tensor) lets every step hand its operands to a kernel
+without an interleave pass.
+
+Products accumulate in full float32: ``torch.backends.cuda.matmul.allow_tf32``
+is set False where ``dot`` runs, because the JAX package's dots run at
+HIGHEST precision.  A value may carry a leading slice-width axis (see
+``runtime/executor.py``); methods that take a ``shape`` or ``axis`` are
+given the full shape including it.
+
+``FusedField`` and ``ComplexField`` are not ported yet.
+"""
+
+import numpy as np
+import torch
+
+_REAL = {np.dtype(np.complex64): torch.float32,
+         np.dtype(np.complex128): torch.float64}
+
+
+def _dot_general(a, b, dnums):
+    """``lax.dot_general`` on real tensors as permute/reshape + matmul.
+
+    Output axes: batch dims, then a's free dims, then b's free dims (in
+    their stored order), as XLA's dot_general produces them."""
+    (ca, cb), (ba, bb) = dnums
+    fa = [d for d in range(a.dim()) if d not in ca and d not in ba]
+    fb = [d for d in range(b.dim()) if d not in cb and d not in bb]
+    bsz = [a.shape[d] for d in ba]
+    fa_sz = [a.shape[d] for d in fa]
+    fb_sz = [b.shape[d] for d in fb]
+    nb = int(np.prod(bsz)) if bsz else 1
+    k = int(np.prod([a.shape[d] for d in ca])) if ca else 1
+    m = int(np.prod(fa_sz)) if fa_sz else 1
+    n = int(np.prod(fb_sz)) if fb_sz else 1
+    am = a.permute(*ba, *fa, *ca).reshape(nb, m, k)
+    bm = b.permute(*bb, *cb, *fb).reshape(nb, k, n)
+    return torch.matmul(am, bm).reshape(*bsz, *fa_sz, *fb_sz)
+
+
+class SplitField:
+    """Complex tensors as (re, im) pairs of real torch tensors.
+
+    ``supports_lanes``: eligible steps run the hand-written kernels — the
+    f32 (complex64) path only, as in the JAX package (``field.py:51-52``).
+    """
+
+    def __init__(self, dtype=np.complex64):
+        self.dtype = np.dtype(dtype)
+        if self.dtype not in _REAL:
+            raise ValueError(f"unsupported dtype {dtype}")
+        self.rdtype = _REAL[self.dtype]
+        self.supports_lanes = self.rdtype == torch.float32
+
+    # -- staging ----------------------------------------------------------
+    def wrap(self, arr, device="cuda"):
+        arr = np.asarray(arr).astype(self.dtype)
+        rdt = np.float32 if self.rdtype == torch.float32 else np.float64
+        return (torch.from_numpy(np.ascontiguousarray(arr.real, rdt))
+                .to(device),
+                torch.from_numpy(np.ascontiguousarray(arr.imag, rdt))
+                .to(device))
+
+    def unwrap(self, x):
+        re, im = x
+        return re.cpu().numpy() + 1j * im.cpu().numpy()
+
+    # -- arithmetic -------------------------------------------------------
+    def add(self, x, y):
+        return x[0] + y[0], x[1] + y[1]
+
+    def sum0(self, x):
+        """Sum over the leading axis."""
+        return tuple(c.sum(0) for c in x)
+
+    def zeros(self, shape, device="cuda"):
+        return (torch.zeros(shape, dtype=self.rdtype, device=device),
+                torch.zeros(shape, dtype=self.rdtype, device=device))
+
+    def scale(self, x, s):
+        return x[0] * s, x[1] * s
+
+    def dot(self, a, b, dnums):
+        """General dot_general (multi-dim batch/contract) on split pairs:
+        the naive four real products."""
+        ar, ai = a
+        br, bi = b
+        # full-f32 products (PyTorch's default, pinned here: a caller that
+        # turned TF32 on would otherwise round these to ~3 digits)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mm = lambda x, y: _dot_general(x, y, dnums)
+        return mm(ar, br) - mm(ai, bi), mm(ar, bi) + mm(ai, br)
+
+    # -- structural ops ---------------------------------------------------
+    def regroup(self, x, dims, perm, final_shape):
+        """reshape(dims) -> permute(perm) -> reshape(final_shape)."""
+        identity = tuple(perm) == tuple(range(len(perm)))
+
+        def one(c):
+            c = c.reshape(dims)
+            if not identity:
+                c = c.permute(*perm)
+            return c.reshape(final_shape)
+
+        return tuple(one(c) for c in x)
+
+    def index_logical(self, x, dims, axis, idx, out_shape):
+        """Select index ``idx`` of logical ``axis`` on flat-stored ``x``.
+
+        ``idx`` is an int (the JAX method's form) or a 1-D index tensor of
+        length W: then one index per slice instance is taken, and the
+        result carries a leading width axis ``(W,) + out_shape``.  ``x``
+        itself is unbatched with logical ``dims``, or already batched with
+        ``(W,) + dims`` (a later sliced bond on the same tensor)."""
+        if isinstance(idx, int):
+            return tuple(c.reshape(dims).select(axis, idx).reshape(out_shape)
+                         for c in x)
+        w = idx.shape[0]
+
+        def one(c):
+            if c.numel() == int(np.prod(dims)):
+                v = c.reshape(dims).index_select(axis, idx).movedim(axis, 0)
+            else:
+                rows = torch.arange(w, device=c.device)
+                sel = (rows,) + (slice(None),) * axis + (idx,)
+                v = c.reshape((w,) + tuple(dims))[sel]
+            return v.reshape((w,) + tuple(out_shape))
+
+        return tuple(one(c) for c in x)
+
+    def take(self, x, indices, axis=0):
+        if not isinstance(indices, torch.Tensor):
+            indices = torch.as_tensor(np.asarray(indices), dtype=torch.long)
+        indices = indices.to(x[0].device)
+        return tuple(torch.index_select(c, axis, indices) for c in x)
+
+    def reshape(self, x, shape):
+        return tuple(c.reshape(shape) for c in x)
+
+    def concat(self, parts, axis=0):
+        return (torch.cat([p[0] for p in parts], dim=axis),
+                torch.cat([p[1] for p in parts], dim=axis))
+
+    def transpose(self, x, perm):
+        return tuple(c.permute(*perm) for c in x)
+

@@ -1,0 +1,709 @@
+"""Gather-K (GK), gathered gather-K (GGK) and RGRow steps: planners,
+wrappers of their CUDA kernels, and the kernels' plain PyTorch versions.
+
+Port of ``artensor_tpu/runtime/gatherk.py``.  The dominant step form of the
+sparse scheme is
+
+    Y[free..., new...] = sum_K  X[free..., K scattered ...] . W[K, new]
+
+with a big X and a small W (K*H <= HK_CAP).  Every free X leg outside the
+trailing free run is an outer index, the scattered contract legs become one
+table of K row offsets, and the trailing free run f is contiguous in X and
+in Y — so each outer index is one (H x K) . (K x F) product read straight
+from X's storage, with no transpose.  Aligned (both-batched) steps run the
+same product per gathered row (GGK), or the reduction form RGRow for rows
+whose free cells are too few for an f run.
+
+The planners keep the JAX package's step-form logic: which legs are grid,
+contract, fresh or free, the ``wk_idx`` / ``w_perm`` preparation of W, the
+``pre`` / ``pre_perm`` reorders and the output placement.  They drop the
+TPU cost model and Mosaic limits (``est_s``, ``SLACK``,
+``xla_step_estimate``, the VMEM budget, ``VIEW_RANK_CAP``, the ``fm`` lane
+split, ``gt`` grid blocking, ``qb`` MXU packing, ``use_mxu``, ``GRID_CAP``)
+and take the CUDA kernels' own limits instead:
+
+* the f run must hold a multiple of ``F_MIN`` = 32 elements (a warp's
+  worth of coalesced columns) and be the suffix of the output order (the
+  kernel stores it with stride 1); JAX asked for a 128/64/32-lane split;
+* every step that passes the step-form checks runs the kernel: there is no
+  estimate against the dot fallback (``est_s`` decided that on the TPU);
+* the RGFlat row form (``plan_rg_flat``) is not ported; those aligned steps
+  run the gathered-chunk dot fallback.
+
+Kernel eligibility may therefore differ from the JAX scheme; the amplitudes
+may not.
+
+Every kernel wrapper (``gk_call``, ``ggk_call``, ``rgrow_call``) takes its
+plain PyTorch version only for CPU tensors; for CUDA tensors it launches the
+kernel or raises.  ``launches`` on each wrapper counts kernel launches.
+"""
+
+from dataclasses import dataclass, field as dc_field
+from functools import reduce
+from operator import mul
+
+import numpy as np
+import torch
+
+from .. import kernels
+from .lowering import apply_reorder, physical_shape, plan_reorder
+
+MIN_X_ELEMS = 1 << 16    # below this the dot fallback's cost is irrelevant
+HK_CAP = 1 << 14         # max W elements (= H*K)
+H_CAP = 2048             # max fresh-leg product
+F_MIN = 32               # f run granularity: one warp of coalesced columns
+GGK_MIN_WORK = MIN_X_ELEMS   # min B * row elements (whole-step size gate)
+RG_ROW_CAP = 1 << 15     # max row elements of the reduction form
+RG_H_CAP = 8             # fresh-leg bound of the reduction form (registers)
+RG_K_MIN = 128           # min contract run of the reduction form
+
+LAST_REJECT = None
+
+
+def _prod(xs):
+    return reduce(mul, xs, 1)
+
+
+def _rej(msg):
+    global LAST_REJECT
+    LAST_REJECT = msg
+    return None
+
+
+def _strides(dims):
+    out, s = [], 1
+    for d in reversed(dims):
+        out.append(s)
+        s *= int(d)
+    return out[::-1]
+
+
+def _mixed_offsets(dims, strides):
+    """Offsets sum_l digit_l * stride_l of every mixed-radix index over
+    ``dims`` (row-major), as an int64 array."""
+    off = np.zeros(1, dtype=np.int64)
+    for d, s in zip(dims, strides):
+        off = (off[:, None] + np.arange(int(d), dtype=np.int64)[None, :]
+               * int(s)).reshape(-1)
+    return off
+
+
+def _wk_index(ix_w, dim_of, h_legs, k_legs):
+    """(H, K) flat indices into W's stored row: H digits over ``h_legs``,
+    K digits over ``k_legs`` (the JAX ``wk_idx``)."""
+    ws = dict(zip(ix_w, _strides([dim_of[l] for l in ix_w])))
+    h = _mixed_offsets([dim_of[l] for l in h_legs], [ws[l] for l in h_legs])
+    k = _mixed_offsets([dim_of[l] for l in k_legs], [ws[l] for l in k_legs])
+    return (h[:, None] + k[None, :]).astype(np.int32)
+
+
+@dataclass(frozen=True)
+class GKPlan:
+    """Static metadata for one gather-K step (or one GGK row).
+
+    The kernel's index scheme: outer index o over the grid legs with
+    ``xoff[o]`` / ``yoff[o]``; ``koff[k]`` row offsets of the contract
+    digits in X; the f run contiguous at the end of X and of Y; the H run
+    contiguous in Y with stride ``hstride``."""
+
+    w_is_j: bool
+    K: int
+    H: int
+    F: int
+    xoff: object         # (G,) int64
+    yoff: object         # (G,) int64
+    koff: object         # (K,) int64
+    hstride: int
+    x_elems: int
+    y_elems: int
+    dims_y: tuple        # logical output dims (iy order)
+    wk_idx: object       # (H, K) int32 gather into W's stored row
+    w_dims: tuple        # W's stored digit dims: wk is a digit transpose
+    w_perm: tuple        # stored-digit positions in (H-digits, K-digits) order
+    flops: int
+    pre: object = None   # Reorder applied to X before the kernel
+    px: object = None    # X leg order the pre reorder produces (labels)
+    x_dims: tuple = ()   # X's stored dims as the kernel reads it
+    x_roles: str = ""    # per X leg: 'g' grid, 'k' contract, 'f' f run
+    _dev: dict = dc_field(default_factory=dict, repr=False, compare=False)
+
+
+def plan_gk_step(ix_i, ix_j, iy, dims_i, dims_j, pin=0, row_mode=False):
+    """Build a GKPlan for the step with the GIVEN output order, or None.
+
+    ``row_mode``: planning the per-row problem of a gathered (aligned)
+    step — the size gate is skipped (the caller gates the whole batch).
+    """
+    iy = tuple(iy)
+    if len(set(iy)) != len(iy):
+        return _rej("iy-dup")
+    big_is_i = _prod(dims_i) >= _prod(dims_j)
+    if big_is_i:
+        w_is_j, ix_x, dims_x, ix_w, dims_w = True, ix_i, dims_i, ix_j, dims_j
+    else:
+        w_is_j, ix_x, dims_x, ix_w, dims_w = False, ix_j, dims_j, ix_i, dims_i
+    x_elems, w_elems = _prod(dims_x), _prod(dims_w)
+    if x_elems < MIN_X_ELEMS and not row_mode:
+        return _rej("x-small")
+    if w_elems > HK_CAP:
+        return _rej("w-big")
+    set_x, set_w, set_y = set(ix_x), set(ix_w), set(iy)
+    if set_x & set_w & set_y:
+        return _rej("shared-batch")
+    dim_of = {l: int(d) for l, d in zip(ix_x, dims_x)}
+    for l, d in zip(ix_w, dims_w):
+        dim_of[l] = int(d)
+    contract = [l for l in ix_x if l in set_w and l not in set_y]
+    n_legs_set = {l for l in ix_w if l in set_y}
+    if set_w != set(contract) | n_legs_set or len(n_legs_set) + len(
+            contract) != len(ix_w):
+        return _rej("w-legs")
+    if set_y != (set_x - set(contract)) | n_legs_set:
+        return _rej("y-legs")
+    if tuple(iy[:pin]) != tuple(ix_x[:pin]):
+        return _rej("iy-pin")
+    if any(l not in set_y for l in ix_x[:pin]):
+        return _rej("pin-contracted")
+    K = _prod(dim_of[l] for l in contract)
+    H = _prod(dim_of[l] for l in n_legs_set)
+    if H > H_CAP:
+        return _rej("H-cap")
+    cset = set(contract)
+
+    # trailing free run of X = the f run
+    f_legs = []
+    for l in reversed(ix_x[pin:]):
+        if l in cset:
+            break
+        f_legs.insert(0, l)
+    F = _prod(dim_of[l] for l in f_legs)
+    # shrink from the front until the run is a whole number of warps and
+    # the suffix of iy (dropped legs become grid legs)
+    while f_legs and (F % F_MIN
+                      or tuple(iy[len(iy) - len(f_legs):]) != tuple(f_legs)):
+        F //= dim_of[f_legs[0]]
+        f_legs = f_legs[1:]
+    if not f_legs:
+        return _rej("no-f-run")
+    f_set = set(f_legs)
+
+    # the H run (fresh legs, iy order) must be contiguous in iy
+    n_legs = [l for l in iy if l in n_legs_set]
+    if n_legs:
+        k = iy.index(n_legs[0])
+        if tuple(iy[k:k + len(n_legs)]) != tuple(n_legs):
+            return _rej("h-contig")
+
+    dims_y = tuple(dim_of[l] for l in iy)
+    xs = dict(zip(ix_x, _strides(dims_x)))
+    ys = dict(zip(iy, _strides(dims_y)))
+    g_legs = [l for l in ix_x if l not in cset and l not in f_set]
+    xoff = _mixed_offsets([dim_of[l] for l in g_legs], [xs[l] for l in g_legs])
+    yoff = _mixed_offsets([dim_of[l] for l in g_legs], [ys[l] for l in g_legs])
+    koff = _mixed_offsets([dim_of[l] for l in contract],
+                          [xs[l] for l in contract])
+    hstride = ys[n_legs[-1]] if n_legs else 0
+    wpos = {l: k for k, l in enumerate(ix_w)}
+    return GKPlan(
+        w_is_j, K, H, F, xoff, yoff, koff, int(hstride), x_elems,
+        x_elems // max(K, 1) * H, dims_y,
+        _wk_index(ix_w, dim_of, n_legs, contract),
+        tuple(dim_of[l] for l in ix_w),
+        tuple(wpos[l] for l in list(n_legs) + list(contract)),
+        8 * (x_elems // max(K, 1)) * K * H,
+        x_dims=tuple(dim_of[l] for l in ix_x),
+        x_roles="".join("k" if l in cset else "f" if l in f_set else "g"
+                        for l in ix_x))
+
+
+def plan_gk_step_pre(ix_i, ix_j, iy, dims_i, dims_j, pin=0):
+    """GK plan for a step whose STORED X order is kernel-hostile (contract
+    legs inside the minor run -> 'no-f-run'): permute X once into an order
+    built from iy, then run the kernel with iy UNCHANGED.
+
+    The permuted order is [X free legs in stored order] + [contract legs] +
+    [trailing iy-suffix of X free legs].  The JAX package gated this on an
+    estimate of the extra transpose against its XLA fallback; here the
+    pre-permuted kernel is always taken when it plans."""
+    if pin:
+        return None
+    iy = tuple(iy)
+    big_is_i = _prod(dims_i) >= _prod(dims_j)
+    ix_x = tuple(ix_i if big_is_i else ix_j)
+    dims_x = tuple(dims_i if big_is_i else dims_j)
+    ix_w = tuple(ix_j if big_is_i else ix_i)
+    set_w, set_y, set_x = set(ix_w), set(iy), set(ix_x)
+    if len(set_x) != len(ix_x):
+        return None
+    dim_of = {l: int(d) for l, d in zip(ix_x, dims_x)}
+    contract = [l for l in ix_x if l in set_w and l not in set_y]
+    frees = {l for l in ix_x if l in set_y}
+    if not contract or not frees:
+        return None
+    tail = []
+    for l in reversed(iy):
+        if l not in frees:
+            break
+        tail.insert(0, l)
+    F = _prod(dim_of[l] for l in tail)
+    while tail and F % F_MIN:
+        F //= dim_of[tail[0]]
+        tail.pop(0)
+    if not tail:
+        return None
+    tset = set(tail)
+    gpart = [l for l in ix_x if l in frees and l not in tset]
+    px = tuple(gpart) + tuple(contract) + tuple(tail)
+    if px == ix_x:
+        return None         # the in-place planner already covers this form
+    dims_px = tuple(dim_of[l] for l in px)
+    if big_is_i:
+        plan = plan_gk_step(px, ix_w, iy, dims_px, dims_j)
+    else:
+        plan = plan_gk_step(ix_w, px, iy, dims_i, dims_px)
+    if plan is None:
+        return None
+    from dataclasses import replace
+
+    pos = {l: k for k, l in enumerate(ix_x)}
+    r = plan_reorder(dims_x, tuple(pos[l] for l in px), (_prod(dims_x),))
+    return replace(plan, pre=r, px=px, _dev={})
+
+
+F_PROTECT = 1 << 10      # min tail-run elements kept minor before a
+                         # consumer-contract leg may stop its growth
+
+
+def gk_output_order(ix_i, ix_j, iy_set, dims_i, dims_j, pin=0,
+                    consumer_contract=()):
+    """The GK-natural output order: pinned prefix, then the CONSUMER's
+    contract legs, then X's remaining free legs in storage order with the
+    fresh W legs inserted before the trailing free run (a copy of the JAX
+    function; for a GK step every hoist is a grid-leg relabel)."""
+    big_is_i = _prod(dims_i) >= _prod(dims_j)
+    ix_x = ix_i if big_is_i else ix_j
+    ix_w = ix_j if big_is_i else ix_i
+    dims_x = dims_i if big_is_i else dims_j
+    dim_of = {l: int(d) for l, d in zip(ix_x, dims_x)}
+    set_w = set(ix_w)
+    pinned = list(ix_x[:pin])
+    free = [l for l in ix_x[pin:] if l in iy_set]
+    new = [l for l in ix_w if l in iy_set and l not in set(ix_x)]
+    cset = {l for l in ix_x if l in set_w and l not in iy_set}
+    ccset = set(consumer_contract)
+    n_f = 0
+    F = 1
+    for l in reversed(ix_x[pin:]):
+        if l in cset or (F >= F_PROTECT and l in ccset):
+            break
+        n_f += 1
+        F *= dim_of.get(l, 2)
+    tail = [l for l in ix_x[len(ix_x) - n_f:] if l in iy_set] if n_f else []
+    tset = set(tail)
+    hoist = [l for l in free if l in ccset and l not in tset]
+    rest = [l for l in free if l not in ccset and l not in tset]
+    new_sorted = [l for l in new if l in ccset] \
+        + [l for l in new if l not in ccset]
+    if any(l in ccset for l in new):
+        return tuple(pinned + hoist + new_sorted + rest + tail)
+    return tuple(pinned + hoist + rest + new_sorted + tail)
+
+
+# -- gathered gather-K (GGK): ALIGNED both-batched steps --------------------
+#
+# Aligned-step form (runtime/sparse.py): Y[b, ...] = sum_K X[gi[b], ...]
+# . W[gj[b], ...].  The kernels read each gathered row straight from the
+# source buffers by index — no gathered copy, no chunking.
+
+@dataclass(frozen=True)
+class RGRow:
+    """Reduction-form row plan: aligned rows whose free legs are too few for
+    an f run.  The row is brought to the canonical (F, K) layout — frees in
+    riy order leading, the contract run minor — by ONE whole-buffer reorder
+    when the stored order differs (``pre_perm``).  The kernel then computes
+    y[h, f] = sum_k x[f, k] * w[h, k] per gathered row."""
+
+    view_x: tuple        # canonical (F, K) — or (K,) when no frees
+    H: int
+    K: int
+    wk_idx: object       # (H, K) int32; K digits in x-stored contract order
+    hy_first: bool       # fresh block leads the row output
+    dims_y: tuple        # row output dims (riy order)
+    w_is_j: bool
+    row_dims: tuple      # stored row dims (for the pre reorder)
+    pre_perm: tuple      # row-axis permutation to canonical, or None
+    flops: int
+    w_dims: tuple = None   # W's stored digit dims / transpose to (H, K)
+    w_perm: tuple = None
+
+    @property
+    def F(self):
+        return self.view_x[0] if len(self.view_x) == 2 else 1
+
+
+def plan_rg_row(rx_i, rx_j, riy, rdims_i, rdims_j):
+    """RGRow for the reduction form, or None (sets LAST_REJECT)."""
+    big_is_i = _prod(rdims_i) >= _prod(rdims_j)
+    if big_is_i:
+        w_is_j, ix_x, dims_x, ix_w, dims_w = True, rx_i, rdims_i, rx_j, rdims_j
+    else:
+        w_is_j, ix_x, dims_x, ix_w, dims_w = False, rx_j, rdims_j, rx_i, rdims_i
+    riy = tuple(riy)
+    set_x, set_w, set_y = set(ix_x), set(ix_w), set(riy)
+    if len(set_x) != len(ix_x) or len(set_y) != len(riy):
+        return _rej("rg:dup")
+    if set_x & set_w & set_y:
+        return _rej("rg:shared-batch")
+    dim_of = {l: int(d) for l, d in zip(ix_x, dims_x)}
+    for l, d in zip(ix_w, dims_w):
+        dim_of[l] = int(d)
+    contract = [l for l in ix_x if l in set_w and l not in set_y]
+    fresh = [l for l in ix_w if l in set_y]
+    frees = [l for l in ix_x if l in set_y]
+    if set_w != set(contract) | set(fresh) \
+            or len(fresh) + len(contract) != len(ix_w):
+        return _rej("rg:w-legs")
+    if set_y != set(frees) | set(fresh):
+        return _rej("rg:y-legs")
+    if not contract:
+        return _rej("rg:no-contract")
+    xrow = _prod(dims_x)
+    if xrow > RG_ROW_CAP:
+        return _rej("rg:row-big")
+    K = _prod(dim_of[l] for l in contract)
+    H = _prod(dim_of[l] for l in fresh)
+    if K < RG_K_MIN:
+        return _rej("rg:k-small")
+    if H > RG_H_CAP:
+        return _rej("rg:h-cap")
+    if K * H > HK_CAP:
+        return _rej("rg:hk-cap")
+    # fresh block contiguous at the front or the back of riy (its digit
+    # order is free — the wk gather absorbs it); frees in riy order
+    fset = set(fresh)
+    fresh_y = [l for l in riy if l in fset]
+    frees_y = [l for l in riy if l not in fset]
+    if fresh_y and riy[:len(fresh_y)] != tuple(fresh_y) \
+            and riy[-len(fresh_y):] != tuple(fresh_y):
+        return _rej("rg:h-contig")
+    hy_first = bool(fresh_y) and riy[:len(fresh_y)] == tuple(fresh_y)
+    px = tuple(frees_y) + tuple(contract)
+    pos = {l: k for k, l in enumerate(ix_x)}
+    pre_perm = None if px == tuple(ix_x) else tuple(pos[l] for l in px)
+    F = _prod(dim_of[l] for l in frees_y)
+    view_x = (F, K) if frees_y else (K,)
+    wpos = {l: k for k, l in enumerate(ix_w)}
+    return RGRow(view_x, H, K, _wk_index(ix_w, dim_of, fresh_y, contract),
+                 hy_first, tuple(dim_of[l] for l in riy), w_is_j,
+                 tuple(int(d) for d in dims_x), pre_perm, 8 * H * xrow,
+                 tuple(dim_of[l] for l in ix_w),
+                 tuple(wpos[l] for l in list(fresh_y) + list(contract)))
+
+
+@dataclass(frozen=True)
+class GGKPlan:
+    """Static metadata for one gathered (aligned) step.  For a GK row the
+    outer index o runs over (row b, row grid g), with per-o X/Y/W offsets
+    (``xoff`` / ``yoff`` / ``woff``); an RGRow needs only the gathers."""
+
+    row: object          # GKPlan (row_mode) or RGRow
+    gi: object           # (B,) int64 rows into the big (X) side
+    gj: object           # (B,) int64 rows into the small (W) side
+    B: int
+    bi_rows: int         # stored rows of the X-side operand
+    bj_rows: int
+    dims_y: tuple        # logical output dims incl. the leading batch
+    flops: int
+    xoff: object = None  # (B*G,) int64, GK row only
+    yoff: object = None
+    woff: object = None
+    _dev: dict = dc_field(default_factory=dict, repr=False, compare=False)
+
+    @property
+    def w_is_j(self):
+        return self.row.w_is_j
+
+    @property
+    def pre(self):       # uniform interface with GKPlan (no pre reorder)
+        return None
+
+
+def plan_ggk_step(rx_i, rx_j, riy, rdims_i, rdims_j, gi, gj,
+                  bi_rows, bj_rows):
+    """GGKPlan for an aligned step, or None.  ``rx_*``/``riy`` are the
+    ROW-level label orders (shared batch label stripped); ``gi``/``gj``
+    the UNCHUNKED per-target gather rows into operands i and j.  The GK
+    row form is tried first, then RGRow (the JAX order; RGFlat is not
+    ported)."""
+    B = len(gi)
+    if B != len(gj):
+        return _rej("ggk:gather-mismatch")
+    big_is_i = _prod(rdims_i) >= _prod(rdims_j)
+    xrow = _prod(rdims_i) if big_is_i else _prod(rdims_j)
+    wrow = _prod(rdims_j) if big_is_i else _prod(rdims_i)
+    if B * xrow < GGK_MIN_WORK:
+        return _rej("ggk:small")
+    if wrow > HK_CAP:
+        return _rej("ggk:w-big")
+    row = plan_gk_step(rx_i, rx_j, riy, rdims_i, rdims_j, row_mode=True)
+    if row is None:
+        note = LAST_REJECT
+        row = plan_rg_row(rx_i, rx_j, riy, rdims_i, rdims_j)
+        if row is None:
+            return _rej(f"ggk:row-{note}/{LAST_REJECT}")
+    gx = np.asarray(gi if big_is_i else gj, dtype=np.int64)
+    gw = np.asarray(gj if big_is_i else gi, dtype=np.int64)
+    yrow = _prod(row.dims_y)
+    flops = B * row.flops
+    if isinstance(row, RGRow):
+        return GGKPlan(row, gx, gw, B,
+                       bi_rows if big_is_i else bj_rows,
+                       bj_rows if big_is_i else bi_rows,
+                       (B, *row.dims_y), flops)
+    xoff = (gx[:, None] * xrow + row.xoff[None, :]).reshape(-1)
+    yoff = (np.arange(B, dtype=np.int64)[:, None] * yrow
+            + row.yoff[None, :]).reshape(-1)
+    woff = np.repeat(gw * (row.H * row.K), len(row.xoff))
+    return GGKPlan(row, gx, gw, B,
+                   bi_rows if big_is_i else bj_rows,
+                   bj_rows if big_is_i else bi_rows,
+                   (B, *row.dims_y), flops, xoff, yoff, woff)
+
+
+# -- kernel wrappers --------------------------------------------------------
+
+def _device_tables(plan, device, names):
+    """The plan's index tables as int64 tensors on ``device``, uploaded
+    once per plan and device."""
+    key = (str(device), names)
+    if key not in plan._dev:
+        plan._dev[key] = {
+            n: torch.as_tensor(np.ascontiguousarray(getattr(plan, n)),
+                               dtype=torch.long).to(device)
+            for n in names}
+    return plan._dev[key]
+
+
+def _gk_plain(xr, xi, wr, wi, xoff, yoff, woff, koff, H, K, F, hstride,
+              y_elems, x_batched, w_batched, W):
+    """Plain version of the GK / GGK kernels: the same index scheme as
+    gatherk.cu, with gathers and a batched matmul, one slice instance at a
+    time (bounds the gathered copy)."""
+    dev = xr.device
+    ar = lambda n: torch.arange(n, device=dev)
+    xidx = xoff[:, None, None] + koff[None, :, None] + ar(F)[None, None, :]
+    yidx = yoff[:, None, None] + hstride * ar(H)[None, :, None] \
+        + ar(F)[None, None, :]
+    widx = ar(H)[:, None] * K + ar(K)[None, :]
+    if woff is not None:
+        widx = woff[:, None, None] + widx[None]
+    lead = (W,) if (x_batched or w_batched) else ()
+    yr = torch.zeros(lead + (y_elems,), dtype=xr.dtype, device=dev)
+    yi = torch.zeros_like(yr)
+    for s in range(W):
+        xs_r = (xr[s] if x_batched else xr)[xidx]      # (G, K, F)
+        xs_i = (xi[s] if x_batched else xi)[xidx]
+        ws_r = (wr[s] if w_batched else wr)[widx]      # (G|1, H, K)
+        ws_i = (wi[s] if w_batched else wi)[widx]
+        re = torch.matmul(ws_r, xs_r) - torch.matmul(ws_i, xs_i)
+        im = torch.matmul(ws_r, xs_i) + torch.matmul(ws_i, xs_r)
+        out_r = yr[s] if lead else yr
+        out_i = yi[s] if lead else yi
+        out_r[yidx] = re
+        out_i[yidx] = im
+    return yr, yi
+
+
+def gk_plain(plan, xr, xi, wr, wi, x_batched, w_batched):
+    """Plain version of the GK kernel (same operands as ``gk_call``)."""
+    W = kernels.slice_width(x_batched, w_batched, xr, wr)
+    t = _device_tables(plan, xr.device, ("xoff", "yoff", "koff"))
+    return _gk_plain(xr, xi, wr, wi, t["xoff"], t["yoff"], None, t["koff"],
+                     plan.H, plan.K, plan.F, plan.hstride, plan.y_elems,
+                     x_batched, w_batched, W)
+
+
+def ggk_plain(plan, xr, xi, wr, wi, x_batched, w_batched):
+    """Plain version of the GGK kernel (same operands as ``ggk_call``)."""
+    row = plan.row
+    W = kernels.slice_width(x_batched, w_batched, xr, wr)
+    t = _device_tables(plan, xr.device, ("xoff", "yoff", "woff"))
+    koff = _device_tables(row, xr.device, ("koff",))["koff"]
+    return _gk_plain(xr, xi, wr, wi, t["xoff"], t["yoff"], t["woff"], koff,
+                     row.H, row.K, row.F, row.hstride, plan.B * row.y_elems,
+                     x_batched, w_batched, W)
+
+
+def gk_call(plan, xr, xi, wr, wi, x_batched, w_batched):
+    """The GK kernel's wrapper.  ``xr``/``xi``: X as ``(X,)`` or
+    ``(W, X)``; ``wr``/``wi``: W pre-gathered to rows ``(H*K,)`` or
+    ``(W, H*K)``.  Returns Y ``(Y,)`` or ``(W, Y)``."""
+    W = kernels.slice_width(x_batched, w_batched, xr, wr)
+    xl = (W,) if x_batched else ()
+    wl = (W,) if w_batched else ()
+    dev = kernels.check_operands("gk", (xr, xi, wr, wi),
+                          (xl + (plan.x_elems,),) * 2
+                          + (wl + (plan.H * plan.K,),) * 2)
+    if dev.type == "cpu":
+        return gk_plain(plan, xr, xi, wr, wi, x_batched, w_batched)
+    t = _device_tables(plan, dev, ("xoff", "yoff", "koff"))
+    lead = (W,) if (x_batched or w_batched) else ()
+    yr = torch.empty(lead + (plan.y_elems,), dtype=torch.float32, device=dev)
+    yi = torch.empty_like(yr)
+    lib = kernels.load()
+    rc = lib.gk_launch(
+        *map(kernels.ptr, (xr, xi, wr, wi, yr, yi,
+                           t["xoff"], t["yoff"], t["koff"])),
+        len(plan.xoff), plan.H, plan.K, plan.F, plan.hstride,
+        plan.x_elems if x_batched else 0,
+        plan.H * plan.K if w_batched else 0,
+        plan.y_elems if lead else 0, W, kernels.stream_of(xr))
+    kernels.check(rc, "gk")
+    gk_call.launches += 1
+    return yr, yi
+
+
+gk_call.launches = 0
+
+
+def ggk_call(plan, xr, xi, wr, wi, x_batched, w_batched):
+    """The GGK kernel's wrapper (GK row of an aligned step).  ``xr``:
+    X-side rows ``(Bi*xrow,)`` or ``(W, Bi*xrow)``; ``wr``: W-side rows
+    pre-gathered to ``(Bj*H*K,)`` or ``(W, Bj*H*K)``.  Returns Y
+    ``(B*yrow,)`` or ``(W, B*yrow)``."""
+    row = plan.row
+    W = kernels.slice_width(x_batched, w_batched, xr, wr)
+    x_n = plan.bi_rows * row.x_elems
+    w_n = plan.bj_rows * row.H * row.K
+    y_n = plan.B * row.y_elems
+    xl = (W,) if x_batched else ()
+    wl = (W,) if w_batched else ()
+    dev = kernels.check_operands("ggk", (xr, xi, wr, wi),
+                          (xl + (x_n,),) * 2 + (wl + (w_n,),) * 2)
+    if dev.type == "cpu":
+        return ggk_plain(plan, xr, xi, wr, wi, x_batched, w_batched)
+    t = _device_tables(plan, dev, ("xoff", "yoff", "woff"))
+    koff = _device_tables(row, dev, ("koff",))["koff"]
+    lead = (W,) if (x_batched or w_batched) else ()
+    yr = torch.empty(lead + (y_n,), dtype=torch.float32, device=dev)
+    yi = torch.empty_like(yr)
+    lib = kernels.load()
+    rc = lib.ggk_launch(
+        *map(kernels.ptr, (xr, xi, wr, wi, yr, yi,
+                           t["xoff"], t["yoff"], t["woff"], koff)),
+        len(plan.xoff), row.H, row.K, row.F, row.hstride,
+        x_n if x_batched else 0, w_n if w_batched else 0,
+        y_n if lead else 0, W, kernels.stream_of(xr))
+    kernels.check(rc, "ggk")
+    ggk_call.launches += 1
+    return yr, yi
+
+
+ggk_call.launches = 0
+
+
+def rgrow_plain(plan, xr, xi, wr, wi, x_batched, w_batched):
+    """Plain version of the RGRow kernel (same operands as ``rgrow_call``):
+    gather rows, batched matmul."""
+    row = plan.row
+    W = kernels.slice_width(x_batched, w_batched, xr, wr)
+    t = _device_tables(plan, xr.device, ("gi", "gj"))
+    gi, gj, B, F, K, H = t["gi"], t["gj"], plan.B, row.F, row.K, row.H
+    hy_first = row.hy_first
+    lead = (W,) if (x_batched or w_batched) else ()
+    xv = lambda c: c.reshape((W if x_batched else 1, -1, F, K))[:, gi]
+    wv = lambda c: c.reshape((W if w_batched else 1, -1, H, K))[:, gj]
+    xr_, xi_, wr_, wi_ = xv(xr), xv(xi), wv(wr), wv(wi)
+    tr = lambda c: c.transpose(-1, -2)
+    re = torch.matmul(xr_, tr(wr_)) - torch.matmul(xi_, tr(wi_))  # (W,B,F,H)
+    im = torch.matmul(xr_, tr(wi_)) + torch.matmul(xi_, tr(wr_))
+    if hy_first:
+        re, im = tr(re), tr(im)
+    shape = lead + (B * F * H,)
+    return re.reshape(shape).contiguous(), im.reshape(shape).contiguous()
+
+
+def rgrow_call(plan, xr, xi, wr, wi, x_batched, w_batched):
+    """The RGRow kernel's wrapper.  ``xr``: X-side rows in the canonical
+    (F, K) layout ``(Bi*F*K,)`` or ``(W, ...)``; ``wr``: W-side rows
+    pre-gathered to ``(Bj*H*K,)`` or ``(W, ...)``.  Returns Y
+    ``(B*yrow,)`` or ``(W, B*yrow)``."""
+    row = plan.row
+    W = kernels.slice_width(x_batched, w_batched, xr, wr)
+    F, K, H = row.F, row.K, row.H
+    x_n = plan.bi_rows * F * K
+    w_n = plan.bj_rows * H * K
+    y_n = plan.B * F * H
+    xl = (W,) if x_batched else ()
+    wl = (W,) if w_batched else ()
+    dev = kernels.check_operands("rgrow", (xr, xi, wr, wi),
+                          (xl + (x_n,),) * 2 + (wl + (w_n,),) * 2)
+    if dev.type == "cpu":
+        return rgrow_plain(plan, xr, xi, wr, wi, x_batched, w_batched)
+    t = _device_tables(plan, dev, ("gi", "gj"))
+    lead = (W,) if (x_batched or w_batched) else ()
+    yr = torch.empty(lead + (y_n,), dtype=torch.float32, device=dev)
+    yi = torch.empty_like(yr)
+    lib = kernels.load()
+    rc = lib.rgrow_launch(
+        *map(kernels.ptr, (xr, xi, wr, wi, yr, yi, t["gi"], t["gj"])),
+        plan.B, F, K, H, int(row.hy_first),
+        x_n if x_batched else 0, w_n if w_batched else 0,
+        y_n if lead else 0, W, kernels.stream_of(xr))
+    kernels.check(rc, "rgrow")
+    rgrow_call.launches += 1
+    return yr, yi
+
+
+rgrow_call.launches = 0
+
+
+# -- step execution ----------------------------------------------------------
+
+def _wk_rows(w, row, rows, lead):
+    """W's stored rows -> (lead, rows, H, K) flattened: a digit transpose
+    (``wk_idx`` is built from digit strides, so it always is one)."""
+    n = len(lead) + 1
+    perm = tuple(range(n)) + tuple(n + p for p in row.w_perm)
+    return tuple(c.reshape(lead + (rows,) + tuple(row.w_dims)).permute(*perm)
+                 .reshape(lead + (-1,)).contiguous() for c in w)
+
+
+def _flat(x, lead):
+    return tuple(c.reshape(lead + (-1,)).contiguous() for c in x)
+
+
+def apply_gk_step(field, x, y, plan, bx=False, by=False):
+    """Execute one gather-K step on SplitField pairs.  ``bx``/``by``: the
+    operand carries a leading slice-width axis."""
+    xv, wv, bxv, bwv = (x, y, bx, by) if plan.w_is_j else (y, x, by, bx)
+    xlead = (xv[0].shape[0],) if bxv else ()
+    wlead = (wv[0].shape[0],) if bwv else ()
+    if plan.pre is not None:
+        xv = apply_reorder(field, xv, plan.pre, xlead)
+    xr, xi = _flat(xv, xlead)
+    wr, wi = _wk_rows(wv, plan, 1, wlead)
+    yr, yi = gk_call(plan, xr, xi, wr, wi, bxv, bwv)
+    lead = xlead or wlead
+    return field.reshape((yr, yi), lead + physical_shape(plan.dims_y))
+
+
+def apply_ggk_step(field, x, y, plan, bx=False, by=False):
+    """Execute one aligned step via the GGK or RGRow kernel."""
+    row = plan.row
+    xv, wv, bxv, bwv = (x, y, bx, by) if row.w_is_j else (y, x, by, bx)
+    xlead = (xv[0].shape[0],) if bxv else ()
+    wlead = (wv[0].shape[0],) if bwv else ()
+    if isinstance(row, RGRow) and row.pre_perm is not None:
+        # one whole-buffer reorder to the canonical (F, K) row layout —
+        # the gathered rows themselves are never copied
+        r = plan_reorder((plan.bi_rows,) + row.row_dims,
+                         (0,) + tuple(p + 1 for p in row.pre_perm),
+                         (plan.bi_rows * _prod(row.row_dims),))
+        xv = apply_reorder(field, xv, r, xlead)
+    xr, xi = _flat(xv, xlead)
+    wr, wi = _wk_rows(wv, row, plan.bj_rows, wlead)
+    call = rgrow_call if isinstance(row, RGRow) else ggk_call
+    yr, yi = call(plan, xr, xi, wr, wi, bxv, bwv)
+    lead = xlead or wlead
+    return field.reshape((yr, yi), lead + physical_shape(plan.dims_y))

@@ -1,0 +1,209 @@
+"""Lower label-einsum steps onto one multi-dim dot over flat storage.
+
+Port of ``artensor_tpu/runtime/lowering.py`` (``lower_step``,
+``plan_reorder``, ``apply_reorder``, ``apply_lowered``).  Intermediates
+live flat, physical shape ``(first_logical_dim, rest)``; operands are never
+reordered before the dot: each step reshapes them to class-grouped dims and
+runs one multi-dim dot whose natural output order (batch, lhs-free,
+rhs-free) becomes the step's output order wherever the scheme allows.  The
+dot runs as a permute/reshape plus ``torch.matmul`` (``ops/field.py``); the
+JAX package leaves the same product to XLA.
+
+Differences from the JAX module: a reorder is always a permute (the TPU's
+element-gather form and its size cap are not needed); the fused-field plan
+is not ported.  Any operand may carry a leading slice-width axis, which
+``apply_lowered`` threads through the dot as a batch or free dim.
+"""
+
+from dataclasses import dataclass
+from functools import reduce
+from operator import mul
+
+
+def _prod(xs):
+    return reduce(mul, xs, 1)
+
+
+def physical_shape(dims):
+    """Storage shape for logical dims: () / (d,) / (d0, prod(rest))."""
+    dims = tuple(dims)
+    if len(dims) <= 1:
+        return dims
+    return (dims[0], _prod(dims[1:]))
+
+
+def collapse_runs(dims, perm):
+    """Collapse consecutive-axis runs of a transpose: reshape to one dim per
+    run, permute runs.  (3,4,5,0,1,2) on [2]*6 becomes a rank-2 (8,8) swap."""
+    runs = []
+    for p in perm:
+        if runs and p == runs[-1][-1] + 1:
+            runs[-1].append(p)
+        else:
+            runs.append([p])
+    src = sorted(runs, key=lambda r: r[0])
+    index = {tuple(r): k for k, r in enumerate(src)}
+    gdims = tuple(_prod(dims[a] for a in r) for r in src)
+    gperm = tuple(index[tuple(r)] for r in runs)
+    return gdims, gperm
+
+
+@dataclass(frozen=True)
+class Reorder:
+    """One axis-permutation of a flat-stored tensor."""
+
+    dims: tuple          # run-collapsed logical dims (source order)
+    perm: tuple          # run-collapsed permutation
+    final_shape: tuple   # reshape after the permutation
+
+
+def plan_reorder(label_dims, perm_labels, final_shape):
+    dims, perm = collapse_runs(tuple(label_dims), tuple(perm_labels))
+    return Reorder(dims, perm, tuple(final_shape))
+
+
+def apply_reorder(field, x, r, lead=()):
+    """Permute ``x`` by ``r``; ``lead`` = leading dims (the slice width)
+    that stay in front."""
+    n = len(lead)
+    return field.regroup(x, tuple(lead) + r.dims,
+                         tuple(range(n)) + tuple(p + n for p in r.perm),
+                         tuple(lead) + r.final_shape)
+
+
+@dataclass(frozen=True)
+class Lowered:
+    swapped: bool        # operands passed to the dot as (y, x)
+    shape_l: tuple       # class-grouped reshape dims for the lhs operand
+    shape_r: tuple
+    dnums: tuple         # dot_general dimension_numbers (multi-dim)
+    re_out: Reorder | None  # output reorder to iy order (None if natural)
+    dims_y: tuple        # logical output dims (iy order)
+    phys_y: tuple        # physical output shape
+
+
+def _grouping(ix, classes, mergeable):
+    """Group adjacent same-class axes of one operand; batch/contract groups
+    merge only when both operands agree (``mergeable``)."""
+    groups = []
+    for lab in ix:
+        cls = classes[lab]
+        if (groups and groups[-1][0] == cls
+                and (cls == "free" or mergeable(groups[-1][1][-1], lab))):
+            groups[-1][1].append(lab)
+        else:
+            groups.append((cls, [lab]))
+    return groups
+
+
+def _build(ix_l, ix_r, dims_l, dims_r, classes):
+    dim_of = {}
+    for lab, d in zip(ix_l, dims_l):
+        dim_of[lab] = d
+    for lab, d in zip(ix_r, dims_r):
+        dim_of[lab] = d
+    pos_l = {lab: k for k, lab in enumerate(ix_l)}
+    pos_r = {lab: k for k, lab in enumerate(ix_r)}
+
+    def mergeable(a, b):
+        return (pos_l.get(b, -9) == pos_l.get(a, -7) + 1
+                and pos_r.get(b, -9) == pos_r.get(a, -7) + 1)
+
+    groups_l = _grouping(ix_l, classes, mergeable)
+    groups_r = _grouping(ix_r, classes, mergeable)
+    shape_l = tuple(_prod(dim_of[x] for x in labs) for _, labs in groups_l)
+    shape_r = tuple(_prod(dim_of[x] for x in labs) for _, labs in groups_r)
+    key_l = {tuple(labs): k for k, (cls, labs) in enumerate(groups_l)}
+    key_r = {tuple(labs): k for k, (cls, labs) in enumerate(groups_r)}
+    batch_groups = [labs for cls, labs in groups_l if cls == "batch"]
+    contract_groups = [labs for cls, labs in groups_l if cls == "contract"]
+    for labs in batch_groups + contract_groups:
+        if tuple(labs) not in key_r:
+            raise ValueError("operand groupings must agree")
+    bx = tuple(key_l[tuple(g)] for g in batch_groups)
+    by = tuple(key_r[tuple(g)] for g in batch_groups)
+    cx = tuple(key_l[tuple(g)] for g in contract_groups)
+    cy = tuple(key_r[tuple(g)] for g in contract_groups)
+    dnums = ((cx, cy), (bx, by))
+    produced = [x for g in batch_groups for x in g]
+    produced += [x for cls, labs in groups_l if cls == "free" for x in labs]
+    produced += [x for cls, labs in groups_r if cls == "free" for x in labs]
+    return shape_l, shape_r, dnums, produced, dim_of
+
+
+def lower_step(ix_i, ix_j, iy, dims_i, dims_j):
+    """Precompute the dot lowering of one step (host side).
+
+    Tries both operand orientations; prefers one needing no output reorder,
+    else the one with the smallest reorder.
+    """
+    iy = tuple(iy)
+    set_i, set_j, set_y = set(ix_i), set(ix_j), set(iy)
+    classes = {}
+    for lab in {*ix_i, *ix_j}:
+        if lab in set_y:
+            classes[lab] = "batch" if (lab in set_i and lab in set_j) \
+                else "free"
+        else:
+            classes[lab] = "contract"
+
+    best = None
+    for swapped in (False, True):
+        ix_l, ix_r = (ix_j, ix_i) if swapped else (ix_i, ix_j)
+        dims_l, dims_r = (dims_j, dims_i) if swapped else (dims_i, dims_j)
+        shape_l, shape_r, dnums, produced, dim_of = _build(
+            ix_l, ix_r, dims_l, dims_r, classes)
+        dims_y = tuple(dim_of[lab] for lab in iy)
+        phys_y = physical_shape(dims_y)
+        if tuple(produced) == iy:
+            re_out, cost = None, 0
+        else:
+            prod_pos = {lab: k for k, lab in enumerate(produced)}
+            re_out = plan_reorder(
+                tuple(dim_of[lab] for lab in produced),
+                tuple(prod_pos[lab] for lab in iy), phys_y)
+            cost = _prod(re_out.dims)
+        cand = Lowered(swapped, shape_l, shape_r, dnums, re_out,
+                       dims_y, phys_y)
+        if best is None or cost < best[0]:
+            best = (cost, cand)
+        if cost == 0:
+            break
+    return best[1]
+
+
+def apply_lowered(field, x, y, low, bx=False, by=False):
+    """Execute one lowered step on physical (flat) field tensors.
+
+    ``bx`` / ``by``: the operand carries a leading slice-width axis.  Both
+    batched: the width is one more dot batch dim.  One batched: it is a
+    free dim of that operand (the other is read once, never broadcast).
+    The result leads with the width whenever an operand had one."""
+    l, r = (y, x) if low.swapped else (x, y)
+    bl, br = (by, bx) if low.swapped else (bx, by)
+    (cl, cr), (bl_dims, br_dims) = low.dnums
+    if not (bl or br):
+        out = field.dot(field.reshape(l, low.shape_l),
+                        field.reshape(r, low.shape_r), low.dnums)
+        lead = ()
+    else:
+        w = (l if bl else r)[0].shape[0]
+        lg = field.reshape(l, ((w,) if bl else ()) + low.shape_l)
+        rg = field.reshape(r, ((w,) if br else ()) + low.shape_r)
+        up = lambda t: tuple(d + 1 for d in t)
+        if bl and br:
+            dn = ((up(cl), up(cr)), ((0,) + up(bl_dims), (0,) + up(br_dims)))
+            pos = 0
+        elif bl:
+            dn = ((up(cl), cr), (up(bl_dims), br_dims))
+            pos = len(bl_dims)
+        else:
+            dn = ((cl, up(cr)), (bl_dims, up(br_dims)))
+            pos = len(low.shape_l) - len(cl)
+        out = field.dot(lg, rg, dn)
+        if pos:
+            out = tuple(c.movedim(pos, 0) for c in out)
+        lead = (w,)
+    if low.re_out is not None:
+        return apply_reorder(field, out, low.re_out, lead)
+    return field.reshape(out, lead + low.phys_y)

@@ -1,0 +1,434 @@
+#!/usr/bin/env python3
+"""Drive the port's sparse main path on one NVIDIA card and hold each of its
+CUDA kernels against its plain PyTorch version.
+
+    python3 chip_smoke.py [--slice-batch 32]
+
+Run from the repository root on a machine with a CUDA card and nvcc.  Phases,
+in order (any failure exits non-zero; no phase is caught and passed over):
+
+1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
+2. the kernel build from ``artensor_tpu_torch/csrc`` (nvcc, sm_90a), timed;
+3. per kernel (GK, GGK, RGRow, Pair), at every step of its kind in the
+   port's scheme of the n30 workload at the run's slice width, and at the
+   largest step (by flops) also at width 1: the kernel against its plain
+   version on the same inputs, the kernel time (CUDA events, median of
+   repeats), its bound and the plain version's time; for GK and Pair also
+   one PyTorch call of the same function as a yardstick (``torch.einsum``
+   over X in its logical shape, ``torch.matmul``; the port calls neither).
+   The JSON line gives each kernel's largest step and, under
+   ``costliest``, its slowest step;
+4. the slice: ``TensorNetworkSimulation`` of the generated n30 m14 circuit
+   with the committed plan, 1000 bitstrings, all 2^k slices, on the card;
+   every amplitude against the committed JAX fixture keyed by bitstring,
+   the kernel launch counts of that run, the warm wall time (median of 3
+   after one warm-up) and the peak device memory.
+
+Then one JSON line with every kernel's numbers, the card line, and last
+``{"ok": true, "device": {...}}``.  The bound of a kernel call is the larger
+of its bytes (each input read once, each output written once) over 3.35 TB/s
+and its flops over 67 TFLOP/s, the H100 SXM's float32 rate outside the
+tensor cores (its products run in full float32: no TF32).
+"""
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+DATA = os.path.join(ROOT, "artensor_tpu_torch", "data")
+PLAN = os.path.join(DATA, "rcs_n30_m14_s0_sparse_sc24.json")
+FIXTURE = os.path.join(DATA, "rcs_n30_m14_s0_amps1000.txt")
+CIRCUIT = dict(rows=5, cols=6, cycles=14, seed=0)   # random_circuit args
+DEVICE = "cuda"
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+FP32_FLOP_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
+KERNEL_RTOL = 2e-4            # kernel vs plain: max|d| <= rtol*max|plain| + atol
+KERNEL_ATOL = 1e-5            #   (float32 sums in another order)
+AMP_RTOL = 1e-3               # amplitudes vs fixture:
+AMP_RMS_TOL = 1e-6            #   |d| <= rtol*|ref| + rms_tol*rms(ref)
+
+KERNELS = {   # name: (wrapper module attr, source, TPU kernel it replaces)
+    "gk": ("gk_call", "artensor_tpu_torch/csrc/gatherk.cu",
+           "artensor_tpu/runtime/gatherk.py:1667"),
+    "ggk": ("ggk_call", "artensor_tpu_torch/csrc/gatherk.cu",
+            "artensor_tpu/runtime/gatherk.py:1142"),
+    "rgrow": ("rgrow_call", "artensor_tpu_torch/csrc/rgrow.cu",
+              "artensor_tpu/runtime/gatherk.py:1245"),
+    "pair": ("pair_call", "artensor_tpu_torch/csrc/pair.cu",
+             "artensor_tpu/runtime/lanes.py:855"),
+}
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps):
+    """Median of ``reps`` single-call CUDA-event timings after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+
+def operand_batching(steps, slicing_axes):
+    """(x batched, y batched) per step, as the sliced runner sees them."""
+    dyn = {tid for entries in slicing_axes for tid, *_ in entries}
+    out = []
+    for s in steps:
+        out.append((s.i in dyn, s.j in dyn))
+        if s.j in dyn:
+            dyn.add(s.i)
+    return out
+
+
+def kernel_cases(run_steps, batching):
+    """Every kernel step of the scheme, by kind, with the batching of its
+    operands on the main path."""
+    from artensor_tpu_torch.runtime.sparse import kernel_kind
+
+    cases = {}
+    for s, (bx, by) in zip(run_steps, batching):
+        kind = kernel_kind(s)
+        if kind:
+            cases.setdefault(kind, []).append((s.lane, bx, by))
+    return cases
+
+
+def describe(kind, plan):
+    """Short shape summary of a kernel step."""
+    if kind == "pair":
+        return f"K {plan.K} M {plan.M} N {plan.N}"
+    row = plan if kind == "gk" else plan.row
+    out = f"K {row.K} H {row.H} F {row.F}"
+    if kind == "gk":
+        return out + f" G {len(plan.xoff)}"
+    return out + f" B {plan.B} rows {plan.bi_rows}x{plan.bj_rows}"
+
+
+def gk_library(plan, xr, xi, wr, wi, xs, ws):
+    """One ``torch.einsum`` that computes the GK step: X in its logical
+    shape (scattered contract legs and all) against W as (H, K digits).
+    Returns the call and a function that views the GK output the same way
+    (outer index, H, f run), for the check."""
+    import string
+
+    import torch
+
+    letters = iter(string.ascii_letters)
+    z = next(letters)
+    xl = [next(letters) for _ in plan.x_dims]
+    h = next(letters)
+    k_l = [c for c, r in zip(xl, plan.x_roles) if r == "k"]
+    k_d = [d for d, r in zip(plan.x_dims, plan.x_roles) if r == "k"]
+    out = [c for c, r in zip(xl, plan.x_roles) if r == "g"] + [h] + \
+        [c for c, r in zip(xl, plan.x_roles) if r == "f"]
+    lead = z if (xs or ws) else ""
+    spec = (f"{z if xs else ''}{''.join(xl)},{z if ws else ''}{h}"
+            f"{''.join(k_l)}->{lead}{''.join(out)}")
+    xc = torch.complex(xr, xi).reshape(xr.shape[:-1] + tuple(plan.x_dims))
+    wc = torch.complex(wr, wi).reshape(wr.shape[:-1] + (plan.H,)
+                                       + tuple(k_d))
+    dev = xr.device
+    yidx = (torch.as_tensor(plan.yoff, device=dev)[:, None, None]
+            + plan.hstride * torch.arange(plan.H, device=dev)[None, :, None]
+            + torch.arange(plan.F, device=dev)[None, None, :])
+    call = lambda: torch.einsum(spec, xc, wc)
+    shape = ((xr.shape[0] if xs else wr.shape[0],) if lead else ()) + \
+        (len(plan.xoff), plan.H, plan.F)
+    return call, lambda yr, yi: torch.complex(yr, yi)[..., yidx], shape
+
+
+def run_kernel(kind, plan, bx, by, width, seed):
+    """One kernel call against its plain version at slice width ``width``.
+    Returns a dict of measurements."""
+    import numpy as np
+    import torch
+
+    from artensor_tpu_torch.runtime import gatherk, lanes
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    rnd = lambda shape: torch.randn(shape, generator=gen, device=DEVICE)
+    if kind == "pair":
+        K, M, N = plan.K, plan.M, plan.N
+        xs, ws = bx, by
+        x_n, w_n, y_n = K * M, K * N, M * N
+        x_need, w_need = x_n, w_n
+        call, plain = lanes.pair_call, lanes.pair_plain
+    else:
+        row = plan if kind == "gk" else plan.row
+        xs, ws = (bx, by) if row.w_is_j else (by, bx)
+        if kind == "gk":
+            x_n, w_n, y_n = plan.x_elems, plan.H * plan.K, plan.y_elems
+            x_need, w_need = x_n, w_n
+            call, plain = gatherk.gk_call, gatherk.gk_plain
+        else:
+            xrow = row.x_elems if kind == "ggk" else row.F * row.K
+            yrow = row.y_elems if kind == "ggk" else row.F * row.H
+            x_n = plan.bi_rows * xrow
+            w_n = plan.bj_rows * row.H * row.K
+            y_n = plan.B * yrow
+            # a gathered step needs only the rows its targets name
+            x_need = len(np.unique(plan.gi)) * xrow
+            w_need = len(np.unique(plan.gj)) * row.H * row.K
+            call = gatherk.ggk_call if kind == "ggk" else gatherk.rgrow_call
+            plain = gatherk.ggk_plain if kind == "ggk" \
+                else gatherk.rgrow_plain
+    wx = width if xs else 1
+    ww = width if ws else 1
+    wy = width if (xs or ws) else 1
+    xr, xi = rnd(((width,) if xs else ()) + (x_n,)), \
+        rnd(((width,) if xs else ()) + (x_n,))
+    wr, wi = rnd(((width,) if ws else ()) + (w_n,)), \
+        rnd(((width,) if ws else ()) + (w_n,))
+    args = (plan, xr, xi, wr, wi, xs, ws)
+    kr, ki = call(*args)
+    pr, pi = plain(*args)
+    torch.cuda.synchronize()
+    check(tuple(kr.shape) == tuple(pr.shape),
+          f"{kind}: kernel shape {tuple(kr.shape)} != plain {tuple(pr.shape)}")
+    err = torch.abs(torch.complex(kr - pr, ki - pi)).max().item()
+    scale = torch.abs(torch.complex(pr, pi)).max().item()
+    tol = KERNEL_RTOL * scale + KERNEL_ATOL
+    check(np.isfinite(err) and err <= tol,
+          f"{kind} at width {width}: kernel disagrees with its plain version:"
+          f" max|d| {err:.3e} > tol {tol:.3e}")
+    reps = 5 if plan.flops * wy > 1e12 else 20
+    ms = time_ms(lambda: call(*args), reps)
+    plain_ms = time_ms(lambda: plain(*args), 3)
+    nbytes = 8 * (wx * x_need + ww * w_need + wy * y_n)
+    flops = plan.flops * wy
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    out = dict(width=width, step=describe(kind, plan), max_abs_err=err,
+               max_rel_err=err / scale, tol=tol, ms=ms, plain_ms=plain_ms,
+               bound_ms=1e3 * max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               library_ms=None, bytes=nbytes, flops=flops,
+               x_batched=xs, w_batched=ws)
+    lib = None
+    if kind == "pair":
+        xc = torch.complex(xr, xi).reshape(
+            ((width,) if xs else ()) + (plan.K, plan.M))
+        vc = torch.complex(wr, wi).reshape(
+            ((width,) if ws else ()) + (plan.K, plan.N))
+        lib = lambda: torch.matmul(xc.transpose(-1, -2), vc)
+        y = lib().reshape(kr.shape)
+        ref = torch.complex(pr, pi)
+    elif kind == "gk":
+        lib, view, shape = gk_library(plan, xr, xi, wr, wi, xs, ws)
+        y = lib().reshape(shape)
+        ref = view(pr, pi)
+    if lib is not None:
+        lib_err = torch.abs(y - ref).max().item()
+        check(lib_err <= tol, f"{kind} yardstick disagrees with the plain "
+              f"version: {lib_err:.3e} > tol {tol:.3e}")
+        del y, ref
+        out["library_ms"] = time_ms(lib, reps)
+    del xr, xi, wr, wi, kr, ki, pr, pi, lib
+    torch.cuda.empty_cache()
+    return out
+
+
+def load_fixture():
+    ref = {}
+    with open(FIXTURE) as f:
+        for ln in f:
+            p = ln.split()
+            if len(p) == 3:
+                ref[p[0]] = complex(float(p[1]), float(p[2]))
+    return ref
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--slice-batch", type=int, default=32,
+                    help="slices per group of the sliced runner")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from collections import Counter
+
+    import numpy as np
+
+    from artensor_tpu_torch import TensorNetworkSimulation, kernels
+    from artensor_tpu_torch import random_circuit
+    from artensor_tpu_torch.runtime import gatherk, lanes
+    from artensor_tpu_torch.runtime.sparse import kernel_kind
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}; {torch.cuda.get_device_name(0)} x "
+          f"{torch.cuda.device_count()}", flush=True)
+
+    # -- 2. build -----------------------------------------------------------
+    t0 = time.perf_counter()
+    lib = kernels.load()
+    print(f"build: {time.perf_counter() - t0:.2f} s for "
+          f"{', '.join(kernels.SOURCES)} (nvcc {lib.seconds:.2f} s)",
+          flush=True)
+    for name, report in sorted(lib.reports.items()):
+        for ln in report.splitlines():
+            if "registers" in ln or "spill" in ln:
+                print(f"  ptxas {name}: {ln.strip()}")
+
+    # -- the workload and its scheme ------------------------------------------
+    ref = load_fixture()
+    bits = list(ref)
+    t0 = time.perf_counter()
+    sim = TensorNetworkSimulation.from_circuit(
+        random_circuit(**CIRCUIT), bits).load_plan(PLAN)
+    compile_s = time.perf_counter() - t0
+    W = args.slice_batch
+    n_slices = 2 ** len(sim.slicing_bonds)
+    from artensor_tpu_torch.runtime.executor import precompute_static_steps
+    run_steps, _ = precompute_static_steps(
+        sim.steps, [sim.tensors[i] for i in range(len(sim.tensors))],
+        sim.slicing_axes)
+    census = Counter(kernel_kind(s) or "dot" for s in run_steps)
+    print(f"scheme: {len(sim.steps)} steps compiled in {compile_s:.2f} s, "
+          f"{len(run_steps)} on the device per slice: "
+          f"{json.dumps(dict(sorted(census.items())))}; {n_slices} slices, "
+          f"slice_batch {W}", flush=True)
+
+    # -- 3. kernels against their plain versions ---------------------------
+    cases = kernel_cases(run_steps, operand_batching(run_steps,
+                                                     sim.slicing_axes))
+    missing = [k for k in KERNELS if k not in cases]
+    check(not missing, f"the scheme plans no step for {missing}")
+    results, costliest, step_ms = {}, {}, {}
+    for n, kind in enumerate(KERNELS):
+        largest = max(range(len(cases[kind])),
+                      key=lambda i: cases[kind][i][0].flops)
+        runs = [(i, W) for i in range(len(cases[kind]))] + [(largest, 1)]
+        for i, width in runs:
+            plan, bx, by = cases[kind][i]
+            r = run_kernel(kind, plan, bx, by, width, seed=n)
+            print(f"kernel {kind} step {i + 1}/{len(cases[kind])} "
+                  f"({r['step']}) width {width}: max_abs_err "
+                  f"{r['max_abs_err']:.3e} (rel {r['max_rel_err']:.2e}, tol "
+                  f"{r['tol']:.2e}) ms {r['ms']:.4f} bound_ms "
+                  f"{r['bound_ms']:.4f} ({r['bound_by']}) plain_ms "
+                  f"{r['plain_ms']:.4f} library_ms {r['library_ms']} "
+                  f"bytes {r['bytes']} flops {r['flops']} x_batched "
+                  f"{r['x_batched']} w_batched {r['w_batched']}", flush=True)
+            if width != W:
+                continue
+            step_ms[kind] = step_ms.get(kind, 0.0) + r["ms"]
+            if i == largest:
+                results[kind] = r
+            if kind not in costliest or r["ms"] > costliest[kind]["ms"]:
+                costliest[kind] = r
+
+    # -- 4. the slice -----------------------------------------------------------
+    wrappers = {k: getattr(gatherk if k != "pair" else lanes, v[0])
+                for k, v in KERNELS.items()}
+    for f in wrappers.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    amps = sim.contraction(slice_batch=W, device=DEVICE)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in wrappers.items()}
+    print(f"main path: first run {first_s:.3f} s (staging included); "
+          f"launches {json.dumps(launches)}", flush=True)
+    groups = n_slices // W
+    for kind in KERNELS:
+        want = census.get(kind, 0) * groups
+        check(launches[kind] == want,
+              f"{kind}: {launches[kind]} launches on the main path, "
+              f"expected {want}")
+    check(amps.shape == (len(bits),), f"amplitude shape {amps.shape}")
+    check(bool(np.isfinite(amps).all()), "non-finite amplitudes")
+    r = np.array([ref[b] for b in sim.bitstrings_sorted])
+    rms = float(np.sqrt(np.mean(np.abs(r) ** 2)))
+    err = np.abs(amps - r)
+    bound = AMP_RTOL * np.abs(r) + AMP_RMS_TOL * rms
+    worst = int(np.argmax(err / bound))
+    print(f"amplitudes: {len(amps)} vs fixture, max|d| {err.max():.3e}, "
+          f"max rel {float((err / np.abs(r)).max()):.3e}, worst |d|/bound "
+          f"{float(err[worst] / bound[worst]):.3e} at "
+          f"{sim.bitstrings_sorted[worst]}; mean 2^30|a|^2 "
+          f"{(2 ** 30) * float(np.mean(np.abs(amps) ** 2)):.4f}", flush=True)
+    check(bool((err <= bound).all()),
+          "amplitudes disagree with the fixture beyond "
+          "1e-3*|ref| + 1e-6*rms(ref)")
+
+    run = sim.prepare(slice_batch=W, device=DEVICE)
+    run()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = run()
+        out[0].sum().item()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"main path warm wall: median {statistics.median(walls):.4f} s of "
+          f"{['%.4f' % w for w in walls]}; max_memory_allocated "
+          f"{peak / 2 ** 30:.2f} GiB", flush=True)
+
+    line = []
+    for kind, (_, source, replaces) in KERNELS.items():
+        res = results[kind]
+        line.append({
+            "name": kind, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[kind],
+            "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"], "library_ms": res["library_ms"],
+            "step": res["step"], "steps": len(cases[kind]),
+            "kernel_ms_per_group": step_ms[kind],
+            "costliest": {k: costliest[kind][k] for k in (
+                "step", "ms", "bound_ms", "bound_by", "plain_ms",
+                "library_ms", "max_abs_err")}})
+    print(json.dumps({"kernels": line}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,228 @@
+"""Where the port's main path spends its time on the card.
+
+Runs the n30 m14 1000-bitstring sliced contraction of the committed plan
+(the workload of ``chip_smoke.py``) once to warm up, then:
+
+1. one run with a CUDA-event pair around every step, summed by the kernel
+   that runs the step (``dot`` = the matmul fallback ``apply_lowered``);
+   each step's time includes its glue (reorders, W preparation, gathers);
+   the rest of the run is slice selection and accumulation;
+2. one run under ``torch.profiler``: device time by kernel family, and the
+   device's busy share of the span from its first to its last kernel.
+
+With ``--ab-pair-form`` it instead times the whole run (warm wall, median
+of 3 after one warm-up) under both output orders of the scheme's huge
+both-big merges (``runtime.sparse.PAIR_FORM``: the pair form the pair
+kernel runs, and the JAX full sort that leaves the step to the dot
+fallback), in the order on, off, off, on, and checks that both give the
+same amplitudes.
+
+Usage, from the repo root on a machine with a CUDA card::
+
+    python3 scripts/profile_torch_port.py [--slice-batch 32] [--ab-pair-form]
+"""
+
+import argparse
+import os
+import sys
+import time
+from collections import defaultdict
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+sys.path.insert(0, ROOT)
+DATA = os.path.join(ROOT, "artensor_tpu_torch", "data")
+
+FAMILIES = (   # (family, substrings of the kernel name), first match wins
+    ("gatherk.cu (GK, GGK)", ("gk_tile_kernel",)),
+    ("rgrow.cu (RGRow)", ("rgrow_kernel",)),
+    ("pair.cu (Pair)", ("pair_kernel",)),
+    ("cuBLAS/CUTLASS matmul (dot fallback)",
+     ("gemm", "cutlass", "cublas", "Kernel2")),
+    ("PyTorch copies/permutes", ("copy", "Copy")),
+    ("PyTorch index/gather", ("index", "gather", "Index")),
+    ("PyTorch elementwise", ("elementwise", "vectorized")),
+    ("PyTorch reductions", ("reduce", "Reduce")),
+    ("memcpy/memset", ("Memcpy", "Memset", "memcpy", "memset")),
+)
+
+
+def family(name):
+    for fam, keys in FAMILIES:
+        if any(k in name for k in keys):
+            return fam
+    return "other"
+
+
+def describe(s):
+    """Short shape summary of a step's kernel plan or dot lowering."""
+    lane = s.lane
+    if lane is None:
+        low = s.lowered if s.lowered is not None else s.lowered_chunks[0]
+        return f"dot {low.shape_l} x {low.shape_r}" + (
+            f" ({len(s.gathers)} gathered chunks)" if s.gathers else "")
+    if hasattr(lane, "M"):
+        return f"K {lane.K} M {lane.M} N {lane.N}"
+    row = getattr(lane, "row", lane)
+    extra = f" B {lane.B}" if row is not lane else ""
+    return f"K {row.K} H {row.H} F {row.F}{extra}"
+
+
+def workload():
+    from artensor_tpu_torch import TensorNetworkSimulation, random_circuit
+
+    with open(os.path.join(DATA, "rcs_n30_m14_s0_amps1000.txt")) as f:
+        bits = [ln.split()[0] for ln in f if ln.strip()]
+    return TensorNetworkSimulation.from_circuit(
+        random_circuit(5, 6, 14, seed=0), bits).load_plan(
+        os.path.join(DATA, "rcs_n30_m14_s0_sparse_sc24.json"))
+
+
+def ab_pair_form(slice_batch):
+    """Warm wall of the whole run with and without the pair-form order."""
+    import numpy as np
+    import torch
+
+    from artensor_tpu_torch.runtime import sparse
+
+    walls, amps = {True: [], False: []}, {}
+    for on in (True, False, False, True):
+        sparse.PAIR_FORM = on
+        try:
+            sim = workload()
+        finally:
+            sparse.PAIR_FORM = True
+        kinds = [sparse.kernel_kind(s) or "dot" for s in sim.steps]
+        run = sim.prepare(slice_batch=slice_batch, device="cuda")
+        run()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = run()
+            out[0].sum().item()
+            ts.append(time.perf_counter() - t0)
+        walls[on].append(sorted(ts)[1])
+        a = sim.contraction(slice_batch=slice_batch, device="cuda")
+        amps[on] = dict(zip(sim.bitstrings_sorted, a))
+        print(f"pair form {'on ' if on else 'off'}: pair steps "
+              f"{kinds.count('pair')}, gk {kinds.count('gk')}, dot "
+              f"{kinds.count('dot')}; warm wall median of 3 "
+              f"{1e3 * walls[on][-1]:.2f} ms ({['%.2f' % (1e3 * t) for t in ts]})",
+              flush=True)
+        del run, sim
+        torch.cuda.empty_cache()
+    ref = np.array(list(amps[False].values()))
+    got = np.array([amps[True][b] for b in amps[False]])
+    d = float(np.abs(got - ref).max() / np.abs(ref).max())
+    print(f"pair form A/B: on {['%.2f' % (1e3 * t) for t in walls[True]]} ms,"
+          f" off {['%.2f' % (1e3 * t) for t in walls[False]]} ms; amplitudes"
+          f" agree to {d:.2e} of max|a|")
+    if not d < 1e-4:
+        raise SystemExit("pair form A/B: the two orders disagree")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--slice-batch", type=int, default=32)
+    ap.add_argument("--ab-pair-form", action="store_true",
+                    help="time the run with and without the pair-form order")
+    args = ap.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_torch_port: no CUDA device", file=sys.stderr)
+        return 2
+    from artensor_tpu_torch.runtime import sparse
+
+    print(f"card: {torch.cuda.get_device_name(0)}; slice_batch "
+          f"{args.slice_batch}", flush=True)
+    if args.ab_pair_form:
+        ab_pair_form(args.slice_batch)
+        return 0
+    sim = workload()
+    run = sim.prepare(slice_batch=args.slice_batch, device="cuda")
+    run()
+    torch.cuda.synchronize()
+
+    # -- 1. per step kind, CUDA events ---------------------------------------
+    marks = []
+    inner = sparse.apply_sparse_step
+
+    def timed_step(field, x, y, s, bx=False, by=False):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = inner(field, x, y, s, bx, by)
+        b.record()
+        marks.append((sparse.kernel_kind(s) or "dot", a, b,
+                      (id(s), describe(s), tuple(out[0].shape))))
+        return out
+
+    sparse.apply_sparse_step = timed_step
+    try:
+        t0 = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        sparse.apply_sparse_step = inner
+    by_kind = defaultdict(float)
+    n_kind = defaultdict(int)
+    by_step = defaultdict(float)
+    for kind, a, b, step in marks:
+        by_kind[kind] += a.elapsed_time(b)
+        n_kind[kind] += 1
+        by_step[(kind,) + step] += a.elapsed_time(b)
+    total = start.elapsed_time(end)
+    print(f"run {total:.2f} ms between device events, "
+          f"{1e3 * wall:.2f} ms host wall (with per-step events)")
+    print("by step kind (events around each step, glue included):")
+    for kind, ms in sorted(by_kind.items(), key=lambda t: -t[1]):
+        print(f"  {kind:6s} {ms:9.3f} ms  {100 * ms / total:5.1f}%  "
+              f"({n_kind[kind]} step runs)")
+    rest = total - sum(by_kind.values())
+    print(f"  {'rest':6s} {rest:9.3f} ms  {100 * rest / total:5.1f}%  "
+          "(slice selection, accumulation, gaps)")
+    print("top steps (all groups of the run):")
+    for (kind, _, desc, shape), ms in sorted(by_step.items(),
+                                             key=lambda t: -t[1])[:12]:
+        print(f"  {ms:9.3f} ms  {kind:5s} {desc}  out {shape}")
+
+    # -- 2. torch.profiler: kernels by family ---------------------------------
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        print("profiler: no device events recorded (CUPTI unavailable)")
+        return 0
+    fam_us = defaultdict(float)
+    fam_n = defaultdict(int)
+    for e in kern:
+        fam_us[family(e.name)] += e.time_range.elapsed_us()
+        fam_n[family(e.name)] += 1
+    busy = sum(fam_us.values())
+    span = max(e.time_range.end for e in kern) \
+        - min(e.time_range.start for e in kern)
+    print(f"profiler: {len(kern)} device events, busy {busy / 1e3:.3f} ms "
+          f"of a {span / 1e3:.3f} ms span: idle share "
+          f"{100 * (1 - busy / span):.1f}%")
+    for fam, us in sorted(fam_us.items(), key=lambda t: -t[1]):
+        print(f"  {fam:38s} {us / 1e3:9.3f} ms  {100 * us / busy:5.1f}% "
+              f"of busy  ({fam_n[fam]} launches)")
+    others = sorted({e.name for e in kern if family(e.name) == "other"})
+    if others:
+        print("  other kernels: " + "; ".join(n[:60] for n in others[:12]))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

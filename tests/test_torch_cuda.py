@@ -1,0 +1,136 @@
+"""The CUDA kernels on the card: each wrapper against its plain version on
+the same CUDA tensors, and the n30 main path against the JAX fixture.
+
+Marked ``gpu``: skipped where no card is present.  On a machine with one:
+
+    python -m pytest tests/test_torch_cuda.py -q -m gpu
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from artensor_tpu_torch.runtime import gatherk, lanes
+
+pytestmark = pytest.mark.gpu
+
+DATA = os.path.join(os.path.dirname(__file__), "..", "artensor_tpu_torch",
+                    "data")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rand(shape, gen):
+    return torch.randn(shape, generator=gen, device="cuda")
+
+
+def _check(call, plain, args):
+    before = call.launches
+    kr, ki = call(*args)
+    pr, pi = plain(*args)
+    torch.cuda.synchronize()
+    assert call.launches == before + 1
+    err = torch.abs(torch.complex(kr - pr, ki - pi)).max().item()
+    scale = torch.abs(torch.complex(pr, pi)).max().item()
+    assert err <= 2e-4 * scale + 1e-5, (err, scale)
+
+
+GK_SHAPES = [   # (ix_x, ix_w, iy, dims_x, dims_w)
+    (("g1", "c1", "g2", "c2", "f1"), ("c1", "c2", "n1"),
+     ("g1", "g2", "n1", "f1"), (2, 2, 4, 2, 256), (2, 2, 2)),
+    (tuple(f"c{k}" for k in range(6)) + ("g1", "f1"),
+     tuple(f"c{k}" for k in range(6)) + ("n1", "n2"),
+     ("g1", "n1", "n2", "f1"), (2,) * 7 + (96,), (2,) * 6 + (8, 5)),
+    (("c1", "g1", "f1"), ("c1", "n1"), ("g1", "n1", "f1"),
+     (2, 3, 4096), (2, 2)),
+    # one shape for each remaining tile of gatherk.cu's launch_any:
+    # 4 x 64 (H 2, F 64), 16 x 128 (H 16, F 128), 32 x 32 (H 32, F 32)
+    (("g1", "c1", "f1"), ("c1", "n1"), ("g1", "n1", "f1"),
+     (5, 4, 64), (4, 2)),
+    (("c1", "g1", "f1"), ("c1", "n1"), ("g1", "n1", "f1"),
+     (8, 3, 128), (8, 16)),
+    (("g1", "c1", "f1"), ("c1", "n1"), ("g1", "n1", "f1"),
+     (7, 32, 32), (32, 32)),
+]
+
+
+@pytest.mark.parametrize("batched", [(False, False), (True, False),
+                                     (True, True)])
+@pytest.mark.parametrize("shape", range(len(GK_SHAPES)))
+def test_gk_kernel_matches_plain(cuda, monkeypatch, shape, batched):
+    monkeypatch.setattr(gatherk, "MIN_X_ELEMS", 1)
+    ix_x, ix_w, iy, dx, dw = GK_SHAPES[shape]
+    plan = gatherk.plan_gk_step(ix_x, ix_w, iy, dx, dw)
+    assert plan is not None, gatherk.LAST_REJECT
+    xb, wb = batched
+    gen = torch.Generator(device="cuda").manual_seed(shape)
+    W = 3
+    x = [_rand(((W,) if xb else ()) + (plan.x_elems,), gen) for _ in "ri"]
+    w = [_rand(((W,) if wb else ()) + (plan.H * plan.K,), gen) for _ in "ri"]
+    _check(gatherk.gk_call, gatherk.gk_plain, (plan, *x, *w, xb, wb))
+
+
+@pytest.mark.parametrize("form", ["gk_row", "rgrow"])
+def test_gathered_kernels_match_plain(cuda, monkeypatch, form):
+    monkeypatch.setattr(gatherk, "GGK_MIN_WORK", 1)
+    rng = np.random.default_rng(3)
+    if form == "gk_row":
+        args = (("g", "k", "f0", "f1"), ("k", "h"), ("g", "h", "f0", "f1"),
+                (3, 4, 2, 128), (4, 2))
+    else:
+        args = (("k0", "k1", "f0", "k2", "f1"), ("k1", "k0", "k2", "h"),
+                ("h", "f0", "f1"), (4, 2, 2, 16, 4), (2, 4, 16, 2))
+    gi = np.sort(rng.integers(0, 7, 40))
+    gj = rng.integers(0, 6, 40)
+    plan = gatherk.plan_ggk_step(*args, gi, gj, 7, 6)
+    assert plan is not None, gatherk.LAST_REJECT
+    row = plan.row
+    is_rg = isinstance(row, gatherk.RGRow)
+    assert is_rg == (form == "rgrow")
+    xrow = row.F * row.K if is_rg else row.x_elems
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    W = 4
+    x = [_rand((W, plan.bi_rows * xrow), gen) for _ in "ri"]
+    w = [_rand((plan.bj_rows * row.H * row.K,), gen) for _ in "ri"]
+    call = gatherk.rgrow_call if is_rg else gatherk.ggk_call
+    plain = gatherk.rgrow_plain if is_rg else gatherk.ggk_plain
+    _check(call, plain, (plan, *x, *w, True, False))
+
+
+@pytest.mark.parametrize("kmn", [(64, 256, 160), (100, 90, 130),
+                                 (40, 300, 516)])
+def test_pair_kernel_matches_plain(cuda, kmn):
+    K, M, N = kmn
+    plan = lanes.plan_pair_step(("k", "m"), ("k", "n"), ("m", "n"),
+                                (K, M), (K, N))
+    assert plan is not None, lanes.LAST_REJECT
+    gen = torch.Generator(device="cuda").manual_seed(K)
+    W = 2
+    x = [_rand((W, K * M), gen) for _ in "ri"]
+    v = [_rand((K * N,), gen) for _ in "ri"]
+    _check(lanes.pair_call, lanes.pair_plain, (plan, *x, *v, True, False))
+
+
+def test_n30_main_path_matches_fixture(cuda):
+    from artensor_tpu_torch import TensorNetworkSimulation, random_circuit
+
+    ref = {}
+    with open(os.path.join(DATA, "rcs_n30_m14_s0_amps1000.txt")) as f:
+        for ln in f:
+            b, re, im = ln.split()
+            ref[b] = complex(float(re), float(im))
+    sim = TensorNetworkSimulation.from_circuit(
+        random_circuit(5, 6, 14, seed=0), list(ref)).load_plan(
+        os.path.join(DATA, "rcs_n30_m14_s0_sparse_sc24.json"))
+    amps = sim.contraction(slice_batch=16)
+    r = np.array([ref[b] for b in sim.bitstrings_sorted])
+    rms = np.sqrt(np.mean(np.abs(r) ** 2))
+    assert (np.abs(amps - r) <= 1e-3 * np.abs(r) + 1e-6 * rms).all()

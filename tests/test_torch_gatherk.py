@@ -1,0 +1,285 @@
+"""Port GK / GGK / RGRow steps (plain versions on the CPU) against the JAX
+package's apply_gk_step / apply_ggk_step (Pallas in interpret mode) and the
+np.einsum oracle, at widths 1 and 4 with batched and unbatched W.  Shapes
+are those of tests/test_gatherk.py (the two 64-long grid legs cut to 8 to
+keep interpret mode fast); the size thresholds are lowered on both
+packages as its ``_plan`` does."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from artensor_tpu.ops.field import make_field as jax_make_field
+from artensor_tpu.runtime import gatherk as jgk
+from artensor_tpu_torch.ops.field import SplitField
+from artensor_tpu_torch.runtime import gatherk as pgk
+
+TOL = dict(rtol=2e-4, atol=1e-5)
+
+
+def _rand(shape, rng):
+    return (rng.standard_normal(shape)
+            + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+
+def _lab(*ixs):
+    lab = {}
+    for ix in ixs:
+        for l in ix:
+            lab.setdefault(l, len(lab))
+    return lambda ix: [lab[l] for l in ix]
+
+
+@pytest.fixture
+def low_thresholds(monkeypatch):
+    monkeypatch.setattr(jgk, "MIN_X_ELEMS", 1)
+    monkeypatch.setattr(jgk, "SLACK", 1e9)
+    monkeypatch.setattr(jgk, "GGK_MIN_WORK", 1)
+    monkeypatch.setattr(pgk, "MIN_X_ELEMS", 1)
+    monkeypatch.setattr(pgk, "GGK_MIN_WORK", 1)
+
+
+# (ix_i, ix_j, iy, dims_i, dims_j, pin, planner) — test_gatherk.py shapes
+GK_CASES = {
+    "scattered_contract": (("g1", "c1", "g2", "c2", "f1"), ("c1", "c2", "n1"),
+                           ("g1", "g2", "n1", "f1"), (2, 2, 4, 2, 256),
+                           (2, 2, 2), 0, "gk"),
+    "merged_g_runs": (("g1", "g2", "c1", "f1"), ("c1", "n1", "n2"),
+                      ("g1", "g2", "n1", "n2", "f1"), (2, 2, 4, 512),
+                      (4, 2, 2), 0, "gk"),
+    "pinned_batch": (("b", "c1", "g1", "f1"), ("c1", "n1"),
+                     ("b", "g1", "n1", "f1"), (3, 2, 2, 256), (2, 2), 1, "gk"),
+    "h_equals_one": (("g1", "c1", "f1"), ("c1",), ("g1", "f1"),
+                     (4, 4, 256), (4,), 0, "gk"),
+    "contiguous_k64": (tuple(f"c{k}" for k in range(6)) + ("f1",),
+                       tuple(f"c{k}" for k in range(6)) + ("n1",),
+                       ("n1", "f1"), (2,) * 6 + (256,), (2,) * 6 + (32,),
+                       0, "gk"),
+    "w_on_the_left": (("c1", "n1"), ("g1", "c1", "f1"), ("g1", "n1", "f1"),
+                      (2, 2), (4, 2, 256), 0, "gk"),
+    "short_tail_64": (("g1", "c1", "f1"), ("c1", "n1"), ("g1", "n1", "f1"),
+                      (8, 2, 64), (2, 2), 0, "gk"),
+    "short_f_grid": (("g1", "c1", "c2", "f1"), ("c1", "c2", "n1"),
+                     ("g1", "n1", "f1"), (8, 2, 2, 128), (2, 2, 4), 0, "gk"),
+    "k16_h16": (("c1", "c2", "c3", "c4", "g1", "f1"),
+                ("c1", "c2", "c3", "c4", "n1", "n2"), ("g1", "n1", "n2", "f1"),
+                (2, 2, 2, 2, 2, 512), (2, 2, 2, 2, 4, 4), 0, "gk"),
+    "k64_h4": (tuple(f"c{k}" for k in range(6)) + ("g1", "f1"),
+               tuple(f"c{k}" for k in range(6)) + ("n1",), ("g1", "n1", "f1"),
+               (2,) * 7 + (512,), (2,) * 6 + (4,), 0, "gk"),
+    "k2_h1_long_f": (("c1", "g1", "f1"), ("c1", "n1"), ("g1", "n1", "f1"),
+                     (2, 2, 4096), (2, 2), 0, "gk"),
+    "pre_no_f_run": (("g1", "f1", "c1", "c2"), ("c1", "c2", "n1"),
+                     ("g1", "n1", "f1"), (4, 256, 2, 2), (2, 2, 2), 0, "pre"),
+    "pre_w_side": (("c1", "n1"), ("g1", "f1", "c1", "f2"),
+                   ("g1", "n1", "f2", "f1"), (4, 2), (8, 128, 4, 3), 0, "pre"),
+}
+
+
+def _plans(case):
+    ix_i, ix_j, iy, di, dj, pin, kind = case
+    if kind == "pre":
+        return (jgk.plan_gk_step_pre(ix_i, ix_j, iy, di, dj),
+                pgk.plan_gk_step_pre(ix_i, ix_j, iy, di, dj))
+    return (jgk.plan_gk_step(ix_i, ix_j, iy, di, dj, pin=pin),
+            pgk.plan_gk_step(ix_i, ix_j, iy, di, dj, pin=pin))
+
+
+def _port_step(plan, xi, xj, bi, bj, apply):
+    """Run a port step on numpy operands (flat, optional width axis)."""
+    pf = SplitField()
+    wrap = lambda a, b: pf.reshape(pf.wrap(a, "cpu"),
+                                   ((a.shape[0],) if b else ()) + (-1,))
+    out = apply(pf, wrap(xi, bi), wrap(xj, bj), plan, bi, bj)
+    return out[0].numpy() + 1j * out[1].numpy()
+
+
+def _jax_step(plan, xi, xj, bi, bj, apply):
+    """The JAX step on the same operands: vmapped over the width when an
+    operand carries one (the executor's slice batching)."""
+    jf = jax_make_field(np.complex64, "highest", "split")
+    flat = lambda a, b: (a.reshape(a.shape[0], -1) if b else a.reshape(-1))
+    xi, xj = flat(xi, bi), flat(xj, bj)
+    pair = lambda a: (np.ascontiguousarray(a.real), np.ascontiguousarray(a.imag))
+    one = lambda a, b: apply(jf, a, b, plan, interpret=True)
+    if not (bi or bj):
+        out = one(pair(xi), pair(xj))
+    else:
+        out = jax.vmap(one, in_axes=((0, 0) if bi else None,
+                                     (0, 0) if bj else None))(
+            pair(xi), pair(xj))
+    return np.asarray(out[0]) + 1j * np.asarray(out[1])
+
+
+MODES = {"w1": (0, False), "w4_batched_w": (4, True),
+         "w4_unbatched_w": (4, False)}
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("name", sorted(GK_CASES))
+def test_gk_step_matches_jax(low_thresholds, name, mode):
+    ix_i, ix_j, iy, di, dj, _, _ = case = GK_CASES[name]
+    jplan, pplan = _plans(case)
+    assert jplan is not None, jgk.LAST_REJECT
+    assert pplan is not None, pgk.LAST_REJECT
+    assert (pplan.pre is not None) == (case[-1] == "pre")
+    width, w_batched = MODES[mode]
+    rng = np.random.default_rng(sum(name.encode()))
+    # the big operand (X) carries the width; W only when w_batched
+    x_is_i = pplan.w_is_j
+    bi = bool(width) and (x_is_i or w_batched)
+    bj = bool(width) and (not x_is_i or w_batched)
+    xi = _rand(((width,) if bi else ()) + di, rng)
+    xj = _rand(((width,) if bj else ()) + dj, rng)
+    got = _port_step(pplan, xi, xj, bi, bj, pgk.apply_gk_step)
+    want_j = _jax_step(jplan, xi, xj, bi, bj, jgk.apply_gk_step)
+    lab = _lab(ix_i, ix_j, iy, ("#w",))
+    w = ["#w"] if width else []
+    want = np.einsum(xi, lab((w if bi else []) + list(ix_i)),
+                     xj, lab((w if bj else []) + list(ix_j)),
+                     lab(w + list(iy)))
+    np.testing.assert_allclose(got.reshape(want.shape), want, **TOL)
+    np.testing.assert_allclose(got.reshape(want.shape),
+                               want_j.reshape(want.shape), **TOL)
+
+
+def test_gk_rejections(low_thresholds):
+    # shared batch label (aligned-gather form) is out of scope
+    assert pgk.plan_gk_step(("b", "c1", "f1"), ("b", "c1", "n1"),
+                            ("b", "n1", "f1"), (4, 2, 256), (4, 2, 2)) is None
+    assert pgk.LAST_REJECT == "shared-batch"
+    # no trailing free run
+    assert pgk.plan_gk_step(("f1", "c1"), ("c1", "n1"), ("n1", "f1"),
+                            (256, 2), (2, 2)) is None
+    assert pgk.LAST_REJECT == "no-f-run"
+    # f run below a warp's width
+    assert pgk.plan_gk_step(("g1", "c1", "f1"), ("c1", "n1"),
+                            ("g1", "n1", "f1"), (64, 2, 16), (2, 2)) is None
+    # H legs split in iy
+    assert pgk.plan_gk_step(("g1", "c1", "f1"), ("c1", "n1", "n2"),
+                            ("n1", "g1", "n2", "f1"), (4, 2, 256),
+                            (2, 2, 2)) is None
+    assert pgk.LAST_REJECT == "h-contig"
+
+
+def test_gk_output_order_matches_jax():
+    args = (("g1", "c1", "g2", "c2", "f1"), ("c1", "c2", "n1"),
+            {"g1", "g2", "n1", "f1"}, (2, 2, 4, 2, 256), (2, 2, 2))
+    assert pgk.gk_output_order(*args) == jgk.gk_output_order(*args)
+    args = (("b", "c1", "g1", "f1"), ("c1", "n1"), {"b", "g1", "n1", "f1"},
+            (5, 2, 2, 128), (2, 2))
+    assert pgk.gk_output_order(*args, pin=1) \
+        == jgk.gk_output_order(*args, pin=1)
+    assert pgk.gk_output_order(*args, consumer_contract=("g1",)) \
+        == jgk.gk_output_order(*args, consumer_contract=("g1",))
+
+
+def test_wk_index_matches_jax(low_thresholds):
+    for name, case in GK_CASES.items():
+        jplan, pplan = _plans(case)
+        np.testing.assert_array_equal(pplan.wk_idx, jplan.wk_idx, name)
+        assert pplan.w_perm == jplan.w_perm and pplan.w_dims == jplan.w_dims
+
+
+# -- gathered steps: (rx_i, rx_j, riy, rd_i, rd_j, B, bi, bj, row kind) ------
+GGK_CASES = {
+    "gk_row": (("k0", "k1", "f0", "f1"), ("k0", "k1", "h"), ("h", "f0", "f1"),
+               (2, 4, 2, 128), (2, 4, 2), 24, 6, 5, "gk"),
+    "gk_row_grid_leg": (("g", "k", "f0", "f1"), ("k", "h"),
+                        ("g", "h", "f0", "f1"), (3, 4, 2, 128), (4, 2),
+                        17, 4, 3, "gk"),
+    "rg_interleaved": (("k0", "k1", "f0", "k2", "f1"), ("k1", "k0", "k2", "h"),
+                       ("h", "f0", "f1"), (4, 2, 2, 16, 4), (2, 4, 16, 2),
+                       40, 7, 6, "rg"),
+    "rg_h_trailing": (("k0", "f0", "k1"), ("k0", "k1", "h"), ("f0", "h"),
+                      (8, 4, 16), (8, 16, 2), 24, 5, 4, "rg"),
+    "rg_h1": (("k0", "f0", "k1"), ("k1", "k0"), ("f0",), (8, 4, 16), (16, 8),
+              24, 5, 4, "rg"),
+    "rg_no_frees": (("k0", "k1"), ("k1", "k0", "h"), ("h",), (16, 16),
+                    (16, 16, 4), 24, 5, 4, "rg"),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("name", sorted(GGK_CASES))
+def test_ggk_step_matches_jax(low_thresholds, name, mode):
+    rx_i, rx_j, riy, rd_i, rd_j, B, bi_rows, bj_rows, kind = GGK_CASES[name]
+    rng = np.random.default_rng(len(name) * 7 + len(mode))
+    gi = rng.integers(0, bi_rows, B)
+    gj = rng.integers(0, bj_rows, B)
+    sidx = np.lexsort((gj, gi))
+    gi, gj = gi[sidx], gj[sidx]
+    jplan = jgk.plan_ggk_step(rx_i, rx_j, riy, rd_i, rd_j, gi.astype(np.int32),
+                              gj.astype(np.int32), bi_rows, bj_rows)
+    pplan = pgk.plan_ggk_step(rx_i, rx_j, riy, rd_i, rd_j, gi, gj,
+                              bi_rows, bj_rows)
+    assert jplan is not None, jgk.LAST_REJECT
+    assert pplan is not None, pgk.LAST_REJECT
+    assert isinstance(pplan.row, pgk.RGRow) == (kind == "rg")
+    assert isinstance(jplan.row, jgk.RGRow) == (kind == "rg")
+    width, w_batched = MODES[mode]
+    x_is_i = pplan.w_is_j
+    b_i = bool(width) and (x_is_i or w_batched)
+    b_j = bool(width) and (not x_is_i or w_batched)
+    xi = _rand(((width,) if b_i else ()) + (bi_rows, *rd_i), rng)
+    xj = _rand(((width,) if b_j else ()) + (bj_rows, *rd_j), rng)
+    got = _port_step(pplan, xi, xj, b_i, b_j, pgk.apply_ggk_step)
+    want_j = _jax_step(jplan, xi, xj, b_i, b_j, jgk.apply_ggk_step)
+    lab = _lab(rx_i, rx_j, riy, ("#w", "#b"))
+    w = ["#w"] if width else []
+    xg = np.take(xi, gi, axis=1 if b_i else 0)
+    wg = np.take(xj, gj, axis=1 if b_j else 0)
+    want = np.einsum(xg, lab((w if b_i else []) + ["#b"] + list(rx_i)),
+                     wg, lab((w if b_j else []) + ["#b"] + list(rx_j)),
+                     lab(w + ["#b"] + list(riy)))
+    np.testing.assert_allclose(got.reshape(want.shape), want, **TOL)
+    np.testing.assert_allclose(got.reshape(want.shape),
+                               want_j.reshape(want.shape), **TOL)
+
+
+def test_ggk_rejections():
+    gi = np.zeros(8, np.int64)
+    assert pgk.plan_ggk_step(("k", "f"), ("k", "h"), ("h", "f"), (2, 256),
+                             (2, 1 << 14), gi, gi, 2, 2) is None
+    assert pgk.plan_ggk_step(("k", "f"), ("k", "h"), ("h", "f"), (2, 128),
+                             (2, 2), gi, gi, 2, 2) is None
+    assert pgk.LAST_REJECT == "ggk:small"
+
+
+def test_wrappers_validate_operands(low_thresholds):
+    case = GK_CASES["scattered_contract"]
+    _, plan = _plans(case)
+    x = torch.zeros(plan.x_elems)
+    w = torch.zeros(plan.H * plan.K)
+    with pytest.raises(ValueError, match="shape"):
+        pgk.gk_call(plan, x[:-1], x[:-1], w, w, False, False)
+    with pytest.raises(TypeError, match="float32"):
+        pgk.gk_call(plan, x.double(), x.double(), w, w, False, False)
+    xs = torch.zeros(plan.x_elems, 2)[:, 0]     # strided view
+    with pytest.raises(ValueError, match="contiguous"):
+        pgk.gk_call(plan, xs, xs, w, w, False, False)
+    before = pgk.gk_call.launches
+    pgk.gk_call(plan, x, x, w, w, False, False)
+    assert pgk.gk_call.launches == before   # CPU: plain version, no launch
+
+
+@pytest.mark.parametrize("name", sorted(GK_CASES))
+def test_gk_einsum_yardstick_matches_plain(low_thresholds, name):
+    """The one-call ``torch.einsum`` that ``chip_smoke.py`` times beside
+    the GK kernel (X in its logical shape from ``x_dims`` / ``x_roles``)
+    computes what the plain GK version computes."""
+    import chip_smoke
+
+    _, plan = _plans(GK_CASES[name])
+    assert plan is not None, pgk.LAST_REJECT
+    assert len(plan.x_dims) == len(plan.x_roles)
+    assert np.prod(plan.x_dims) == plan.x_elems
+    gen = torch.Generator().manual_seed(5)
+    W = 3
+    x = [torch.randn((W, plan.x_elems), generator=gen) for _ in "ri"]
+    w = [torch.randn((plan.H * plan.K,), generator=gen) for _ in "ri"]
+    call, view, shape = chip_smoke.gk_library(plan, *x, *w, True, False)
+    pr, pi = pgk.gk_plain(plan, *x, *w, True, False)
+    np.testing.assert_allclose(call().reshape(shape).numpy(),
+                               view(pr, pi).numpy(), **TOL)

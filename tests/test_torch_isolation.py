@@ -1,0 +1,90 @@
+"""The port stands alone: importing it (and chip_smoke.py) loads neither JAX
+nor the JAX package, and its entry points never fall back to the CPU."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+
+PROBE = """
+import importlib, pkgutil, sys
+import artensor_tpu_torch, chip_smoke
+for m in pkgutil.walk_packages(artensor_tpu_torch.__path__,
+                               "artensor_tpu_torch."):
+    importlib.import_module(m.name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "artensor_tpu" or m.startswith("artensor_tpu."))
+print("BAD", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def _clean_env():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    return env
+
+
+def test_import_loads_no_jax():
+    r = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300,
+                       env=_clean_env())
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "BAD []" in r.stdout
+
+
+def test_port_sources_never_name_jax():
+    pkg = os.path.join(ROOT, "artensor_tpu_torch")
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(dirpath, f)) as fh:
+                    for ln in fh:
+                        s = ln.strip()
+                        assert not (s.startswith("import jax")
+                                    or s.startswith("from jax")
+                                    or s.startswith("import artensor_tpu ")
+                                    or s.startswith("from artensor_tpu ")
+                                    or s.startswith("from artensor_tpu.")
+                                    or s.startswith("import artensor_tpu.")
+                                    ), (f, ln)
+
+
+def test_entry_point_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from artensor_tpu_torch import TensorNetworkSimulation, random_circuit
+    from artensor_tpu_torch.ops.field import SplitField
+    from artensor_tpu_torch.runtime.executor import stage_tensors
+
+    sim = TensorNetworkSimulation.from_circuit(
+        random_circuit(3, 4, 8, seed=13), ["0" * 12, "1" * 12])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sim.prepare()          # default device: cuda
+    with pytest.raises((RuntimeError, AssertionError)):
+        stage_tensors(SplitField(), [np.ones(2, np.complex64)])
+
+
+def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):
+    """Without a card, and alone in a directory, chip_smoke.py exits non-zero
+    and prints no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300,
+                       env=_clean_env())
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                       capture_output=True, text=True, timeout=300,
+                       env=_clean_env())
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout

@@ -1,0 +1,212 @@
+"""The port's sparse slice as a whole: scheme compile, staging, slice
+selection and the sliced runner against the JAX package and the exact
+state vector; and the kernel census of the committed n30 plan."""
+
+import os
+from collections import Counter
+
+import numpy as np
+import pytest
+import torch
+
+from artensor_tpu.circuits import TensorNetworkCircuit as JaxCircuit
+from artensor_tpu.circuits.random_circuits import random_circuit
+from artensor_tpu.network import NumericalTensorNetwork as JaxNTN
+from artensor_tpu.ops.field import make_field as jax_make_field
+from artensor_tpu.planner import find_order
+from artensor_tpu.plan_io import plan_to_dict
+from artensor_tpu.runtime import executor as jex
+from artensor_tpu.runtime import gatherk as jgk
+from artensor_tpu_torch import TensorNetworkSimulation
+from artensor_tpu_torch.ops.field import SplitField
+from artensor_tpu_torch.runtime import executor as pex
+from artensor_tpu_torch.runtime import gatherk as pgk
+from artensor_tpu_torch.runtime.sparse import kernel_kind
+
+DATA = os.path.join(os.path.dirname(__file__), "..", "artensor_tpu_torch",
+                    "data")
+# the n30 plan's port scheme at 1000 bitstrings (recorded in PERF.md):
+# kernel steps as compiled, and left after the static gate merges fold
+N30_KERNEL_STEPS = {"gk": 18, "pair": 1, "ggk": 2, "rgrow": 1}
+N30_KERNEL_STEPS_RUN = N30_KERNEL_STEPS
+# the same plan with the JAX full sort of huge both-big merges
+# (sparse.PAIR_FORM off): the pair step becomes a dot step
+N30_KERNEL_STEPS_JAX_ORDER = {"gk": 18, "ggk": 2, "rgrow": 1}
+
+
+@pytest.fixture(scope="module")
+def rcs12():
+    """random_circuit(3, 4, 8, seed=13), 48 bitstrings, a JAX plan at
+    sc_target 10 — the scenario of tests/test_sparse.py:130-175."""
+    n, layers = random_circuit(3, 4, 8, seed=13)
+    circ = JaxCircuit((n, layers))
+    ntn = JaxNTN(*circ.to_numerical_tn())
+    tb2, fq2 = ntn.simplify("sparse")
+    rng = np.random.default_rng(4)
+    bits = [np.binary_repr(b, n)
+            for b in rng.choice(2 ** n, 48, replace=False)]
+    _, sliced, ctree = find_order(
+        tb2, ntn.bond_dims, fq2, max_bitstrings=48, sc_target=10,
+        trials=2, iters=6, betas=np.linspace(3, 21, 12), slicing_repeat=1,
+        parallel=False)
+    return dict(n=n, layers=layers, circ=circ, ntn=ntn, tb2=tb2, fq2=fq2,
+                bits=bits, sliced=sliced, ctree=ctree,
+                plan=plan_to_dict(ctree, meta={"sc_target": 10}))
+
+
+@pytest.fixture(scope="module")
+def jax_amps(rcs12):
+    """The JAX sliced runner with GK forced (interpret-mode Pallas), keyed
+    by bitstring."""
+    from artensor_tpu.runtime.sparse import (contraction_scheme_sparse,
+                                             execute_sparse)
+
+    w = rcs12
+    old = jgk.MIN_X_ELEMS, jgk.SLACK
+    jgk.MIN_X_ELEMS, jgk.SLACK = 1 << 8, 1e9
+    try:
+        steps, _, bits_sorted = contraction_scheme_sparse(
+            w["ctree"], w["bits"], sc_target=10)
+    finally:
+        jgk.MIN_X_ELEMS, jgk.SLACK = old
+    assert any(isinstance(s.lane, jgk.GKPlan) for s in steps)
+    field = jax_make_field(np.complex64, "highest", "split")
+    staged = jex.stage_tensors(
+        field, [w["ntn"].tensors[i] for i in range(len(w["ntn"].tensors))])
+    axes = jex.build_slicing_axes(w["tb2"], w["sliced"],
+                                  batched_tensors=w["fq2"])
+    run = jex.make_sliced_runner(execute_sparse, steps, axes,
+                                 len(w["sliced"]), (len(bits_sorted),), field)
+    amps = field.unwrap(run(staged)).reshape(-1)
+    return dict(zip(bits_sorted, amps))
+
+
+@pytest.mark.parametrize("width", [1, 4])
+def test_sliced_run_matches_jax_and_state_vec(rcs12, jax_amps, monkeypatch,
+                                              width):
+    monkeypatch.setattr(pgk, "MIN_X_ELEMS", 1 << 8)
+    w = rcs12
+    assert len(w["sliced"]) >= 2 and 2 ** len(w["sliced"]) % width == 0
+    sim = TensorNetworkSimulation.from_circuit((w["n"], w["layers"]),
+                                               w["bits"]).load_plan(w["plan"])
+    assert sum(kernel_kind(s) == "gk" for s in sim.steps) >= 1
+    amps = sim.contraction(slice_batch=width, device="cpu")
+    exact = w["circ"].state_vec().reshape(-1)
+    assert sorted(sim.bitstrings_sorted) == sorted(jax_amps)
+    for a, b in zip(amps, sim.bitstrings_sorted):
+        assert abs(a - exact[int(b, 2)]) < 2e-5, b
+        assert abs(a - jax_amps[b]) < 2e-5, b
+
+
+def test_widths_agree_with_kernels_off(rcs12):
+    """The plain dot lowering (no kernel plans, reference leg orders) gives
+    the same amplitudes as the kernel scheme."""
+    w = rcs12
+    sim = TensorNetworkSimulation.from_circuit((w["n"], w["layers"]),
+                                               w["bits"]).load_plan(w["plan"])
+    a1 = dict(zip(sim.bitstrings_sorted,
+                  sim.contraction(slice_batch=2, device="cpu")))
+    from artensor_tpu_torch.runtime.sparse import contraction_scheme_sparse
+    sim.steps, sim.output_bonds, sim.bitstrings_sorted = \
+        contraction_scheme_sparse(sim.ctree, w["bits"], 10,
+                                  lane_schedule=False)
+    assert all(kernel_kind(s) is None for s in sim.steps)
+    a2 = sim.contraction(slice_batch=4, device="cpu")
+    for a, b in zip(a2, sim.bitstrings_sorted):
+        assert abs(a - a1[b]) < 2e-5
+
+
+def test_stage_tensors_matches_jax(rcs12):
+    """Both packages' precompute_static_steps + stage_tensors on the same
+    network give the same buffers."""
+    from artensor_tpu.runtime.sparse import contraction_scheme_sparse as jcs
+
+    w = rcs12
+    steps, _, _ = jcs(w["ctree"], w["bits"], sc_target=10,
+                      lane_schedule=False)
+    axes = jex.build_slicing_axes(w["tb2"], w["sliced"],
+                                  batched_tensors=w["fq2"])
+    arrays = [w["ntn"].tensors[i] for i in range(len(w["ntn"].tensors))]
+    jsteps, jarr = jex.precompute_static_steps(steps, arrays, axes)
+    psteps, parr = pex.precompute_static_steps(steps, arrays, axes)
+    assert [(s.i, s.j) for s in psteps] == [(s.i, s.j) for s in jsteps]
+    jf = jax_make_field(np.complex64, "highest", "split")
+    jbufs = jex.stage_tensors(jf, jarr)
+    pbufs = pex.stage_tensors(SplitField(), parr, "cpu")
+    assert len(pbufs) == len(jbufs)
+    for pb, jb in zip(pbufs, jbufs):
+        for pc, jc in zip(pb, jb):
+            assert tuple(pc.shape) == tuple(jc.shape)
+            np.testing.assert_allclose(pc.numpy(), np.asarray(jc),
+                                       rtol=1e-6, atol=1e-7)
+
+
+def test_slice_select_matches_jax(rcs12):
+    """One width-W selection equals JAX's per-slice slice_select for every
+    id, MSB-first."""
+    w = rcs12
+    k = len(w["sliced"])
+    axes = pex.build_slicing_axes(w["tb2"], w["sliced"],
+                                  batched_tensors=w["fq2"])
+    assert axes == jex.build_slicing_axes(w["tb2"], w["sliced"],
+                                          batched_tensors=w["fq2"])
+    arrays = [w["ntn"].tensors[i] for i in range(len(w["ntn"].tensors))]
+    jf = jax_make_field(np.complex64, "highest", "split")
+    pf = SplitField()
+    jbufs = jex.stage_tensors(jf, arrays)
+    pbufs = pex.stage_tensors(pf, arrays, "cpu")
+    ids = torch.arange(2 ** k)
+    got, batched = pex.slice_select(pbufs, axes, ids, k, pf)
+    assert batched == {tid for e in axes for tid, *_ in e}
+    for sid in range(2 ** k):
+        want = jex.slice_select(jbufs, axes, sid, k, jf)
+        for tid in batched:
+            np.testing.assert_array_equal(got[tid][0][sid].numpy(),
+                                          np.asarray(want[tid][0]))
+            np.testing.assert_array_equal(got[tid][1][sid].numpy(),
+                                          np.asarray(want[tid][1]))
+
+
+def test_runner_rejects_non_dividing_width(rcs12):
+    with pytest.raises(ValueError, match="divide"):
+        pex.make_sliced_runner(None, [], [], 3, (4,), SplitField(),
+                               slice_batch=3)
+
+
+def _n30_sim():
+    with open(os.path.join(DATA, "rcs_n30_m14_s0_amps1000.txt")) as f:
+        bits = [ln.split()[0] for ln in f if ln.strip()]
+    from artensor_tpu_torch import random_circuit as prc
+
+    return TensorNetworkSimulation.from_circuit(
+        prc(5, 6, 14, seed=0), bits).load_plan(
+        os.path.join(DATA, "rcs_n30_m14_s0_sparse_sc24.json"))
+
+
+def test_n30_plan_census_in_the_jax_order(monkeypatch):
+    """Without the port's pair-form order the committed plan plans no pair
+    step: the JAX compiler's layout rule leaves that merge to the dot
+    fallback (the A/B that PERF.md reports)."""
+    from artensor_tpu_torch.runtime import sparse
+
+    monkeypatch.setattr(sparse, "PAIR_FORM", False)
+    kinds = Counter(kernel_kind(s) for s in _n30_sim().steps)
+    kinds.pop(None, None)
+    assert dict(kinds) == N30_KERNEL_STEPS_JAX_ORDER
+
+
+def test_n30_plan_kernel_census():
+    """The committed n30 plan compiled by the port at the 1000 fixture
+    bitstrings plans every ported kernel kind (numbers as in PERF.md)."""
+    sim = _n30_sim()
+    kinds = Counter(kernel_kind(s) for s in sim.steps)
+    kinds.pop(None, None)
+    assert dict(kinds) == N30_KERNEL_STEPS
+    run_steps, _ = pex.precompute_static_steps(
+        sim.steps, [sim.tensors[i] for i in range(len(sim.tensors))],
+        sim.slicing_axes)
+    kinds = Counter(kernel_kind(s) for s in run_steps)
+    kinds.pop(None, None)
+    assert dict(kinds) == N30_KERNEL_STEPS_RUN
+    assert len(sim.slicing_bonds) == 6
+    assert len(sim.bitstrings_sorted) == 1000
