@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("gatherk", "rgrow", "pair")
+SOURCES = ("gatherk", "rgrow", "rgflat", "pair")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -39,6 +39,9 @@ SIGNATURES = {
     },
     "rgrow": {
         "rgrow_launch": [_P] * 8 + [_L, _I, _I, _I, _I, _L, _L, _L, _I, _P],
+    },
+    "rgflat": {
+        "rgflat_launch": [_P] * 9 + [_L, _I, _I, _I, _L, _L, _L, _I, _P],
     },
     "pair": {
         "pair_launch": [_P] * 6 + [_I, _I, _I, _L, _L, _L, _I, _P],

@@ -1,5 +1,6 @@
-"""Gather-K (GK), gathered gather-K (GGK) and RGRow steps: planners,
-wrappers of their CUDA kernels, and the kernels' plain PyTorch versions.
+"""Gather-K (GK), gathered gather-K (GGK), RGRow and RGFlat steps:
+planners, wrappers of their CUDA kernels, and the kernels' plain PyTorch
+versions.
 
 Port of ``artensor_tpu/runtime/gatherk.py``.  The dominant step form of the
 sparse scheme is
@@ -11,8 +12,9 @@ trailing free run is an outer index, the scattered contract legs become one
 table of K row offsets, and the trailing free run f is contiguous in X and
 in Y — so each outer index is one (H x K) . (K x F) product read straight
 from X's storage, with no transpose.  Aligned (both-batched) steps run the
-same product per gathered row (GGK), or the reduction form RGRow for rows
-whose free cells are too few for an f run.
+same product per gathered row (GGK), or the reduction forms for rows whose
+free cells are too few for an f run: RGRow when the contract run is long,
+else RGFlat over the row as stored.
 
 The planners keep the JAX package's step-form logic: which legs are grid,
 contract, fresh or free, the ``wk_idx`` / ``w_perm`` preparation of W, the
@@ -27,15 +29,17 @@ and take the CUDA kernels' own limits instead:
   kernel stores it with stride 1); JAX asked for a 128/64/32-lane split;
 * every step that passes the step-form checks runs the kernel: there is no
   estimate against the dot fallback (``est_s`` decided that on the TPU);
-* the RGFlat row form (``plan_rg_flat``) is not ported; those aligned steps
-  run the gathered-chunk dot fallback.
+* the RGFlat row form (``plan_rg_flat``) reads its stored row through an
+  (F, K) address table in place of the JAX kernel's two 0/1 digit
+  matrices (an MXU device).
 
 Kernel eligibility may therefore differ from the JAX scheme; the amplitudes
 may not.
 
-Every kernel wrapper (``gk_call``, ``ggk_call``, ``rgrow_call``) takes its
-plain PyTorch version only for CPU tensors; for CUDA tensors it launches the
-kernel or raises.  ``launches`` on each wrapper counts kernel launches.
+Every kernel wrapper (``gk_call``, ``ggk_call``, ``rgrow_call``,
+``rgflat_call``) takes its plain PyTorch version only for CPU tensors; for
+CUDA tensors it launches the kernel or raises.  ``launches`` on each
+wrapper counts kernel launches.
 """
 
 from dataclasses import dataclass, field as dc_field
@@ -341,8 +345,12 @@ class RGRow:
         return self.view_x[0] if len(self.view_x) == 2 else 1
 
 
-def plan_rg_row(rx_i, rx_j, riy, rdims_i, rdims_j):
-    """RGRow for the reduction form, or None (sets LAST_REJECT)."""
+def _reduction_legs(tag, rx_i, rx_j, riy, rdims_i, rdims_j):
+    """Leg roles of a reduction-form row (RGRow, RGFlat): X is the larger
+    side, every W leg is contracted with X or fresh, every output leg is a
+    free X leg or a fresh one.  Returns ``(w_is_j, ix_x, dims_x, ix_w,
+    dim_of, contract, fresh, frees)``, or None with LAST_REJECT set to
+    ``tag:`` and the gate."""
     big_is_i = _prod(rdims_i) >= _prod(rdims_j)
     if big_is_i:
         w_is_j, ix_x, dims_x, ix_w, dims_w = True, rx_i, rdims_i, rx_j, rdims_j
@@ -351,9 +359,9 @@ def plan_rg_row(rx_i, rx_j, riy, rdims_i, rdims_j):
     riy = tuple(riy)
     set_x, set_w, set_y = set(ix_x), set(ix_w), set(riy)
     if len(set_x) != len(ix_x) or len(set_y) != len(riy):
-        return _rej("rg:dup")
+        return _rej(f"{tag}:dup")
     if set_x & set_w & set_y:
-        return _rej("rg:shared-batch")
+        return _rej(f"{tag}:shared-batch")
     dim_of = {l: int(d) for l, d in zip(ix_x, dims_x)}
     for l, d in zip(ix_w, dims_w):
         dim_of[l] = int(d)
@@ -362,11 +370,21 @@ def plan_rg_row(rx_i, rx_j, riy, rdims_i, rdims_j):
     frees = [l for l in ix_x if l in set_y]
     if set_w != set(contract) | set(fresh) \
             or len(fresh) + len(contract) != len(ix_w):
-        return _rej("rg:w-legs")
+        return _rej(f"{tag}:w-legs")
     if set_y != set(frees) | set(fresh):
-        return _rej("rg:y-legs")
+        return _rej(f"{tag}:y-legs")
     if not contract:
-        return _rej("rg:no-contract")
+        return _rej(f"{tag}:no-contract")
+    return w_is_j, ix_x, dims_x, ix_w, dim_of, contract, fresh, frees
+
+
+def plan_rg_row(rx_i, rx_j, riy, rdims_i, rdims_j):
+    """RGRow for the reduction form, or None (sets LAST_REJECT)."""
+    legs = _reduction_legs("rg", rx_i, rx_j, riy, rdims_i, rdims_j)
+    if legs is None:
+        return None
+    w_is_j, ix_x, dims_x, ix_w, dim_of, contract, fresh, frees = legs
+    riy = tuple(riy)
     xrow = _prod(dims_x)
     if xrow > RG_ROW_CAP:
         return _rej("rg:row-big")
@@ -400,13 +418,99 @@ def plan_rg_row(rx_i, rx_j, riy, rdims_i, rdims_j):
                  tuple(wpos[l] for l in list(fresh_y) + list(contract)))
 
 
+RGF_ROW_MIN = 128        # min row elements of the flat-row form (JAX gate)
+
+
+@dataclass(frozen=True)
+class RGFlat:
+    """Flat-row reduction plan: aligned rows that fit neither the GK row
+    nor RGRow — a small scattered contract run (K below ``RG_K_MIN``) and
+    no f run, e.g. the 10k batch's (16 contract, 8 free) rows of 128
+    elements.  The row is read in its stored order, without a reorder;
+    ``addr`` maps each (free cell f, contract value k) to its stored
+    address, and the kernel computes
+    y[h, f] = sum_k x[addr[f, k]] * w[h, k] per gathered row, with the
+    fresh block leading the flat output row (h-major, frees in stored
+    order)."""
+
+    H: int
+    K: int
+    F: int
+    addr: object         # (F, K) int64 stored address of (f, k)
+    wk_idx: object       # (H, K) int32; K digits in x-stored contract order
+    dims_y: tuple        # row output dims (riy order)
+    w_is_j: bool
+    flops: int
+    w_dims: tuple = None   # W's stored digit dims / transpose to (H, K)
+    w_perm: tuple = None
+    _dev: dict = dc_field(default_factory=dict, repr=False, compare=False)
+
+    @property
+    def xrow(self):
+        return self.F * self.K
+
+
+def plan_rg_flat(rx_i, rx_j, riy, rdims_i, rdims_j):
+    """RGFlat for a degenerate aligned row, or None (sets LAST_REJECT).
+
+    The JAX planner's gates and reject strings, without its TPU parts: the
+    two 0/1 digit matrices its kernel multiplies on the MXU (and their
+    ``rgf:mat-cap`` VMEM gate) become the ``addr`` table, and ``est_s``
+    goes.  One gate is the port's own: ``rgf:x-legs`` when X has a leg
+    neither contracted with W nor kept (the sparse compiler never makes
+    one; the table needs every stored address to be one (f, k))."""
+    legs = _reduction_legs("rgf", rx_i, rx_j, riy, rdims_i, rdims_j)
+    if legs is None:
+        return None
+    w_is_j, ix_x, dims_x, ix_w, dim_of, contract, fresh, frees = legs
+    riy = tuple(riy)
+    xrow = _prod(dims_x)
+    if xrow < RGF_ROW_MIN:
+        return _rej("rgf:row-small")
+    if xrow > RG_ROW_CAP:
+        return _rej("rgf:row-big")
+    K = _prod(dim_of[l] for l in contract)
+    H = _prod(dim_of[l] for l in fresh)
+    F = _prod(dim_of[l] for l in frees)
+    if H > RG_H_CAP:
+        return _rej("rgf:h-cap")
+    if K * H > HK_CAP:
+        return _rej("rgf:hk-cap")
+    # the flat output row is stored in x free-digit order: riy's frees
+    # must match the stored order, and the fresh block must be contiguous
+    # and leading (digit order free via the wk gather)
+    fset = set(fresh)
+    fresh_y = [l for l in riy if l in fset]
+    frees_y = [l for l in riy if l not in fset]
+    if frees_y != frees:
+        return _rej("rgf:f-order")
+    if fresh_y and riy[:len(fresh_y)] != tuple(fresh_y):
+        return _rej("rgf:h-lead")
+    if K * F != xrow:
+        return _rej("rgf:x-legs")
+    # stored address -> (f, k): each digit of the address goes to the
+    # contract index or to the free index, with the digit order of X
+    xs = dict(zip(ix_x, _strides(dims_x)))
+    k_addr = _mixed_offsets([dim_of[l] for l in contract],
+                            [xs[l] for l in contract])
+    f_addr = _mixed_offsets([dim_of[l] for l in frees],
+                            [xs[l] for l in frees])
+    wpos = {l: k for k, l in enumerate(ix_w)}
+    return RGFlat(H, K, F, f_addr[:, None] + k_addr[None, :],
+                  _wk_index(ix_w, dim_of, fresh_y, contract),
+                  tuple(dim_of[l] for l in riy), w_is_j, 8 * H * xrow,
+                  tuple(dim_of[l] for l in ix_w),
+                  tuple(wpos[l] for l in list(fresh_y) + list(contract)))
+
+
 @dataclass(frozen=True)
 class GGKPlan:
     """Static metadata for one gathered (aligned) step.  For a GK row the
     outer index o runs over (row b, row grid g), with per-o X/Y/W offsets
-    (``xoff`` / ``yoff`` / ``woff``); an RGRow needs only the gathers."""
+    (``xoff`` / ``yoff`` / ``woff``); an RGRow or RGFlat row needs only
+    the gathers."""
 
-    row: object          # GKPlan (row_mode) or RGRow
+    row: object          # GKPlan (row_mode), RGRow or RGFlat
     gi: object           # (B,) int64 rows into the big (X) side
     gj: object           # (B,) int64 rows into the small (W) side
     B: int
@@ -433,8 +537,7 @@ def plan_ggk_step(rx_i, rx_j, riy, rdims_i, rdims_j, gi, gj,
     """GGKPlan for an aligned step, or None.  ``rx_*``/``riy`` are the
     ROW-level label orders (shared batch label stripped); ``gi``/``gj``
     the UNCHUNKED per-target gather rows into operands i and j.  The GK
-    row form is tried first, then RGRow (the JAX order; RGFlat is not
-    ported)."""
+    row form is tried first, then RGRow, then RGFlat (the JAX order)."""
     B = len(gi)
     if B != len(gj):
         return _rej("ggk:gather-mismatch")
@@ -450,12 +553,15 @@ def plan_ggk_step(rx_i, rx_j, riy, rdims_i, rdims_j, gi, gj,
         note = LAST_REJECT
         row = plan_rg_row(rx_i, rx_j, riy, rdims_i, rdims_j)
         if row is None:
+            note = f"{note}/{LAST_REJECT}"
+            row = plan_rg_flat(rx_i, rx_j, riy, rdims_i, rdims_j)
+        if row is None:
             return _rej(f"ggk:row-{note}/{LAST_REJECT}")
     gx = np.asarray(gi if big_is_i else gj, dtype=np.int64)
     gw = np.asarray(gj if big_is_i else gi, dtype=np.int64)
     yrow = _prod(row.dims_y)
     flops = B * row.flops
-    if isinstance(row, RGRow):
+    if isinstance(row, (RGRow, RGFlat)):
         return GGKPlan(row, gx, gw, B,
                        bi_rows if big_is_i else bj_rows,
                        bj_rows if big_is_i else bi_rows,
@@ -658,6 +764,62 @@ def rgrow_call(plan, xr, xi, wr, wi, x_batched, w_batched):
 rgrow_call.launches = 0
 
 
+def rgflat_plain(plan, xr, xi, wr, wi, x_batched, w_batched):
+    """Plain version of the RGFlat kernel (same operands as
+    ``rgflat_call``): gather rows, pick each row's (F, K) values through
+    the address table, complex multiply-and-sum over k."""
+    row = plan.row
+    W = kernels.slice_width(x_batched, w_batched, xr, wr)
+    t = _device_tables(plan, xr.device, ("gi", "gj"))
+    addr = _device_tables(row, xr.device, ("addr",))["addr"]
+    F, K, H = row.F, row.K, row.H
+    lead = (W,) if (x_batched or w_batched) else ()
+    xv = lambda c: c.reshape((W if x_batched else 1, -1, F * K))[:, t["gi"]][
+        ..., addr]                                            # (W, B, F, K)
+    wv = lambda c: c.reshape((W if w_batched else 1, -1, H, K))[:, t["gj"]]
+    xr_, xi_, wr_, wi_ = xv(xr), xv(xi), wv(wr), wv(wi)
+    tr = lambda c: c.transpose(-1, -2)
+    re = torch.matmul(wr_, tr(xr_)) - torch.matmul(wi_, tr(xi_))  # (W,B,H,F)
+    im = torch.matmul(wr_, tr(xi_)) + torch.matmul(wi_, tr(xr_))
+    shape = lead + (plan.B * H * F,)
+    return re.reshape(shape).contiguous(), im.reshape(shape).contiguous()
+
+
+def rgflat_call(plan, xr, xi, wr, wi, x_batched, w_batched):
+    """The RGFlat kernel's wrapper.  ``xr``: X-side rows in their stored
+    order ``(Bi*F*K,)`` or ``(W, ...)``; ``wr``: W-side rows pre-gathered
+    to ``(Bj*H*K,)`` or ``(W, ...)``.  Returns Y ``(B*H*F,)`` or
+    ``(W, B*H*F)``."""
+    row = plan.row
+    W = kernels.slice_width(x_batched, w_batched, xr, wr)
+    F, K, H = row.F, row.K, row.H
+    x_n = plan.bi_rows * F * K
+    w_n = plan.bj_rows * H * K
+    y_n = plan.B * H * F
+    xl = (W,) if x_batched else ()
+    wl = (W,) if w_batched else ()
+    dev = kernels.check_operands("rgflat", (xr, xi, wr, wi),
+                          (xl + (x_n,),) * 2 + (wl + (w_n,),) * 2)
+    if dev.type == "cpu":
+        return rgflat_plain(plan, xr, xi, wr, wi, x_batched, w_batched)
+    t = _device_tables(plan, dev, ("gi", "gj"))
+    addr = _device_tables(row, dev, ("addr",))["addr"]
+    lead = (W,) if (x_batched or w_batched) else ()
+    yr = torch.empty(lead + (y_n,), dtype=torch.float32, device=dev)
+    yi = torch.empty_like(yr)
+    lib = kernels.load()
+    rc = lib.rgflat_launch(
+        *map(kernels.ptr, (xr, xi, wr, wi, yr, yi, t["gi"], t["gj"], addr)),
+        plan.B, F, K, H, x_n if x_batched else 0, w_n if w_batched else 0,
+        y_n if lead else 0, W, kernels.stream_of(xr))
+    kernels.check(rc, "rgflat")
+    rgflat_call.launches += 1
+    return yr, yi
+
+
+rgflat_call.launches = 0
+
+
 # -- step execution ----------------------------------------------------------
 
 def _wk_rows(w, row, rows, lead):
@@ -689,7 +851,7 @@ def apply_gk_step(field, x, y, plan, bx=False, by=False):
 
 
 def apply_ggk_step(field, x, y, plan, bx=False, by=False):
-    """Execute one aligned step via the GGK or RGRow kernel."""
+    """Execute one aligned step via the GGK, RGRow or RGFlat kernel."""
     row = plan.row
     xv, wv, bxv, bwv = (x, y, bx, by) if row.w_is_j else (y, x, by, bx)
     xlead = (xv[0].shape[0],) if bxv else ()
@@ -703,7 +865,7 @@ def apply_ggk_step(field, x, y, plan, bx=False, by=False):
         xv = apply_reorder(field, xv, r, xlead)
     xr, xi = _flat(xv, xlead)
     wr, wi = _wk_rows(wv, row, plan.bj_rows, wlead)
-    call = rgrow_call if isinstance(row, RGRow) else ggk_call
+    call = {RGRow: rgrow_call, RGFlat: rgflat_call}.get(type(row), ggk_call)
     yr, yi = call(plan, xr, xi, wr, wi, bxv, bwv)
     lead = xlead or wlead
     return field.reshape((yr, yi), lead + physical_shape(plan.dims_y))

@@ -13,8 +13,8 @@ metadata.  Three merge regimes:
            needed rows afterwards.
   aligned  both operands batched, cross product too big: per-target gather
            index arrays pick matching rows from each side and the product
-           carries ONE shared batch label (the GGK / RGRow kernels, or
-           chunked gather + dot where no kernel form fits).
+           carries ONE shared batch label (the GGK / RGRow / RGFlat
+           kernels, or chunked gather + dot where no kernel form fits).
   pass     at most one operand batched: the batch label rides along.
 
 Everything the executor needs — index arrays, chunk boundaries, reshapes,
@@ -319,7 +319,8 @@ def _compile_sparse(ctree, bitstrings, sc_target, lane_schedule):
                 gj = _lookup_positions(rep_j, part_j)
                 # target row order is free (downstream metadata matches by
                 # rep VALUE).  Fixed rule in place of the JAX estimate
-                # pick: when a kernel form plans, order the targets
+                # pick: when a kernel form plans (a GK row, RGRow or
+                # RGFlat: plan_ggk_step tries all three), order the targets
                 # gi-major (lexsort by (gi, gj)) so consecutive rows share
                 # the big side's gathered row in cache; else sort by the
                 # larger-batch side's gather index (the JAX fallback)
@@ -397,14 +398,16 @@ def _compile_sparse(ctree, bitstrings, sc_target, lane_schedule):
 
 
 def kernel_kind(step):
-    """'gk', 'ggk', 'rgrow', 'pair' or None: which kernel runs ``step``."""
+    """'gk', 'ggk', 'rgrow', 'rgflat', 'pair' or None: which kernel runs
+    ``step``."""
     lane = step.lane
     if isinstance(lane, GKPlan):
         return "gk"
     if isinstance(lane, PairPlan):
         return "pair"
     if isinstance(lane, GGKPlan):
-        return "rgrow" if isinstance(lane.row, gatherk.RGRow) else "ggk"
+        return {gatherk.RGRow: "rgrow",
+                gatherk.RGFlat: "rgflat"}.get(type(lane.row), "ggk")
     return None
 
 

@@ -1,34 +1,39 @@
 #!/usr/bin/env python3
-"""Drive the port's sparse main path on one NVIDIA card and hold each of its
-CUDA kernels against its plain PyTorch version.
+"""Drive the port's sparse main paths on one NVIDIA card and hold each of
+their CUDA kernels against its plain PyTorch version.
 
     python3 chip_smoke.py [--slice-batch 32]
 
-Run from the repository root on a machine with a CUDA card and nvcc.  Phases,
-in order (any failure exits non-zero; no phase is caught and passed over):
+Run from the repository root on a machine with a CUDA card and nvcc.  Two
+paths of the generated n30 m14 circuit, each with its committed plan and
+JAX fixture: 1000 bitstrings ("1k", 64 slices) and 10000 bitstrings
+("10k", 128 slices; the only path with an RGFlat step).  Phases, in order
+(any failure exits non-zero; no phase is caught and passed over):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. the kernel build from ``artensor_tpu_torch/csrc`` (nvcc, sm_90a), timed;
-3. per kernel (GK, GGK, RGRow, Pair), at every step of its kind in the
-   port's scheme of the n30 workload at the run's slice width, and at the
+2. the kernel build from ``artensor_tpu_torch/csrc`` (nvcc, sm_90a, one
+   compiler per source, all at once), timed; then both schemes compiled;
+3. per path and kernel (GK, GGK, RGRow, RGFlat, Pair), at every step of
+   its kind in the path's scheme at the path's slice width, and at the
    largest step (by flops) also at width 1: the kernel against its plain
    version on the same inputs, the kernel time (CUDA events, median of
    repeats), its bound and the plain version's time; for GK and Pair also
    one PyTorch call of the same function as a yardstick (``torch.einsum``
-   over X in its logical shape, ``torch.matmul``; the port calls neither).
-   The JSON line gives each kernel's largest step and, under
-   ``costliest``, its slowest step;
-4. the slice: ``TensorNetworkSimulation`` of the generated n30 m14 circuit
-   with the committed plan, 1000 bitstrings, all 2^k slices, on the card;
-   every amplitude against the committed JAX fixture keyed by bitstring,
-   the kernel launch counts of that run, the warm wall time (median of 3
-   after one warm-up) and the peak device memory.
+   over X in its logical shape, ``torch.matmul``; the port calls neither);
+4. the 1k path: ``TensorNetworkSimulation`` with all 64 slices on the
+   card; every amplitude against the fixture keyed by bitstring, the
+   kernel launch counts of that run, the warm wall time (median of 3 after
+   one warm-up) and the peak device memory;
+5. the 10k path, the same way, with all 128 slices.
 
-Then one JSON line with every kernel's numbers, the card line, and last
-``{"ok": true, "device": {...}}``.  The bound of a kernel call is the larger
-of its bytes (each input read once, each output written once) over 3.35 TB/s
-and its flops over 67 TFLOP/s, the H100 SXM's float32 rate outside the
-tensor cores (its products run in full float32: no TF32).
+Then one JSON line with every kernel's numbers (for each kernel its
+largest step on the first path that runs it, under ``costliest`` that
+path's slowest step of the kind, and under ``paths`` both paths' launches
+and steps), the card line, and last ``{"ok": true, "device": {...}}``.
+The bound of a kernel call is the larger of its bytes (each input read
+once, each output written once) over 3.35 TB/s and its flops over
+67 TFLOP/s, the H100 SXM's float32 rate outside the tensor cores (its
+products run in full float32: no TF32).
 """
 
 import argparse
@@ -41,8 +46,12 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "artensor_tpu_torch", "data")
-PLAN = os.path.join(DATA, "rcs_n30_m14_s0_sparse_sc24.json")
-FIXTURE = os.path.join(DATA, "rcs_n30_m14_s0_amps1000.txt")
+PATHS = {   # name: (plan, JAX fixture), in the order they are driven
+    "1k": (os.path.join(DATA, "rcs_n30_m14_s0_sparse_sc24.json"),
+           os.path.join(DATA, "rcs_n30_m14_s0_amps1000.txt")),
+    "10k": (os.path.join(DATA, "rcs_n30_m14_s0_sparse10k_sc24.json"),
+            os.path.join(DATA, "rcs_n30_m14_s0_amps10000.txt")),
+}
 CIRCUIT = dict(rows=5, cols=6, cycles=14, seed=0)   # random_circuit args
 DEVICE = "cuda"
 
@@ -60,6 +69,8 @@ KERNELS = {   # name: (wrapper module attr, source, TPU kernel it replaces)
             "artensor_tpu/runtime/gatherk.py:1142"),
     "rgrow": ("rgrow_call", "artensor_tpu_torch/csrc/rgrow.cu",
               "artensor_tpu/runtime/gatherk.py:1245"),
+    "rgflat": ("rgflat_call", "artensor_tpu_torch/csrc/rgflat.cu",
+               "artensor_tpu/runtime/gatherk.py:1287"),
     "pair": ("pair_call", "artensor_tpu_torch/csrc/pair.cu",
              "artensor_tpu/runtime/lanes.py:855"),
 }
@@ -200,9 +211,8 @@ def run_kernel(kind, plan, bx, by, width, seed):
             # a gathered step needs only the rows its targets name
             x_need = len(np.unique(plan.gi)) * xrow
             w_need = len(np.unique(plan.gj)) * row.H * row.K
-            call = gatherk.ggk_call if kind == "ggk" else gatherk.rgrow_call
-            plain = gatherk.ggk_plain if kind == "ggk" \
-                else gatherk.rgrow_plain
+            call = getattr(gatherk, f"{kind}_call")
+            plain = getattr(gatherk, f"{kind}_plain")
     wx = width if xs else 1
     ww = width if ws else 1
     wy = width if (xs or ws) else 1
@@ -258,14 +268,145 @@ def run_kernel(kind, plan, bx, by, width, seed):
     return out
 
 
-def load_fixture():
+def load_fixture(path):
     ref = {}
-    with open(FIXTURE) as f:
+    with open(path) as f:
         for ln in f:
             p = ln.split()
             if len(p) == 3:
                 ref[p[0]] = complex(float(p[1]), float(p[2]))
     return ref
+
+
+def compile_path(name, W):
+    """Load the path's fixture and plan and compile its scheme.  Returns
+    the path's state: simulation, fixture, slice width, device steps,
+    kernel census and kernel steps by kind."""
+    from collections import Counter
+
+    from artensor_tpu_torch import TensorNetworkSimulation, random_circuit
+    from artensor_tpu_torch.runtime.executor import precompute_static_steps
+    from artensor_tpu_torch.runtime.sparse import kernel_kind
+
+    plan, fixture = PATHS[name]
+    ref = load_fixture(fixture)
+    t0 = time.perf_counter()
+    sim = TensorNetworkSimulation.from_circuit(
+        random_circuit(**CIRCUIT), list(ref)).load_plan(plan)
+    compile_s = time.perf_counter() - t0
+    n_slices = 2 ** len(sim.slicing_bonds)
+    check(n_slices % W == 0, f"{name}: slice width {W} does not divide "
+          f"the {n_slices} slices")
+    run_steps, _ = precompute_static_steps(
+        sim.steps, [sim.tensors[i] for i in range(len(sim.tensors))],
+        sim.slicing_axes)
+    census = Counter(kernel_kind(s) or "dot" for s in run_steps)
+    print(f"scheme {name}: {len(sim.steps)} steps compiled in "
+          f"{compile_s:.2f} s, {len(run_steps)} on the device per slice: "
+          f"{json.dumps(dict(sorted(census.items())))}; {n_slices} slices, "
+          f"slice_batch {W}", flush=True)
+    cases = kernel_cases(run_steps, operand_batching(run_steps,
+                                                     sim.slicing_axes))
+    return dict(name=name, sim=sim, ref=ref, W=W, compile_s=compile_s,
+                n_slices=n_slices, census=census, cases=cases)
+
+
+def check_kernels(path):
+    """Phase 3 for one path: every kernel step at the path's width, each
+    kind's largest step also at width 1.  Returns, per kind, the largest
+    step's result, the slowest step's, the kernel ms of one slice group
+    and the largest error of any step."""
+    W, cases, out = path["W"], path["cases"], {}
+    for n, kind in enumerate(KERNELS):
+        if kind not in cases:
+            continue
+        largest = max(range(len(cases[kind])),
+                      key=lambda i: cases[kind][i][0].flops)
+        res = dict(steps=len(cases[kind]), ms_per_group=0.0, max_err=0.0)
+        for i, width in [(i, W) for i in range(len(cases[kind]))] + [
+                (largest, 1)]:
+            plan, bx, by = cases[kind][i]
+            r = run_kernel(kind, plan, bx, by, width, seed=n)
+            print(f"kernel {path['name']} {kind} step {i + 1}/"
+                  f"{len(cases[kind])} ({r['step']}) width {width}: "
+                  f"max_abs_err {r['max_abs_err']:.3e} (rel "
+                  f"{r['max_rel_err']:.2e}, tol {r['tol']:.2e}) ms "
+                  f"{r['ms']:.4f} bound_ms {r['bound_ms']:.4f} "
+                  f"({r['bound_by']}) plain_ms {r['plain_ms']:.4f} "
+                  f"library_ms {r['library_ms']} bytes {r['bytes']} flops "
+                  f"{r['flops']} x_batched {r['x_batched']} w_batched "
+                  f"{r['w_batched']}", flush=True)
+            res["max_err"] = max(res["max_err"], r["max_abs_err"])
+            if width != W:
+                continue
+            res["ms_per_group"] += r["ms"]
+            if i == largest:
+                res["largest"] = r
+            if "costliest" not in res or r["ms"] > res["costliest"]["ms"]:
+                res["costliest"] = r
+        out[kind] = res
+    return out
+
+
+def drive(path, wrappers):
+    """Phases 4 and 5: the path end to end through the entry points, all
+    slices on the card; the launch counts of that run, every amplitude
+    against the fixture, then the warm wall and the peak memory."""
+    import numpy as np
+    import torch
+
+    sim, ref, W, name = path["sim"], path["ref"], path["W"], path["name"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for f in wrappers.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    amps = sim.contraction(slice_batch=W, device=DEVICE)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in wrappers.items()}
+    print(f"path {name}: first run {first_s:.3f} s (staging included); "
+          f"launches {json.dumps(launches)}", flush=True)
+    groups = path["n_slices"] // W
+    for kind in KERNELS:
+        want = path["census"].get(kind, 0) * groups
+        check(launches[kind] == want,
+              f"{name} {kind}: {launches[kind]} launches, expected {want}")
+    check(amps.shape == (len(ref),), f"{name}: amplitude shape {amps.shape}")
+    check(bool(np.isfinite(amps).all()), f"{name}: non-finite amplitudes")
+    r = np.array([ref[b] for b in sim.bitstrings_sorted])
+    rms = float(np.sqrt(np.mean(np.abs(r) ** 2)))
+    err = np.abs(amps - r)
+    bound = AMP_RTOL * np.abs(r) + AMP_RMS_TOL * rms
+    worst = int(np.argmax(err / bound))
+    print(f"path {name} amplitudes: {len(amps)} vs fixture, max|d| "
+          f"{err.max():.3e}, max rel {float((err / np.abs(r)).max()):.3e}, "
+          f"worst |d|/bound {float(err[worst] / bound[worst]):.3e} at "
+          f"{sim.bitstrings_sorted[worst]}; mean 2^30|a|^2 "
+          f"{(2 ** 30) * float(np.mean(np.abs(amps) ** 2)):.4f}", flush=True)
+    check(bool((err <= bound).all()),
+          f"{name}: amplitudes disagree with the fixture beyond "
+          "1e-3*|ref| + 1e-6*rms(ref)")
+
+    run = sim.prepare(slice_batch=W, device=DEVICE)
+    run()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = run()
+        out[0].sum().item()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"path {name} warm wall: median {statistics.median(walls):.4f} s "
+          f"of {['%.4f' % w for w in walls]}; max_memory_allocated "
+          f"{peak / 2 ** 30:.2f} GiB", flush=True)
+    del run, out
+    return dict(launches=launches, first_s=first_s,
+                warm_s=statistics.median(walls), walls=walls,
+                peak_gib=peak / 2 ** 30, compile_s=path["compile_s"],
+                slice_batch=W, slices=path["n_slices"],
+                worst_over_bound=float(err[worst] / bound[worst]))
 
 
 def main():
@@ -280,14 +421,8 @@ def main():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from collections import Counter
-
-    import numpy as np
-
-    from artensor_tpu_torch import TensorNetworkSimulation, kernels
-    from artensor_tpu_torch import random_circuit
+    from artensor_tpu_torch import kernels
     from artensor_tpu_torch.runtime import gatherk, lanes
-    from artensor_tpu_torch.runtime.sparse import kernel_kind
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -296,7 +431,7 @@ def main():
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}", flush=True)
 
-    # -- 2. build -----------------------------------------------------------
+    # -- 2. build, then both schemes ------------------------------------------
     t0 = time.perf_counter()
     lib = kernels.load()
     print(f"build: {time.perf_counter() - t0:.2f} s for "
@@ -306,118 +441,49 @@ def main():
         for ln in report.splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"  ptxas {name}: {ln.strip()}")
+    paths = [compile_path(name, args.slice_batch) for name in PATHS]
+    missing = [k for k in KERNELS if not any(k in p["cases"] for p in paths)]
+    check(not missing, f"no path plans a step for {missing}")
 
-    # -- the workload and its scheme ------------------------------------------
-    ref = load_fixture()
-    bits = list(ref)
-    t0 = time.perf_counter()
-    sim = TensorNetworkSimulation.from_circuit(
-        random_circuit(**CIRCUIT), bits).load_plan(PLAN)
-    compile_s = time.perf_counter() - t0
-    W = args.slice_batch
-    n_slices = 2 ** len(sim.slicing_bonds)
-    from artensor_tpu_torch.runtime.executor import precompute_static_steps
-    run_steps, _ = precompute_static_steps(
-        sim.steps, [sim.tensors[i] for i in range(len(sim.tensors))],
-        sim.slicing_axes)
-    census = Counter(kernel_kind(s) or "dot" for s in run_steps)
-    print(f"scheme: {len(sim.steps)} steps compiled in {compile_s:.2f} s, "
-          f"{len(run_steps)} on the device per slice: "
-          f"{json.dumps(dict(sorted(census.items())))}; {n_slices} slices, "
-          f"slice_batch {W}", flush=True)
+    # -- 3. kernels against their plain versions ------------------------------
+    checked = {p["name"]: check_kernels(p) for p in paths}
 
-    # -- 3. kernels against their plain versions ---------------------------
-    cases = kernel_cases(run_steps, operand_batching(run_steps,
-                                                     sim.slicing_axes))
-    missing = [k for k in KERNELS if k not in cases]
-    check(not missing, f"the scheme plans no step for {missing}")
-    results, costliest, step_ms = {}, {}, {}
-    for n, kind in enumerate(KERNELS):
-        largest = max(range(len(cases[kind])),
-                      key=lambda i: cases[kind][i][0].flops)
-        runs = [(i, W) for i in range(len(cases[kind]))] + [(largest, 1)]
-        for i, width in runs:
-            plan, bx, by = cases[kind][i]
-            r = run_kernel(kind, plan, bx, by, width, seed=n)
-            print(f"kernel {kind} step {i + 1}/{len(cases[kind])} "
-                  f"({r['step']}) width {width}: max_abs_err "
-                  f"{r['max_abs_err']:.3e} (rel {r['max_rel_err']:.2e}, tol "
-                  f"{r['tol']:.2e}) ms {r['ms']:.4f} bound_ms "
-                  f"{r['bound_ms']:.4f} ({r['bound_by']}) plain_ms "
-                  f"{r['plain_ms']:.4f} library_ms {r['library_ms']} "
-                  f"bytes {r['bytes']} flops {r['flops']} x_batched "
-                  f"{r['x_batched']} w_batched {r['w_batched']}", flush=True)
-            if width != W:
-                continue
-            step_ms[kind] = step_ms.get(kind, 0.0) + r["ms"]
-            if i == largest:
-                results[kind] = r
-            if kind not in costliest or r["ms"] > costliest[kind]["ms"]:
-                costliest[kind] = r
-
-    # -- 4. the slice -----------------------------------------------------------
+    # -- 4. and 5. the paths end to end ---------------------------------------
     wrappers = {k: getattr(gatherk if k != "pair" else lanes, v[0])
                 for k, v in KERNELS.items()}
-    for f in wrappers.values():
-        f.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    amps = sim.contraction(slice_batch=W, device=DEVICE)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = {k: f.launches for k, f in wrappers.items()}
-    print(f"main path: first run {first_s:.3f} s (staging included); "
-          f"launches {json.dumps(launches)}", flush=True)
-    groups = n_slices // W
-    for kind in KERNELS:
-        want = census.get(kind, 0) * groups
-        check(launches[kind] == want,
-              f"{kind}: {launches[kind]} launches on the main path, "
-              f"expected {want}")
-    check(amps.shape == (len(bits),), f"amplitude shape {amps.shape}")
-    check(bool(np.isfinite(amps).all()), "non-finite amplitudes")
-    r = np.array([ref[b] for b in sim.bitstrings_sorted])
-    rms = float(np.sqrt(np.mean(np.abs(r) ** 2)))
-    err = np.abs(amps - r)
-    bound = AMP_RTOL * np.abs(r) + AMP_RMS_TOL * rms
-    worst = int(np.argmax(err / bound))
-    print(f"amplitudes: {len(amps)} vs fixture, max|d| {err.max():.3e}, "
-          f"max rel {float((err / np.abs(r)).max()):.3e}, worst |d|/bound "
-          f"{float(err[worst] / bound[worst]):.3e} at "
-          f"{sim.bitstrings_sorted[worst]}; mean 2^30|a|^2 "
-          f"{(2 ** 30) * float(np.mean(np.abs(amps) ** 2)):.4f}", flush=True)
-    check(bool((err <= bound).all()),
-          "amplitudes disagree with the fixture beyond "
-          "1e-3*|ref| + 1e-6*rms(ref)")
-
-    run = sim.prepare(slice_batch=W, device=DEVICE)
-    run()
-    torch.cuda.synchronize()
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        out = run()
-        out[0].sum().item()
-        walls.append(time.perf_counter() - t0)
-    peak = torch.cuda.max_memory_allocated()
-    print(f"main path warm wall: median {statistics.median(walls):.4f} s of "
-          f"{['%.4f' % w for w in walls]}; max_memory_allocated "
-          f"{peak / 2 ** 30:.2f} GiB", flush=True)
+    runs = {}
+    for p in paths:
+        runs[p["name"]] = drive(p, wrappers)
+        p["sim"] = None
+    print(f"paths: {json.dumps(runs)}", flush=True)
 
     line = []
+    keys = ("step", "ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
+            "max_abs_err")
     for kind, (_, source, replaces) in KERNELS.items():
-        res = results[kind]
+        first = next(n for n in PATHS if kind in checked[n])
+        res = checked[first][kind]
+        big = res["largest"]
         line.append({
             "name": kind, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[kind],
-            "max_abs_err": res["max_abs_err"], "ms": res["ms"],
-            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-            "bound_by": res["bound_by"], "library_ms": res["library_ms"],
-            "step": res["step"], "steps": len(cases[kind]),
-            "kernel_ms_per_group": step_ms[kind],
-            "costliest": {k: costliest[kind][k] for k in (
-                "step", "ms", "bound_ms", "bound_by", "plain_ms",
-                "library_ms", "max_abs_err")}})
+            "replaces": replaces,
+            "launches": sum(runs[n]["launches"][kind] for n in PATHS),
+            "max_abs_err": big["max_abs_err"], "ms": big["ms"],
+            "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+            "bound_by": big["bound_by"], "library_ms": big["library_ms"],
+            "path": first, "step": big["step"], "steps": res["steps"],
+            "kernel_ms_per_group": res["ms_per_group"],
+            "costliest": {k: res["costliest"][k] for k in keys},
+            "paths": {n: {"launches": runs[n]["launches"][kind],
+                          "steps": checked[n][kind]["steps"],
+                          "kernel_ms_per_group":
+                              checked[n][kind]["ms_per_group"],
+                          "max_abs_err": checked[n][kind]["max_err"],
+                          "largest": {k: checked[n][kind]["largest"][k]
+                                      for k in keys},
+                          "costliest": {k: checked[n][kind]["costliest"][k]
+                                        for k in keys}}
+                      for n in PATHS if kind in checked[n]}})
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

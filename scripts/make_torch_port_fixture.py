@@ -1,23 +1,33 @@
 """Make the port's n30 workload data with the JAX package (run on the CPU).
 
-Writes into ``artensor_tpu_torch/data/``:
+Two workloads of ``random_circuit(5, 6, 14, seed=0)``, chosen by
+``--n-bits`` (1000, the default, or 10000).  For each it writes into
+``artensor_tpu_torch/data/``:
 
-* ``rcs_n30_m14_s0_sparse_sc<SC>.json`` (``--plan``): a plan for the
-  ``simplify('sparse')`` network of ``random_circuit(5, 6, 14, seed=0)``
-  with ``max_bitstrings=1000``, made by the JAX planner and saved with
-  ``artensor_tpu.plan_io.save_plan``;
-* ``rcs_n30_m14_s0_amps1000.txt``: the amplitudes of the 1000 distinct
-  bitstrings ``np.random.default_rng(0).choice(2**30, 1000,
-  replace=False)`` (MSB-first, in generator order), one ``bitstring re im``
-  line each — the format of Google's amplitude files.  They are computed
-  from the committed plan by the JAX sliced executor, in complex128 on the
-  plain XLA path (no Pallas kernels).
+* the plan (``--plan``): a plan for the circuit's ``simplify('sparse')``
+  network with ``max_bitstrings`` the batch size, made by the JAX planner
+  and saved with ``artensor_tpu.plan_io.save_plan``
+  (``rcs_n30_m14_s0_sparse_sc24.json`` at 1000 bitstrings,
+  ``rcs_n30_m14_s0_sparse10k_sc24.json`` at 10000);
+* ``rcs_n30_m14_s0_amps<N>.txt``: the amplitudes of the N distinct
+  bitstrings ``np.random.default_rng(0).choice(2**30, N, replace=False)``
+  (MSB-first, in generator order), one ``bitstring re im`` line each — the
+  format of Google's amplitude files.  They are computed from the committed
+  plan by the JAX sliced executor, in complex128 on the plain XLA path (no
+  Pallas kernels).  The two draws are separate: the 10000 set does not
+  contain the 1000 set.
 
 Usage (from the repo root)::
 
     JAX_PLATFORMS=cpu python scripts/make_torch_port_fixture.py
     PYTHONHASHSEED=6 JAX_PLATFORMS=cpu \
         python scripts/make_torch_port_fixture.py --plan   # re-plan first
+    PYTHONHASHSEED=2 JAX_PLATFORMS=cpu \
+        python scripts/make_torch_port_fixture.py --n-bits 10000 --plan
+
+The JAX planner's output depends on ``PYTHONHASHSEED`` and on the planner
+runs made before it in the process, so ``--plan`` reproduces a committed
+plan only under the hash seed given above and in a fresh process.
 
 This script may import ``artensor_tpu``; the port never does.
 """
@@ -33,12 +43,24 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 sys.path.insert(0, ROOT)
 DATA = os.path.join(ROOT, "artensor_tpu_torch", "data")
 SC_TARGET = 24
-PLAN = os.path.join(DATA, f"rcs_n30_m14_s0_sparse_sc{SC_TARGET}.json")
-FIXTURE = os.path.join(DATA, "rcs_n30_m14_s0_amps1000.txt")
+# n bitstrings: (plan file, sc_targets planned in order in one process,
+# the PYTHONHASHSEED that gave the committed plan)
+WORKLOADS = {
+    1000: ("rcs_n30_m14_s0_sparse_sc24.json", (22, 23, SC_TARGET), 6),
+    10000: ("rcs_n30_m14_s0_sparse10k_sc24.json", (SC_TARGET,), 2),
+}
 
 
-def bitstrings():
-    ids = np.random.default_rng(0).choice(2 ** 30, 1000, replace=False)
+def plan_path(n_bits):
+    return os.path.join(DATA, WORKLOADS[n_bits][0])
+
+
+def fixture_path(n_bits):
+    return os.path.join(DATA, f"rcs_n30_m14_s0_amps{n_bits}.txt")
+
+
+def bitstrings(n_bits=1000):
+    ids = np.random.default_rng(0).choice(2 ** 30, n_bits, replace=False)
     return [np.binary_repr(int(b), 30) for b in ids]
 
 
@@ -53,27 +75,31 @@ def network():
     return ntn, tb2, fq2
 
 
-def make_plan(path=PLAN):
-    """The JAX planner's output depends on set iteration order, so on
-    PYTHONHASHSEED and on the planner runs made before it in the process.
-    The committed plan came from sc_target 22, 23 and 24 planned in that
-    order in one process under PYTHONHASHSEED=6 (the first of 24 hash
-    seeds tried whose plan the port compiles into all four kernel kinds);
-    this repeats that sequence."""
+def make_plan(n_bits):
+    """Repeat the planner sequence of the committed plan: at 1000
+    bitstrings sc_target 22, 23 and 24 in that order (the first of 24 hash
+    seeds tried whose plan the port compiles into all four kernel kinds of
+    its first slice), at 10000 sc_target 24 alone (7 sliced bonds and one
+    RGFlat step under hash seed 2)."""
     from artensor_tpu import plan_io
     from artensor_tpu.planner import find_order
 
+    _, scs, seed = WORKLOADS[n_bits]
+    if os.environ.get("PYTHONHASHSEED") != str(seed):
+        print(f"warning: the committed plan was made under PYTHONHASHSEED="
+              f"{seed}", file=sys.stderr)
     ntn, tb2, fq2 = network()
-    for sc in (22, 23, SC_TARGET):
+    for sc in scs:
         _, sliced, ctree = find_order(tb2, ntn.bond_dims, fq2,
-                                      max_bitstrings=1000, sc_target=sc,
+                                      max_bitstrings=n_bits, sc_target=sc,
                                       trials=2, iters=10, parallel=False)
-    plan_io.save_plan(path, ctree, meta={"sc_target": SC_TARGET})
+    plan_io.save_plan(plan_path(n_bits), ctree,
+                      meta={"sc_target": SC_TARGET})
     print(f"plan: {len(sliced)} sliced bonds, complexity "
-          f"{ctree.complexity()} -> {path}")
+          f"{ctree.complexity()} -> {plan_path(n_bits)}")
 
 
-def make_fixture():
+def make_fixture(n_bits):
     import jax
 
     from artensor_tpu import plan_io
@@ -86,8 +112,8 @@ def make_fixture():
 
     jax.config.update("jax_enable_x64", True)
     ntn, tb2, fq2 = network()
-    bits = bitstrings()
-    _, sliced, ctree = plan_io.load_plan(PLAN)
+    bits = bitstrings(n_bits)
+    _, sliced, ctree = plan_io.load_plan(plan_path(n_bits))
     steps, _, bits_sorted = contraction_scheme_sparse(
         ctree, bits, sc_target=SC_TARGET, lane_schedule=False)
     field = make_field(np.complex128, "highest", "complex")
@@ -100,23 +126,26 @@ def make_fixture():
     t0 = time.time()
     amps = np.asarray(field.unwrap(run(staged))).reshape(-1)
     by_bits = dict(zip(bits_sorted, amps))
-    with open(FIXTURE, "w") as f:
+    with open(fixture_path(n_bits), "w") as f:
         for b in bits:
             a = by_bits[b]
             f.write(f"{b} {a.real:.17e} {a.imag:.17e}\n")
     p = (2 ** 30) * np.mean(np.abs(amps) ** 2)
     print(f"fixture: {len(bits)} amplitudes in {time.time() - t0:.1f} s, "
-          f"mean 2^n|a|^2 = {p:.4f} -> {FIXTURE}")
+          f"mean 2^n|a|^2 = {p:.4f} -> {fixture_path(n_bits)}")
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n-bits", type=int, default=1000,
+                    choices=sorted(WORKLOADS),
+                    help="amplitude batch size (selects the workload)")
     ap.add_argument("--plan", action="store_true",
                     help="re-plan and overwrite the committed plan first")
     args = ap.parse_args()
     if args.plan:
-        make_plan()
-    make_fixture()
+        make_plan(args.n_bits)
+    make_fixture(args.n_bits)
 
 
 if __name__ == "__main__":

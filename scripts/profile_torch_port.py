@@ -1,7 +1,8 @@
 """Where the port's main path spends its time on the card.
 
-Runs the n30 m14 1000-bitstring sliced contraction of the committed plan
-(the workload of ``chip_smoke.py``) once to warm up, then:
+Runs the n30 m14 sliced contraction of a committed plan (one of the two
+paths of ``chip_smoke.py``: 1000 bitstrings, or 10000 with ``--n-bits
+10000``) once to warm up, then:
 
 1. one run with a CUDA-event pair around every step, summed by the kernel
    that runs the step (``dot`` = the matmul fallback ``apply_lowered``);
@@ -15,11 +16,14 @@ of 3 after one warm-up) under both output orders of the scheme's huge
 both-big merges (``runtime.sparse.PAIR_FORM``: the pair form the pair
 kernel runs, and the JAX full sort that leaves the step to the dot
 fallback), in the order on, off, off, on, and checks that both give the
-same amplitudes.
+same amplitudes; ``--ab-rgflat`` does the same with and without the RGFlat
+row form of aligned steps (without it they run gathered chunks + dot +
+concat), and ``--no-rgflat`` profiles the run without it.
 
 Usage, from the repo root on a machine with a CUDA card::
 
-    python3 scripts/profile_torch_port.py [--slice-batch 32] [--ab-pair-form]
+    python3 scripts/profile_torch_port.py [--slice-batch 32] \
+        [--n-bits 1000|10000] [--ab-pair-form | --ab-rgflat | --no-rgflat]
 """
 
 import argparse
@@ -27,14 +31,18 @@ import os
 import sys
 import time
 from collections import defaultdict
+from contextlib import contextmanager
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 sys.path.insert(0, ROOT)
 DATA = os.path.join(ROOT, "artensor_tpu_torch", "data")
+PLANS = {1000: "rcs_n30_m14_s0_sparse_sc24.json",
+         10000: "rcs_n30_m14_s0_sparse10k_sc24.json"}
 
 FAMILIES = (   # (family, substrings of the kernel name), first match wins
     ("gatherk.cu (GK, GGK)", ("gk_tile_kernel",)),
     ("rgrow.cu (RGRow)", ("rgrow_kernel",)),
+    ("rgflat.cu (RGFlat)", ("rgflat_kernel",)),
     ("pair.cu (Pair)", ("pair_kernel",)),
     ("cuBLAS/CUTLASS matmul (dot fallback)",
      ("gemm", "cutlass", "cublas", "Kernel2")),
@@ -67,18 +75,39 @@ def describe(s):
     return f"K {row.K} H {row.H} F {row.F}{extra}"
 
 
-def workload():
+def workload(n_bits):
     from artensor_tpu_torch import TensorNetworkSimulation, random_circuit
 
-    with open(os.path.join(DATA, "rcs_n30_m14_s0_amps1000.txt")) as f:
+    with open(os.path.join(DATA, f"rcs_n30_m14_s0_amps{n_bits}.txt")) as f:
         bits = [ln.split()[0] for ln in f if ln.strip()]
     return TensorNetworkSimulation.from_circuit(
         random_circuit(5, 6, 14, seed=0), bits).load_plan(
-        os.path.join(DATA, "rcs_n30_m14_s0_sparse_sc24.json"))
+        os.path.join(DATA, PLANS[n_bits]))
 
 
-def ab_pair_form(slice_batch):
-    """Warm wall of the whole run with and without the pair-form order."""
+@contextmanager
+def variant(switch, on):
+    """Compile under one side of an A/B switch: ``pair-form`` (the pair
+    form of huge unbatched both-big merges, ``runtime.sparse.PAIR_FORM``;
+    off = the JAX full sort, the step falls to the dot fallback) or
+    ``rgflat`` (the RGFlat row form of aligned steps; off = those steps
+    run gathered chunks, a dot each, and a concat)."""
+    from artensor_tpu_torch.runtime import gatherk, sparse
+
+    saved = sparse.PAIR_FORM, gatherk.plan_rg_flat
+    if not on and switch == "pair-form":
+        sparse.PAIR_FORM = False
+    elif not on:
+        gatherk.plan_rg_flat = lambda *a: gatherk._rej("rgf:off")
+    try:
+        yield
+    finally:
+        sparse.PAIR_FORM, gatherk.plan_rg_flat = saved
+
+
+def ab(switch, slice_batch, n_bits):
+    """Warm wall of the whole run with the switch on and off, in the order
+    on, off, off, on; both sides must give the same amplitudes."""
     import numpy as np
     import torch
 
@@ -86,11 +115,8 @@ def ab_pair_form(slice_batch):
 
     walls, amps = {True: [], False: []}, {}
     for on in (True, False, False, True):
-        sparse.PAIR_FORM = on
-        try:
-            sim = workload()
-        finally:
-            sparse.PAIR_FORM = True
+        with variant(switch, on):
+            sim = workload(n_bits)
         kinds = [sparse.kernel_kind(s) or "dot" for s in sim.steps]
         run = sim.prepare(slice_batch=slice_batch, device="cuda")
         run()
@@ -104,28 +130,33 @@ def ab_pair_form(slice_batch):
         walls[on].append(sorted(ts)[1])
         a = sim.contraction(slice_batch=slice_batch, device="cuda")
         amps[on] = dict(zip(sim.bitstrings_sorted, a))
-        print(f"pair form {'on ' if on else 'off'}: pair steps "
-              f"{kinds.count('pair')}, gk {kinds.count('gk')}, dot "
-              f"{kinds.count('dot')}; warm wall median of 3 "
-              f"{1e3 * walls[on][-1]:.2f} ms ({['%.2f' % (1e3 * t) for t in ts]})",
-              flush=True)
+        census = {k: kinds.count(k) for k in sorted(set(kinds))}
+        print(f"{switch} {'on ' if on else 'off'}: steps {census}; warm wall "
+              f"median of 3 {1e3 * walls[on][-1]:.2f} ms "
+              f"({['%.2f' % (1e3 * t) for t in ts]})", flush=True)
         del run, sim
         torch.cuda.empty_cache()
     ref = np.array(list(amps[False].values()))
     got = np.array([amps[True][b] for b in amps[False]])
     d = float(np.abs(got - ref).max() / np.abs(ref).max())
-    print(f"pair form A/B: on {['%.2f' % (1e3 * t) for t in walls[True]]} ms,"
+    print(f"{switch} A/B: on {['%.2f' % (1e3 * t) for t in walls[True]]} ms,"
           f" off {['%.2f' % (1e3 * t) for t in walls[False]]} ms; amplitudes"
           f" agree to {d:.2e} of max|a|")
     if not d < 1e-4:
-        raise SystemExit("pair form A/B: the two orders disagree")
+        raise SystemExit(f"{switch} A/B: the two sides disagree")
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--slice-batch", type=int, default=32)
+    ap.add_argument("--n-bits", type=int, default=1000, choices=sorted(PLANS),
+                    help="the workload: 1000 or 10000 bitstrings")
     ap.add_argument("--ab-pair-form", action="store_true",
                     help="time the run with and without the pair-form order")
+    ap.add_argument("--ab-rgflat", action="store_true",
+                    help="time the run with and without the RGFlat form")
+    ap.add_argument("--no-rgflat", action="store_true",
+                    help="profile the run without the RGFlat form")
     args = ap.parse_args()
 
     import torch
@@ -136,15 +167,21 @@ def main():
         return 2
     from artensor_tpu_torch.runtime import sparse
 
-    print(f"card: {torch.cuda.get_device_name(0)}; slice_batch "
-          f"{args.slice_batch}", flush=True)
-    if args.ab_pair_form:
-        ab_pair_form(args.slice_batch)
-        return 0
-    sim = workload()
+    print(f"card: {torch.cuda.get_device_name(0)}; {args.n_bits} bitstrings,"
+          f" slice_batch {args.slice_batch}", flush=True)
+    for switch, on in (("pair-form", args.ab_pair_form),
+                       ("rgflat", args.ab_rgflat)):
+        if on:
+            ab(switch, args.slice_batch, args.n_bits)
+            return 0
+    with variant("rgflat", not args.no_rgflat):
+        sim = workload(args.n_bits)
+    torch.cuda.reset_peak_memory_stats()
     run = sim.prepare(slice_batch=args.slice_batch, device="cuda")
     run()
     torch.cuda.synchronize()
+    print(f"peak device memory of a run: "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
 
     # -- 1. per step kind, CUDA events ---------------------------------------
     marks = []
@@ -193,6 +230,10 @@ def main():
     for (kind, _, desc, shape), ms in sorted(by_step.items(),
                                              key=lambda t: -t[1])[:12]:
         print(f"  {ms:9.3f} ms  {kind:5s} {desc}  out {shape}")
+    print("aligned (gathered) steps (all groups of the run):")
+    for (kind, _, desc, shape), ms in by_step.items():
+        if kind in ("ggk", "rgrow", "rgflat") or "gathered" in desc:
+            print(f"  {ms:9.3f} ms  {kind:6s} {desc}  out {shape}")
 
     # -- 2. torch.profiler: kernels by family ---------------------------------
     with profile(activities=[ProfilerActivity.CPU,

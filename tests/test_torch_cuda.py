@@ -1,9 +1,11 @@
 """The CUDA kernels on the card: each wrapper against its plain version on
 the same CUDA tensors, and the n30 main path against the JAX fixture.
 
-Marked ``gpu``: skipped where no card is present.  On a machine with one:
+Marked ``gpu``: skipped where no card is present.  On a machine with one
+(``--noconftest``: ``tests/conftest.py`` imports JAX, which the port's
+machine need not have):
 
-    python -m pytest tests/test_torch_cuda.py -q -m gpu
+    python -m pytest --noconftest tests/test_torch_cuda.py -q -m gpu
 """
 
 import os
@@ -78,31 +80,44 @@ def test_gk_kernel_matches_plain(cuda, monkeypatch, shape, batched):
     _check(gatherk.gk_call, gatherk.gk_plain, (plan, *x, *w, xb, wb))
 
 
-@pytest.mark.parametrize("form", ["gk_row", "rgrow"])
-def test_gathered_kernels_match_plain(cuda, monkeypatch, form):
+GATHERED = {   # form: (rx_i, rx_j, riy, rd_i, rd_j)
+    "gk_row": (("g", "k", "f0", "f1"), ("k", "h"), ("g", "h", "f0", "f1"),
+               (3, 4, 2, 128), (4, 2)),
+    "rgrow": (("k0", "k1", "f0", "k2", "f1"), ("k1", "k0", "k2", "h"),
+              ("h", "f0", "f1"), (4, 2, 2, 16, 4), (2, 4, 16, 2)),
+    "rgflat": (("f0", "k0", "k1", "k2", "k3", "k4", "f1", "f2"),
+               ("k2", "k0", "k4", "k1", "k3", "h0", "h1"),
+               ("h0", "h1", "f0", "f1", "f2"), (2,) * 8, (2,) * 7),
+    # the 10k plan's RGFlat row: 16 contract then 8 free cells, H 2
+    "rgflat_10k_row": (tuple(f"k{d}" for d in range(4)) + ("f0", "f1", "f2"),
+                       ("k1", "k2", "k0", "k3", "h"), ("h", "f0", "f1", "f2"),
+                       (2,) * 7, (2,) * 5),
+}
+WRAPPERS = {gatherk.GKPlan: (gatherk.ggk_call, gatherk.ggk_plain),
+            gatherk.RGRow: (gatherk.rgrow_call, gatherk.rgrow_plain),
+            gatherk.RGFlat: (gatherk.rgflat_call, gatherk.rgflat_plain)}
+
+
+@pytest.mark.parametrize("w_batched", [False, True])
+@pytest.mark.parametrize("form", sorted(GATHERED))
+def test_gathered_kernels_match_plain(cuda, monkeypatch, form, w_batched):
     monkeypatch.setattr(gatherk, "GGK_MIN_WORK", 1)
     rng = np.random.default_rng(3)
-    if form == "gk_row":
-        args = (("g", "k", "f0", "f1"), ("k", "h"), ("g", "h", "f0", "f1"),
-                (3, 4, 2, 128), (4, 2))
-    else:
-        args = (("k0", "k1", "f0", "k2", "f1"), ("k1", "k0", "k2", "h"),
-                ("h", "f0", "f1"), (4, 2, 2, 16, 4), (2, 4, 16, 2))
     gi = np.sort(rng.integers(0, 7, 40))
     gj = rng.integers(0, 6, 40)
-    plan = gatherk.plan_ggk_step(*args, gi, gj, 7, 6)
+    plan = gatherk.plan_ggk_step(*GATHERED[form], gi, gj, 7, 6)
     assert plan is not None, gatherk.LAST_REJECT
     row = plan.row
-    is_rg = isinstance(row, gatherk.RGRow)
-    assert is_rg == (form == "rgrow")
-    xrow = row.F * row.K if is_rg else row.x_elems
+    assert type(row).__name__ == {"gk_row": "GKPlan", "rgrow": "RGRow"}.get(
+        form, "RGFlat")
+    xrow = row.x_elems if isinstance(row, gatherk.GKPlan) else row.F * row.K
     gen = torch.Generator(device="cuda").manual_seed(7)
     W = 4
     x = [_rand((W, plan.bi_rows * xrow), gen) for _ in "ri"]
-    w = [_rand((plan.bj_rows * row.H * row.K,), gen) for _ in "ri"]
-    call = gatherk.rgrow_call if is_rg else gatherk.ggk_call
-    plain = gatherk.rgrow_plain if is_rg else gatherk.ggk_plain
-    _check(call, plain, (plan, *x, *w, True, False))
+    w = [_rand(((W,) if w_batched else ()) + (plan.bj_rows * row.H * row.K,),
+               gen) for _ in "ri"]
+    call, plain = WRAPPERS[type(row)]
+    _check(call, plain, (plan, *x, *w, True, w_batched))
 
 
 @pytest.mark.parametrize("kmn", [(64, 256, 160), (100, 90, 130),
@@ -119,17 +134,20 @@ def test_pair_kernel_matches_plain(cuda, kmn):
     _check(lanes.pair_call, lanes.pair_plain, (plan, *x, *v, True, False))
 
 
-def test_n30_main_path_matches_fixture(cuda):
+@pytest.mark.parametrize("n_bits,plan", [
+    (1000, "rcs_n30_m14_s0_sparse_sc24.json"),
+    (10000, "rcs_n30_m14_s0_sparse10k_sc24.json")])
+def test_n30_main_path_matches_fixture(cuda, n_bits, plan):
     from artensor_tpu_torch import TensorNetworkSimulation, random_circuit
 
     ref = {}
-    with open(os.path.join(DATA, "rcs_n30_m14_s0_amps1000.txt")) as f:
+    with open(os.path.join(DATA, f"rcs_n30_m14_s0_amps{n_bits}.txt")) as f:
         for ln in f:
             b, re, im = ln.split()
             ref[b] = complex(float(re), float(im))
     sim = TensorNetworkSimulation.from_circuit(
         random_circuit(5, 6, 14, seed=0), list(ref)).load_plan(
-        os.path.join(DATA, "rcs_n30_m14_s0_sparse_sc24.json"))
+        os.path.join(DATA, plan))
     amps = sim.contraction(slice_batch=16)
     r = np.array([ref[b] for b in sim.bitstrings_sorted])
     rms = np.sqrt(np.mean(np.abs(r) ** 2))

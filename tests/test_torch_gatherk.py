@@ -1,8 +1,8 @@
-"""Port GK / GGK / RGRow steps (plain versions on the CPU) against the JAX
-package's apply_gk_step / apply_ggk_step (Pallas in interpret mode) and the
-np.einsum oracle, at widths 1 and 4 with batched and unbatched W.  Shapes
-are those of tests/test_gatherk.py (the two 64-long grid legs cut to 8 to
-keep interpret mode fast); the size thresholds are lowered on both
+"""Port GK / GGK / RGRow / RGFlat steps (plain versions on the CPU) against
+the JAX package's apply_gk_step / apply_ggk_step (Pallas in interpret mode)
+and the np.einsum oracle, at widths 1 and 4 with batched and unbatched W.
+Shapes are those of tests/test_gatherk.py (the two 64-long grid legs cut
+to 8 to keep interpret mode fast); the size thresholds are lowered on both
 packages as its ``_plan`` does."""
 
 import jax
@@ -198,7 +198,18 @@ GGK_CASES = {
               24, 5, 4, "rg"),
     "rg_no_frees": (("k0", "k1"), ("k1", "k0", "h"), ("h",), (16, 16),
                     (16, 16, 4), 24, 5, 4, "rg"),
+    # flat rows (tests/test_gatherk.py:769-818): K = 32 scattered, frees
+    # interleaved; then fresh W legs leading and a W digit order that
+    # differs from X's contract order
+    "rgf_basic": (("f0", "f1", "k0", "k1", "k2", "k3", "k4", "f2", "f3"),
+                  ("k0", "k1", "k2", "k3", "k4"), ("f0", "f1", "f2", "f3"),
+                  (2,) * 9, (2,) * 5, 23, 6, 5, "rgf"),
+    "rgf_fresh_legs": (("f0", "k0", "k1", "k2", "k3", "k4", "f1", "f2"),
+                       ("k2", "k0", "k4", "k1", "k3", "h0", "h1"),
+                       ("h0", "h1", "f0", "f1", "f2"),
+                       (2,) * 8, (2,) * 7, 19, 5, 4, "rgf"),
 }
+ROW_TYPE = {"gk": "GKPlan", "rg": "RGRow", "rgf": "RGFlat"}
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
@@ -216,8 +227,8 @@ def test_ggk_step_matches_jax(low_thresholds, name, mode):
                               bi_rows, bj_rows)
     assert jplan is not None, jgk.LAST_REJECT
     assert pplan is not None, pgk.LAST_REJECT
-    assert isinstance(pplan.row, pgk.RGRow) == (kind == "rg")
-    assert isinstance(jplan.row, jgk.RGRow) == (kind == "rg")
+    assert type(pplan.row).__name__ == ROW_TYPE[kind]
+    assert type(jplan.row).__name__ == ROW_TYPE[kind]
     width, w_batched = MODES[mode]
     x_is_i = pplan.w_is_j
     b_i = bool(width) and (x_is_i or w_batched)
@@ -245,6 +256,88 @@ def test_ggk_rejections():
     assert pgk.plan_ggk_step(("k", "f"), ("k", "h"), ("h", "f"), (2, 128),
                              (2, 2), gi, gi, 2, 2) is None
     assert pgk.LAST_REJECT == "ggk:small"
+
+
+_FLAT_X = ("f0", "f1", "k0", "k1", "k2", "k3", "k4", "f2", "f3")
+_FLAT_K = ("k0", "k1", "k2", "k3", "k4")
+# (rx_i, rx_j, riy, rd_i, rd_j): the flat-row shapes and rejection cases
+# of tests/test_gatherk.py:769-842, and one case for each remaining gate;
+# a rejection case is named after the gate that rejects it
+RGF_ACCEPTED = {"basic", "fresh_legs", "w_on_the_left", "no_frees"}
+RGF_CASES = {
+    "basic": (_FLAT_X, _FLAT_K, ("f0", "f1", "f2", "f3"), (2,) * 9, (2,) * 5),
+    "fresh_legs": (("f0", "k0", "k1", "k2", "k3", "k4", "f1", "f2"),
+                   ("k2", "k0", "k4", "k1", "k3", "h0", "h1"),
+                   ("h0", "h1", "f0", "f1", "f2"), (2,) * 8, (2,) * 7),
+    "w_on_the_left": (_FLAT_K + ("h",), _FLAT_X,
+                      ("h", "f0", "f1", "f2", "f3"), (2,) * 6, (2,) * 9),
+    "no_frees": (("k0", "k1"), ("k1", "k0", "h"), ("h",), (16, 16),
+                 (16, 16, 4)),
+    "row_small": (("f0", "k0", "k1", "f1"), ("k0", "k1"), ("f0", "f1"),
+                  (2, 2, 2, 2), (2, 2)),
+    "f_order": (_FLAT_X, _FLAT_K, ("f2", "f3", "f0", "f1"), (2,) * 9,
+                (2,) * 5),
+    "h_lead": (_FLAT_X, _FLAT_K + ("h",), ("f0", "f1", "f2", "f3", "h"),
+               (2,) * 9, (2,) * 6),
+    "row_big": (("f0", "k0", "f1"), ("k0",), ("f0", "f1"), (256, 4, 64),
+                (4,)),
+    "h_cap": (_FLAT_X, _FLAT_K + ("h",), ("h", "f0", "f1", "f2", "f3"),
+              (2,) * 9, (2,) * 5 + (16,)),
+    "hk_cap": (("f0", "k0"), ("k0", "h"), ("h", "f0"), (8, 4096),
+               (4096, 8)),
+    "no_contract": (("f0", "f1"), ("h",), ("h", "f0", "f1"), (16, 16), (2,)),
+    "w_legs": (_FLAT_X, _FLAT_K + ("z",), ("f0", "f1", "f2", "f3"),
+               (2,) * 9, (2,) * 6),
+    "y_legs": (_FLAT_X, _FLAT_K, ("f0", "f1", "f2", "f3", "z"), (2,) * 9,
+               (2,) * 5),
+    "dup": (_FLAT_X, _FLAT_K, ("f0", "f0", "f2", "f3"), (2,) * 9, (2,) * 5),
+    "shared_batch": (_FLAT_X + ("s",), _FLAT_K + ("s",),
+                     ("s", "f0", "f1", "f2", "f3"), (2,) * 10, (2,) * 6),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RGF_CASES))
+def test_rg_flat_plan_matches_jax(name):
+    """The port's plan_rg_flat accepts and rejects exactly where the JAX
+    planner does, with the same reject string; an accepted plan has the
+    same H, K, F, W preparation and output dims, and its address table
+    is the JAX kernel's two 0/1 digit maps (E: k -> addresses, M:
+    address -> f) as one (F, K) table."""
+    case = RGF_CASES[name]
+    jgk.LAST_REJECT = pgk.LAST_REJECT = None
+    jrow = jgk.plan_rg_flat(*case)
+    prow = pgk.plan_rg_flat(*case)
+    assert (prow is None) == (jrow is None), (jgk.LAST_REJECT,
+                                               pgk.LAST_REJECT)
+    assert (prow is not None) == (name in RGF_ACCEPTED), pgk.LAST_REJECT
+    if jrow is None:
+        assert pgk.LAST_REJECT == jgk.LAST_REJECT
+        assert pgk.LAST_REJECT == "rgf:" + name.replace("_", "-")
+        return
+    assert (prow.H, prow.K, prow.F) == (jrow.H, jrow.K, max(jrow.F, 1))
+    assert prow.xrow == jrow.view_x[0]
+    assert (prow.dims_y, prow.w_is_j, prow.w_dims, prow.w_perm) \
+        == (jrow.dims_y, jrow.w_is_j, jrow.w_dims, jrow.w_perm)
+    np.testing.assert_array_equal(prow.wk_idx, jrow.wk_idx)
+    e = np.zeros_like(jrow.e_mat)
+    m = np.zeros_like(jrow.m_mat)
+    f, k = np.indices(prow.addr.shape)
+    e[k.ravel(), prow.addr.ravel()] = 1
+    m[prow.addr.ravel(), f.ravel()] = 1
+    np.testing.assert_array_equal(e, jrow.e_mat)
+    np.testing.assert_array_equal(m, jrow.m_mat)
+
+
+def test_ggk_rejection_names_all_three_row_forms(low_thresholds):
+    """An aligned step that fits no row form names each form's reject
+    reason, GK row, RGRow then RGFlat (the 10k plan's last gathered step
+    class: a 16-element row)."""
+    gi = np.arange(24) % 5
+    gj = np.arange(24) % 4
+    assert pgk.plan_ggk_step(("f0", "k0", "k1", "f1"), ("k0", "k1"),
+                             ("f0", "f1"), (2, 2, 2, 2), (2, 2), gi, gj,
+                             5, 4) is None
+    assert pgk.LAST_REJECT == "ggk:row-no-f-run/rg:k-small/rgf:row-small"
 
 
 def test_wrappers_validate_operands(low_thresholds):

@@ -88,3 +88,22 @@ def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):
                        env=_clean_env())
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+def test_card_tests_run_without_jax(tmp_path):
+    """The card's unit tests run on a machine without JAX by the command
+    the README gives (``--noconftest``: ``tests/conftest.py`` imports
+    JAX): with a ``jax`` that fails to import, they are collected and
+    (here, without a card) skipped, and nothing fails."""
+    fake = tmp_path / "jax"
+    fake.mkdir()
+    (fake / "__init__.py").write_text(
+        "raise ImportError('no JAX on this machine')\n")
+    env = _clean_env()
+    env["PYTHONPATH"] = str(tmp_path)
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-p",
+           "no:cacheprovider", "-q", "-m", "gpu", "tests/test_torch_cuda.py"]
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       timeout=300, env=env)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert "error" not in r.stdout.lower()

@@ -17,6 +17,7 @@ from artensor_tpu.planner import find_order
 from artensor_tpu.plan_io import plan_to_dict
 from artensor_tpu.runtime import executor as jex
 from artensor_tpu.runtime import gatherk as jgk
+from artensor_tpu.runtime import lanes as jlanes
 from artensor_tpu_torch import TensorNetworkSimulation
 from artensor_tpu_torch.ops.field import SplitField
 from artensor_tpu_torch.runtime import executor as pex
@@ -29,6 +30,9 @@ DATA = os.path.join(os.path.dirname(__file__), "..", "artensor_tpu_torch",
 # kernel steps as compiled, and left after the static gate merges fold
 N30_KERNEL_STEPS = {"gk": 18, "pair": 1, "ggk": 2, "rgrow": 1}
 N30_KERNEL_STEPS_RUN = N30_KERNEL_STEPS
+# the 10k plan's port scheme at its 10000 fixture bitstrings (PERF.md):
+# 187 steps compiled, 79 left per slice after the static merges fold
+N30_10K_KERNEL_STEPS = {"gk": 21, "pair": 2, "ggk": 1, "rgflat": 1}
 # the same plan with the JAX full sort of huge both-big merges
 # (sparse.PAIR_FORM off): the pair step becomes a dot step
 N30_KERNEL_STEPS_JAX_ORDER = {"gk": 18, "ggk": 2, "rgrow": 1}
@@ -167,6 +171,87 @@ def test_slice_select_matches_jax(rcs12):
                                           np.asarray(want[tid][1]))
 
 
+RGF_PLAN = os.path.join(os.path.dirname(__file__), "data",
+                        "torch_port_rcs15_rgflat_plan.json")
+
+
+@pytest.fixture(scope="module")
+def rcs15():
+    """random_circuit(3, 5, 8, seed=13) — 15 qubits — with 128 bitstrings
+    (``default_rng(4)``) and a committed JAX plan at sc_target 12: 3 sliced
+    bonds, one aligned merge of the RGFlat form (B 118, H 4, K 32, F 4)
+    once the size gates are lowered.  The plan is data because the JAX
+    planner's output depends on the hash seed; it is
+    ``find_order(tb2, bond_dims, fq2, max_bitstrings=128, sc_target=12,
+    trials=2, iters=6, betas=np.linspace(3, 21, 12), slicing_repeat=1,
+    parallel=False)`` under ``PYTHONHASHSEED=0``, saved with
+    ``plan_to_dict(ctree, meta={"sc_target": 12})``.  The amplitudes of
+    the JAX sliced runner (its kernels in Pallas interpret mode, RGFlat
+    among them) are keyed by bitstring."""
+    import json
+
+    from artensor_tpu.plan_io import plan_from_dict
+    from artensor_tpu.runtime.sparse import (contraction_scheme_sparse,
+                                             execute_sparse)
+
+    n, layers = random_circuit(3, 5, 8, seed=13)
+    circ = JaxCircuit((n, layers))
+    ntn = JaxNTN(*circ.to_numerical_tn())
+    tb2, fq2 = ntn.simplify("sparse")
+    rng = np.random.default_rng(4)
+    bits = [np.binary_repr(b, n)
+            for b in rng.choice(2 ** n, 128, replace=False)]
+    with open(RGF_PLAN) as f:
+        plan = json.load(f)
+    _, sliced, ctree = plan_from_dict(plan)
+    old = jgk.MIN_X_ELEMS, jgk.SLACK, jgk.GGK_MIN_WORK
+    jgk.MIN_X_ELEMS, jgk.SLACK, jgk.GGK_MIN_WORK = 1 << 8, 1e9, 1 << 8
+    try:
+        steps, _, bits_sorted = contraction_scheme_sparse(
+            ctree, bits, sc_target=12, negotiate=False, fuse=False)
+    finally:
+        jgk.MIN_X_ELEMS, jgk.SLACK, jgk.GGK_MIN_WORK = old
+    assert sum(isinstance(s.lane, jgk.GGKPlan)
+               and isinstance(s.lane.row, jgk.RGFlat) for s in steps) == 1
+    field = jax_make_field(np.complex64, "highest", "split")
+    staged = jex.stage_tensors(
+        field, [ntn.tensors[i] for i in range(len(ntn.tensors))])
+    axes = jex.build_slicing_axes(tb2, sliced, batched_tensors=fq2)
+    run = jex.make_sliced_runner(execute_sparse, steps, axes, len(sliced),
+                                 (len(bits_sorted),), field)
+    amps = field.unwrap(run(staged)).reshape(-1)
+    return dict(n=n, layers=layers, bits=bits, plan=plan,
+                exact=circ.state_vec().reshape(-1),
+                jax_amps=dict(zip(bits_sorted, amps)))
+
+
+@pytest.mark.parametrize("width", [1, 4])
+def test_rgflat_route_matches_jax_and_state_vec(rcs15, monkeypatch, width):
+    """The RGFlat route end to end on the CPU: the port's scheme of the
+    committed small plan runs its one RGFlat merge through
+    ``rgflat_call`` (its plain version here), and every amplitude matches
+    the JAX run and the state vector."""
+    monkeypatch.setattr(pgk, "MIN_X_ELEMS", 1 << 8)
+    monkeypatch.setattr(pgk, "GGK_MIN_WORK", 1 << 8)
+    w = rcs15
+    sim = TensorNetworkSimulation.from_circuit(
+        (w["n"], w["layers"]), w["bits"]).load_plan(w["plan"])
+    kinds = Counter(kernel_kind(s) for s in sim.steps)
+    assert kinds["rgflat"] == 1
+    (row,) = [s.lane.row for s in sim.steps if kernel_kind(s) == "rgflat"]
+    assert (row.H, row.K, row.F) == (4, 32, 4)
+    calls = []
+    real = pgk.rgflat_call
+    monkeypatch.setattr(pgk, "rgflat_call",
+                        lambda *a: calls.append(1) or real(*a))
+    amps = sim.contraction(slice_batch=width, device="cpu")
+    assert len(calls) == 2 ** len(sim.slicing_bonds) // width
+    assert sorted(sim.bitstrings_sorted) == sorted(w["jax_amps"])
+    for a, b in zip(amps, sim.bitstrings_sorted):
+        assert abs(a - w["exact"][int(b, 2)]) < 2e-5, b
+        assert abs(a - w["jax_amps"][b]) < 2e-5, b
+
+
 def test_runner_rejects_non_dividing_width(rcs12):
     with pytest.raises(ValueError, match="divide"):
         pex.make_sliced_runner(None, [], [], 3, (4,), SplitField(),
@@ -185,8 +270,9 @@ def _n30_sim():
 
 def test_n30_plan_census_in_the_jax_order(monkeypatch):
     """Without the port's pair-form order the committed plan plans no pair
-    step: the JAX compiler's layout rule leaves that merge to the dot
-    fallback (the A/B that PERF.md reports)."""
+    step: the time-sorted layout alone leaves that merge to the dot
+    fallback (the A/B that PERF.md reports; the JAX compiler finds its
+    pair step through the retail scheduler, which is not ported)."""
     from artensor_tpu_torch.runtime import sparse
 
     monkeypatch.setattr(sparse, "PAIR_FORM", False)
@@ -195,13 +281,41 @@ def test_n30_plan_census_in_the_jax_order(monkeypatch):
     assert dict(kinds) == N30_KERNEL_STEPS_JAX_ORDER
 
 
+def _jax_kind(step):
+    lane = step.lane
+    if isinstance(lane, jgk.GGKPlan):
+        return {jgk.RGRow: "rgrow", jgk.RGFlat: "rgflat"}.get(
+            type(lane.row), "ggk")
+    return {jgk.GKPlan: "gk", jlanes.PairPlan: "pair"}.get(
+        type(lane), None if lane is None else type(lane).__name__)
+
+
+def _jax_kinds(plan, bits, sc_target=24):
+    """Kernel kind of every step of the JAX scheme of a committed plan
+    (lane_schedule on, fuse and negotiation off)."""
+    from artensor_tpu import plan_io
+    from artensor_tpu.runtime.sparse import contraction_scheme_sparse as jcs
+
+    _, _, ctree = plan_io.load_plan(plan)
+    jsteps, _, jbits = jcs(ctree, bits, sc_target=sc_target,
+                           negotiate=False, fuse=False)
+    return [_jax_kind(s) for s in jsteps], jbits
+
+
 def test_n30_plan_kernel_census():
     """The committed n30 plan compiled by the port at the 1000 fixture
-    bitstrings plans every ported kernel kind (numbers as in PERF.md)."""
+    bitstrings plans every ported kernel kind but RGFlat (numbers as in
+    PERF.md), each kernel step at the same place and of the same kind as
+    in the JAX scheme of the plan: JAX reaches the pair step (step 78)
+    through its retail scheduler, the port through ``PAIR_FORM``."""
     sim = _n30_sim()
     kinds = Counter(kernel_kind(s) for s in sim.steps)
     kinds.pop(None, None)
     assert dict(kinds) == N30_KERNEL_STEPS
+    jkinds, _ = _jax_kinds(
+        os.path.join(DATA, "rcs_n30_m14_s0_sparse_sc24.json"), sim.bitstrings)
+    assert jkinds == [kernel_kind(s) for s in sim.steps]
+    assert jkinds.index("pair") == 78
     run_steps, _ = pex.precompute_static_steps(
         sim.steps, [sim.tensors[i] for i in range(len(sim.tensors))],
         sim.slicing_axes)
@@ -210,3 +324,49 @@ def test_n30_plan_kernel_census():
     assert dict(kinds) == N30_KERNEL_STEPS_RUN
     assert len(sim.slicing_bonds) == 6
     assert len(sim.bitstrings_sorted) == 1000
+
+
+def _n30_10k():
+    with open(os.path.join(DATA, "rcs_n30_m14_s0_amps10000.txt")) as f:
+        bits = [ln.split()[0] for ln in f if ln.strip()]
+    assert len(bits) == 10000
+    return bits, os.path.join(DATA, "rcs_n30_m14_s0_sparse10k_sc24.json")
+
+
+def test_n30_10k_plan_kernel_census():
+    """The committed 10k plan compiled by the port at the 10000 fixture
+    bitstrings: one RGFlat merge (B 9996 rows of 128 elements, H 2, K 16,
+    F 8), and every kernel step at the same place and of the same kind
+    as in the JAX scheme of the plan (lane_schedule on, fuse and
+    negotiation off).  The JAX compiler reaches its two pair steps
+    through the retail scheduler, the port through its ``PAIR_FORM``
+    output order of huge unbatched both-big merges; on this plan both
+    pick steps 39 and 71 (K 256, M 8192, N 256; K 512, M 32768, N 256)."""
+    from artensor_tpu_torch import random_circuit as prc
+
+    bits, plan = _n30_10k()
+    sim = TensorNetworkSimulation.from_circuit(
+        prc(5, 6, 14, seed=0), bits).load_plan(plan)
+    kinds = [kernel_kind(s) for s in sim.steps]
+    census = Counter(kinds)
+    census.pop(None, None)
+    assert dict(census) == N30_10K_KERNEL_STEPS
+    assert len(sim.steps) == 187 and len(sim.slicing_bonds) == 7
+    assert len(sim.bitstrings_sorted) == 10000
+    (flat,) = [s.lane for s in sim.steps if kernel_kind(s) == "rgflat"]
+    assert (flat.B, flat.row.xrow, flat.row.H, flat.row.K, flat.row.F) \
+        == (9996, 128, 2, 16, 8)
+    assert kinds.index("rgflat") == 173
+    pairs = [(k, s.lane.K, s.lane.M, s.lane.N)
+             for k, s in enumerate(sim.steps) if kernel_kind(s) == "pair"]
+    assert pairs == [(39, 256, 8192, 256), (71, 512, 32768, 256)]
+    run_steps, _ = pex.precompute_static_steps(
+        sim.steps, [sim.tensors[i] for i in range(len(sim.tensors))],
+        sim.slicing_axes)
+    run = Counter(kernel_kind(s) for s in run_steps)
+    assert len(run_steps) == 79 and run.pop(None) == 54
+    assert dict(run) == N30_10K_KERNEL_STEPS
+
+    jkinds, jbits = _jax_kinds(plan, bits)
+    assert jkinds == kinds
+    assert sorted(jbits) == sorted(sim.bitstrings_sorted)
