@@ -1,12 +1,19 @@
 // Pair kernel: both-big split-complex product (K, M)^T . (K, N) -> (M, N),
-// for the port's sparse executor.
+// for the port's sparse executor; and the same product with A stored
+// (M, K), the fused complex batched matmul of ops/pallas_mm.py.
 //
-// Replaces the Pallas kernels artensor_tpu/runtime/lanes.py::_pair_kernel
-// and _pair_kernel_b (apply_pair_step, pallas_call :931 and :953).  The
-// wrapper has already applied the plan's re_i / re_j reorders and the
-// v_perm row gather, so both operands are dense row-major (K, M) and
-// (K, N).  A width stride of 0 reads a slice-invariant operand once for
-// every instance.
+// pair_launch replaces the Pallas kernels
+// artensor_tpu/runtime/lanes.py::_pair_kernel and _pair_kernel_b
+// (apply_pair_step, pallas_call :931 and :953).  The wrapper has already
+// applied the plan's re_i / re_j reorders and the v_perm row gather, so
+// both operands are dense row-major (K, M) and (K, N).  A width stride of
+// 0 reads a slice-invariant operand once for every instance.
+//
+// cmm_launch replaces artensor_tpu/ops/pallas_mm.py::_kernel
+// (complex_batched_matmul, pallas_call :61): (B, M, K) . (B, K, N) ->
+// (B, M, N), the batch a grid axis.  The TPU kernel raised unless its
+// 256-tiles divided M and N; this one masks the ragged tiles.  It is on no
+// path of the port (nor of the JAX package).
 //
 // Bound: FP32 FMA throughput.  With K = 64..1024 and M, N in the thousands a
 // step does 8*M*N*K flop on 8*(M*K + K*N + M*N) bytes — hundreds of flop
@@ -35,7 +42,8 @@ constexpr int RUN = 64;           // m (n) values per float4 group of 16 threads
 // K 1024, M = N = 4096 step (243 registers, one block of 8 warps per SM)
 constexpr int TM_ = 8, TN_ = 8, BK_ = 4;
 
-template <int TM, int TN, int BK>
+// A_MK: A is stored (M, K) (cmm_launch) instead of (K, M) (pair_launch)
+template <int TM, int TN, int BK, bool A_MK>
 __global__ void __launch_bounds__(NT, 1)
 pair_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
             const float* __restrict__ vr, const float* __restrict__ vi,
@@ -65,9 +73,11 @@ pair_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 #pragma unroll
         for (int l = 0; l < LA; ++l) {
             const int e = tid + l * NT;
-            const int k = k0 + e / BM, m = m0 + e % BM;
+            const int k = k0 + (A_MK ? e % BK : e / BM);
+            const int m = m0 + (A_MK ? e / BK : e % BM);
             const bool ok = k < K && m < M;
-            const long long a = (long long)k * M + m;
+            const long long a = A_MK ? (long long)m * K + k
+                                     : (long long)k * M + m;
             sa_r[l] = ok ? xrw[a] : 0.f;
             sa_i[l] = ok ? xiw[a] : 0.f;
         }
@@ -85,8 +95,10 @@ pair_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 #pragma unroll
         for (int l = 0; l < LA; ++l) {
             const int e = tid + l * NT;
-            a_s[buf][0][e / BM][e % BM] = sa_r[l];
-            a_s[buf][1][e / BM][e % BM] = sa_i[l];
+            const int kk = A_MK ? e % BK : e / BM;
+            const int mm = A_MK ? e / BK : e % BM;
+            a_s[buf][0][kk][mm] = sa_r[l];
+            a_s[buf][1][kk][mm] = sa_i[l];
         }
 #pragma unroll
         for (int l = 0; l < LB; ++l) {
@@ -184,12 +196,11 @@ pair_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     }
 }
 
-}  // namespace
-
-extern "C" int pair_launch(const float* xr, const float* xi, const float* vr,
-                           const float* vi, float* yr, float* yi, int K,
-                           int M, int N, long long x_ws, long long v_ws,
-                           long long y_ws, int W, void* stream)
+template <bool A_MK>
+int launch(const float* xr, const float* xi, const float* vr,
+           const float* vi, float* yr, float* yi, int K, int M, int N,
+           long long x_ws, long long v_ws, long long y_ws, int W,
+           void* stream)
 {
     constexpr int BM = 16 * TM_, BN = 16 * TN_;
     const long long n_mtiles = (M + BM - 1) / BM;
@@ -198,8 +209,28 @@ extern "C" int pair_launch(const float* xr, const float* xi, const float* vr,
     if (K < 1 || nblk <= 0 || nblk > 0x7fffffffLL || W <= 0 || W > 65535)
         return (int)cudaErrorInvalidConfiguration;
     dim3 grid((unsigned)nblk, (unsigned)W);
-    pair_kernel<TM_, TN_, BK_>
+    pair_kernel<TM_, TN_, BK_, A_MK>
         <<<grid, NT, 0, (cudaStream_t)stream>>>(
         xr, xi, vr, vi, yr, yi, K, M, N, x_ws, v_ws, y_ws, (int)n_ntiles);
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int pair_launch(const float* xr, const float* xi, const float* vr,
+                           const float* vi, float* yr, float* yi, int K,
+                           int M, int N, long long x_ws, long long v_ws,
+                           long long y_ws, int W, void* stream)
+{
+    return launch<false>(xr, xi, vr, vi, yr, yi, K, M, N, x_ws, v_ws, y_ws,
+                         W, stream);
+}
+
+// (B, M, K) . (B, K, N) -> (B, M, N); A = (ar, ai), B = (br, bi)
+extern "C" int cmm_launch(const float* ar, const float* ai, const float* br,
+                          const float* bi, float* yr, float* yi, int B,
+                          int M, int K, int N, void* stream)
+{
+    return launch<true>(ar, ai, br, bi, yr, yi, K, M, N, (long long)M * K,
+                        (long long)K * N, (long long)M * N, B, stream);
 }

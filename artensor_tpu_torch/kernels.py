@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("gatherk", "rgrow", "rgflat", "pair")
+SOURCES = ("gatherk", "rgrow", "rgflat", "lane", "pair")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -43,8 +43,12 @@ SIGNATURES = {
     "rgflat": {
         "rgflat_launch": [_P] * 9 + [_L, _I, _I, _I, _L, _L, _L, _I, _P],
     },
+    "lane": {
+        "lane_launch": [_P] * 11 + [_L, _I, _I, _I] + [_L] * 7 + [_I, _P],
+    },
     "pair": {
         "pair_launch": [_P] * 6 + [_I, _I, _I, _L, _L, _L, _I, _P],
+        "cmm_launch": [_P] * 6 + [_I, _I, _I, _I, _P],
     },
 }
 

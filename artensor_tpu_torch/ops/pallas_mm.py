@@ -1,0 +1,53 @@
+"""Fused split-complex batched matmul: (B, M, K) . (B, K, N) -> (B, M, N).
+
+Port of ``artensor_tpu/ops/pallas_mm.py``.  One complex product in split
+representation is four real products (re = ar.br - ai.bi, im = ar.bi +
+ai.br); the kernel (``cmm_launch`` in ``csrc/pair.cu``, the pair kernel
+with A stored (M, K)) fuses all four per output tile, reading each operand
+tile once for both its products.  The batch is a grid axis.  Unlike the
+TPU kernel it takes any M and N (ragged tiles are masked) rather than
+raising when its tiles do not divide them.
+
+No path of the port calls it, as no path of the JAX package does.  The
+wrapper takes its plain PyTorch version (``complex_batched_matmul_plain``)
+only for CPU tensors; for CUDA tensors it launches the kernel or raises.
+``complex_batched_matmul.launches`` counts kernel launches.
+"""
+
+import torch
+
+from .. import kernels
+
+
+def complex_batched_matmul_plain(a, b):
+    """Plain version: the four real products with ``torch.matmul``."""
+    ar, ai = a
+    br, bi = b
+    return (torch.matmul(ar, br) - torch.matmul(ai, bi),
+            torch.matmul(ar, bi) + torch.matmul(ai, br))
+
+
+def complex_batched_matmul(a, b):
+    """``(re, im)`` of the batched product of A = ``(ar, ai)`` (each
+    ``(B, M, K)`` float32) and B = ``(br, bi)`` (each ``(B, K, N)``)."""
+    ar, ai = a
+    br, bi = b
+    if ar.dim() != 3 or br.dim() != 3:
+        raise ValueError("complex_batched_matmul: operands must be 3-D")
+    B, M, K = ar.shape
+    N = br.shape[2]
+    dev = kernels.check_operands("complex_mm", (ar, ai, br, bi),
+                                 ((B, M, K),) * 2 + ((B, K, N),) * 2)
+    if dev.type == "cpu":
+        return complex_batched_matmul_plain(a, b)
+    yr = torch.empty((B, M, N), dtype=torch.float32, device=dev)
+    yi = torch.empty_like(yr)
+    lib = kernels.load()
+    rc = lib.cmm_launch(*map(kernels.ptr, (ar, ai, br, bi, yr, yi)),
+                        B, M, K, N, kernels.stream_of(ar))
+    kernels.check(rc, "complex_mm")
+    complex_batched_matmul.launches += 1
+    return yr, yi
+
+
+complex_batched_matmul.launches = 0

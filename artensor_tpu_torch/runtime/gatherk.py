@@ -27,6 +27,10 @@ and take the CUDA kernels' own limits instead:
 * the f run must hold a multiple of ``F_MIN`` = 32 elements (a warp's
   worth of coalesced columns) and be the suffix of the output order (the
   kernel stores it with stride 1); JAX asked for a 128/64/32-lane split;
+  two JAX granule rules are kept so that the kernel steps are the JAX
+  scheme's: an X above ``F_BIG_X`` elements needs a multiple of
+  ``F_MIN_BIG`` = 128, and so does the pre-permuted form's run, whose X
+  may hold at most ``PRE_MAX_ELEMS`` elements;
 * every step that passes the step-form checks runs the kernel: there is no
   estimate against the dot fallback (``est_s`` decided that on the TPU);
 * the RGFlat row form (``plan_rg_flat``) reads its stored row through an
@@ -56,6 +60,10 @@ MIN_X_ELEMS = 1 << 16    # below this the dot fallback's cost is irrelevant
 HK_CAP = 1 << 14         # max W elements (= H*K)
 H_CAP = 2048             # max fresh-leg product
 F_MIN = 32               # f run granularity: one warp of coalesced columns
+F_MIN_BIG = 128          # ... of an X above F_BIG_X elements, and of the
+                         # pre-permuted form's run (the JAX rules)
+F_BIG_X = 1 << 20
+PRE_MAX_ELEMS = 1 << 24  # max X elements of the pre-permuted GK form
 GGK_MIN_WORK = MIN_X_ELEMS   # min B * row elements (whole-step size gate)
 RG_ROW_CAP = 1 << 15     # max row elements of the reduction form
 RG_H_CAP = 8             # fresh-leg bound of the reduction form (registers)
@@ -132,6 +140,15 @@ class GKPlan:
     _dev: dict = dc_field(default_factory=dict, repr=False, compare=False)
 
 
+def _f_granule(x_elems):
+    """The f run's granularity: ``F_MIN``, or ``F_MIN_BIG`` for an X above
+    ``F_BIG_X`` elements.  The CUDA kernel needs only ``F_MIN``; the larger
+    granule is the JAX planner's TPU rule (a sub-128 minor view of a big
+    buffer forces a lane-padded copy there), kept so that the port's
+    kernel steps are the JAX scheme's."""
+    return F_MIN if x_elems <= F_BIG_X else F_MIN_BIG
+
+
 def plan_gk_step(ix_i, ix_j, iy, dims_i, dims_j, pin=0, row_mode=False):
     """Build a GKPlan for the step with the GIVEN output order, or None.
 
@@ -181,9 +198,11 @@ def plan_gk_step(ix_i, ix_j, iy, dims_i, dims_j, pin=0, row_mode=False):
             break
         f_legs.insert(0, l)
     F = _prod(dim_of[l] for l in f_legs)
-    # shrink from the front until the run is a whole number of warps and
-    # the suffix of iy (dropped legs become grid legs)
-    while f_legs and (F % F_MIN
+    # shrink from the front until the run is a whole number of warps (of
+    # 128 elements for a big X) and the suffix of iy (dropped legs become
+    # grid legs)
+    fm = _f_granule(x_elems)
+    while f_legs and (F % fm
                       or tuple(iy[len(iy) - len(f_legs):]) != tuple(f_legs)):
         F //= dim_of[f_legs[0]]
         f_legs = f_legs[1:]
@@ -228,13 +247,19 @@ def plan_gk_step_pre(ix_i, ix_j, iy, dims_i, dims_j, pin=0):
     The permuted order is [X free legs in stored order] + [contract legs] +
     [trailing iy-suffix of X free legs].  The JAX package gated this on an
     estimate of the extra transpose against its XLA fallback; here the
-    pre-permuted kernel is always taken when it plans."""
+    pre-permuted kernel is always taken when it plans.  Its other gates
+    are kept: the trailing run is trimmed to a multiple of ``F_MIN_BIG``
+    elements, and X may hold at most ``PRE_MAX_ELEMS`` elements (above that
+    the JAX reorder is an element gather, which the JAX planner refuses
+    here)."""
     if pin:
         return None
     iy = tuple(iy)
     big_is_i = _prod(dims_i) >= _prod(dims_j)
     ix_x = tuple(ix_i if big_is_i else ix_j)
     dims_x = tuple(dims_i if big_is_i else dims_j)
+    if _prod(dims_x) > PRE_MAX_ELEMS:
+        return None
     ix_w = tuple(ix_j if big_is_i else ix_i)
     set_w, set_y, set_x = set(ix_w), set(iy), set(ix_x)
     if len(set_x) != len(ix_x):
@@ -250,7 +275,7 @@ def plan_gk_step_pre(ix_i, ix_j, iy, dims_i, dims_j, pin=0):
             break
         tail.insert(0, l)
     F = _prod(dim_of[l] for l in tail)
-    while tail and F % F_MIN:
+    while tail and F % F_MIN_BIG:
         F //= dim_of[tail[0]]
         tail.pop(0)
     if not tail:

@@ -71,6 +71,20 @@ def apply_reorder(field, x, r, lead=()):
                          tuple(lead) + r.final_shape)
 
 
+def preferred_output_order(ix_i, ix_j, iy_set, dims_i=None, dims_j=None):
+    """Transpose-free output label order: batch + bigger-free +
+    smaller-free (with dims given, the larger operand's free labels come
+    first: the dot's natural order)."""
+    set_i, set_j = set(ix_i), set(ix_j)
+    if dims_i is not None and _prod(dims_j) > _prod(dims_i):
+        ix_i, ix_j = ix_j, ix_i
+        set_i, set_j = set_j, set_i
+    batch = [l for l in ix_i if l in iy_set and l in set_j]
+    free_i = [l for l in ix_i if l in iy_set and l not in set_j]
+    free_j = [l for l in ix_j if l in iy_set and l not in set_i]
+    return tuple(batch + free_i + free_j)
+
+
 @dataclass(frozen=True)
 class Lowered:
     swapped: bool        # operands passed to the dot as (y, x)

@@ -20,15 +20,18 @@ metadata.  Three merge regimes:
 Everything the executor needs — index arrays, chunk boundaries, reshapes,
 kernel plans — is computed here on the host with numpy.  Layouts are
 time-ordered (every output's legs sorted by the step that contracts them),
-and kernels are selected per step in the JAX order: gather-K, then the
-both-big pair kernel, then the pre-permuted gather-K form.
+and kernels are selected per step in the JAX order: gather-K, the lane
+kernel (head orientation), the both-big pair kernel, the pre-permuted
+gather-K form, and last the "retail" second chance: for a big step that
+none of them took, the lane scheduler (``lanes.schedule_step``, both
+orientations) chooses the step's output order and its kernel.  At the end
+``prune_lane_plans`` caps the number of kernel steps.
 
 Not ported yet (a later slice): the gate-block fusion pass (``fuse.py``),
-producer-order negotiation (``negotiate.py``), the v1 lane planner and the
-"retail" second chance that lets the lane scheduler choose a step's output
-order, the calibrated ``metrics.py``, and ``prune_lane_plans``.  Where the
-JAX compiler picks by an estimate — the lexsort of an aligned step's
-targets — this module takes a fixed rule (see ``_compile_sparse``).
+producer-order negotiation (``negotiate.py``) and the layout requests that
+feed it, and the calibrated ``metrics.py``.  Where the JAX compiler picks
+by an estimate — the lexsort of an aligned step's targets — this module
+takes a fixed rule (see ``_compile_sparse``).
 """
 
 from dataclasses import dataclass
@@ -39,16 +42,14 @@ import numpy as np
 from . import gatherk, lanes
 from .gatherk import (GGKPlan, GKPlan, apply_ggk_step, apply_gk_step,
                       plan_ggk_step, plan_gk_step, plan_gk_step_pre)
-from .lanes import PairPlan, apply_pair_step, plan_pair_step
+from .lanes import (LanePlan, PairPlan, apply_lane_step, apply_pair_step,
+                    plan_lane_step, plan_pair_step, prune_lane_plans,
+                    schedule_step)
 from .lowering import apply_lowered, lower_step
 
-# Output order of huge unbatched both-big merges (beyond gather-K's W
-# capacity).  True: the (rows_i, rows_j) pair form, which the pair kernel
-# runs.  False: the JAX compiler's full time sort, which leaves such steps
-# to the dot fallback (the JAX package reaches its pair kernel only through
-# the lane and retail planners, which are not ported).  PERF.md holds the
-# end-to-end A/B of the two on the card.
-PAIR_FORM = True
+# The retail second chance runs on steps whose larger operand (times its
+# batch rows) has at least this many elements.
+RETAIL_MIN_ELEMS = 1 << 20
 
 
 @dataclass(frozen=True)
@@ -63,14 +64,19 @@ class SparseStep:
     post_select: object      # cross: row-index array or None
     lowered: object          # Lowered (non-chunked) or None
     lowered_chunks: tuple | None  # aligned: one Lowered per chunk
-    lane: object = None      # GKPlan / GGKPlan / PairPlan when a kernel runs
+    lane: object = None      # GKPlan / GGKPlan / LanePlan / PairPlan when a
+                             # kernel runs
     note: str = None         # diagnostics: why no kernel plan was attached
 
 
 def _prod_dims(dim_of, bonds):
+    return _prod(dim_of[b] for b in bonds)
+
+
+def _prod(xs):
     p = 1
-    for b in bonds:
-        p *= dim_of[b]
+    for d in xs:
+        p *= int(d)
     return p
 
 
@@ -126,29 +132,24 @@ def _bond_contract_times(order, tensor_bonds):
 
 
 def _time_sorted_output(bond_i, bond_j, new_bonds, time_of, big_is_i,
-                        full_sort=False, fresh_first=False, pair_form=False):
+                        full_sort=False, fresh_first=False):
     """Output order by time-to-contraction (soonest first, open legs last).
 
-    ``full_sort`` (small tensors, or huge unbatched both-big merges): sort
-    every leg.  Large tensors instead PRESERVE the big operand's surviving
+    ``full_sort`` (small tensors, or huge unbatched both-big merges, which
+    the retail second chance then gives the pair kernel's (rows_i, rows_j)
+    order): sort every leg.  Large tensors instead PRESERVE the big operand's surviving
     leg order and insert the small side's fresh bonds as one contiguous
     block at their earliest member's time position — which keeps each
     consumer's trailing free run an exact contiguous suffix of its X's
     storage, the shape the gather-K kernel wants.  ``fresh_first``
     (both-batched cross steps): fresh legs directly after the batch axes,
-    survivors fully sorted.  ``pair_form`` (huge unbatched both-big
-    merges, when ``PAIR_FORM`` is set): i's surviving legs, then j's, each
-    run time-sorted — the (rows_i, rows_j) output of the pair kernel.
+    survivors fully sorted.
     """
     INF = 1 << 60
 
     def tkey(b):
         return (time_of.get(b, INF), str(b))
 
-    if pair_form:
-        set_i = set(bond_i)
-        return (sorted((b for b in new_bonds if b in set_i), key=tkey)
-                + sorted((b for b in new_bonds if b not in set_i), key=tkey))
     if full_sort:
         return sorted(new_bonds, key=tkey)
     xb = bond_i if big_is_i else bond_j
@@ -250,15 +251,13 @@ def _compile_sparse(ctree, bitstrings, sc_target, lane_schedule):
                 if q_i else _prod_dims(dim_of, bond_i)
             size_j = len(rep_j) * _prod_dims(dim_of, bond_j) \
                 if q_j else _prod_dims(dim_of, bond_j)
-            both_big = (not q_i and not q_j
-                        and min(size_i, size_j) > gatherk.HK_CAP)
             new_bonds = _time_sorted_output(
                 bond_i, bond_j, new_bonds, time_of,
                 size_i >= size_j,
                 full_sort=(max(size_i, size_j) < gatherk.MIN_X_ELEMS
-                           or both_big),
-                fresh_first=bool(q_i and q_j),
-                pair_form=both_big and PAIR_FORM)
+                           or (not q_i and not q_j
+                               and min(size_i, size_j) > gatherk.HK_CAP)),
+                fresh_first=bool(q_i and q_j))
         bonds[i], bonds[j] = new_bonds, []
         merged_q = sorted(q_i + q_j)
         gathers = reshape = None
@@ -357,6 +356,7 @@ def _compile_sparse(ctree, bitstrings, sc_target, lane_schedule):
                 ix_i, ix_j = (Bl, *bond_i), (Bl, *bond_j)
                 iy = (Bl, *new_bonds)
 
+        iy0 = tuple(iy)
         ix_i, ix_j, iy = _relabel(ix_i, ix_j, iy)
         if gathers is not None:
             lowered = None
@@ -371,13 +371,17 @@ def _compile_sparse(ctree, bitstrings, sc_target, lane_schedule):
             if lane_schedule:
                 # kernel selection against the (time-ordered) output order:
                 # gather-K first (covers cross merges too — the two batch
-                # axes are ordinary grid/H legs to it), then the both-big
-                # pair kernel, then the pre-permuted gather-K form
+                # axes are ordinary grid/H legs to it), then the lane
+                # kernel, then the both-big pair kernel, then the
+                # pre-permuted gather-K form
                 gatherk.LAST_REJECT = None
                 lane = plan_gk_step(ix_i, ix_j, iy, dims_i, dims_j)
                 note = f"gk:{gatherk.LAST_REJECT}"
                 if lane is None:
                     lanes.LAST_REJECT = None
+                    lane = plan_lane_step(ix_i, ix_j, iy, dims_i, dims_j)
+                    note += f"/v1:{lanes.LAST_REJECT}"
+                if lane is None:
                     lane = plan_pair_step(ix_i, ix_j, iy, dims_i, dims_j)
                     note += f"/pair:{lanes.LAST_REJECT}"
                 if lane is None:
@@ -385,6 +389,32 @@ def _compile_sparse(ctree, bitstrings, sc_target, lane_schedule):
                     lane = plan_gk_step_pre(ix_i, ix_j, iy, dims_i, dims_j)
                     note += f"/pregk:{gatherk.LAST_REJECT or 'no-form'}" \
                         if lane is None else "/pregk:ok"
+                if lane is None and reshape is None and max(
+                        _prod(dims_i), _prod(dims_j)) >= RETAIL_MIN_ELEMS:
+                    # retail second chance: the lane scheduler chooses the
+                    # output order, both orientations.  A batched big
+                    # operand keeps its batch axis leading (pin); a batch
+                    # label must stay the output's first axis.
+                    big_i = _prod(dims_i) >= _prod(dims_j)
+                    batch_rel = None
+                    if batched_i or batched_j:
+                        batch_rel = ix_i[0] if batched_i else ix_j[0]
+                    pin = int(batch_rel is not None
+                              and (batched_i if big_i else batched_j))
+                    iy2, lane2 = schedule_step(
+                        ix_i, ix_j, set(iy), dims_i, dims_j, pin=pin,
+                        orientations=lanes.RETAIL)
+                    if lane2 is not None and (batch_rel is None
+                                              or iy2[0] == batch_rel):
+                        lane = lane2
+                        orig_of = dict(zip(iy, iy0))
+                        new_bonds = [orig_of[l] for l in iy2
+                                     if not str(orig_of[l]).startswith(
+                                         "batch")]
+                        bonds[i] = new_bonds
+                        iy = tuple(iy2)
+                        lowered = lower_step(ix_i, ix_j, iy, dims_i, dims_j)
+                        note += "/retail:ok"
         steps.append(SparseStep(i, j, ix_i, ix_j, iy,
                                 gathers, reshape, post_select,
                                 lowered, lowered_chunks, lane, note))
@@ -394,15 +424,19 @@ def _compile_sparse(ctree, bitstrings, sc_target, lane_schedule):
     out_reps = info[last][1]
     bitstrings_sorted = ["".join(map(str, row))
                          for row in _ints_to_bits(out_reps, n_qubits)]
+    if lane_schedule:
+        prune_lane_plans(steps)
     return steps, bonds[last], bitstrings_sorted
 
 
 def kernel_kind(step):
-    """'gk', 'ggk', 'rgrow', 'rgflat', 'pair' or None: which kernel runs
-    ``step``."""
+    """'gk', 'ggk', 'rgrow', 'rgflat', 'lane', 'pair' or None: which
+    kernel runs ``step``."""
     lane = step.lane
     if isinstance(lane, GKPlan):
         return "gk"
+    if isinstance(lane, LanePlan):
+        return "lane"
     if isinstance(lane, PairPlan):
         return "pair"
     if isinstance(lane, GGKPlan):
@@ -429,6 +463,8 @@ def apply_sparse_step(field, x, y, s, bx=False, by=False):
             else field.concat(parts, axis=int(lead))
     if kernels_ok and isinstance(s.lane, GKPlan):
         out = apply_gk_step(field, x, y, s.lane, bx, by)
+    elif kernels_ok and isinstance(s.lane, LanePlan):
+        out = apply_lane_step(field, x, y, s.lane, bx, by)
     elif kernels_ok:
         out = apply_pair_step(field, x, y, s.lane, bx, by)
     else:

@@ -4,32 +4,40 @@ their CUDA kernels against its plain PyTorch version.
 
     python3 chip_smoke.py [--slice-batch 32]
 
-Run from the repository root on a machine with a CUDA card and nvcc.  Two
+Run from the repository root on a machine with a CUDA card and nvcc.  Three
 paths of the generated n30 m14 circuit, each with its committed plan and
-JAX fixture: 1000 bitstrings ("1k", 64 slices) and 10000 bitstrings
-("10k", 128 slices; the only path with an RGFlat step).  Phases, in order
-(any failure exits non-zero; no phase is caught and passed over):
+JAX fixture: 1000 bitstrings ("1k", 64 slices), 10000 bitstrings ("10k",
+128 slices; the only path with an RGFlat step) and the 1000 bitstrings at
+memory budget sc_target 25 ("1k-sc25", 32 slices; the only path with a
+lane step, planned by the retail scheduler).  Phases, in order (any failure
+exits non-zero; no phase is caught and passed over):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the kernel build from ``artensor_tpu_torch/csrc`` (nvcc, sm_90a, one
-   compiler per source, all at once), timed; then both schemes compiled;
-3. per path and kernel (GK, GGK, RGRow, RGFlat, Pair), at every step of
-   its kind in the path's scheme at the path's slice width, and at the
+   compiler per source, all at once), timed; then the three schemes
+   compiled;
+3. per path and kernel (GK, GGK, RGRow, RGFlat, Lane, Pair), at every step
+   of its kind in the path's scheme at the path's slice width, and at the
    largest step (by flops) also at width 1: the kernel against its plain
    version on the same inputs, the kernel time (CUDA events, median of
-   repeats), its bound and the plain version's time; for GK and Pair also
-   one PyTorch call of the same function as a yardstick (``torch.einsum``
-   over X in its logical shape, ``torch.matmul``; the port calls neither);
-4. the 1k path: ``TensorNetworkSimulation`` with all 64 slices on the
-   card; every amplitude against the fixture keyed by bitstring, the
-   kernel launch counts of that run, the warm wall time (median of 3 after
-   one warm-up) and the peak device memory;
-5. the 10k path, the same way, with all 128 slices.
+   repeats), its bound and the plain version's time; for GK, Lane and Pair
+   also one PyTorch call of the same function as a yardstick
+   (``torch.einsum`` over X in its logical shape, ``torch.matmul``; the
+   port calls neither);
+4. the lane kernel on synthetic plans of the forms the path lacks (head
+   orientation, combo legs, a pinned grid leg; X of 2^24 elements), and
+   the complex batched matmul (``ops/pallas_mm.py``, on no path) at two
+   shapes, each against its plain version, with the same numbers;
+5. each path end to end: ``TensorNetworkSimulation`` with all its slices
+   on the card; every amplitude against the fixture keyed by bitstring,
+   the kernel launch counts of that run, the warm wall time (median of 3
+   after one warm-up) and the peak device memory.
 
 Then one JSON line with every kernel's numbers (for each kernel its
 largest step on the first path that runs it, under ``costliest`` that
-path's slowest step of the kind, and under ``paths`` both paths' launches
-and steps), the card line, and last ``{"ok": true, "device": {...}}``.
+path's slowest step of the kind, and under ``paths`` every path's launches
+and steps; the complex matmul's larger shape, 0 launches), the card line,
+and last ``{"ok": true, "device": {...}}``.
 The bound of a kernel call is the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its flops over
 67 TFLOP/s, the H100 SXM's float32 rate outside the tensor cores (its
@@ -51,6 +59,8 @@ PATHS = {   # name: (plan, JAX fixture), in the order they are driven
            os.path.join(DATA, "rcs_n30_m14_s0_amps1000.txt")),
     "10k": (os.path.join(DATA, "rcs_n30_m14_s0_sparse10k_sc24.json"),
             os.path.join(DATA, "rcs_n30_m14_s0_amps10000.txt")),
+    "1k-sc25": (os.path.join(DATA, "rcs_n30_m14_s0_sparse_sc25.json"),
+                os.path.join(DATA, "rcs_n30_m14_s0_amps1000.txt")),
 }
 CIRCUIT = dict(rows=5, cols=6, cycles=14, seed=0)   # random_circuit args
 DEVICE = "cuda"
@@ -62,18 +72,43 @@ KERNEL_ATOL = 1e-5            #   (float32 sums in another order)
 AMP_RTOL = 1e-3               # amplitudes vs fixture:
 AMP_RMS_TOL = 1e-6            #   |d| <= rtol*|ref| + rms_tol*rms(ref)
 
-KERNELS = {   # name: (wrapper module attr, source, TPU kernel it replaces)
-    "gk": ("gk_call", "artensor_tpu_torch/csrc/gatherk.cu",
+KERNELS = {   # name: (wrapper as module.attr, source, TPU kernel it replaces)
+    "gk": ("runtime.gatherk.gk_call", "artensor_tpu_torch/csrc/gatherk.cu",
            "artensor_tpu/runtime/gatherk.py:1667"),
-    "ggk": ("ggk_call", "artensor_tpu_torch/csrc/gatherk.cu",
+    "ggk": ("runtime.gatherk.ggk_call", "artensor_tpu_torch/csrc/gatherk.cu",
             "artensor_tpu/runtime/gatherk.py:1142"),
-    "rgrow": ("rgrow_call", "artensor_tpu_torch/csrc/rgrow.cu",
+    "rgrow": ("runtime.gatherk.rgrow_call",
+              "artensor_tpu_torch/csrc/rgrow.cu",
               "artensor_tpu/runtime/gatherk.py:1245"),
-    "rgflat": ("rgflat_call", "artensor_tpu_torch/csrc/rgflat.cu",
+    "rgflat": ("runtime.gatherk.rgflat_call",
+               "artensor_tpu_torch/csrc/rgflat.cu",
                "artensor_tpu/runtime/gatherk.py:1287"),
-    "pair": ("pair_call", "artensor_tpu_torch/csrc/pair.cu",
+    "lane": ("runtime.lanes.lane_call", "artensor_tpu_torch/csrc/lane.cu",
+             "artensor_tpu/runtime/lanes.py:586"),
+    "pair": ("runtime.lanes.pair_call", "artensor_tpu_torch/csrc/pair.cu",
              "artensor_tpu/runtime/lanes.py:855"),
 }
+# on no path of the port (nor of the JAX package): checked in phase 4 only
+OFF_PATH = {
+    "complex_mm": ("ops.pallas_mm.complex_batched_matmul",
+                   "artensor_tpu_torch/csrc/pair.cu",
+                   "artensor_tpu/ops/pallas_mm.py:22"),
+}
+# synthetic lane steps of the forms the paths lack, from the index lists of
+# tests/test_lanes.py at X = 2^24 elements: (ix_x, ix_w, iy, dims_x,
+# dims_w, plan_lane_step arguments)
+LANE_FORMS = {
+    "head": (("a", "b", "c", "d"), ("a", "b", "n", "m"), ("n", "m", "c", "d"),
+             (4, 32, 1024, 128), (4, 32, 4, 4),
+             dict(lane_count=2, orient="head")),
+    "combos": (("a", "b", "c", "g", "e", "d"), ("a", "e", "n"),
+               ("g", "c", "b", "n", "d"), (64, 2, 256, 2, 2, 256), (64, 2, 8),
+               dict(lane_count=2, orient="head")),
+    "pinned": (("B", "a", "b", "c"), ("a", "b", "n"), ("B", "n", "c"),
+               (8, 4, 32, 16384), (4, 32, 8),
+               dict(lane_count=2, pin=1, orient="head")),
+}
+CMM_SHAPES = ((2, 256, 64, 256), (32, 1024, 256, 1024))   # (B, M, K, N)
 
 
 class SmokeFailure(Exception):
@@ -135,10 +170,21 @@ def kernel_cases(run_steps, batching):
     return cases
 
 
+def wrapper(spec):
+    """The kernel wrapper named ``module.attr`` in the port's package."""
+    import importlib
+
+    mod, attr = spec.rsplit(".", 1)
+    return getattr(importlib.import_module(f"artensor_tpu_torch.{mod}"), attr)
+
+
 def describe(kind, plan):
     """Short shape summary of a kernel step."""
     if kind == "pair":
         return f"K {plan.K} M {plan.M} N {plan.N}"
+    if kind == "lane":
+        return (f"{plan.orient} L {plan.L} H {plan.H} T {plan.T} F {plan.F}"
+                f" G {len(plan.xoff)} combos {plan.n_combos}")
     row = plan if kind == "gk" else plan.row
     out = f"K {row.K} H {row.H} F {row.F}"
     if kind == "gk":
@@ -195,6 +241,11 @@ def run_kernel(kind, plan, bx, by, width, seed):
         x_n, w_n, y_n = K * M, K * N, M * N
         x_need, w_need = x_n, w_n
         call, plain = lanes.pair_call, lanes.pair_plain
+    elif kind == "lane":
+        xs, ws = (bx, by) if plan.w_is_j else (by, bx)
+        x_n, w_n, y_n = plan.x_elems, plan.w_elems, plan.y_elems
+        x_need, w_need = x_n, w_n
+        call, plain = lanes.lane_call, lanes.lane_plain
     else:
         row = plan if kind == "gk" else plan.row
         xs, ws = (bx, by) if row.w_is_j else (by, bx)
@@ -257,6 +308,18 @@ def run_kernel(kind, plan, bx, by, width, seed):
         lib, view, shape = gk_library(plan, xr, xi, wr, wi, xs, ws)
         y = lib().reshape(shape)
         ref = view(pr, pi)
+    elif kind == "lane":
+        # the step over X's and W's stored legs, output in iy order: the
+        # lane kernel's output layout
+        a, rest = plan.spec.split(",")
+        b, c = rest.split("->")
+        z = lambda on: "z" if on else ""
+        spec = f"{z(xs)}{a},{z(ws)}{b}->{z(xs or ws)}{c}"
+        xc = torch.complex(xr, xi).reshape(xr.shape[:-1] + plan.x_dims)
+        wc = torch.complex(wr, wi).reshape(wr.shape[:-1] + plan.w_dims)
+        lib = lambda: torch.einsum(spec, xc, wc)
+        y = lib().reshape(kr.shape)
+        ref = torch.complex(pr, pi)
     if lib is not None:
         lib_err = torch.abs(y - ref).max().item()
         check(lib_err <= tol, f"{kind} yardstick disagrees with the plain "
@@ -311,6 +374,16 @@ def compile_path(name, W):
                 n_slices=n_slices, census=census, cases=cases)
 
 
+def report(label, r):
+    print(f"kernel {label} ({r['step']}) width {r['width']}: "
+          f"max_abs_err {r['max_abs_err']:.3e} (rel {r['max_rel_err']:.2e}, "
+          f"tol {r['tol']:.2e}) ms {r['ms']:.4f} bound_ms "
+          f"{r['bound_ms']:.4f} ({r['bound_by']}) plain_ms "
+          f"{r['plain_ms']:.4f} library_ms {r['library_ms']} bytes "
+          f"{r['bytes']} flops {r['flops']} x_batched {r['x_batched']} "
+          f"w_batched {r['w_batched']}", flush=True)
+
+
 def check_kernels(path):
     """Phase 3 for one path: every kernel step at the path's width, each
     kind's largest step also at width 1.  Returns, per kind, the largest
@@ -327,15 +400,8 @@ def check_kernels(path):
                 (largest, 1)]:
             plan, bx, by = cases[kind][i]
             r = run_kernel(kind, plan, bx, by, width, seed=n)
-            print(f"kernel {path['name']} {kind} step {i + 1}/"
-                  f"{len(cases[kind])} ({r['step']}) width {width}: "
-                  f"max_abs_err {r['max_abs_err']:.3e} (rel "
-                  f"{r['max_rel_err']:.2e}, tol {r['tol']:.2e}) ms "
-                  f"{r['ms']:.4f} bound_ms {r['bound_ms']:.4f} "
-                  f"({r['bound_by']}) plain_ms {r['plain_ms']:.4f} "
-                  f"library_ms {r['library_ms']} bytes {r['bytes']} flops "
-                  f"{r['flops']} x_batched {r['x_batched']} w_batched "
-                  f"{r['w_batched']}", flush=True)
+            report(f"{path['name']} {kind} step {i + 1}/{len(cases[kind])}",
+                   r)
             res["max_err"] = max(res["max_err"], r["max_abs_err"])
             if width != W:
                 continue
@@ -345,6 +411,72 @@ def check_kernels(path):
             if "costliest" not in res or r["ms"] > res["costliest"]["ms"]:
                 res["costliest"] = r
         out[kind] = res
+    return out
+
+
+def check_lane_forms():
+    """Phase 4a: the lane kernel on each synthetic form at width 1."""
+    from artensor_tpu_torch.runtime import lanes
+
+    out = {}
+    for n, (name, (ix_x, ix_w, iy, dx, dw, kw)) in enumerate(
+            LANE_FORMS.items()):
+        plan = lanes.plan_lane_step(ix_x, ix_w, iy, dx, dw, **kw)
+        check(plan is not None,
+              f"lane form {name} does not plan: {lanes.LAST_REJECT}")
+        r = run_kernel("lane", plan, False, False, 1, seed=100 + n)
+        report(f"lane form {name}", r)
+        out[name] = r
+    return out
+
+
+def check_complex_mm():
+    """Phase 4b: the complex batched matmul against its plain version,
+    with ``torch.matmul`` of complex64 as its yardstick."""
+    import numpy as np
+    import torch
+
+    from artensor_tpu_torch.ops import pallas_mm
+
+    out = []
+    gen = torch.Generator(device=DEVICE).manual_seed(200)
+    for B, M, K, N in CMM_SHAPES:
+        a = tuple(torch.randn((B, M, K), generator=gen, device=DEVICE)
+                  for _ in range(2))
+        b = tuple(torch.randn((B, K, N), generator=gen, device=DEVICE)
+                  for _ in range(2))
+        call = lambda: pallas_mm.complex_batched_matmul(a, b)
+        plain = lambda: pallas_mm.complex_batched_matmul_plain(a, b)
+        kr, ki = call()
+        pr, pi = plain()
+        torch.cuda.synchronize()
+        ref = torch.complex(pr, pi)
+        err = torch.abs(torch.complex(kr, ki) - ref).max().item()
+        scale = torch.abs(ref).max().item()
+        tol = KERNEL_RTOL * scale + KERNEL_ATOL
+        step = f"B {B} M {M} K {K} N {N}"
+        check(np.isfinite(err) and err <= tol,
+              f"complex_mm {step}: kernel disagrees with its plain version:"
+              f" max|d| {err:.3e} > tol {tol:.3e}")
+        ac, bc = torch.complex(*a), torch.complex(*b)
+        lib = lambda: torch.matmul(ac, bc)
+        lib_err = torch.abs(lib() - ref).max().item()
+        check(lib_err <= tol, f"complex_mm yardstick disagrees with the "
+              f"plain version: {lib_err:.3e} > tol {tol:.3e}")
+        flops = 8 * B * M * N * K
+        reps = 5 if flops > 1e12 else 20
+        nbytes = 8 * (B * M * K + B * K * N + B * M * N)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+        r = dict(width=1, step=step, max_abs_err=err, max_rel_err=err / scale,
+                 tol=tol, ms=time_ms(call, reps), plain_ms=time_ms(plain, 3),
+                 bound_ms=1e3 * max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 library_ms=time_ms(lib, reps), bytes=nbytes, flops=flops,
+                 x_batched=True, w_batched=True)
+        report("complex_mm", r)
+        out.append(r)
+        del a, b, kr, ki, pr, pi, ref, ac, bc
+        torch.cuda.empty_cache()
     return out
 
 
@@ -368,7 +500,7 @@ def drive(path, wrappers):
     print(f"path {name}: first run {first_s:.3f} s (staging included); "
           f"launches {json.dumps(launches)}", flush=True)
     groups = path["n_slices"] // W
-    for kind in KERNELS:
+    for kind in wrappers:
         want = path["census"].get(kind, 0) * groups
         check(launches[kind] == want,
               f"{name} {kind}: {launches[kind]} launches, expected {want}")
@@ -422,7 +554,6 @@ def main():
         return 2
     sys.path.insert(0, ROOT)
     from artensor_tpu_torch import kernels
-    from artensor_tpu_torch.runtime import gatherk, lanes
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -431,14 +562,14 @@ def main():
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}", flush=True)
 
-    # -- 2. build, then both schemes ------------------------------------------
+    # -- 2. build, then the schemes -------------------------------------------
     t0 = time.perf_counter()
     lib = kernels.load()
     print(f"build: {time.perf_counter() - t0:.2f} s for "
           f"{', '.join(kernels.SOURCES)} (nvcc {lib.seconds:.2f} s)",
           flush=True)
-    for name, report in sorted(lib.reports.items()):
-        for ln in report.splitlines():
+    for name, log in sorted(lib.reports.items()):
+        for ln in log.splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"  ptxas {name}: {ln.strip()}")
     paths = [compile_path(name, args.slice_batch) for name in PATHS]
@@ -448,9 +579,12 @@ def main():
     # -- 3. kernels against their plain versions ------------------------------
     checked = {p["name"]: check_kernels(p) for p in paths}
 
-    # -- 4. and 5. the paths end to end ---------------------------------------
-    wrappers = {k: getattr(gatherk if k != "pair" else lanes, v[0])
-                for k, v in KERNELS.items()}
+    # -- 4. lane forms the paths lack, the complex matmul (on no path) --------
+    forms = check_lane_forms()
+    cmm = check_complex_mm()
+
+    # -- 5. the paths end to end ----------------------------------------------
+    wrappers = {k: wrapper(v[0]) for k, v in {**KERNELS, **OFF_PATH}.items()}
     runs = {}
     for p in paths:
         runs[p["name"]] = drive(p, wrappers)
@@ -484,6 +618,16 @@ def main():
                           "costliest": {k: checked[n][kind]["costliest"][k]
                                         for k in keys}}
                       for n in PATHS if kind in checked[n]}})
+        if kind == "lane":
+            line[-1]["forms"] = {n: {k: r[k] for k in keys}
+                                 for n, r in forms.items()}
+    (_, source, replaces), big = OFF_PATH["complex_mm"], cmm[-1]
+    line.append({
+        "name": "complex_mm", "route": "cuda", "source": source,
+        "replaces": replaces,
+        "launches": sum(runs[n]["launches"]["complex_mm"] for n in PATHS),
+        **{k: big[k] for k in keys}, "path": None,
+        "shapes": [{k: r[k] for k in keys} for r in cmm]})
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

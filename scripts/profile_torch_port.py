@@ -1,8 +1,8 @@
 """Where the port's main path spends its time on the card.
 
-Runs the n30 m14 sliced contraction of a committed plan (one of the two
-paths of ``chip_smoke.py``: 1000 bitstrings, or 10000 with ``--n-bits
-10000``) once to warm up, then:
+Runs the n30 m14 sliced contraction of a committed plan (one of the three
+paths of ``chip_smoke.py``, by ``--workload``: ``1k``, ``10k`` or
+``1k-sc25``) once to warm up, then:
 
 1. one run with a CUDA-event pair around every step, summed by the kernel
    that runs the step (``dot`` = the matmul fallback ``apply_lowered``);
@@ -11,19 +11,16 @@ paths of ``chip_smoke.py``: 1000 bitstrings, or 10000 with ``--n-bits
 2. one run under ``torch.profiler``: device time by kernel family, and the
    device's busy share of the span from its first to its last kernel.
 
-With ``--ab-pair-form`` it instead times the whole run (warm wall, median
-of 3 after one warm-up) under both output orders of the scheme's huge
-both-big merges (``runtime.sparse.PAIR_FORM``: the pair form the pair
-kernel runs, and the JAX full sort that leaves the step to the dot
-fallback), in the order on, off, off, on, and checks that both give the
-same amplitudes; ``--ab-rgflat`` does the same with and without the RGFlat
-row form of aligned steps (without it they run gathered chunks + dot +
-concat), and ``--no-rgflat`` profiles the run without it.
+With ``--ab-rgflat`` it instead times the whole run (warm wall, median of
+3 after one warm-up) with and without the RGFlat row form of aligned
+steps (without it they run gathered chunks + dot + concat), in the order
+on, off, off, on, and checks that both give the same amplitudes;
+``--no-rgflat`` profiles the run without it.
 
 Usage, from the repo root on a machine with a CUDA card::
 
     python3 scripts/profile_torch_port.py [--slice-batch 32] \
-        [--n-bits 1000|10000] [--ab-pair-form | --ab-rgflat | --no-rgflat]
+        [--workload 1k|10k|1k-sc25] [--ab-rgflat | --no-rgflat]
 """
 
 import argparse
@@ -36,13 +33,19 @@ from contextlib import contextmanager
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 sys.path.insert(0, ROOT)
 DATA = os.path.join(ROOT, "artensor_tpu_torch", "data")
-PLANS = {1000: "rcs_n30_m14_s0_sparse_sc24.json",
-         10000: "rcs_n30_m14_s0_sparse10k_sc24.json"}
+WORKLOADS = {   # name: (plan, amplitude fixture)
+    "1k": ("rcs_n30_m14_s0_sparse_sc24.json", "rcs_n30_m14_s0_amps1000.txt"),
+    "10k": ("rcs_n30_m14_s0_sparse10k_sc24.json",
+            "rcs_n30_m14_s0_amps10000.txt"),
+    "1k-sc25": ("rcs_n30_m14_s0_sparse_sc25.json",
+                "rcs_n30_m14_s0_amps1000.txt"),
+}
 
 FAMILIES = (   # (family, substrings of the kernel name), first match wins
     ("gatherk.cu (GK, GGK)", ("gk_tile_kernel",)),
     ("rgrow.cu (RGRow)", ("rgrow_kernel",)),
     ("rgflat.cu (RGFlat)", ("rgflat_kernel",)),
+    ("lane.cu (Lane)", ("lane_kernel",)),
     ("pair.cu (Pair)", ("pair_kernel",)),
     ("cuBLAS/CUTLASS matmul (dot fallback)",
      ("gemm", "cutlass", "cublas", "Kernel2")),
@@ -70,44 +73,43 @@ def describe(s):
             f" ({len(s.gathers)} gathered chunks)" if s.gathers else "")
     if hasattr(lane, "M"):
         return f"K {lane.K} M {lane.M} N {lane.N}"
+    if hasattr(lane, "orient"):
+        return (f"{lane.orient} L {lane.L} H {lane.H} T {lane.T} "
+                f"F {lane.F} G {len(lane.xoff)}")
     row = getattr(lane, "row", lane)
     extra = f" B {lane.B}" if row is not lane else ""
     return f"K {row.K} H {row.H} F {row.F}{extra}"
 
 
-def workload(n_bits):
+def workload(name):
     from artensor_tpu_torch import TensorNetworkSimulation, random_circuit
 
-    with open(os.path.join(DATA, f"rcs_n30_m14_s0_amps{n_bits}.txt")) as f:
+    plan, fixture = WORKLOADS[name]
+    with open(os.path.join(DATA, fixture)) as f:
         bits = [ln.split()[0] for ln in f if ln.strip()]
     return TensorNetworkSimulation.from_circuit(
         random_circuit(5, 6, 14, seed=0), bits).load_plan(
-        os.path.join(DATA, PLANS[n_bits]))
+        os.path.join(DATA, plan))
 
 
 @contextmanager
-def variant(switch, on):
-    """Compile under one side of an A/B switch: ``pair-form`` (the pair
-    form of huge unbatched both-big merges, ``runtime.sparse.PAIR_FORM``;
-    off = the JAX full sort, the step falls to the dot fallback) or
-    ``rgflat`` (the RGFlat row form of aligned steps; off = those steps
-    run gathered chunks, a dot each, and a concat)."""
-    from artensor_tpu_torch.runtime import gatherk, sparse
+def rgflat(on):
+    """Compile with or without the RGFlat row form of aligned steps (off:
+    those steps run gathered chunks, a dot each, and a concat)."""
+    from artensor_tpu_torch.runtime import gatherk
 
-    saved = sparse.PAIR_FORM, gatherk.plan_rg_flat
-    if not on and switch == "pair-form":
-        sparse.PAIR_FORM = False
-    elif not on:
+    saved = gatherk.plan_rg_flat
+    if not on:
         gatherk.plan_rg_flat = lambda *a: gatherk._rej("rgf:off")
     try:
         yield
     finally:
-        sparse.PAIR_FORM, gatherk.plan_rg_flat = saved
+        gatherk.plan_rg_flat = saved
 
 
-def ab(switch, slice_batch, n_bits):
-    """Warm wall of the whole run with the switch on and off, in the order
-    on, off, off, on; both sides must give the same amplitudes."""
+def ab(slice_batch, name):
+    """Warm wall of the whole run with the RGFlat form on and off, in the
+    order on, off, off, on; both sides must give the same amplitudes."""
     import numpy as np
     import torch
 
@@ -115,8 +117,8 @@ def ab(switch, slice_batch, n_bits):
 
     walls, amps = {True: [], False: []}, {}
     for on in (True, False, False, True):
-        with variant(switch, on):
-            sim = workload(n_bits)
+        with rgflat(on):
+            sim = workload(name)
         kinds = [sparse.kernel_kind(s) or "dot" for s in sim.steps]
         run = sim.prepare(slice_batch=slice_batch, device="cuda")
         run()
@@ -131,7 +133,7 @@ def ab(switch, slice_batch, n_bits):
         a = sim.contraction(slice_batch=slice_batch, device="cuda")
         amps[on] = dict(zip(sim.bitstrings_sorted, a))
         census = {k: kinds.count(k) for k in sorted(set(kinds))}
-        print(f"{switch} {'on ' if on else 'off'}: steps {census}; warm wall "
+        print(f"rgflat {'on ' if on else 'off'}: steps {census}; warm wall "
               f"median of 3 {1e3 * walls[on][-1]:.2f} ms "
               f"({['%.2f' % (1e3 * t) for t in ts]})", flush=True)
         del run, sim
@@ -139,20 +141,18 @@ def ab(switch, slice_batch, n_bits):
     ref = np.array(list(amps[False].values()))
     got = np.array([amps[True][b] for b in amps[False]])
     d = float(np.abs(got - ref).max() / np.abs(ref).max())
-    print(f"{switch} A/B: on {['%.2f' % (1e3 * t) for t in walls[True]]} ms,"
+    print(f"rgflat A/B: on {['%.2f' % (1e3 * t) for t in walls[True]]} ms,"
           f" off {['%.2f' % (1e3 * t) for t in walls[False]]} ms; amplitudes"
           f" agree to {d:.2e} of max|a|")
     if not d < 1e-4:
-        raise SystemExit(f"{switch} A/B: the two sides disagree")
+        raise SystemExit("rgflat A/B: the two sides disagree")
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--slice-batch", type=int, default=32)
-    ap.add_argument("--n-bits", type=int, default=1000, choices=sorted(PLANS),
-                    help="the workload: 1000 or 10000 bitstrings")
-    ap.add_argument("--ab-pair-form", action="store_true",
-                    help="time the run with and without the pair-form order")
+    ap.add_argument("--workload", default="1k", choices=list(WORKLOADS),
+                    help="the path of chip_smoke.py to profile")
     ap.add_argument("--ab-rgflat", action="store_true",
                     help="time the run with and without the RGFlat form")
     ap.add_argument("--no-rgflat", action="store_true",
@@ -167,15 +167,13 @@ def main():
         return 2
     from artensor_tpu_torch.runtime import sparse
 
-    print(f"card: {torch.cuda.get_device_name(0)}; {args.n_bits} bitstrings,"
+    print(f"card: {torch.cuda.get_device_name(0)}; workload {args.workload},"
           f" slice_batch {args.slice_batch}", flush=True)
-    for switch, on in (("pair-form", args.ab_pair_form),
-                       ("rgflat", args.ab_rgflat)):
-        if on:
-            ab(switch, args.slice_batch, args.n_bits)
-            return 0
-    with variant("rgflat", not args.no_rgflat):
-        sim = workload(args.n_bits)
+    if args.ab_rgflat:
+        ab(args.slice_batch, args.workload)
+        return 0
+    with rgflat(not args.no_rgflat):
+        sim = workload(args.workload)
     torch.cuda.reset_peak_memory_stats()
     run = sim.prepare(slice_batch=args.slice_batch, device="cuda")
     run()

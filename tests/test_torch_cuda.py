@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from artensor_tpu_torch.ops import pallas_mm
 from artensor_tpu_torch.runtime import gatherk, lanes
 
 pytestmark = pytest.mark.gpu
@@ -134,9 +135,60 @@ def test_pair_kernel_matches_plain(cuda, kmn):
     _check(lanes.pair_call, lanes.pair_plain, (plan, *x, *v, True, False))
 
 
+# (ix_x, ix_w, iy, dims_x, dims_w, plan_lane_step arguments): the forms
+# of tests/test_lanes.py, and a small copy of the n30 sc25 path's tail step
+# (pinned batch axis, lane-free legs among the lanes: T 8 of L 128)
+LANE_FORMS = {
+    "head": (("a", "b", "c", "d"), ("a", "b", "n", "m"), ("n", "m", "c", "d"),
+             (4, 32, 128, 16), (4, 32, 4, 4),
+             dict(lane_count=2, orient="head")),
+    "combos": (("a", "b", "c", "g", "e", "d"), ("a", "e", "n"),
+               ("g", "c", "b", "n", "d"), (64, 2, 64, 2, 2, 256), (64, 2, 8),
+               dict(lane_count=2, orient="head")),
+    "tail": (("c", "d", "a", "b"), ("a", "b", "n"), ("c", "d", "n"),
+             (128, 16, 4, 32), (4, 32, 16), dict(lane_count=2, orient="tail")),
+    "pinned": (("B", "a", "b", "c"), ("a", "b", "n"), ("B", "n", "c"),
+               (6, 4, 32, 512), (4, 32, 8),
+               dict(lane_count=2, pin=1, orient="head")),
+    "sc25_tail": (("B",) + tuple(f"f{k}" for k in range(10))
+                  + ("p0", "k0", "p1", "k1", "p2", "p3", "k2"),
+                  ("k1", "k2", "k0", "n0", "n1", "n2"),
+                  ("B",) + tuple(f"f{k}" for k in range(10))
+                  + ("p0", "p1", "p2", "p3", "n0", "n1", "n2"),
+                  (4,) + (2,) * 17, (2,) * 6,
+                  dict(lane_count=7, pin=1, orient="tail")),
+}
+
+
+@pytest.mark.parametrize("batched", [(False, False), (True, False),
+                                     (False, True), (True, True)])
+@pytest.mark.parametrize("form", sorted(LANE_FORMS))
+def test_lane_kernel_matches_plain(cuda, form, batched):
+    ix_x, ix_w, iy, dx, dw, kw = LANE_FORMS[form]
+    plan = lanes.plan_lane_step(ix_x, ix_w, iy, dx, dw, **kw)
+    assert plan is not None, lanes.LAST_REJECT
+    xb, wb = batched
+    gen = torch.Generator(device="cuda").manual_seed(len(form))
+    W = 3
+    x = [_rand(((W,) if xb else ()) + (plan.x_elems,), gen) for _ in "ri"]
+    w = [_rand(((W,) if wb else ()) + (plan.w_elems,), gen) for _ in "ri"]
+    _check(lanes.lane_call, lanes.lane_plain, (plan, *x, *w, xb, wb))
+
+
+@pytest.mark.parametrize("bmkn", [(2, 256, 64, 256), (3, 100, 37, 70)])
+def test_complex_matmul_kernel_matches_plain(cuda, bmkn):
+    B, M, K, N = bmkn
+    gen = torch.Generator(device="cuda").manual_seed(M)
+    a = tuple(_rand((B, M, K), gen) for _ in "ri")
+    b = tuple(_rand((B, K, N), gen) for _ in "ri")
+    _check(pallas_mm.complex_batched_matmul,
+           pallas_mm.complex_batched_matmul_plain, (a, b))
+
+
 @pytest.mark.parametrize("n_bits,plan", [
     (1000, "rcs_n30_m14_s0_sparse_sc24.json"),
-    (10000, "rcs_n30_m14_s0_sparse10k_sc24.json")])
+    (10000, "rcs_n30_m14_s0_sparse10k_sc24.json"),
+    (1000, "rcs_n30_m14_s0_sparse_sc25.json")])
 def test_n30_main_path_matches_fixture(cuda, n_bits, plan):
     from artensor_tpu_torch import TensorNetworkSimulation, random_circuit
 

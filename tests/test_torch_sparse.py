@@ -1,6 +1,6 @@
 """The port's sparse slice as a whole: scheme compile, staging, slice
 selection and the sliced runner against the JAX package and the exact
-state vector; and the kernel census of the committed n30 plan."""
+state vector; and the kernel census of the committed n30 plans."""
 
 import os
 from collections import Counter
@@ -33,9 +33,8 @@ N30_KERNEL_STEPS_RUN = N30_KERNEL_STEPS
 # the 10k plan's port scheme at its 10000 fixture bitstrings (PERF.md):
 # 187 steps compiled, 79 left per slice after the static merges fold
 N30_10K_KERNEL_STEPS = {"gk": 21, "pair": 2, "ggk": 1, "rgflat": 1}
-# the same plan with the JAX full sort of huge both-big merges
-# (sparse.PAIR_FORM off): the pair step becomes a dot step
-N30_KERNEL_STEPS_JAX_ORDER = {"gk": 18, "ggk": 2, "rgrow": 1}
+# the sc25 plan's port scheme at the 1000 fixture bitstrings (PERF.md)
+N30_SC25_KERNEL_STEPS = {"gk": 11, "pair": 1, "lane": 1, "rgflat": 1}
 
 
 @pytest.fixture(scope="module")
@@ -268,17 +267,18 @@ def _n30_sim():
         os.path.join(DATA, "rcs_n30_m14_s0_sparse_sc24.json"))
 
 
-def test_n30_plan_census_in_the_jax_order(monkeypatch):
-    """Without the port's pair-form order the committed plan plans no pair
-    step: the time-sorted layout alone leaves that merge to the dot
-    fallback (the A/B that PERF.md reports; the JAX compiler finds its
-    pair step through the retail scheduler, which is not ported)."""
-    from artensor_tpu_torch.runtime import sparse
-
-    monkeypatch.setattr(sparse, "PAIR_FORM", False)
-    kinds = Counter(kernel_kind(s) for s in _n30_sim().steps)
+def test_n30_plan_census_in_the_jax_order():
+    """The port compiles huge unbatched both-big merges in the JAX order
+    (the full time sort), and the time-sorted layout alone leaves that
+    merge to no kernel: the retail second chance then finds the pair
+    kernel with its own (rows_i, rows_j) order, as the JAX compiler does
+    (step 78 of the committed plan)."""
+    steps = _n30_sim().steps
+    kinds = Counter(kernel_kind(s) for s in steps)
     kinds.pop(None, None)
-    assert dict(kinds) == N30_KERNEL_STEPS_JAX_ORDER
+    assert dict(kinds) == N30_KERNEL_STEPS
+    (pair,) = [s for s in steps if kernel_kind(s) == "pair"]
+    assert "/pair:pair-iy" in pair.note and pair.note.endswith("/retail:ok")
 
 
 def _jax_kind(step):
@@ -286,28 +286,34 @@ def _jax_kind(step):
     if isinstance(lane, jgk.GGKPlan):
         return {jgk.RGRow: "rgrow", jgk.RGFlat: "rgflat"}.get(
             type(lane.row), "ggk")
-    return {jgk.GKPlan: "gk", jlanes.PairPlan: "pair"}.get(
+    return {jgk.GKPlan: "gk", jlanes.PairPlan: "pair",
+            jlanes.LanePlan: "lane"}.get(
         type(lane), None if lane is None else type(lane).__name__)
 
 
 def _jax_kinds(plan, bits, sc_target=24):
     """Kernel kind of every step of the JAX scheme of a committed plan
     (lane_schedule on, fuse and negotiation off)."""
+    jsteps, jbits = _jax_scheme(plan, bits, sc_target)
+    return [_jax_kind(s) for s in jsteps], jbits
+
+
+def _jax_scheme(plan, bits, sc_target=24):
     from artensor_tpu import plan_io
     from artensor_tpu.runtime.sparse import contraction_scheme_sparse as jcs
 
     _, _, ctree = plan_io.load_plan(plan)
     jsteps, _, jbits = jcs(ctree, bits, sc_target=sc_target,
                            negotiate=False, fuse=False)
-    return [_jax_kind(s) for s in jsteps], jbits
+    return jsteps, jbits
 
 
 def test_n30_plan_kernel_census():
     """The committed n30 plan compiled by the port at the 1000 fixture
-    bitstrings plans every ported kernel kind but RGFlat (numbers as in
-    PERF.md), each kernel step at the same place and of the same kind as
-    in the JAX scheme of the plan: JAX reaches the pair step (step 78)
-    through its retail scheduler, the port through ``PAIR_FORM``."""
+    bitstrings plans every ported kernel kind but RGFlat and Lane (numbers
+    as in PERF.md), each kernel step at the same place and of the same
+    kind as in the JAX scheme of the plan: both reach the pair step (step
+    78) through the retail scheduler."""
     sim = _n30_sim()
     kinds = Counter(kernel_kind(s) for s in sim.steps)
     kinds.pop(None, None)
@@ -338,10 +344,9 @@ def test_n30_10k_plan_kernel_census():
     bitstrings: one RGFlat merge (B 9996 rows of 128 elements, H 2, K 16,
     F 8), and every kernel step at the same place and of the same kind
     as in the JAX scheme of the plan (lane_schedule on, fuse and
-    negotiation off).  The JAX compiler reaches its two pair steps
-    through the retail scheduler, the port through its ``PAIR_FORM``
-    output order of huge unbatched both-big merges; on this plan both
-    pick steps 39 and 71 (K 256, M 8192, N 256; K 512, M 32768, N 256)."""
+    negotiation off).  Both reach the two pair steps through the retail
+    scheduler: steps 39 and 71 (K 256, M 8192, N 256; K 512, M 32768,
+    N 256)."""
     from artensor_tpu_torch import random_circuit as prc
 
     bits, plan = _n30_10k()
@@ -370,3 +375,118 @@ def test_n30_10k_plan_kernel_census():
     jkinds, jbits = _jax_kinds(plan, bits)
     assert jkinds == kinds
     assert sorted(jbits) == sorted(sim.bitstrings_sorted)
+
+
+SC25_PLAN = os.path.join(DATA, "rcs_n30_m14_s0_sparse_sc25.json")
+LANE_FIELDS = ("w_is_j", "orient", "view_x", "combo_axes", "x_axes",
+               "y_axes", "block", "L", "H", "n_combos", "view_y", "dims_y",
+               "est_s")
+
+
+def assert_lane_plans_equal(p, j):
+    """A port LanePlan equals the JAX one field by field (the JAX plan's
+    fields; ``flops`` differs by design: the port counts the table form's
+    work)."""
+    for f in LANE_FIELDS:
+        assert getattr(p, f) == getattr(j, f), f
+    np.testing.assert_array_equal(p.wp_idx, j.wp_idx)
+    np.testing.assert_array_equal(p.wp_sign, j.wp_sign)
+
+
+def test_n30_sc25_plan_kernel_census():
+    """The committed sc25 plan (the 1k bitstrings at memory budget 25: 5
+    sliced bonds, complexity (10.4597, 25.0, 8.9744)) compiled by the port
+    and by JAX (lane_schedule on, fuse and negotiation off): the same
+    kernel kind at every one of the 187 steps.  Its one lane step (step
+    110) is planned by the retail scheduler in the tail orientation, with
+    the same plan and output order as JAX's; the pair step is step 76, the
+    RGFlat row step 174."""
+    from artensor_tpu_torch import load_plan, random_circuit as prc
+
+    with open(os.path.join(DATA, "rcs_n30_m14_s0_amps1000.txt")) as f:
+        bits = [ln.split()[0] for ln in f if ln.strip()]
+    _, sliced, ctree = load_plan(SC25_PLAN)
+    assert sliced == ["16-9", "18-8", "16-5", "14-10", "12-11"]
+    np.testing.assert_allclose(ctree.complexity(),
+                               (10.459710, 25.0, 8.974364), atol=1e-6)
+    sim = TensorNetworkSimulation.from_circuit(
+        prc(5, 6, 14, seed=0), bits).load_plan(SC25_PLAN)
+    assert sim.sc_target == 25 and len(sim.steps) == 187
+    kinds = [kernel_kind(s) for s in sim.steps]
+    census = Counter(kinds)
+    census.pop(None, None)
+    assert dict(census) == N30_SC25_KERNEL_STEPS
+    assert (kinds.index("pair"), kinds.index("lane"),
+            kinds.index("rgflat")) == (76, 110, 174)
+    jsteps, jbits = _jax_scheme(SC25_PLAN, bits, sc_target=25)
+    assert [_jax_kind(s) for s in jsteps] == kinds
+    assert sorted(jbits) == sorted(sim.bitstrings_sorted)
+    lane, jlane = sim.steps[110], jsteps[110]
+    assert lane.note == jlane.note and lane.note.endswith("/retail:ok")
+    assert lane.iy == jlane.iy and lane.ix_i == jlane.ix_i
+    assert_lane_plans_equal(lane.lane, jlane.lane)
+    p = lane.lane
+    assert (p.orient, p.L, p.H, p.n_combos, p.block, p.view_x) == \
+        ("tail", 128, 128, 1, 2048, (4, 65536, 128))
+    # the address table: 8 terms per output (1/16 of the lane matrix)
+    assert p.T == 8 and int((p.wp_sign != 0).sum()) * 16 == p.wp_sign.size
+
+
+@pytest.mark.parametrize("width", [1, 4])
+def test_lane_route_matches_jax_and_state_vec(rcs15, monkeypatch, width):
+    """The lane route end to end on the CPU: with the size gates lowered
+    (the retail threshold too) the port's scheme of the committed small
+    plan sends steps through ``lane_call`` (its plain version here), from
+    the chain and from the retail second chance, and every amplitude
+    matches the JAX run and the state vector."""
+    from artensor_tpu_torch.runtime import lanes as planes
+    from artensor_tpu_torch.runtime import sparse as psparse
+
+    monkeypatch.setattr(pgk, "MIN_X_ELEMS", 1 << 8)
+    monkeypatch.setattr(pgk, "GGK_MIN_WORK", 1 << 8)
+    monkeypatch.setattr(planes, "MIN_X_ELEMS", 1 << 6)
+    monkeypatch.setattr(psparse, "RETAIL_MIN_ELEMS", 1 << 6)
+    w = rcs15
+    sim = TensorNetworkSimulation.from_circuit(
+        (w["n"], w["layers"]), w["bits"]).load_plan(w["plan"])
+    lane_steps = [s for s in sim.steps if kernel_kind(s) == "lane"]
+    assert any(s.note.endswith("/retail:ok") for s in lane_steps)
+    assert any("/retail" not in s.note for s in lane_steps)
+    calls = []
+    real = planes.lane_call
+    monkeypatch.setattr(planes, "lane_call",
+                        lambda *a: calls.append(1) or real(*a))
+    amps = sim.contraction(slice_batch=width, device="cpu")
+    assert len(calls) >= 2 ** len(sim.slicing_bonds) // width
+    assert sorted(sim.bitstrings_sorted) == sorted(w["jax_amps"])
+    for a, b in zip(amps, sim.bitstrings_sorted):
+        assert abs(a - w["exact"][int(b, 2)]) < 2e-5, b
+        assert abs(a - w["jax_amps"][b]) < 2e-5, b
+
+
+def test_small_plan_lane_census_matches_jax(rcs15, monkeypatch):
+    """With the size gates of both packages lowered alike, the port's
+    scheme of the committed small plan has JAX's kernel kind at every step,
+    its chain lane steps among them, each lane plan equal to JAX's."""
+    from artensor_tpu.plan_io import plan_from_dict
+    from artensor_tpu.runtime.sparse import contraction_scheme_sparse as jcs
+    from artensor_tpu_torch.runtime import lanes as planes
+
+    for mod, val in ((pgk, "MIN_X_ELEMS"), (pgk, "GGK_MIN_WORK"),
+                     (planes, "MIN_X_ELEMS"), (jgk, "MIN_X_ELEMS"),
+                     (jgk, "GGK_MIN_WORK"), (jlanes, "MIN_X_ELEMS")):
+        monkeypatch.setattr(mod, val, 1 << 8)
+    monkeypatch.setattr(jgk, "SLACK", 1e9)
+    w = rcs15
+    sim = TensorNetworkSimulation.from_circuit(
+        (w["n"], w["layers"]), w["bits"]).load_plan(w["plan"])
+    _, _, ctree = plan_from_dict(w["plan"])
+    jsteps, _, _ = jcs(ctree, w["bits"], sc_target=12, negotiate=False,
+                       fuse=False)
+    kinds = [kernel_kind(s) for s in sim.steps]
+    assert kinds.count("lane") == 3
+    assert [_jax_kind(s) for s in jsteps] == kinds
+    for s, j in zip(sim.steps, jsteps):
+        if kernel_kind(s) == "lane":
+            assert s.iy == j.iy
+            assert_lane_plans_equal(s.lane, j.lane)
