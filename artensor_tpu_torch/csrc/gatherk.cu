@@ -18,20 +18,36 @@
 // slice-invariant operand once for every instance.
 //
 // Bound: per outer index this is a (H x K) . (K x F) complex product with
-// X read once and Y written once.  Arithmetic intensity is about
-// K*H/(K+H) flop per byte, so small K*H steps (gate merges, K,H <= 16)
-// are bound by device-memory bytes and the K = H = 64..128 steps by
-// FP32 FMA throughput (no TF32: the JAX kernels run at HIGHEST precision).
-// Design: a block owns a BH x BF output tile of one (w, o); K is walked in
-// BK chunks staged in shared memory (X rows coalesced along f, W rows
-// along k); each thread keeps RH x RF complex accumulators in registers.
+// X read once and Y written once: 8*H*K flop per f value on 8*(K + H)
+// bytes.  GK takes one of two forms, chosen by the wrapper from the step's
+// shape (gatherk.gk_form):
+//
+// * "stream", for steps whose bytes at 3.35 TB/s take at least as long as
+//   their flops at 0.6 of the 67 TFLOP/s float32 FMA rate (K, H <= 16, and
+//   K 16 H 32, on the paths).  Bound by bytes.  Each thread owns 4 consecutive f values of one
+//   (w, o), loads them with 16-byte loads from each of the K gathered rows
+//   (re and im planes), keeps an H chunk of at most 16 outputs x 4 f in
+//   registers and stores them with 16-byte stores, f unit-stride across
+//   the warp.  The block's W chunk sits in shared memory, read as a
+//   broadcast.  The K loop has no barrier, so a thread's row loads are
+//   independent and in flight together.  The H chunks of one f range are
+//   adjacent in block order, so the second reads X from L2.  Offsets that
+//   are not 16-byte aligned take the 4-byte variant.
+// * "mma", for the other steps (K, H = 32..512): the product on the
+//   tensor cores at float32 accuracy (3xTF32, tc_core.cuh), W as the
+//   (H x K) operand and the X rows of all outer indices as one flat
+//   (K x G*F) operand staged by cp.async, so that short f runs (F 64)
+//   still fill 128-wide tiles.  Bound by operations at the 3xTF32 rate
+//   or, for most such steps, by bytes.
+//
+// GGK keeps the register-tiled FMA template below (launch_any): a block
+// owns a BH x BF output tile of one (w, o); K is walked in BK chunks
+// staged in shared memory; each thread keeps RH x RF complex accumulators.
 // One of five tile shapes (4 x 256, 4 x 64, 16 x 128, 32 x 32, 64 x 64) is
 // picked from H and F, so that a step with a small H or F (a GGK row with
-// H = 2, F = 64; a GK step with H = F = 32) does not leave most of each
-// tile idle.  No wgmma/TMA yet: a simple, correct kernel first.
+// H = 2, F = 64) does not leave most of each tile idle.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tc_core.cuh"
 
 namespace {
 
@@ -205,17 +221,238 @@ int launch_any(const float* xr, const float* xi, const float* wr,
                                      x_ws, w_ws, y_ws, W, s);
 }
 
+// -- GK "stream" form ---------------------------------------------------------
+
+constexpr int STREAM_THREADS = 128;
+
+template <int HC, bool VEC>
+__global__ void __launch_bounds__(STREAM_THREADS)
+gk_stream_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                 const float* __restrict__ wr, const float* __restrict__ wi,
+                 float* __restrict__ yr, float* __restrict__ yi,
+                 const long long* __restrict__ xoff,
+                 const long long* __restrict__ yoff,
+                 const long long* __restrict__ koff,
+                 int H, int K, int F, long long hstride, long long x_ws,
+                 long long w_ws, long long y_ws, long long nflat, int n_hchunks)
+{
+    extern __shared__ __align__(16) float2 sw[];   // [K][HC] (re, im)
+    long long* sk = reinterpret_cast<long long*>(sw + (size_t)K * HC);
+
+    const int hc = blockIdx.x % n_hchunks;
+    const long long qb = blockIdx.x / n_hchunks;
+    const long long w = blockIdx.y;
+    const int h0 = hc * HC;
+    const long long wb = w * w_ws;
+    for (int e = threadIdx.x; e < HC * K; e += STREAM_THREADS) {
+        const int h = e / K, k = e % K;
+        float2 v = make_float2(0.f, 0.f);
+        if (h0 + h < H) {
+            const long long a = wb + (long long)(h0 + h) * K + k;
+            v = make_float2(wr[a], wi[a]);
+        }
+        sw[k * HC + h] = v;
+    }
+    for (int k = threadIdx.x; k < K; k += STREAM_THREADS)
+        sk[k] = koff[k];
+    __syncthreads();
+
+    const long long n = 4 * (qb * STREAM_THREADS + threadIdx.x);
+    if (n >= nflat)     // n: the first of this thread's 4 flat (o, f) values
+        return;
+    // X and Y offsets of the 4 values (one outer index when VEC)
+    long long xo[VEC ? 1 : 4], yo[VEC ? 1 : 4];
+#pragma unroll
+    for (int e = 0; e < (VEC ? 1 : 4); ++e) {
+        const long long ne = n + e < nflat ? n + e : n;
+        const long long o = ne / F, f = ne % F;
+        xo[e] = w * x_ws + xoff[o] + f;
+        yo[e] = w * y_ws + yoff[o] + f + (long long)h0 * hstride;
+    }
+
+    float acc_r[HC][4], acc_i[HC][4];
+#pragma unroll
+    for (int h = 0; h < HC; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            acc_r[h][e] = 0.f;
+            acc_i[h][e] = 0.f;
+        }
+
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+        const long long ko = sk[k];
+        float vr[4], vi[4];
+        if (VEC) {
+            const float4 a = __ldg(reinterpret_cast<const float4*>(xr + xo[0] + ko));
+            const float4 b = __ldg(reinterpret_cast<const float4*>(xi + xo[0] + ko));
+            vr[0] = a.x; vr[1] = a.y; vr[2] = a.z; vr[3] = a.w;
+            vi[0] = b.x; vi[1] = b.y; vi[2] = b.z; vi[3] = b.w;
+        } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const bool ok = n + e < nflat;
+                vr[e] = ok ? __ldg(xr + xo[VEC ? 0 : e] + ko) : 0.f;
+                vi[e] = ok ? __ldg(xi + xo[VEC ? 0 : e] + ko) : 0.f;
+            }
+        }
+        const float2* wk = sw + k * HC;
+#pragma unroll
+        for (int h = 0; h < HC; ++h) {
+            const float2 c = wk[h];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                acc_r[h][e] = fmaf(c.x, vr[e], acc_r[h][e]);
+                acc_r[h][e] = fmaf(-c.y, vi[e], acc_r[h][e]);
+                acc_i[h][e] = fmaf(c.x, vi[e], acc_i[h][e]);
+                acc_i[h][e] = fmaf(c.y, vr[e], acc_i[h][e]);
+            }
+        }
+    }
+
+    const int hn = min(HC, H - h0);
+#pragma unroll
+    for (int h = 0; h < HC; ++h) {
+        if (h >= hn)
+            break;
+        const long long hs = (long long)h * hstride;
+        if (VEC) {
+            *reinterpret_cast<float4*>(yr + yo[0] + hs) = make_float4(
+                acc_r[h][0], acc_r[h][1], acc_r[h][2], acc_r[h][3]);
+            *reinterpret_cast<float4*>(yi + yo[0] + hs) = make_float4(
+                acc_i[h][0], acc_i[h][1], acc_i[h][2], acc_i[h][3]);
+        } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                if (n + e < nflat) {
+                    yr[yo[VEC ? 0 : e] + hs] = acc_r[h][e];
+                    yi[yo[VEC ? 0 : e] + hs] = acc_i[h][e];
+                }
+        }
+    }
+}
+
+template <int HC, bool VEC>
+int launch_stream(const float* xr, const float* xi, const float* wr,
+                  const float* wi, float* yr, float* yi,
+                  const long long* xoff, const long long* yoff,
+                  const long long* koff, long long O, int H, int K, int F,
+                  long long hstride, long long x_ws, long long w_ws,
+                  long long y_ws, int W, cudaStream_t stream)
+{
+    const long long nflat = O * F;
+    if (VEC && nflat % 4)
+        return (int)cudaErrorInvalidValue;
+    const long long nq = (nflat + 3) / 4;
+    const int n_hchunks = (H + HC - 1) / HC;
+    const long long nblk = (nq + STREAM_THREADS - 1) / STREAM_THREADS
+                           * n_hchunks;
+    const size_t smem = (size_t)K * HC * sizeof(float2)
+                        + (size_t)K * sizeof(long long);
+    if (K < 1 || nblk <= 0 || nblk > 0x7fffffffLL || W <= 0 || W > 65535)
+        return (int)cudaErrorInvalidConfiguration;
+    auto kern = gk_stream_kernel<HC, VEC>;
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess)
+            return (int)e;
+    }
+    dim3 grid((unsigned)nblk, (unsigned)W);
+    kern<<<grid, STREAM_THREADS, smem, stream>>>(
+        xr, xi, wr, wi, yr, yi, xoff, yoff, koff, H, K, F, hstride, x_ws,
+        w_ws, y_ws, nflat, n_hchunks);
+    return (int)cudaGetLastError();
+}
+
+template <bool VEC>
+int stream_any(const float* xr, const float* xi, const float* wr,
+               const float* wi, float* yr, float* yi, const long long* xoff,
+               const long long* yoff, const long long* koff, long long O,
+               int H, int K, int F, long long hstride, long long x_ws,
+               long long w_ws, long long y_ws, int W, cudaStream_t s)
+{
+    // H chunk: the smallest of 4, 8, 16 that holds H (16 above that)
+    if (H <= 4)
+        return launch_stream<4, VEC>(xr, xi, wr, wi, yr, yi, xoff, yoff, koff,
+                                     O, H, K, F, hstride, x_ws, w_ws, y_ws,
+                                     W, s);
+    if (H <= 8)
+        return launch_stream<8, VEC>(xr, xi, wr, wi, yr, yi, xoff, yoff, koff,
+                                     O, H, K, F, hstride, x_ws, w_ws, y_ws,
+                                     W, s);
+    return launch_stream<16, VEC>(xr, xi, wr, wi, yr, yi, xoff, yoff, koff,
+                                  O, H, K, F, hstride, x_ws, w_ws, y_ws, W,
+                                  s);
+}
+
+// -- GK "mma" form ------------------------------------------------------------
+//
+// H <= 32: 32 x 128 tiles, 4 warps of 32 x 32, a row of outputs at a time.
+// Else 64 x 128 tiles, 8 warps of 32 x 32, one output at a time within 128
+// registers, so that two blocks share an SM: K is only 32..128, a block's
+// ring is short, and the second block's loads fill its gaps.  On the
+// paths' K 64 steps (H 64 and 256) that beats the same tiles a row at a
+// time at one block an SM (255 registers) by 11-22%, and the 32 x 128
+// tiles by 17-28% (H100, scripts/gk_forms_torch_port.py; PERF.md).
+
+using GkNarrow = tc::Tile<2, 4, 1, 4>;
+using GkWide = tc::Tile<2, 4, 2, 4>;
+
+template <class T, int MIN_BLOCKS, bool ROW>
+__global__ void __launch_bounds__(T::THREADS, MIN_BLOCKS)
+gk_mma_kernel(tc::Operands p, int n_mtiles)
+{
+    tc::cgemm<T, true, true, ROW>(p, n_mtiles);
+}
+
+int gk_mma(const float* xr, const float* xi, const float* wr,
+           const float* wi, float* yr, float* yi, const long long* xoff,
+           const long long* yoff, const long long* koff, long long O, int H,
+           int K, int F, long long hstride, long long x_ws, long long w_ws,
+           long long y_ws, int W, bool vec, cudaStream_t s)
+{
+    if (O * F > 0x7fffffffLL)
+        return (int)cudaErrorInvalidValue;
+    tc::Operands p{};
+    p.ar = wr; p.ai = wi; p.br = xr; p.bi = xi; p.yr = yr; p.yi = yi;
+    p.M = H; p.N = (int)(O * F); p.K = K;
+    p.lda = K; p.ldb = 0; p.ldy = hstride;
+    p.a_ws = w_ws; p.b_ws = x_ws; p.y_ws = y_ws;
+    p.koff = koff; p.xoff = xoff; p.yoff = yoff; p.F = F;
+    p.vec_a = tc::aligned16(wr) && tc::aligned16(wi) && K % 4 == 0 &&
+              w_ws % 4 == 0;
+    p.vec = vec;
+    if (H <= 32)
+        return tc::launch<GkNarrow, true>(gk_mma_kernel<GkNarrow, 1, true>,
+                                          p, W, s);
+    return tc::launch<GkWide, true>(gk_mma_kernel<GkWide, 2, false>, p, W,
+                                    s);
+}
+
 }  // namespace
 
+// form: 0 "stream", 1 "mma" (gatherk.GK_FORMS); vec: the X / Y offsets,
+// strides and pointers are 16-byte aligned (gatherk.gk_aligned)
 extern "C" int gk_launch(const float* xr, const float* xi, const float* wr,
                          const float* wi, float* yr, float* yi,
                          const long long* xoff, const long long* yoff,
                          const long long* koff, long long O, int H, int K,
                          int F, long long hstride, long long x_ws,
-                         long long w_ws, long long y_ws, int W, void* stream)
+                         long long w_ws, long long y_ws, int W, int form,
+                         int vec, void* stream)
 {
-    return launch_any(xr, xi, wr, wi, yr, yi, xoff, yoff, nullptr, koff, O,
-                      H, K, F, hstride, x_ws, w_ws, y_ws, W, stream);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (form == 1)
+        return gk_mma(xr, xi, wr, wi, yr, yi, xoff, yoff, koff, O, H, K, F,
+                      hstride, x_ws, w_ws, y_ws, W, vec != 0, s);
+    if (form != 0)
+        return (int)cudaErrorInvalidValue;
+    if (vec)
+        return stream_any<true>(xr, xi, wr, wi, yr, yi, xoff, yoff, koff, O,
+                                H, K, F, hstride, x_ws, w_ws, y_ws, W, s);
+    return stream_any<false>(xr, xi, wr, wi, yr, yi, xoff, yoff, koff, O, H,
+                             K, F, hstride, x_ws, w_ws, y_ws, W, s);
 }
 
 extern "C" int ggk_launch(const float* xr, const float* xi, const float* wr,

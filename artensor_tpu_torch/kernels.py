@@ -4,10 +4,12 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, bound with ``ctypes``: a file that
 includes PyTorch's headers takes minutes to compile, a plain one seconds,
 and the build runs at first use inside every fresh checkout.  The
-compilers are started together, one per source.  Libraries are cached in
-``_build/`` next to this file (git-ignored), named by a hash of the
-source and flags, so an edited source rebuilds and an unchanged one
-loads at once.
+compilers are started together, one per source.  ``pair.cu`` and
+``gatherk.cu`` both include ``tc_core.cuh``, the tensor-core product they
+share.  Libraries are cached in ``_build/`` next to this file
+(git-ignored), named by a hash of the source, the headers and the flags,
+so an edited source or header rebuilds and an unchanged one loads at
+once.
 
 Nothing here runs at import: ``load()`` builds on its first call, from the
 wrapper that first launches a kernel.  A failed build raises.
@@ -29,12 +31,19 @@ SOURCES = ("gatherk", "rgrow", "rgflat", "lane", "pair")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
+# The H100 SXM's peak rates (data sheet): gatherk.gk_form picks a GK step's
+# form from them, and chip_smoke.py states every kernel's bounds with them.
+H100_HBM_BYTES_PER_S = 3.35e12
+H100_FP32_FLOP_PER_S = 67e12    # float32 FMA, outside the tensor cores
+H100_TF32_FLOP_PER_S = 495e12   # TF32 tensor cores, dense
+
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argument types of every C entry point (pointers and the stream as void*,
 # 64-bit sizes as long long: ctypes would otherwise pass 32-bit ints)
 SIGNATURES = {
     "gatherk": {
-        "gk_launch": [_P] * 9 + [_L, _I, _I, _I, _L, _L, _L, _L, _I, _P],
+        "gk_launch": [_P] * 9 + [_L, _I, _I, _I, _L, _L, _L, _L, _I, _I, _I,
+                                  _P],
         "ggk_launch": [_P] * 10 + [_L, _I, _I, _I, _L, _L, _L, _L, _I, _P],
     },
     "rgrow": {
@@ -82,7 +91,9 @@ def _nvcc():
 
 
 def _target(name):
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the headers (csrc/*.cuh) are part of every source's key
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -43,7 +43,9 @@ may not.
 Every kernel wrapper (``gk_call``, ``ggk_call``, ``rgrow_call``,
 ``rgflat_call``) takes its plain PyTorch version only for CPU tensors; for
 CUDA tensors it launches the kernel or raises.  ``launches`` on each
-wrapper counts kernel launches.
+wrapper counts kernel launches.  The GK kernel has two forms, "stream"
+(bound by bytes, float32 FMAs) and "mma" (3xTF32 on the tensor cores);
+``gk_form`` picks one from the step's bytes and flops.
 """
 
 from dataclasses import dataclass, field as dc_field
@@ -601,6 +603,71 @@ def plan_ggk_step(rx_i, rx_j, riy, rdims_i, rdims_j, gi, gj,
                    (B, *row.dims_y), flops, xoff, yoff, woff)
 
 
+# -- GK kernel forms ---------------------------------------------------------
+#
+# The GK kernel (csrc/gatherk.cu) runs a step in one of two forms, chosen
+# here from the step's shape: "stream" (float32 FMAs, one thread per 4 f
+# values, the W chunk in shared memory) for steps whose bytes bound them
+# at the FMA rate, "mma" (3xTF32 on the tensor cores) for the others.
+
+GK_FORMS = ("stream", "mma")  # gk_launch's form codes, in order
+STREAM_W_CAP = 4096           # max complex W values (H chunk x K) the stream
+                              # form stages in shared memory (32 KiB)
+STREAM_FMA_SHARE = 0.6        # share of the FMA rate the stream form is
+                              # held to when it is chosen (see gk_form)
+
+
+def stream_hchunk(H):
+    """The stream form's H chunk: the smallest of 4, 8, 16 that holds H,
+    else 16 (as ``stream_any`` in gatherk.cu)."""
+    return 4 if H <= 4 else 8 if H <= 8 else 16
+
+
+def gk_bytes(plan, width=1, x_batched=True, w_batched=False):
+    """Bytes a GK call must move: X and W read once, Y written once, at
+    slice width ``width`` (an unbatched operand is read once)."""
+    wx = width if x_batched else 1
+    ww = width if w_batched else 1
+    wy = width if (x_batched or w_batched) else 1
+    return 8 * (wx * plan.x_elems + ww * plan.H * plan.K + wy * plan.y_elems)
+
+
+def gk_flops(plan, width=1, x_batched=True, w_batched=False):
+    return plan.flops * (width if (x_batched or w_batched) else 1)
+
+
+def gk_form(plan, width=1, x_batched=True, w_batched=False):
+    """"stream" when the step's bytes at the card's memory rate take at
+    least as long as its flops at ``STREAM_FMA_SHARE`` of the float32 FMA
+    rate (and its W chunk fits the stream form's shared memory), else
+    "mma".  The share is measured, not derived
+    (``scripts/gk_forms_torch_port.py``, every GK step of the three paths
+    in both forms on an H100): the K 4 and K 8 steps ran 1.2-6.3x faster
+    streamed, K 16 H 16 (H*K/(H+K) = 8 flop a byte) 1.55-1.65x and K 16
+    H 32 (10.7) 1.10x; K 32 H 32 (16) ran 1.12-1.19x faster on the tensor
+    cores and K 16 H 128 (14.2) 1.03x.  0.6 cuts between 10.7 and 14.2
+    (1.0 would be 20 flop a byte), so every step of the paths takes its
+    faster form."""
+    t_bytes = gk_bytes(plan, width, x_batched, w_batched) \
+        / kernels.H100_HBM_BYTES_PER_S
+    t_ops = gk_flops(plan, width, x_batched, w_batched) / (
+        STREAM_FMA_SHARE * kernels.H100_FP32_FLOP_PER_S)
+    if t_bytes >= t_ops and stream_hchunk(plan.H) * plan.K <= STREAM_W_CAP:
+        return "stream"
+    return "mma"
+
+
+def gk_aligned(plan):
+    """Whether every X and Y offset of the step is a multiple of 4 floats:
+    F, the outer offsets xoff / yoff, the row offsets koff and hstride (the
+    width strides x_elems and y_elems are multiples of F).  Then, with
+    16-byte aligned buffers, both forms use 16-byte loads and stores;
+    else they take their 4-byte variants."""
+    return (plan.F % 4 == 0 and plan.hstride % 4 == 0
+            and all(int(np.count_nonzero(np.asarray(t) % 4)) == 0
+                    for t in (plan.xoff, plan.yoff, plan.koff)))
+
+
 # -- kernel wrappers --------------------------------------------------------
 
 def _device_tables(plan, device, names):
@@ -668,7 +735,8 @@ def ggk_plain(plan, xr, xi, wr, wi, x_batched, w_batched):
 def gk_call(plan, xr, xi, wr, wi, x_batched, w_batched):
     """The GK kernel's wrapper.  ``xr``/``xi``: X as ``(X,)`` or
     ``(W, X)``; ``wr``/``wi``: W pre-gathered to rows ``(H*K,)`` or
-    ``(W, H*K)``.  Returns Y ``(Y,)`` or ``(W, Y)``."""
+    ``(W, H*K)``.  Returns Y ``(Y,)`` or ``(W, Y)``.  The kernel runs in
+    the form ``gk_form`` names, counted in ``gk_call.forms``."""
     W = kernels.slice_width(x_batched, w_batched, xr, wr)
     xl = (W,) if x_batched else ()
     wl = (W,) if w_batched else ()
@@ -681,6 +749,9 @@ def gk_call(plan, xr, xi, wr, wi, x_batched, w_batched):
     lead = (W,) if (x_batched or w_batched) else ()
     yr = torch.empty(lead + (plan.y_elems,), dtype=torch.float32, device=dev)
     yi = torch.empty_like(yr)
+    form = gk_form(plan, W, x_batched, w_batched)
+    vec = gk_aligned(plan) and all(c.data_ptr() % 16 == 0
+                                   for c in (xr, xi, yr, yi))
     lib = kernels.load()
     rc = lib.gk_launch(
         *map(kernels.ptr, (xr, xi, wr, wi, yr, yi,
@@ -688,13 +759,16 @@ def gk_call(plan, xr, xi, wr, wi, x_batched, w_batched):
         len(plan.xoff), plan.H, plan.K, plan.F, plan.hstride,
         plan.x_elems if x_batched else 0,
         plan.H * plan.K if w_batched else 0,
-        plan.y_elems if lead else 0, W, kernels.stream_of(xr))
+        plan.y_elems if lead else 0, W, GK_FORMS.index(form), int(vec),
+        kernels.stream_of(xr))
     kernels.check(rc, "gk")
     gk_call.launches += 1
+    gk_call.forms[form] += 1
     return yr, yi
 
 
 gk_call.launches = 0
+gk_call.forms = dict.fromkeys(GK_FORMS, 0)   # launches by form
 
 
 def ggk_call(plan, xr, xi, wr, wi, x_batched, w_batched):

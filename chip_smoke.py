@@ -40,8 +40,17 @@ and steps; the complex matmul's larger shape, 0 launches), the card line,
 and last ``{"ok": true, "device": {...}}``.
 The bound of a kernel call is the larger of its bytes (each input read
 once, each output written once) over 3.35 TB/s and its flops over
-67 TFLOP/s, the H100 SXM's float32 rate outside the tensor cores (its
-products run in full float32: no TF32).
+67 TFLOP/s, the H100 SXM's float32 rate outside the tensor cores;
+``bound_3xtf32_ms`` puts 3 x its flops over the 495 TFLOP/s TF32 tensor
+core rate instead.  Each step is also held to the bound of the design it
+runs (``form``): bytes for GK's "stream" form, 3xTF32 for the tensor-core
+kernels ("mma": GK's other form, Pair, the complex matmul), FP32 FMA for
+the rest ("fma").  Per path the GK steps' summed time is printed against
+their summed bounds, and at the largest GK and Pair step of each path the
+kernel's and the plain version's errors against a float64 product of the
+same inputs, over two slice instances (the kernel's may be at most
+``F64_ERR_RATIO`` times the plain version's, which runs in full float32
+on cuBLAS).
 """
 
 import argparse
@@ -65,8 +74,7 @@ PATHS = {   # name: (plan, JAX fixture), in the order they are driven
 CIRCUIT = dict(rows=5, cols=6, cycles=14, seed=0)   # random_circuit args
 DEVICE = "cuda"
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
-FP32_FLOP_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
+F64_ERR_RATIO = 4             # kernel vs plain error against float64
 KERNEL_RTOL = 2e-4            # kernel vs plain: max|d| <= rtol*max|plain| + atol
 KERNEL_ATOL = 1e-5            #   (float32 sums in another order)
 AMP_RTOL = 1e-3               # amplitudes vs fixture:
@@ -225,9 +233,52 @@ def gk_library(plan, xr, xi, wr, wi, xs, ws):
     return call, lambda yr, yi: torch.complex(yr, yi)[..., yidx], shape
 
 
-def run_kernel(kind, plan, bx, by, width, seed):
+def bounds(nbytes, flops, form):
+    """The bounds of a call: FP32 FMA (``bound_ms``), 3xTF32 on the tensor
+    cores, and that of the design ``form`` runs (``design_bound_ms``), at
+    the card's peak rates (``kernels.H100_*``, as gatherk.gk_form uses)."""
+    from artensor_tpu_torch import kernels
+
+    t_bytes = nbytes / kernels.H100_HBM_BYTES_PER_S
+    t_ops = flops / kernels.H100_FP32_FLOP_PER_S
+    t_tc = 3 * flops / kernels.H100_TF32_FLOP_PER_S
+    design = {"stream": t_bytes, "mma": max(t_bytes, t_tc)}.get(
+        form, max(t_bytes, t_ops))
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_3xtf32_ms=1e3 * max(t_bytes, t_tc),
+                design_bound_ms=1e3 * design)
+
+
+def f64_errors(kr, ki, pr, pi, plain, args, instances=2):
+    """Max |d| / max |ref| of the kernel's and the plain version's output
+    against the plain version run in float64 on the same inputs, over the
+    first ``instances`` slice instances (one at a time: the float64 copies
+    of a whole group need not fit beside the step's buffers)."""
+    import torch
+
+    plan, xr, xi, wr, wi, xs, ws = args
+    lead = xs or ws
+    d_k = d_p = scale = 0.0
+    for s in range(min(kr.shape[0], instances) if lead else 1):
+        pick = lambda t, b: (t[s] if b else t).double()
+        rr, ri = plain(plan, pick(xr, xs), pick(xi, xs), pick(wr, ws),
+                       pick(wi, ws), False, False)
+        ref = torch.complex(rr, ri)
+        at = lambda t: (t[s] if lead else t).double()
+        scale = max(scale, torch.abs(ref).max().item())
+        d_k = max(d_k, torch.abs(torch.complex(at(kr), at(ki)) - ref)
+                  .max().item())
+        d_p = max(d_p, torch.abs(torch.complex(at(pr), at(pi)) - ref)
+                  .max().item())
+        del rr, ri, ref
+    return dict(f64_rel_err=d_k / scale, plain_f64_rel_err=d_p / scale)
+
+
+def run_kernel(kind, plan, bx, by, width, seed, f64=False):
     """One kernel call against its plain version at slice width ``width``.
-    Returns a dict of measurements."""
+    Returns a dict of measurements; with ``f64`` also both versions'
+    errors against the plain version run in float64."""
     import numpy as np
     import torch
 
@@ -288,13 +339,18 @@ def run_kernel(kind, plan, bx, by, width, seed):
     plain_ms = time_ms(lambda: plain(*args), 3)
     nbytes = 8 * (wx * x_need + ww * w_need + wy * y_n)
     flops = plan.flops * wy
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-    out = dict(width=width, step=describe(kind, plan), max_abs_err=err,
-               max_rel_err=err / scale, tol=tol, ms=ms, plain_ms=plain_ms,
-               bound_ms=1e3 * max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
+    form = (gatherk.gk_form(plan, width, xs, ws) if kind == "gk"
+            else "mma" if kind == "pair" else "fma")
+    if kind == "gk":    # the wrapper's own counting picks the form
+        check(nbytes == gatherk.gk_bytes(plan, width, xs, ws),
+              "gk: byte count differs from gatherk.gk_bytes")
+    out = dict(width=width, step=describe(kind, plan), form=form,
+               max_abs_err=err, max_rel_err=err / scale, tol=tol, ms=ms,
+               plain_ms=plain_ms, **bounds(nbytes, flops, form),
                library_ms=None, bytes=nbytes, flops=flops,
                x_batched=xs, w_batched=ws)
+    if f64:
+        out.update(f64_errors(kr, ki, pr, pi, plain, args))
     lib = None
     if kind == "pair":
         xc = torch.complex(xr, xi).reshape(
@@ -348,6 +404,7 @@ def compile_path(name, W):
     from collections import Counter
 
     from artensor_tpu_torch import TensorNetworkSimulation, random_circuit
+    from artensor_tpu_torch.runtime import gatherk
     from artensor_tpu_torch.runtime.executor import precompute_static_steps
     from artensor_tpu_torch.runtime.sparse import kernel_kind
 
@@ -370,47 +427,79 @@ def compile_path(name, W):
           f"slice_batch {W}", flush=True)
     cases = kernel_cases(run_steps, operand_batching(run_steps,
                                                      sim.slicing_axes))
+    gk_forms = Counter()
+    for plan, bx, by in cases.get("gk", []):
+        xs, ws = (bx, by) if plan.w_is_j else (by, bx)
+        gk_forms[gatherk.gk_form(plan, W, xs, ws)] += 1
     return dict(name=name, sim=sim, ref=ref, W=W, compile_s=compile_s,
-                n_slices=n_slices, census=census, cases=cases)
+                n_slices=n_slices, census=census, cases=cases,
+                gk_forms=gk_forms)
 
 
 def report(label, r):
     print(f"kernel {label} ({r['step']}) width {r['width']}: "
           f"max_abs_err {r['max_abs_err']:.3e} (rel {r['max_rel_err']:.2e}, "
-          f"tol {r['tol']:.2e}) ms {r['ms']:.4f} bound_ms "
-          f"{r['bound_ms']:.4f} ({r['bound_by']}) plain_ms "
-          f"{r['plain_ms']:.4f} library_ms {r['library_ms']} bytes "
-          f"{r['bytes']} flops {r['flops']} x_batched {r['x_batched']} "
-          f"w_batched {r['w_batched']}", flush=True)
+          f"tol {r['tol']:.2e}) form {r['form']} ms {r['ms']:.4f} bound_ms "
+          f"{r['bound_ms']:.4f} ({r['bound_by']}) bound_3xtf32_ms "
+          f"{r['bound_3xtf32_ms']:.4f} design_bound_ms "
+          f"{r['design_bound_ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+          f"library_ms {r['library_ms']} bytes {r['bytes']} flops "
+          f"{r['flops']} x_batched {r['x_batched']} w_batched "
+          f"{r['w_batched']}", flush=True)
+    if "f64_rel_err" in r:
+        ratio = r["f64_rel_err"] / max(r["plain_f64_rel_err"], 1e-30)
+        print(f"  float64 check ({r['step']}): max|d|/max|ref| kernel "
+              f"{r['f64_rel_err']:.3e}, plain {r['plain_f64_rel_err']:.3e}"
+              f" (ratio {ratio:.2f}, limit {F64_ERR_RATIO})", flush=True)
+        check(r["f64_rel_err"] <= F64_ERR_RATIO * r["plain_f64_rel_err"],
+              f"{r['step']}: kernel error against float64 "
+              f"{r['f64_rel_err']:.3e} above {F64_ERR_RATIO}x the plain "
+              f"version's {r['plain_f64_rel_err']:.3e}")
 
 
 def check_kernels(path):
     """Phase 3 for one path: every kernel step at the path's width, each
     kind's largest step also at width 1.  Returns, per kind, the largest
     step's result, the slowest step's, the kernel ms of one slice group
-    and the largest error of any step."""
+    (and the summed bounds of the design each step runs, and the steps'
+    forms) and the largest error of any step.  The largest GK and Pair
+    steps are also held against float64."""
     W, cases, out = path["W"], path["cases"], {}
     for n, kind in enumerate(KERNELS):
         if kind not in cases:
             continue
         largest = max(range(len(cases[kind])),
                       key=lambda i: cases[kind][i][0].flops)
-        res = dict(steps=len(cases[kind]), ms_per_group=0.0, max_err=0.0)
+        res = dict(steps=len(cases[kind]), ms_per_group=0.0, max_err=0.0,
+                   design_bound_ms_per_group=0.0, fp32_bound_ms_per_group=0.0,
+                   forms={})
         for i, width in [(i, W) for i in range(len(cases[kind]))] + [
                 (largest, 1)]:
             plan, bx, by = cases[kind][i]
-            r = run_kernel(kind, plan, bx, by, width, seed=n)
+            f64 = kind in ("gk", "pair") and i == largest and width == W
+            r = run_kernel(kind, plan, bx, by, width, seed=n, f64=f64)
             report(f"{path['name']} {kind} step {i + 1}/{len(cases[kind])}",
                    r)
             res["max_err"] = max(res["max_err"], r["max_abs_err"])
             if width != W:
                 continue
             res["ms_per_group"] += r["ms"]
+            res["design_bound_ms_per_group"] += r["design_bound_ms"]
+            res["fp32_bound_ms_per_group"] += r["bound_ms"]
+            res["forms"][r["form"]] = res["forms"].get(r["form"], 0) + 1
             if i == largest:
                 res["largest"] = r
             if "costliest" not in res or r["ms"] > res["costliest"]["ms"]:
                 res["costliest"] = r
         out[kind] = res
+        if kind in ("gk", "pair"):
+            print(f"path {path['name']} {kind}: {res['steps']} steps "
+                  f"{json.dumps(res['forms'])}, kernel {res['ms_per_group']:.4f}"
+                  f" ms a slice group against summed design bounds "
+                  f"{res['design_bound_ms_per_group']:.4f} ms (ratio "
+                  f"{res['ms_per_group'] / res['design_bound_ms_per_group']:.2f})"
+                  f" and FP32 bounds {res['fp32_bound_ms_per_group']:.4f} ms",
+                  flush=True)
     return out
 
 
@@ -466,11 +555,9 @@ def check_complex_mm():
         flops = 8 * B * M * N * K
         reps = 5 if flops > 1e12 else 20
         nbytes = 8 * (B * M * K + B * K * N + B * M * N)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-        r = dict(width=1, step=step, max_abs_err=err, max_rel_err=err / scale,
-                 tol=tol, ms=time_ms(call, reps), plain_ms=time_ms(plain, 3),
-                 bound_ms=1e3 * max(t_bytes, t_ops),
-                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+        r = dict(width=1, step=step, form="mma", max_abs_err=err,
+                 max_rel_err=err / scale, tol=tol, ms=time_ms(call, reps),
+                 plain_ms=time_ms(plain, 3), **bounds(nbytes, flops, "mma"),
                  library_ms=time_ms(lib, reps), bytes=nbytes, flops=flops,
                  x_batched=True, w_batched=True)
         report("complex_mm", r)
@@ -492,18 +579,27 @@ def drive(path, wrappers):
     torch.cuda.reset_peak_memory_stats()
     for f in wrappers.values():
         f.launches = 0
+    gk_forms = wrappers["gk"].forms
+    for form in gk_forms:
+        gk_forms[form] = 0
     t0 = time.perf_counter()
     amps = sim.contraction(slice_batch=W, device=DEVICE)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = {k: f.launches for k, f in wrappers.items()}
+    forms = dict(gk_forms)
     print(f"path {name}: first run {first_s:.3f} s (staging included); "
-          f"launches {json.dumps(launches)}", flush=True)
+          f"launches {json.dumps(launches)}; GK launches by form "
+          f"{json.dumps(forms)}", flush=True)
     groups = path["n_slices"] // W
     for kind in wrappers:
         want = path["census"].get(kind, 0) * groups
         check(launches[kind] == want,
               f"{name} {kind}: {launches[kind]} launches, expected {want}")
+    for form, n in forms.items():
+        want = path["gk_forms"].get(form, 0) * groups
+        check(n == want, f"{name} gk: {n} launches of the {form} form, "
+              f"expected {want} (gatherk.gk_form of its steps)")
     check(amps.shape == (len(ref),), f"{name}: amplitude shape {amps.shape}")
     check(bool(np.isfinite(amps).all()), f"{name}: non-finite amplitudes")
     r = np.array([ref[b] for b in sim.bitstrings_sorted])
@@ -534,7 +630,7 @@ def drive(path, wrappers):
           f"of {['%.4f' % w for w in walls]}; max_memory_allocated "
           f"{peak / 2 ** 30:.2f} GiB", flush=True)
     del run, out
-    return dict(launches=launches, first_s=first_s,
+    return dict(launches=launches, gk_forms=forms, first_s=first_s,
                 warm_s=statistics.median(walls), walls=walls,
                 peak_gib=peak / 2 ** 30, compile_s=path["compile_s"],
                 slice_batch=W, slices=path["n_slices"],
@@ -592,8 +688,8 @@ def main():
     print(f"paths: {json.dumps(runs)}", flush=True)
 
     line = []
-    keys = ("step", "ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
-            "max_abs_err")
+    keys = ("step", "form", "ms", "bound_ms", "bound_by", "bound_3xtf32_ms",
+            "design_bound_ms", "plain_ms", "library_ms", "max_abs_err")
     for kind, (_, source, replaces) in KERNELS.items():
         first = next(n for n in PATHS if kind in checked[n])
         res = checked[first][kind]
@@ -605,6 +701,7 @@ def main():
             "max_abs_err": big["max_abs_err"], "ms": big["ms"],
             "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
             "bound_by": big["bound_by"], "library_ms": big["library_ms"],
+            "form": big["form"], "bound_3xtf32_ms": big["bound_3xtf32_ms"],
             "path": first, "step": big["step"], "steps": res["steps"],
             "kernel_ms_per_group": res["ms_per_group"],
             "costliest": {k: res["costliest"][k] for k in keys},
@@ -612,11 +709,17 @@ def main():
                           "steps": checked[n][kind]["steps"],
                           "kernel_ms_per_group":
                               checked[n][kind]["ms_per_group"],
+                          "design_bound_ms_per_group":
+                              checked[n][kind]["design_bound_ms_per_group"],
+                          "forms": checked[n][kind]["forms"],
                           "max_abs_err": checked[n][kind]["max_err"],
                           "largest": {k: checked[n][kind]["largest"][k]
                                       for k in keys},
                           "costliest": {k: checked[n][kind]["costliest"][k]
-                                        for k in keys}}
+                                        for k in keys},
+                          **{k: checked[n][kind]["largest"][k]
+                             for k in ("f64_rel_err", "plain_f64_rel_err")
+                             if k in checked[n][kind]["largest"]}}
                       for n in PATHS if kind in checked[n]}})
         if kind == "lane":
             line[-1]["forms"] = {n: {k: r[k] for k in keys}

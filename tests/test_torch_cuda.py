@@ -81,6 +81,69 @@ def test_gk_kernel_matches_plain(cuda, monkeypatch, shape, batched):
     _check(gatherk.gk_call, gatherk.gk_plain, (plan, *x, *w, xb, wb))
 
 
+# (ix_x, ix_w, iy, dims_x, dims_w): shapes for both GK forms, with tiles
+# of neither form dividing H or the flat (outer index, f) run
+GK_FORM_SHAPES = {
+    "h64_k64": (("g1", "c1", "c2", "f1"), ("c1", "c2", "n1"),
+                ("g1", "n1", "f1"), (3, 8, 8, 96), (8, 8, 64)),
+    "h40_k32": (("c1", "g1", "c2", "f1"), ("c2", "c1", "n1", "n2"),
+                ("g1", "n1", "n2", "f1"), (4, 2, 8, 160), (8, 4, 5, 8)),
+    "h130_k8": (("g1", "c1", "f1"), ("c1", "n1", "n2"), ("g1", "n1", "n2",
+                                                          "f1"),
+                (3, 8, 64), (8, 10, 13)),
+    "h512_k32": (("g1", "c1", "f1"), ("c1", "n1"), ("g1", "n1", "f1"),
+                 (2, 32, 256), (32, 512)),
+}
+
+
+@pytest.mark.parametrize("form", ["stream", "mma"])
+@pytest.mark.parametrize("batched", [(False, False), (True, False),
+                                     (False, True), (True, True)])
+@pytest.mark.parametrize("shape", sorted(GK_FORM_SHAPES))
+def test_gk_forms_match_plain(cuda, monkeypatch, shape, batched, form):
+    """Each GK form against the plain version at width 1 (neither operand
+    batched) and 4, with x and w batched and not."""
+    monkeypatch.setattr(gatherk, "MIN_X_ELEMS", 1)
+    plan = gatherk.plan_gk_step(*GK_FORM_SHAPES[shape])
+    assert plan is not None, gatherk.LAST_REJECT
+    assert gatherk.gk_aligned(plan)
+    monkeypatch.setattr(gatherk, "gk_form", lambda *a, **k: form)
+    xb, wb = batched
+    gen = torch.Generator(device="cuda").manual_seed(len(shape))
+    W = 4
+    x = [_rand(((W,) if xb else ()) + (plan.x_elems,), gen) for _ in "ri"]
+    w = [_rand(((W,) if wb else ()) + (plan.H * plan.K,), gen) for _ in "ri"]
+    before = gatherk.gk_call.forms[form]
+    _check(gatherk.gk_call, gatherk.gk_plain, (plan, *x, *w, xb, wb))
+    assert gatherk.gk_call.forms[form] == before + 1
+
+
+@pytest.mark.parametrize("form", ["stream", "mma"])
+@pytest.mark.parametrize("case", ["f_run_6", "x_pointer"])
+def test_gk_forms_unaligned(cuda, monkeypatch, case, form):
+    """Offsets or buffers off 16-byte alignment take the 4-byte variant of
+    either form: an f run of 6 (a 4-float group spans two outer indices),
+    or X starting one float into its allocation."""
+    monkeypatch.setattr(gatherk, "MIN_X_ELEMS", 1)
+    if case == "f_run_6":
+        monkeypatch.setattr(gatherk, "F_MIN", 2)
+        plan = gatherk.plan_gk_step(("g1", "c1", "f1"), ("c1", "n1"),
+                                    ("g1", "n1", "f1"), (5, 12, 6), (12, 20))
+        assert plan is not None and not gatherk.gk_aligned(plan)
+    else:
+        plan = gatherk.plan_gk_step(*GK_FORM_SHAPES["h40_k32"])
+        assert gatherk.gk_aligned(plan)
+    monkeypatch.setattr(gatherk, "gk_form", lambda *a, **k: form)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    W = 3
+    x = [_rand((W * plan.x_elems + 1,), gen)[1:].reshape(W, plan.x_elems)
+         for _ in "ri"]
+    if case == "x_pointer":
+        assert x[0].data_ptr() % 16 != 0 and x[0].is_contiguous()
+    w = [_rand((plan.H * plan.K,), gen) for _ in "ri"]
+    _check(gatherk.gk_call, gatherk.gk_plain, (plan, *x, *w, True, False))
+
+
 GATHERED = {   # form: (rx_i, rx_j, riy, rd_i, rd_j)
     "gk_row": (("g", "k", "f0", "f1"), ("k", "h"), ("g", "h", "f0", "f1"),
                (3, 4, 2, 128), (4, 2)),
@@ -133,6 +196,26 @@ def test_pair_kernel_matches_plain(cuda, kmn):
     x = [_rand((W, K * M), gen) for _ in "ri"]
     v = [_rand((K * N,), gen) for _ in "ri"]
     _check(lanes.pair_call, lanes.pair_plain, (plan, *x, *v, True, False))
+
+
+@pytest.mark.parametrize("batched", [(False, False), (True, False),
+                                     (False, True), (True, True)])
+@pytest.mark.parametrize("kmn", [(100, 130, 136), (37, 300, 250),
+                                 (512, 32768, 256)])
+def test_pair_kernel_widths_and_path_shape(cuda, kmn, batched):
+    """The tensor-core pair kernel at widths 1 and 4, operands batched and
+    not: ragged M, N and K tiles (M and N off the 4-float grid take the
+    4-byte copies), and the 10k path's K 512 M 32768 N 256."""
+    K, M, N = kmn
+    plan = lanes.plan_pair_step(("k", "m"), ("k", "n"), ("m", "n"),
+                                (K, M), (K, N))
+    assert plan is not None, lanes.LAST_REJECT
+    xb, vb = batched
+    gen = torch.Generator(device="cuda").manual_seed(M)
+    W = 4 if (xb or vb) else 1
+    x = [_rand(((W,) if xb else ()) + (K * M,), gen) for _ in "ri"]
+    v = [_rand(((W,) if vb else ()) + (K * N,), gen) for _ in "ri"]
+    _check(lanes.pair_call, lanes.pair_plain, (plan, *x, *v, xb, vb))
 
 
 # (ix_x, ix_w, iy, dims_x, dims_w, plan_lane_step arguments): the forms
