@@ -19,255 +19,110 @@
 //
 // Bound: per outer index this is a (H x K) . (K x F) complex product with
 // X read once and Y written once: 8*H*K flop per f value on 8*(K + H)
-// bytes.  GK takes one of two forms, chosen by the wrapper from the step's
-// shape (gatherk.gk_form):
+// bytes.  GK and GGK run the same two forms, chosen by the wrapper from the
+// step's bytes and flops (gatherk.gk_form):
 //
 // * "stream", for steps whose bytes at 3.35 TB/s take at least as long as
 //   their flops at 0.6 of the 67 TFLOP/s float32 FMA rate (K, H <= 16, and
-//   K 16 H 32, on the paths).  Bound by bytes.  Each thread owns 4 consecutive f values of one
-//   (w, o), loads them with 16-byte loads from each of the K gathered rows
-//   (re and im planes), keeps an H chunk of at most 16 outputs x 4 f in
-//   registers and stores them with 16-byte stores, f unit-stride across
-//   the warp.  The block's W chunk sits in shared memory, read as a
-//   broadcast.  The K loop has no barrier, so a thread's row loads are
-//   independent and in flight together.  The H chunks of one f range are
-//   adjacent in block order, so the second reads X from L2.  Offsets that
-//   are not 16-byte aligned take the 4-byte variant.
+//   K 16 H 32, on the paths; every GGK step whose f run is not a multiple
+//   of the mma tile's 128).  Bound by bytes.  Each thread owns 4
+//   consecutive f values of one (w, o), loads them with 16-byte loads from
+//   each of the K gathered rows (re and im planes), keeps an H chunk of at
+//   most 16 outputs x 4 f in registers and stores them with 16-byte
+//   stores, f unit-stride across the warp.  GK's W chunk sits in shared
+//   memory, read as a broadcast; a GGK block's threads span several outer
+//   indices, each with its own W row (woff[o], at most 16 x 32 complex on
+//   the paths), so they read W[h, k] through L1, the same address across
+//   the threads of one o.  The K loop has no barrier, so a thread's row
+//   loads are independent and in flight together.  The H chunks of one f
+//   range are adjacent in block order, so the second reads X from L2.
+//   Offsets that are not 16-byte aligned take the 4-byte variant.
 // * "mma", for the other steps (K, H = 32..512): the product on the
 //   tensor cores at float32 accuracy (3xTF32, tc_core.cuh), W as the
 //   (H x K) operand and the X rows of all outer indices as one flat
 //   (K x G*F) operand staged by cp.async, so that short f runs (F 64)
-//   still fill 128-wide tiles.  Bound by operations at the 3xTF32 rate
-//   or, for most such steps, by bytes.
-//
-// GGK keeps the register-tiled FMA template below (launch_any): a block
-// owns a BH x BF output tile of one (w, o); K is walked in BK chunks
-// staged in shared memory; each thread keeps RH x RF complex accumulators.
-// One of five tile shapes (4 x 256, 4 x 64, 16 x 128, 32 x 32, 64 x 64) is
-// picked from H and F, so that a step with a small H or F (a GGK row with
-// H = 2, F = 64) does not leave most of each tile idle.
+//   still fill 128-wide tiles.  GGK reads the (H x K) operand of the
+//   block's outer index at woff[o], so its f run must be a multiple of the
+//   128-wide N tile (a tile never spans two outer indices).  Bound by
+//   operations at the 3xTF32 rate or, for most such steps, by bytes.
 
 #include "tc_core.cuh"
 
 namespace {
 
-constexpr int BK = 16;
-
-template <int RH, int RF, int TPH, int TPF>
-__global__ void __launch_bounds__(TPH * TPF)
-gk_tile_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-               const float* __restrict__ wr, const float* __restrict__ wi,
-               float* __restrict__ yr, float* __restrict__ yi,
-               const long long* __restrict__ xoff,
-               const long long* __restrict__ yoff,
-               const long long* __restrict__ woff,
-               const long long* __restrict__ koff,
-               int H, int K, int F, long long hstride,
-               long long x_ws, long long w_ws, long long y_ws,
-               int n_htiles, int n_ftiles)
-{
-    constexpr int BH = RH * TPH;
-    constexpr int BF = RF * TPF;
-    constexpr int NT = TPH * TPF;
-    __shared__ float a_r[BK][BH], a_i[BK][BH];
-    __shared__ float b_r[BK][BF], b_i[BK][BF];
-    __shared__ long long k_off[BK];
-
-    long long bid = blockIdx.x;
-    const int ft = (int)(bid % n_ftiles);
-    bid /= n_ftiles;
-    const int ht = (int)(bid % n_htiles);
-    const long long o = bid / n_htiles;
-    const long long w = blockIdx.y;
-
-    const int tid = threadIdx.x;
-    const int tx = tid % TPF;
-    const int ty = tid / TPF;
-    const int h0 = ht * BH;
-    const int f0 = ft * BF;
-    const long long xb = w * x_ws + xoff[o];
-    const long long wb = w * w_ws + (woff ? woff[o] : 0);
-    const long long yb = w * y_ws + yoff[o];
-
-    float acc_r[RH][RF], acc_i[RH][RF];
-#pragma unroll
-    for (int i = 0; i < RH; ++i)
-#pragma unroll
-        for (int j = 0; j < RF; ++j) {
-            acc_r[i][j] = 0.f;
-            acc_i[i][j] = 0.f;
-        }
-
-    for (int k0 = 0; k0 < K; k0 += BK) {
-        if (tid < BK)
-            k_off[tid] = (k0 + tid < K) ? koff[k0 + tid] : 0;
-        for (int e = tid; e < BH * BK; e += NT) {
-            const int hh = e / BK, kk = e % BK;
-            const int h = h0 + hh, k = k0 + kk;
-            float vr = 0.f, vi = 0.f;
-            if (h < H && k < K) {
-                const long long a = wb + (long long)h * K + k;
-                vr = wr[a];
-                vi = wi[a];
-            }
-            a_r[kk][hh] = vr;
-            a_i[kk][hh] = vi;
-        }
-        __syncthreads();
-        for (int e = tid; e < BK * BF; e += NT) {
-            const int kk = e / BF, ff = e % BF;
-            const int k = k0 + kk, f = f0 + ff;
-            float vr = 0.f, vi = 0.f;
-            if (k < K && f < F) {
-                const long long a = xb + k_off[kk] + f;
-                vr = xr[a];
-                vi = xi[a];
-            }
-            b_r[kk][ff] = vr;
-            b_i[kk][ff] = vi;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < BK; ++kk) {
-            float ar[RH], ai[RH], br[RF], bi[RF];
-#pragma unroll
-            for (int i = 0; i < RH; ++i) {
-                ar[i] = a_r[kk][ty + i * TPH];
-                ai[i] = a_i[kk][ty + i * TPH];
-            }
-#pragma unroll
-            for (int j = 0; j < RF; ++j) {
-                br[j] = b_r[kk][tx + j * TPF];
-                bi[j] = b_i[kk][tx + j * TPF];
-            }
-#pragma unroll
-            for (int i = 0; i < RH; ++i)
-#pragma unroll
-                for (int j = 0; j < RF; ++j) {
-                    acc_r[i][j] = fmaf(ar[i], br[j], acc_r[i][j]);
-                    acc_r[i][j] = fmaf(-ai[i], bi[j], acc_r[i][j]);
-                    acc_i[i][j] = fmaf(ar[i], bi[j], acc_i[i][j]);
-                    acc_i[i][j] = fmaf(ai[i], br[j], acc_i[i][j]);
-                }
-        }
-        __syncthreads();
-    }
-
-#pragma unroll
-    for (int i = 0; i < RH; ++i) {
-        const int h = h0 + ty + i * TPH;
-        if (h >= H) continue;
-#pragma unroll
-        for (int j = 0; j < RF; ++j) {
-            const int f = f0 + tx + j * TPF;
-            if (f < F) {
-                const long long a = yb + (long long)h * hstride + f;
-                yr[a] = acc_r[i][j];
-                yi[a] = acc_i[i][j];
-            }
-        }
-    }
-}
-
-template <int RH, int RF, int TPH, int TPF>
-int launch_tile(const float* xr, const float* xi, const float* wr,
-                const float* wi, float* yr, float* yi,
-                const long long* xoff, const long long* yoff,
-                const long long* woff, const long long* koff,
-                long long O, int H, int K, int F, long long hstride,
-                long long x_ws, long long w_ws, long long y_ws, int W,
-                cudaStream_t stream)
-{
-    constexpr int BH = RH * TPH, BF = RF * TPF;
-    const int n_htiles = (H + BH - 1) / BH;
-    const int n_ftiles = (F + BF - 1) / BF;
-    const long long nblk = O * n_htiles * n_ftiles;
-    if (nblk <= 0 || nblk > 0x7fffffffLL || W <= 0 || W > 65535)
-        return (int)cudaErrorInvalidConfiguration;
-    dim3 grid((unsigned)nblk, (unsigned)W);
-    gk_tile_kernel<RH, RF, TPH, TPF><<<grid, TPH * TPF, 0, stream>>>(
-        xr, xi, wr, wi, yr, yi, xoff, yoff, woff, koff, H, K, F, hstride,
-        x_ws, w_ws, y_ws, n_htiles, n_ftiles);
-    return (int)cudaGetLastError();
-}
-
-int launch_any(const float* xr, const float* xi, const float* wr,
-               const float* wi, float* yr, float* yi,
-               const long long* xoff, const long long* yoff,
-               const long long* woff, const long long* koff,
-               long long O, int H, int K, int F, long long hstride,
-               long long x_ws, long long w_ws, long long y_ws, int W,
-               void* stream)
-{
-    cudaStream_t s = (cudaStream_t)stream;
-    if (H <= 4 && F >= 256)        // 4 x 256 tiles: gate-merge steps
-        return launch_tile<4, 1, 1, 256>(xr, xi, wr, wi, yr, yi, xoff, yoff,
-                                         woff, koff, O, H, K, F, hstride,
-                                         x_ws, w_ws, y_ws, W, s);
-    if (H <= 4)                    // 4 x 64 tiles: F is 32..224
-        return launch_tile<4, 1, 1, 64>(xr, xi, wr, wi, yr, yi, xoff, yoff,
-                                        woff, koff, O, H, K, F, hstride,
-                                        x_ws, w_ws, y_ws, W, s);
-    if (H <= 16 && F >= 128)       // 16 x 128 tiles
-        return launch_tile<4, 2, 4, 64>(xr, xi, wr, wi, yr, yi, xoff, yoff,
-                                        woff, koff, O, H, K, F, hstride,
-                                        x_ws, w_ws, y_ws, W, s);
-    if (H <= 32 || F <= 32)        // 32 x 32 tiles
-        return launch_tile<2, 2, 16, 16>(xr, xi, wr, wi, yr, yi, xoff, yoff,
-                                         woff, koff, O, H, K, F, hstride,
-                                         x_ws, w_ws, y_ws, W, s);
-    return launch_tile<4, 4, 16, 16>(xr, xi, wr, wi, yr, yi, xoff, yoff,  // 64 x 64
-                                     woff, koff, O, H, K, F, hstride,
-                                     x_ws, w_ws, y_ws, W, s);
-}
-
 // -- GK "stream" form ---------------------------------------------------------
 
 constexpr int STREAM_THREADS = 128;
 
-template <int HC, bool VEC>
-__global__ void __launch_bounds__(STREAM_THREADS)
-gk_stream_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                 const float* __restrict__ wr, const float* __restrict__ wi,
-                 float* __restrict__ yr, float* __restrict__ yi,
-                 const long long* __restrict__ xoff,
-                 const long long* __restrict__ yoff,
-                 const long long* __restrict__ koff,
-                 int H, int K, int F, long long hstride, long long x_ws,
-                 long long w_ws, long long y_ws, long long nflat, int n_hchunks)
+// Where a thread finds W[h, k]:
+enum WSource {
+    W_SHARED = 0,   // GK: the block's (K x HC) chunk, staged in shared memory
+    W_STAGED = 1,   // GGK: the rows of the outer indices the block spans,
+                    //   staged in shared memory ([o][k][h])
+    W_GLOBAL = 2,   // GGK rows too large to stage: W[woff[o] + h K + k]
+                    //   through L1 (the same address for the threads of an o)
+};
+constexpr int STAGE_CAP = 64 * 1024;   // max bytes of staged GGK W rows
+
+template <int HC, bool VEC, int WS>
+__device__ __forceinline__ void
+stream_body(const float* __restrict__ xr, const float* __restrict__ xi,
+            const float* __restrict__ wr, const float* __restrict__ wi,
+            float* __restrict__ yr, float* __restrict__ yi,
+            const long long* __restrict__ xoff,
+            const long long* __restrict__ yoff,
+            const long long* __restrict__ woff,
+            const long long* __restrict__ koff,
+            int H, int K, int F, long long hstride, long long x_ws,
+            long long w_ws, long long y_ws, long long nflat, int n_hchunks)
 {
-    extern __shared__ __align__(16) float2 sw[];   // [K][HC] (re, im)
-    long long* sk = reinterpret_cast<long long*>(sw + (size_t)K * HC);
+    extern __shared__ __align__(16) long long sk[];   // [K] koff, then W
+    float2* sw = reinterpret_cast<float2*>(sk + K);
+    constexpr int NV = VEC ? 1 : 4;   // outer indices of a thread's values
+    constexpr int NW = (WS == W_SHARED || VEC) ? 1 : 4;
 
     const int hc = blockIdx.x % n_hchunks;
     const long long qb = blockIdx.x / n_hchunks;
     const long long w = blockIdx.y;
     const int h0 = hc * HC;
     const long long wb = w * w_ws;
-    for (int e = threadIdx.x; e < HC * K; e += STREAM_THREADS) {
-        const int h = e / K, k = e % K;
-        float2 v = make_float2(0.f, 0.f);
-        if (h0 + h < H) {
-            const long long a = wb + (long long)(h0 + h) * K + k;
-            v = make_float2(wr[a], wi[a]);
+    // the block's flat (o, f) values and the outer indices they span
+    const long long nb = 4 * qb * STREAM_THREADS;
+    const long long o0 = nb / F;
+    const int n_o = (int)((min(nflat, nb + 4 * STREAM_THREADS) - 1) / F - o0
+                          + 1);
+    if (WS != W_GLOBAL) {
+        const int n_w = (WS == W_STAGED ? n_o : 1) * HC * K;
+        for (int e = threadIdx.x; e < n_w; e += STREAM_THREADS) {
+            const int oi = e / (HC * K), h = e / K % HC, k = e % K;
+            float2 v = make_float2(0.f, 0.f);
+            if (h0 + h < H) {
+                const long long a = wb + (long long)(h0 + h) * K + k
+                    + (WS == W_STAGED ? woff[o0 + oi] : 0);
+                v = make_float2(wr[a], wi[a]);
+            }
+            sw[((long long)oi * K + k) * HC + h] = v;
         }
-        sw[k * HC + h] = v;
     }
     for (int k = threadIdx.x; k < K; k += STREAM_THREADS)
         sk[k] = koff[k];
     __syncthreads();
 
-    const long long n = 4 * (qb * STREAM_THREADS + threadIdx.x);
+    const long long n = nb + 4 * threadIdx.x;
     if (n >= nflat)     // n: the first of this thread's 4 flat (o, f) values
         return;
-    // X and Y offsets of the 4 values (one outer index when VEC)
-    long long xo[VEC ? 1 : 4], yo[VEC ? 1 : 4];
+    // X and Y offsets of the 4 values (one outer index when VEC), and
+    // where their W rows are
+    long long xo[NV], yo[NV], wo[NW];
 #pragma unroll
-    for (int e = 0; e < (VEC ? 1 : 4); ++e) {
+    for (int e = 0; e < NV; ++e) {
         const long long ne = n + e < nflat ? n + e : n;
         const long long o = ne / F, f = ne % F;
         xo[e] = w * x_ws + xoff[o] + f;
         yo[e] = w * y_ws + yoff[o] + f + (long long)h0 * hstride;
+        if (e < NW)
+            wo[e] = WS == W_STAGED ? (o - o0) * K * HC
+                  : WS == W_GLOBAL ? wb + woff[o] + (long long)h0 * K : 0;
     }
 
     float acc_r[HC][4], acc_i[HC][4];
@@ -279,7 +134,9 @@ gk_stream_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
             acc_i[h][e] = 0.f;
         }
 
-#pragma unroll 4
+    // W values read from global memory take registers: unroll less
+    constexpr int UNROLL = WS == W_GLOBAL ? (VEC ? 2 : 1) : 4;
+#pragma unroll UNROLL
     for (int k = 0; k < K; ++k) {
         const long long ko = sk[k];
         float vr[4], vi[4];
@@ -296,16 +153,27 @@ gk_stream_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                 vi[e] = ok ? __ldg(xi + xo[VEC ? 0 : e] + ko) : 0.f;
             }
         }
-        const float2* wk = sw + k * HC;
 #pragma unroll
         for (int h = 0; h < HC; ++h) {
-            const float2 c = wk[h];
+            float2 c[NW];
+#pragma unroll
+            for (int e = 0; e < NW; ++e) {
+                if (WS != W_GLOBAL) {
+                    c[e] = sw[wo[e] + k * HC + h];
+                } else if (h0 + h < H) {
+                    const long long a = wo[e] + (long long)h * K + k;
+                    c[e] = make_float2(__ldg(wr + a), __ldg(wi + a));
+                } else {
+                    c[e] = make_float2(0.f, 0.f);
+                }
+            }
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-                acc_r[h][e] = fmaf(c.x, vr[e], acc_r[h][e]);
-                acc_r[h][e] = fmaf(-c.y, vi[e], acc_r[h][e]);
-                acc_i[h][e] = fmaf(c.x, vi[e], acc_i[h][e]);
-                acc_i[h][e] = fmaf(c.y, vr[e], acc_i[h][e]);
+                const float2 ce = c[NW == 1 ? 0 : e];
+                acc_r[h][e] = fmaf(ce.x, vr[e], acc_r[h][e]);
+                acc_r[h][e] = fmaf(-ce.y, vi[e], acc_r[h][e]);
+                acc_i[h][e] = fmaf(ce.x, vi[e], acc_i[h][e]);
+                acc_i[h][e] = fmaf(ce.y, vr[e], acc_i[h][e]);
             }
         }
     }
@@ -332,13 +200,38 @@ gk_stream_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     }
 }
 
+// GK and GGK launch the body from kernels of their own names, so that a
+// profile tells them apart
+#define STREAM_PARAMS                                                        \
+    const float* xr, const float* xi, const float* wr, const float* wi,      \
+        float* yr, float* yi, const long long* xoff, const long long* yoff,  \
+        const long long* woff, const long long* koff, int H, int K, int F,   \
+        long long hstride, long long x_ws, long long w_ws, long long y_ws,   \
+        long long nflat, int n_hchunks
+#define STREAM_ARGS xr, xi, wr, wi, yr, yi, xoff, yoff, woff, koff, H, K, F, \
+    hstride, x_ws, w_ws, y_ws, nflat, n_hchunks
+
 template <int HC, bool VEC>
+__global__ void __launch_bounds__(STREAM_THREADS)
+gk_stream_kernel(STREAM_PARAMS)
+{
+    stream_body<HC, VEC, W_SHARED>(STREAM_ARGS);
+}
+
+template <int HC, bool VEC, int WS>
+__global__ void __launch_bounds__(STREAM_THREADS)
+ggk_stream_kernel(STREAM_PARAMS)
+{
+    stream_body<HC, VEC, WS>(STREAM_ARGS);
+}
+
+template <int HC, bool VEC, int WS>
 int launch_stream(const float* xr, const float* xi, const float* wr,
                   const float* wi, float* yr, float* yi,
                   const long long* xoff, const long long* yoff,
-                  const long long* koff, long long O, int H, int K, int F,
-                  long long hstride, long long x_ws, long long w_ws,
-                  long long y_ws, int W, cudaStream_t stream)
+                  const long long* woff, const long long* koff, long long O,
+                  int H, int K, int F, long long hstride, long long x_ws,
+                  long long w_ws, long long y_ws, int W, cudaStream_t stream)
 {
     const long long nflat = O * F;
     if (VEC && nflat % 4)
@@ -347,11 +240,17 @@ int launch_stream(const float* xr, const float* xi, const float* wr,
     const int n_hchunks = (H + HC - 1) / HC;
     const long long nblk = (nq + STREAM_THREADS - 1) / STREAM_THREADS
                            * n_hchunks;
-    const size_t smem = (size_t)K * HC * sizeof(float2)
-                        + (size_t)K * sizeof(long long);
+    const size_t smem = (size_t)K * sizeof(long long)
+                        + (size_t)K * HC * sizeof(float2)
+                          * (WS == W_SHARED ? 1 : WS == W_STAGED
+                             ? (4 * STREAM_THREADS - 1) / F + 2 : 0);
     if (K < 1 || nblk <= 0 || nblk > 0x7fffffffLL || W <= 0 || W > 65535)
         return (int)cudaErrorInvalidConfiguration;
-    auto kern = gk_stream_kernel<HC, VEC>;
+    void (*kern)(STREAM_PARAMS);
+    if constexpr (WS == W_SHARED)
+        kern = gk_stream_kernel<HC, VEC>;
+    else
+        kern = ggk_stream_kernel<HC, VEC, WS>;
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -360,30 +259,54 @@ int launch_stream(const float* xr, const float* xi, const float* wr,
     }
     dim3 grid((unsigned)nblk, (unsigned)W);
     kern<<<grid, STREAM_THREADS, smem, stream>>>(
-        xr, xi, wr, wi, yr, yi, xoff, yoff, koff, H, K, F, hstride, x_ws,
-        w_ws, y_ws, nflat, n_hchunks);
+        xr, xi, wr, wi, yr, yi, xoff, yoff, woff, koff, H, K, F, hstride,
+        x_ws, w_ws, y_ws, nflat, n_hchunks);
     return (int)cudaGetLastError();
 }
+#undef STREAM_PARAMS
+#undef STREAM_ARGS
 
-template <bool VEC>
-int stream_any(const float* xr, const float* xi, const float* wr,
-               const float* wi, float* yr, float* yi, const long long* xoff,
-               const long long* yoff, const long long* koff, long long O,
-               int H, int K, int F, long long hstride, long long x_ws,
-               long long w_ws, long long y_ws, int W, cudaStream_t s)
+template <bool VEC, int WS>
+int stream_hc(const float* xr, const float* xi, const float* wr,
+              const float* wi, float* yr, float* yi, const long long* xoff,
+              const long long* yoff, const long long* woff,
+              const long long* koff, long long O, int H, int K, int F,
+              long long hstride, long long x_ws, long long w_ws,
+              long long y_ws, int W, cudaStream_t s)
 {
+#define ST_ARGS xr, xi, wr, wi, yr, yi, xoff, yoff, woff, koff, O, H, K, F, \
+    hstride, x_ws, w_ws, y_ws, W, s
     // H chunk: the smallest of 4, 8, 16 that holds H (16 above that)
     if (H <= 4)
-        return launch_stream<4, VEC>(xr, xi, wr, wi, yr, yi, xoff, yoff, koff,
-                                     O, H, K, F, hstride, x_ws, w_ws, y_ws,
-                                     W, s);
+        return launch_stream<4, VEC, WS>(ST_ARGS);
     if (H <= 8)
-        return launch_stream<8, VEC>(xr, xi, wr, wi, yr, yi, xoff, yoff, koff,
-                                     O, H, K, F, hstride, x_ws, w_ws, y_ws,
-                                     W, s);
-    return launch_stream<16, VEC>(xr, xi, wr, wi, yr, yi, xoff, yoff, koff,
-                                  O, H, K, F, hstride, x_ws, w_ws, y_ws, W,
-                                  s);
+        return launch_stream<8, VEC, WS>(ST_ARGS);
+    return launch_stream<16, VEC, WS>(ST_ARGS);
+#undef ST_ARGS
+}
+
+int stream_any(const float* xr, const float* xi, const float* wr,
+               const float* wi, float* yr, float* yi, const long long* xoff,
+               const long long* yoff, const long long* woff,
+               const long long* koff, long long O, int H, int K, int F,
+               long long hstride, long long x_ws, long long w_ws,
+               long long y_ws, int W, bool vec, cudaStream_t s)
+{
+#define ST_ARGS xr, xi, wr, wi, yr, yi, xoff, yoff, woff, koff, O, H, K, F, \
+    hstride, x_ws, w_ws, y_ws, W, s
+    if (!woff)
+        return vec ? stream_hc<true, W_SHARED>(ST_ARGS)
+                   : stream_hc<false, W_SHARED>(ST_ARGS);
+    // GGK: stage the W rows a block spans where they fit
+    const int hc = H <= 4 ? 4 : H <= 8 ? 8 : 16;
+    const long long staged = (long long)((4 * STREAM_THREADS - 1) / F + 2)
+                             * K * hc * (long long)sizeof(float2);
+    if (staged <= STAGE_CAP)
+        return vec ? stream_hc<true, W_STAGED>(ST_ARGS)
+                   : stream_hc<false, W_STAGED>(ST_ARGS);
+    return vec ? stream_hc<true, W_GLOBAL>(ST_ARGS)
+               : stream_hc<false, W_GLOBAL>(ST_ARGS);
+#undef ST_ARGS
 }
 
 // -- GK "mma" form ------------------------------------------------------------
@@ -406,16 +329,28 @@ gk_mma_kernel(tc::Operands p, int n_mtiles)
     tc::cgemm<T, true, true, ROW>(p, n_mtiles);
 }
 
+// the same for GGK (p.aoff set), under its own name for the profile
+template <class T, int MIN_BLOCKS, bool ROW>
+__global__ void __launch_bounds__(T::THREADS, MIN_BLOCKS)
+ggk_mma_kernel(tc::Operands p, int n_mtiles)
+{
+    tc::cgemm<T, true, true, ROW>(p, n_mtiles);
+}
+
 int gk_mma(const float* xr, const float* xi, const float* wr,
            const float* wi, float* yr, float* yi, const long long* xoff,
-           const long long* yoff, const long long* koff, long long O, int H,
-           int K, int F, long long hstride, long long x_ws, long long w_ws,
+           const long long* yoff, const long long* woff,
+           const long long* koff, long long O, int H, int K, int F,
+           long long hstride, long long x_ws, long long w_ws,
            long long y_ws, int W, bool vec, cudaStream_t s)
 {
-    if (O * F > 0x7fffffffLL)
+    // a block's N tile lies in one outer index where W follows it
+    if (O * F > 0x7fffffffLL || (woff && F % GkNarrow::BN)
+        || GkNarrow::BN != GkWide::BN)
         return (int)cudaErrorInvalidValue;
     tc::Operands p{};
     p.ar = wr; p.ai = wi; p.br = xr; p.bi = xi; p.yr = yr; p.yi = yi;
+    p.aoff = woff;
     p.M = H; p.N = (int)(O * F); p.K = K;
     p.lda = K; p.ldb = 0; p.ldy = hstride;
     p.a_ws = w_ws; p.b_ws = x_ws; p.y_ws = y_ws;
@@ -424,10 +359,28 @@ int gk_mma(const float* xr, const float* xi, const float* wr,
               w_ws % 4 == 0;
     p.vec = vec;
     if (H <= 32)
-        return tc::launch<GkNarrow, true>(gk_mma_kernel<GkNarrow, 1, true>,
-                                          p, W, s);
-    return tc::launch<GkWide, true>(gk_mma_kernel<GkWide, 2, false>, p, W,
-                                    s);
+        return tc::launch<GkNarrow, true>(
+            woff ? ggk_mma_kernel<GkNarrow, 1, true>
+                 : gk_mma_kernel<GkNarrow, 1, true>, p, W, s);
+    return tc::launch<GkWide, true>(
+        woff ? ggk_mma_kernel<GkWide, 2, false>
+             : gk_mma_kernel<GkWide, 2, false>, p, W, s);
+}
+
+int gk_any(const float* xr, const float* xi, const float* wr,
+           const float* wi, float* yr, float* yi, const long long* xoff,
+           const long long* yoff, const long long* woff,
+           const long long* koff, long long O, int H, int K, int F,
+           long long hstride, long long x_ws, long long w_ws,
+           long long y_ws, int W, int form, int vec, cudaStream_t s)
+{
+    if (form == 1)
+        return gk_mma(xr, xi, wr, wi, yr, yi, xoff, yoff, woff, koff, O, H,
+                      K, F, hstride, x_ws, w_ws, y_ws, W, vec != 0, s);
+    if (form != 0)
+        return (int)cudaErrorInvalidValue;
+    return stream_any(xr, xi, wr, wi, yr, yi, xoff, yoff, woff, koff, O, H,
+                      K, F, hstride, x_ws, w_ws, y_ws, W, vec != 0, s);
 }
 
 }  // namespace
@@ -442,27 +395,23 @@ extern "C" int gk_launch(const float* xr, const float* xi, const float* wr,
                          long long w_ws, long long y_ws, int W, int form,
                          int vec, void* stream)
 {
-    cudaStream_t s = (cudaStream_t)stream;
-    if (form == 1)
-        return gk_mma(xr, xi, wr, wi, yr, yi, xoff, yoff, koff, O, H, K, F,
-                      hstride, x_ws, w_ws, y_ws, W, vec != 0, s);
-    if (form != 0)
-        return (int)cudaErrorInvalidValue;
-    if (vec)
-        return stream_any<true>(xr, xi, wr, wi, yr, yi, xoff, yoff, koff, O,
-                                H, K, F, hstride, x_ws, w_ws, y_ws, W, s);
-    return stream_any<false>(xr, xi, wr, wi, yr, yi, xoff, yoff, koff, O, H,
-                             K, F, hstride, x_ws, w_ws, y_ws, W, s);
+    return gk_any(xr, xi, wr, wi, yr, yi, xoff, yoff, nullptr, koff, O, H,
+                  K, F, hstride, x_ws, w_ws, y_ws, W, form, vec,
+                  (cudaStream_t)stream);
 }
 
+// GGK: as gk_launch, with W's (H, K) row of outer index o at woff[o]
 extern "C" int ggk_launch(const float* xr, const float* xi, const float* wr,
                           const float* wi, float* yr, float* yi,
                           const long long* xoff, const long long* yoff,
                           const long long* woff, const long long* koff,
                           long long O, int H, int K, int F, long long hstride,
                           long long x_ws, long long w_ws, long long y_ws,
-                          int W, void* stream)
+                          int W, int form, int vec, void* stream)
 {
-    return launch_any(xr, xi, wr, wi, yr, yi, xoff, yoff, woff, koff, O, H,
-                      K, F, hstride, x_ws, w_ws, y_ws, W, stream);
+    if (woff == nullptr)
+        return (int)cudaErrorInvalidValue;
+    return gk_any(xr, xi, wr, wi, yr, yi, xoff, yoff, woff, koff, O, H, K,
+                  F, hstride, x_ws, w_ws, y_ws, W, form, vec,
+                  (cudaStream_t)stream);
 }

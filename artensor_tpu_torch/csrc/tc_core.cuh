@@ -8,7 +8,9 @@
 // (K, M) rows (the pair kernel's X), and B read as (K, N) rows.  In the
 // GATHER variant (GK) B's row k starts at koff[k] and column n is element
 // n % F of outer index n / F, at xoff[n / F] in X and yoff[n / F] in Y, so
-// that all outer indices of a GK step form one flat N = G * F.
+// that all outer indices of a GK step form one flat N = G * F.  With
+// ``aoff`` (GGK) A of outer index o starts at aoff[o]; then F is a
+// multiple of BN, so that an N tile lies in one outer index.
 //
 // 3xTF32: each operand is split x = hi + lo with hi = tf32(x) and
 // lo = tf32(x - hi); a real product sums hi.hi + hi.lo + lo.hi (the lo.lo
@@ -117,6 +119,7 @@ struct Operands {
     long long lda, ldb, ldy;   // row strides: A (m or k rows), B (k rows), Y (m rows)
     long long a_ws, b_ws, y_ws;   // slice-width strides (0: slice-invariant)
     const long long *koff, *xoff, *yoff;   // GATHER tables
+    const long long* aoff;     // GATHER, or null: A of outer index o at aoff[o]
     int F;                     // GATHER: f run length
     int vec_a, vec;            // 16-byte copies of A; of B and 8-byte Y stores
 };
@@ -187,8 +190,11 @@ __device__ __forceinline__ void cgemm(const Operands& p, int n_mtiles)
     const int wm = warp % WM, wn = warp / WM;
     const int g = lane >> 2, t = lane & 3;
 
-    const float* __restrict__ ar = p.ar + w * p.a_ws;
-    const float* __restrict__ ai = p.ai + w * p.a_ws;
+    // GGK: each outer index has its own A; an N tile lies in one index
+    const long long a0 = w * p.a_ws
+                         + ((GATHER && p.aoff) ? p.aoff[n0 / p.F] : 0);
+    const float* __restrict__ ar = p.ar + a0;
+    const float* __restrict__ ai = p.ai + a0;
     const float* __restrict__ br = p.br + w * p.b_ws;
     const float* __restrict__ bi = p.bi + w * p.b_ws;
     const bool vec_a = p.vec_a, vec = p.vec;

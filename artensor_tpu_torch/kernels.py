@@ -44,10 +44,12 @@ SIGNATURES = {
     "gatherk": {
         "gk_launch": [_P] * 9 + [_L, _I, _I, _I, _L, _L, _L, _L, _I, _I, _I,
                                   _P],
-        "ggk_launch": [_P] * 10 + [_L, _I, _I, _I, _L, _L, _L, _L, _I, _P],
+        "ggk_launch": [_P] * 10 + [_L, _I, _I, _I, _L, _L, _L, _L, _I, _I,
+                                    _I, _P],
     },
     "rgrow": {
-        "rgrow_launch": [_P] * 8 + [_L, _I, _I, _I, _I, _L, _L, _L, _I, _P],
+        "rgrow_launch": [_P] * 13 + [_L, _I, _I, _I, _I, _I, _I, _L, _L, _L,
+                                     _L, _L, _I, _P],
     },
     "rgflat": {
         "rgflat_launch": [_P] * 9 + [_L, _I, _I, _I, _L, _L, _L, _I, _P],
@@ -143,6 +145,22 @@ def check(rc, name):
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
 
 
+def launch(name, fn, dev, *args):
+    """Call the C entry point ``fn`` with ``args`` and, as its last
+    argument, the current stream of CUDA device ``dev``, with ``dev`` the
+    thread's current device for the call; raise if the launch was refused.
+
+    Every kernel wrapper launches through here.  Each library links its own
+    CUDA runtime, which launches on the context current to the thread;
+    ``torch.cuda.device`` makes ``dev``'s context current (through
+    PyTorch's runtime, and so for the CUDA driver both share), so an
+    operand on ``cuda:1`` is launched on card 1 whichever card is current
+    around the call."""
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        check(fn(*args, ctypes.c_void_p(stream)), name)
+
+
 def check_operands(name, tensors, shapes):
     """Validate a wrapper's operands: one device (CPU or CUDA), float32,
     the expected shapes, contiguous.  Returns the device."""
@@ -170,10 +188,6 @@ def slice_width(x_batched, w_batched, x, w):
     if x_batched:
         return x.shape[0]
     return w.shape[0] if w_batched else 1
-
-
-def stream_of(t):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
 def ptr(t):

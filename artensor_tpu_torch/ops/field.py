@@ -7,9 +7,10 @@ kernels take re and im as separate buffers, so keeping the pair (instead of
 a native complex tensor) lets every step hand its operands to a kernel
 without an interleave pass.
 
-Products accumulate in full float32: ``torch.backends.cuda.matmul.allow_tf32``
-is set False where ``dot`` runs, because the JAX package's dots run at
-HIGHEST precision.  A value may carry a leading slice-width axis (see
+Products accumulate in full float32: ``dot`` runs its products with
+``torch.backends.cuda.matmul.allow_tf32`` False, because the JAX package's
+dots run at HIGHEST precision, and gives the caller's setting back after
+them.  A value may carry a leading slice-width axis (see
 ``runtime/executor.py``); methods that take a ``shape`` or ``axis`` are
 given the full shape including it.
 
@@ -90,11 +91,17 @@ class SplitField:
         the naive four real products."""
         ar, ai = a
         br, bi = b
-        # full-f32 products (PyTorch's default, pinned here: a caller that
-        # turned TF32 on would otherwise round these to ~3 digits)
-        torch.backends.cuda.matmul.allow_tf32 = False
         mm = lambda x, y: _dot_general(x, y, dnums)
-        return mm(ar, br) - mm(ai, bi), mm(ar, bi) + mm(ai, br)
+        # full-f32 products (PyTorch's default, pinned for the call: a
+        # caller that turned TF32 on would otherwise round these to ~3
+        # digits); the caller's setting is given back
+        flags = torch.backends.cuda.matmul
+        caller = flags.allow_tf32
+        flags.allow_tf32 = False
+        try:
+            return mm(ar, br) - mm(ai, bi), mm(ar, bi) + mm(ai, br)
+        finally:
+            flags.allow_tf32 = caller
 
     # -- structural ops ---------------------------------------------------
     def regroup(self, x, dims, perm, final_shape):

@@ -42,10 +42,8 @@ def complex_batched_matmul(a, b):
         return complex_batched_matmul_plain(a, b)
     yr = torch.empty((B, M, N), dtype=torch.float32, device=dev)
     yi = torch.empty_like(yr)
-    lib = kernels.load()
-    rc = lib.cmm_launch(*map(kernels.ptr, (ar, ai, br, bi, yr, yi)),
-                        B, M, K, N, kernels.stream_of(ar))
-    kernels.check(rc, "complex_mm")
+    kernels.launch("complex_mm", kernels.load().cmm_launch, dev,
+                   *map(kernels.ptr, (ar, ai, br, bi, yr, yi)), B, M, K, N)
     complex_batched_matmul.launches += 1
     return yr, yi
 

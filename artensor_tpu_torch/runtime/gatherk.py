@@ -35,15 +35,20 @@ and take the CUDA kernels' own limits instead:
   estimate against the dot fallback (``est_s`` decided that on the TPU);
 * the RGFlat row form (``plan_rg_flat``) reads its stored row through an
   (F, K) address table in place of the JAX kernel's two 0/1 digit
-  matrices (an MXU device).
+  matrices (an MXU device);
+* the RGRow row form keeps the JAX plan (``pre_perm`` and all) but its
+  kernel reads X and W rows in their stored order through per-digit
+  offset tables (``foff``/``koff``, ``wk_idx``), so the step runs no
+  whole-buffer reorder of X and no transpose of W.
 
 Kernel eligibility may therefore differ from the JAX scheme; the amplitudes
 may not.
 
 Every kernel wrapper (``gk_call``, ``ggk_call``, ``rgrow_call``,
 ``rgflat_call``) takes its plain PyTorch version only for CPU tensors; for
-CUDA tensors it launches the kernel or raises.  ``launches`` on each
-wrapper counts kernel launches.  The GK kernel has two forms, "stream"
+CUDA tensors it launches the kernel (on the operands' card, through
+``kernels.launch``) or raises.  ``launches`` on each wrapper counts kernel
+launches.  The GK kernel runs GK and GGK steps in two forms, "stream"
 (bound by bytes, float32 FMAs) and "mma" (3xTF32 on the tensor cores);
 ``gk_form`` picks one from the step's bytes and flops.
 """
@@ -349,10 +354,13 @@ def gk_output_order(ix_i, ix_j, iy_set, dims_i, dims_j, pin=0,
 @dataclass(frozen=True)
 class RGRow:
     """Reduction-form row plan: aligned rows whose free legs are too few for
-    an f run.  The row is brought to the canonical (F, K) layout — frees in
-    riy order leading, the contract run minor — by ONE whole-buffer reorder
-    when the stored order differs (``pre_perm``).  The kernel then computes
-    y[h, f] = sum_k x[f, k] * w[h, k] per gathered row."""
+    an f run.  The kernel computes y[h, f] = sum_k x[f, k] * w[h, k] per
+    gathered row over the canonical (F, K) layout — frees in riy order
+    leading, the contract run minor — which is the JAX kernel's operand
+    after its whole-buffer reorder ``pre_perm``.  The port reads the rows
+    in their stored order instead: x[f, k] lies at ``foff[f] + koff[k]``
+    of the stored X row and w[h, k] at ``wk_idx[h, k]`` of the stored W
+    row, so neither operand is reordered or transposed."""
 
     view_x: tuple        # canonical (F, K) — or (K,) when no frees
     H: int
@@ -366,6 +374,9 @@ class RGRow:
     flops: int
     w_dims: tuple = None   # W's stored digit dims / transpose to (H, K)
     w_perm: tuple = None
+    foff: object = None    # (F,) int64 stored offset of free cell f
+    koff: object = None    # (K,) int64 stored offset of contract value k
+    _dev: dict = dc_field(default_factory=dict, repr=False, compare=False)
 
     @property
     def F(self):
@@ -438,11 +449,16 @@ def plan_rg_row(rx_i, rx_j, riy, rdims_i, rdims_j):
     F = _prod(dim_of[l] for l in frees_y)
     view_x = (F, K) if frees_y else (K,)
     wpos = {l: k for k, l in enumerate(ix_w)}
+    xs = dict(zip(ix_x, _strides(dims_x)))
     return RGRow(view_x, H, K, _wk_index(ix_w, dim_of, fresh_y, contract),
                  hy_first, tuple(dim_of[l] for l in riy), w_is_j,
                  tuple(int(d) for d in dims_x), pre_perm, 8 * H * xrow,
                  tuple(dim_of[l] for l in ix_w),
-                 tuple(wpos[l] for l in list(fresh_y) + list(contract)))
+                 tuple(wpos[l] for l in list(fresh_y) + list(contract)),
+                 _mixed_offsets([dim_of[l] for l in frees_y],
+                                [xs[l] for l in frees_y]),
+                 _mixed_offsets([dim_of[l] for l in contract],
+                                [xs[l] for l in contract]))
 
 
 RGF_ROW_MIN = 128        # min row elements of the flat-row form (JAX gate)
@@ -605,30 +621,46 @@ def plan_ggk_step(rx_i, rx_j, riy, rdims_i, rdims_j, gi, gj,
 
 # -- GK kernel forms ---------------------------------------------------------
 #
-# The GK kernel (csrc/gatherk.cu) runs a step in one of two forms, chosen
-# here from the step's shape: "stream" (float32 FMAs, one thread per 4 f
-# values, the W chunk in shared memory) for steps whose bytes bound them
-# at the FMA rate, "mma" (3xTF32 on the tensor cores) for the others.
+# The GK kernel (csrc/gatherk.cu) runs a GK or GGK step in one of two
+# forms, chosen here from the step's shape: "stream" (float32 FMAs, one
+# thread per 4 f values) for steps whose bytes bound them at the FMA rate,
+# "mma" (3xTF32 on the tensor cores) for the others.
 
 GK_FORMS = ("stream", "mma")  # gk_launch's form codes, in order
-STREAM_W_CAP = 4096           # max complex W values (H chunk x K) the stream
-                              # form stages in shared memory (32 KiB)
+STREAM_W_CAP = 4096           # max complex W values (H chunk x K) the GK
+                              # stream form stages in shared memory (32 KiB)
 STREAM_FMA_SHARE = 0.6        # share of the FMA rate the stream form is
                               # held to when it is chosen (see gk_form)
+MMA_TILE_N = 128              # the mma form's N tile (GkNarrow/GkWide::BN)
+GGK_MMA_K_MIN = 32            # min K of a GGK step in the mma form (see gk_form)
 
 
 def stream_hchunk(H):
     """The stream form's H chunk: the smallest of 4, 8, 16 that holds H,
-    else 16 (as ``stream_any`` in gatherk.cu)."""
+    else 16 (as ``stream_hc`` in gatherk.cu)."""
     return 4 if H <= 4 else 8 if H <= 8 else 16
 
 
+def _used_rows(plan):
+    """(X rows, W rows) a gathered step's targets name: what it must read."""
+    if "used_rows" not in plan._dev:
+        plan._dev["used_rows"] = (len(np.unique(plan.gi)),
+                                  len(np.unique(plan.gj)))
+    return plan._dev["used_rows"]
+
+
 def gk_bytes(plan, width=1, x_batched=True, w_batched=False):
-    """Bytes a GK call must move: X and W read once, Y written once, at
-    slice width ``width`` (an unbatched operand is read once)."""
+    """Bytes a GK or GGK call must move: X and W read once, Y written once,
+    at slice width ``width`` (an unbatched operand is read once; a GGK step
+    reads only the rows its targets name)."""
     wx = width if x_batched else 1
     ww = width if w_batched else 1
     wy = width if (x_batched or w_batched) else 1
+    if isinstance(plan, GGKPlan):
+        row = plan.row
+        nx, nw = _used_rows(plan)
+        return 8 * (wx * nx * row.x_elems + ww * nw * row.H * row.K
+                    + wy * plan.B * row.y_elems)
     return 8 * (wx * plan.x_elems + ww * plan.H * plan.K + wy * plan.y_elems)
 
 
@@ -639,33 +671,68 @@ def gk_flops(plan, width=1, x_batched=True, w_batched=False):
 def gk_form(plan, width=1, x_batched=True, w_batched=False):
     """"stream" when the step's bytes at the card's memory rate take at
     least as long as its flops at ``STREAM_FMA_SHARE`` of the float32 FMA
-    rate (and its W chunk fits the stream form's shared memory), else
-    "mma".  The share is measured, not derived
+    rate, else "mma"; for a GK step (``GKPlan``) the stream form also
+    needs its W chunk to fit shared memory, for a GGK step (``GGKPlan``)
+    the mma form needs an f run that is a multiple of ``MMA_TILE_N`` (a
+    tile holds one outer index's W) and at least ``GGK_MMA_K_MIN``
+    contract values.  The share is measured, not derived
     (``scripts/gk_forms_torch_port.py``, every GK step of the three paths
     in both forms on an H100): the K 4 and K 8 steps ran 1.2-6.3x faster
     streamed, K 16 H 16 (H*K/(H+K) = 8 flop a byte) 1.55-1.65x and K 16
     H 32 (10.7) 1.10x; K 32 H 32 (16) ran 1.12-1.19x faster on the tensor
     cores and K 16 H 128 (14.2) 1.03x.  0.6 cuts between 10.7 and 14.2
-    (1.0 would be 20 flop a byte), so every step of the paths takes its
-    faster form."""
+    (1.0 would be 20 flop a byte), so every GK step of the paths takes its
+    faster form.  The GGK K floor is measured the same way: the 1k path's
+    K 16 H 16 F 512 step (X slice-invariant, so 16 flop a byte) ran
+    1.6-1.7 ms streamed and 2.6 ms on the tensor cores, whose blocks then
+    each hold one 16-deep K chunk and a half-empty 32-row W tile."""
     t_bytes = gk_bytes(plan, width, x_batched, w_batched) \
         / kernels.H100_HBM_BYTES_PER_S
     t_ops = gk_flops(plan, width, x_batched, w_batched) / (
         STREAM_FMA_SHARE * kernels.H100_FP32_FLOP_PER_S)
-    if t_bytes >= t_ops and stream_hchunk(plan.H) * plan.K <= STREAM_W_CAP:
+    if isinstance(plan, GGKPlan):
+        stream_ok = True
+        mma_ok = (plan.row.F % MMA_TILE_N == 0
+                  and plan.row.K >= GGK_MMA_K_MIN)
+    else:
+        stream_ok = stream_hchunk(plan.H) * plan.K <= STREAM_W_CAP
+        mma_ok = True
+    if stream_ok and (t_bytes >= t_ops or not mma_ok):
         return "stream"
     return "mma"
 
 
 def gk_aligned(plan):
-    """Whether every X and Y offset of the step is a multiple of 4 floats:
-    F, the outer offsets xoff / yoff, the row offsets koff and hstride (the
-    width strides x_elems and y_elems are multiples of F).  Then, with
-    16-byte aligned buffers, both forms use 16-byte loads and stores;
-    else they take their 4-byte variants."""
-    return (plan.F % 4 == 0 and plan.hstride % 4 == 0
+    """Whether every X and Y offset of a GK or GGK step is a multiple of 4
+    floats: F, the outer offsets xoff / yoff, the row offsets koff and
+    hstride (the width strides are multiples of F).  Then, with 16-byte
+    aligned buffers, both forms use 16-byte loads and stores; else they
+    take their 4-byte variants."""
+    row = plan.row if isinstance(plan, GGKPlan) else plan
+    return (row.F % 4 == 0 and row.hstride % 4 == 0
             and all(int(np.count_nonzero(np.asarray(t) % 4)) == 0
-                    for t in (plan.xoff, plan.yoff, plan.koff)))
+                    for t in (plan.xoff, plan.yoff, row.koff)))
+
+
+def rg_lanes(row):
+    """How the RGRow kernel reads its free cells: ``(V, fgoff, fcan)``.
+    The cells are taken in the order of their stored offsets (``fcan``:
+    canonical index of each), in groups of ``V`` (4, 2 or 1) cells at
+    consecutive stored offsets, each group one vector load starting at
+    ``fgoff[g]``: the largest V for which every group is such a run and
+    every group and contract offset is a multiple of V (so V-float loads
+    are aligned wherever the buffers are)."""
+    fcan = np.argsort(row.foff, kind="stable")
+    so = np.asarray(row.foff)[fcan]
+    koff = np.asarray(row.koff)
+    for V in (4, 2):
+        if row.F % V:
+            continue
+        g = so.reshape(-1, V)
+        if (g - g[:, :1] == np.arange(V)).all() and not (g[:, 0] % V).any() \
+                and not (koff % V).any():
+            return V, g[:, 0].copy(), fcan
+    return 1, so, fcan
 
 
 # -- kernel wrappers --------------------------------------------------------
@@ -752,16 +819,14 @@ def gk_call(plan, xr, xi, wr, wi, x_batched, w_batched):
     form = gk_form(plan, W, x_batched, w_batched)
     vec = gk_aligned(plan) and all(c.data_ptr() % 16 == 0
                                    for c in (xr, xi, yr, yi))
-    lib = kernels.load()
-    rc = lib.gk_launch(
+    kernels.launch(
+        "gk", kernels.load().gk_launch, dev,
         *map(kernels.ptr, (xr, xi, wr, wi, yr, yi,
                            t["xoff"], t["yoff"], t["koff"])),
         len(plan.xoff), plan.H, plan.K, plan.F, plan.hstride,
         plan.x_elems if x_batched else 0,
         plan.H * plan.K if w_batched else 0,
-        plan.y_elems if lead else 0, W, GK_FORMS.index(form), int(vec),
-        kernels.stream_of(xr))
-    kernels.check(rc, "gk")
+        plan.y_elems if lead else 0, W, GK_FORMS.index(form), int(vec))
     gk_call.launches += 1
     gk_call.forms[form] += 1
     return yr, yi
@@ -775,7 +840,9 @@ def ggk_call(plan, xr, xi, wr, wi, x_batched, w_batched):
     """The GGK kernel's wrapper (GK row of an aligned step).  ``xr``:
     X-side rows ``(Bi*xrow,)`` or ``(W, Bi*xrow)``; ``wr``: W-side rows
     pre-gathered to ``(Bj*H*K,)`` or ``(W, Bj*H*K)``.  Returns Y
-    ``(B*yrow,)`` or ``(W, B*yrow)``."""
+    ``(B*yrow,)`` or ``(W, B*yrow)``.  The GK kernel runs it in the form
+    ``gk_form`` names for the step, counted in ``ggk_call.forms``, with
+    the W row of each outer index at ``woff``."""
     row = plan.row
     W = kernels.slice_width(x_batched, w_batched, xr, wr)
     x_n = plan.bi_rows * row.x_elems
@@ -792,47 +859,71 @@ def ggk_call(plan, xr, xi, wr, wi, x_batched, w_batched):
     lead = (W,) if (x_batched or w_batched) else ()
     yr = torch.empty(lead + (y_n,), dtype=torch.float32, device=dev)
     yi = torch.empty_like(yr)
-    lib = kernels.load()
-    rc = lib.ggk_launch(
+    form = gk_form(plan, W, x_batched, w_batched)
+    vec = gk_aligned(plan) and all(c.data_ptr() % 16 == 0
+                                   for c in (xr, xi, yr, yi))
+    kernels.launch(
+        "ggk", kernels.load().ggk_launch, dev,
         *map(kernels.ptr, (xr, xi, wr, wi, yr, yi,
                            t["xoff"], t["yoff"], t["woff"], koff)),
         len(plan.xoff), row.H, row.K, row.F, row.hstride,
         x_n if x_batched else 0, w_n if w_batched else 0,
-        y_n if lead else 0, W, kernels.stream_of(xr))
-    kernels.check(rc, "ggk")
+        y_n if lead else 0, W, GK_FORMS.index(form), int(vec))
     ggk_call.launches += 1
+    ggk_call.forms[form] += 1
     return yr, yi
 
 
 ggk_call.launches = 0
+ggk_call.forms = dict.fromkeys(GK_FORMS, 0)   # launches by form
 
 
 def rgrow_plain(plan, xr, xi, wr, wi, x_batched, w_batched):
     """Plain version of the RGRow kernel (same operands as ``rgrow_call``):
-    gather rows, batched matmul."""
+    gather rows, pick each X row's (F, K) and each W row's (H, K) values
+    through the offset tables, batched matmul."""
     row = plan.row
     W = kernels.slice_width(x_batched, w_batched, xr, wr)
     t = _device_tables(plan, xr.device, ("gi", "gj"))
-    gi, gj, B, F, K, H = t["gi"], t["gj"], plan.B, row.F, row.K, row.H
-    hy_first = row.hy_first
+    r = _device_tables(row, xr.device, ("foff", "koff", "wk_idx"))
+    F, K, H = row.F, row.K, row.H
+    xaddr = r["foff"][:, None] + r["koff"][None, :]
     lead = (W,) if (x_batched or w_batched) else ()
-    xv = lambda c: c.reshape((W if x_batched else 1, -1, F, K))[:, gi]
-    wv = lambda c: c.reshape((W if w_batched else 1, -1, H, K))[:, gj]
+    xv = lambda c: c.reshape((W if x_batched else 1, -1, F * K))[:, t["gi"]][
+        ..., xaddr]                                           # (W, B, F, K)
+    wv = lambda c: c.reshape((W if w_batched else 1, -1, H * K))[:, t["gj"]][
+        ..., r["wk_idx"]]                                     # (W, B, H, K)
     xr_, xi_, wr_, wi_ = xv(xr), xv(xi), wv(wr), wv(wi)
     tr = lambda c: c.transpose(-1, -2)
     re = torch.matmul(xr_, tr(wr_)) - torch.matmul(xi_, tr(wi_))  # (W,B,F,H)
     im = torch.matmul(xr_, tr(wi_)) + torch.matmul(xi_, tr(wr_))
-    if hy_first:
+    if row.hy_first:
         re, im = tr(re), tr(im)
-    shape = lead + (B * F * H,)
+    shape = lead + (plan.B * F * H,)
     return re.reshape(shape).contiguous(), im.reshape(shape).contiguous()
 
 
+def _rg_tables(row, device, V):
+    """The RGRow kernel's int32 row tables on ``device`` for vector width
+    ``V`` (``rg_lanes``; V 1 takes the same cell order), uploaded once."""
+    key = ("rg", str(device), V)
+    if key not in row._dev:
+        v, fgoff, fcan = rg_lanes(row)
+        if V != v:
+            fgoff = np.asarray(row.foff)[fcan]
+        tabs = dict(fgoff=fgoff, fcan=fcan, koff=row.koff,
+                    whoff=row.wk_idx[:, 0], wkoff=row.wk_idx[0, :])
+        row._dev[key] = {n: torch.as_tensor(np.ascontiguousarray(a),
+                                            dtype=torch.int32).to(device)
+                         for n, a in tabs.items()}
+    return row._dev[key]
+
+
 def rgrow_call(plan, xr, xi, wr, wi, x_batched, w_batched):
-    """The RGRow kernel's wrapper.  ``xr``: X-side rows in the canonical
-    (F, K) layout ``(Bi*F*K,)`` or ``(W, ...)``; ``wr``: W-side rows
-    pre-gathered to ``(Bj*H*K,)`` or ``(W, ...)``.  Returns Y
-    ``(B*yrow,)`` or ``(W, B*yrow)``."""
+    """The RGRow kernel's wrapper.  ``xr``: X-side rows in their stored
+    order ``(Bi*F*K,)`` or ``(W, ...)``; ``wr``: W-side rows in their
+    stored order ``(Bj*H*K,)`` or ``(W, ...)``.  Returns Y ``(B*yrow,)``
+    or ``(W, B*yrow)``, the row (H, F) when ``hy_first`` else (F, H)."""
     row = plan.row
     W = kernels.slice_width(x_batched, w_batched, xr, wr)
     F, K, H = row.F, row.K, row.H
@@ -849,13 +940,24 @@ def rgrow_call(plan, xr, xi, wr, wi, x_batched, w_batched):
     lead = (W,) if (x_batched or w_batched) else ()
     yr = torch.empty(lead + (y_n,), dtype=torch.float32, device=dev)
     yi = torch.empty_like(yr)
-    lib = kernels.load()
-    rc = lib.rgrow_launch(
-        *map(kernels.ptr, (xr, xi, wr, wi, yr, yi, t["gi"], t["gj"])),
-        plan.B, F, K, H, int(row.hy_first),
+    V = rg_lanes(row)[0]
+    if any(c.data_ptr() % (4 * V) for c in (xr, xi)):
+        V = 1
+    r = _rg_tables(row, dev, V)
+    # W[:, k] as vector loads: H a power of two at consecutive offsets
+    vw = min(H, 4)
+    wvec = (H & (H - 1) == 0
+            and (row.wk_idx[:, 0] == np.arange(H)).all()
+            and not (row.wk_idx[0, :] % vw).any()
+            and not any(c.data_ptr() % (4 * vw) for c in (wr, wi)))
+    kernels.launch(
+        "rgrow", kernels.load().rgrow_launch, dev,
+        *map(kernels.ptr, (xr, xi, wr, wi, yr, yi, t["gi"], t["gj"],
+                           r["fgoff"], r["fcan"], r["koff"], r["whoff"],
+                           r["wkoff"])),
+        plan.B, F, K, H, V, int(row.hy_first), int(wvec), F * K, H * K,
         x_n if x_batched else 0, w_n if w_batched else 0,
-        y_n if lead else 0, W, kernels.stream_of(xr))
-    kernels.check(rc, "rgrow")
+        y_n if lead else 0, W)
     rgrow_call.launches += 1
     return yr, yi
 
@@ -906,12 +1008,11 @@ def rgflat_call(plan, xr, xi, wr, wi, x_batched, w_batched):
     lead = (W,) if (x_batched or w_batched) else ()
     yr = torch.empty(lead + (y_n,), dtype=torch.float32, device=dev)
     yi = torch.empty_like(yr)
-    lib = kernels.load()
-    rc = lib.rgflat_launch(
+    kernels.launch(
+        "rgflat", kernels.load().rgflat_launch, dev,
         *map(kernels.ptr, (xr, xi, wr, wi, yr, yi, t["gi"], t["gj"], addr)),
         plan.B, F, K, H, x_n if x_batched else 0, w_n if w_batched else 0,
-        y_n if lead else 0, W, kernels.stream_of(xr))
-    kernels.check(rc, "rgflat")
+        y_n if lead else 0, W)
     rgflat_call.launches += 1
     return yr, yi
 
@@ -955,15 +1056,14 @@ def apply_ggk_step(field, x, y, plan, bx=False, by=False):
     xv, wv, bxv, bwv = (x, y, bx, by) if row.w_is_j else (y, x, by, bx)
     xlead = (xv[0].shape[0],) if bxv else ()
     wlead = (wv[0].shape[0],) if bwv else ()
-    if isinstance(row, RGRow) and row.pre_perm is not None:
-        # one whole-buffer reorder to the canonical (F, K) row layout —
-        # the gathered rows themselves are never copied
-        r = plan_reorder((plan.bi_rows,) + row.row_dims,
-                         (0,) + tuple(p + 1 for p in row.pre_perm),
-                         (plan.bi_rows * _prod(row.row_dims),))
-        xv = apply_reorder(field, xv, r, xlead)
     xr, xi = _flat(xv, xlead)
-    wr, wi = _wk_rows(wv, row, plan.bj_rows, wlead)
+    if isinstance(row, RGRow):
+        # RGRow reads both rows in their stored order: no reorder of X to
+        # the canonical (F, K) layout (the JAX kernel's ``pre_perm``), no
+        # transpose of W
+        wr, wi = _flat(wv, wlead)
+    else:
+        wr, wi = _wk_rows(wv, row, plan.bj_rows, wlead)
     call = {RGRow: rgrow_call, RGFlat: rgflat_call}.get(type(row), ggk_call)
     yr, yi = call(plan, xr, xi, wr, wi, bxv, bwv)
     lead = xlead or wlead

@@ -732,15 +732,13 @@ def lane_call(plan, xr, xi, wr, wi, x_batched, w_batched):
     lead = (W,) if (x_batched or w_batched) else ()
     yr = torch.empty(lead + (plan.y_elems,), dtype=torch.float32, device=dev)
     yi = torch.empty_like(yr)
-    lib = kernels.load()
-    rc = lib.lane_launch(
+    kernels.launch(
+        "lane", kernels.load().lane_launch, dev,
         *map(kernels.ptr, (xr, xi, wr, wi, yr, yi, t["xd"], t["wi"],
                            t["doff"], t["xoff"], t["yoff"])),
         len(plan.xoff), len(plan.doff), plan.H, plan.T, plan.F, plan.x_fs,
         plan.y_fs, plan.y_hs, plan.x_elems if x_batched else 0,
-        plan.w_elems if w_batched else 0, plan.y_elems if lead else 0, W,
-        kernels.stream_of(xr))
-    kernels.check(rc, "lane")
+        plan.w_elems if w_batched else 0, plan.y_elems if lead else 0, W)
     lane_call.launches += 1
     return yr, yi
 
@@ -873,12 +871,11 @@ def pair_call(plan, xr, xi, vr, vi, x_batched, v_batched):
     lead = (W,) if (x_batched or v_batched) else ()
     yr = torch.empty(lead + (M * N,), dtype=torch.float32, device=dev)
     yi = torch.empty_like(yr)
-    lib = kernels.load()
-    rc = lib.pair_launch(
+    kernels.launch(
+        "pair", kernels.load().pair_launch, dev,
         *map(kernels.ptr, (xr, xi, vr, vi, yr, yi)), K, M, N,
         K * M if x_batched else 0, K * N if v_batched else 0,
-        M * N if lead else 0, W, kernels.stream_of(xr))
-    kernels.check(rc, "pair")
+        M * N if lead else 0, W)
     pair_call.launches += 1
     return yr, yi
 

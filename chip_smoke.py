@@ -43,14 +43,17 @@ once, each output written once) over 3.35 TB/s and its flops over
 67 TFLOP/s, the H100 SXM's float32 rate outside the tensor cores;
 ``bound_3xtf32_ms`` puts 3 x its flops over the 495 TFLOP/s TF32 tensor
 core rate instead.  Each step is also held to the bound of the design it
-runs (``form``): bytes for GK's "stream" form, 3xTF32 for the tensor-core
-kernels ("mma": GK's other form, Pair, the complex matmul), FP32 FMA for
-the rest ("fma").  Per path the GK steps' summed time is printed against
-their summed bounds, and at the largest GK and Pair step of each path the
-kernel's and the plain version's errors against a float64 product of the
-same inputs, over two slice instances (the kernel's may be at most
-``F64_ERR_RATIO`` times the plain version's, which runs in full float32
-on cuBLAS).
+runs (``form``): bytes for the "stream" form of GK and GGK, 3xTF32 for
+the tensor-core kernels ("mma": their other form, Pair, the complex
+matmul), FP32 FMA for the rest ("fma").  Per path the GK and GGK steps'
+summed time is printed against their summed bounds, and at the largest
+GK, GGK, RGRow and Pair step of each path the kernel's and the plain
+version's errors against a float64 product of the same inputs, over two
+slice instances (the kernel's may be at most ``F64_ERR_RATIO`` times the
+plain version's, which runs in full float32 on cuBLAS).  Each RGRow step
+is also run as the executor runs it (``apply_ggk_step``: the kernel and
+any copy around it), beside the copies its stored-order reads absorb (the
+X reorder and the W transpose, timed alone).
 """
 
 import argparse
@@ -339,11 +342,11 @@ def run_kernel(kind, plan, bx, by, width, seed, f64=False):
     plain_ms = time_ms(lambda: plain(*args), 3)
     nbytes = 8 * (wx * x_need + ww * w_need + wy * y_n)
     flops = plan.flops * wy
-    form = (gatherk.gk_form(plan, width, xs, ws) if kind == "gk"
+    form = (gatherk.gk_form(plan, width, xs, ws) if kind in ("gk", "ggk")
             else "mma" if kind == "pair" else "fma")
-    if kind == "gk":    # the wrapper's own counting picks the form
+    if kind in ("gk", "ggk"):    # the wrapper's own counting picks the form
         check(nbytes == gatherk.gk_bytes(plan, width, xs, ws),
-              "gk: byte count differs from gatherk.gk_bytes")
+              f"{kind}: byte count differs from gatherk.gk_bytes")
     out = dict(width=width, step=describe(kind, plan), form=form,
                max_abs_err=err, max_rel_err=err / scale, tol=tol, ms=ms,
                plain_ms=plain_ms, **bounds(nbytes, flops, form),
@@ -351,6 +354,8 @@ def run_kernel(kind, plan, bx, by, width, seed, f64=False):
                x_batched=xs, w_batched=ws)
     if f64:
         out.update(f64_errors(kr, ki, pr, pi, plain, args))
+    if kind == "rgrow":
+        out.update(rgrow_glue(plan, args, (kr, ki), reps))
     lib = None
     if kind == "pair":
         xc = torch.complex(xr, xi).reshape(
@@ -384,6 +389,44 @@ def run_kernel(kind, plan, bx, by, width, seed, f64=False):
         out["library_ms"] = time_ms(lib, reps)
     del xr, xi, wr, wi, kr, ki, pr, pi, lib
     torch.cuda.empty_cache()
+    return out
+
+
+def rgrow_glue(plan, args, want, reps):
+    """The RGRow step through ``gatherk.apply_ggk_step`` as the executor
+    runs it (the kernel and any copies around it; checked against the
+    kernel's output), and, timed alone on the same operands, the two
+    copies that the kernel's stored-order reads absorb: the reorder of the
+    whole X buffer to canonical (F, K) rows and the transpose of the W
+    rows to (H, K)."""
+    import torch
+
+    from artensor_tpu_torch.ops.field import SplitField
+    from artensor_tpu_torch.runtime import gatherk, lowering
+
+    _, xr, xi, wr, wi, xs, ws = args
+    field, row = SplitField(), plan.row
+    x, w = (xr, xi), (wr, wi)
+    pi, pj, bi, bj = (x, w, xs, ws) if row.w_is_j else (w, x, ws, xs)
+    step = lambda: gatherk.apply_ggk_step(field, pi, pj, plan, bi, bj)
+    yr, yi = step()
+    d = torch.abs(torch.complex(yr.reshape(want[0].shape) - want[0],
+                                yi.reshape(want[1].shape) - want[1])).max()
+    check(d.item() == 0.0, f"rgrow: the step's output differs from the "
+          f"kernel's by {d.item():.3e}")
+    del yr, yi
+    xlead = (xr.shape[0],) if xs else ()
+    wlead = (wr.shape[0],) if ws else ()
+    out = dict(step_ms=time_ms(step, reps), x_reorder_ms=0.0)
+    if row.pre_perm is not None:
+        r = lowering.plan_reorder(
+            (plan.bi_rows,) + row.row_dims,
+            (0,) + tuple(p + 1 for p in row.pre_perm),
+            (plan.bi_rows * row.F * row.K,))
+        out["x_reorder_ms"] = time_ms(
+            lambda: lowering.apply_reorder(field, x, r, xlead), reps)
+    out["w_transpose_ms"] = time_ms(
+        lambda: gatherk._wk_rows(w, row, plan.bj_rows, wlead), reps)
     return out
 
 
@@ -427,13 +470,14 @@ def compile_path(name, W):
           f"slice_batch {W}", flush=True)
     cases = kernel_cases(run_steps, operand_batching(run_steps,
                                                      sim.slicing_axes))
-    gk_forms = Counter()
-    for plan, bx, by in cases.get("gk", []):
-        xs, ws = (bx, by) if plan.w_is_j else (by, bx)
-        gk_forms[gatherk.gk_form(plan, W, xs, ws)] += 1
+    forms = {}   # GK and GGK steps by the form gatherk.gk_form picks
+    for kind in ("gk", "ggk"):
+        forms[kind] = Counter()
+        for plan, bx, by in cases.get(kind, []):
+            xs, ws = (bx, by) if plan.w_is_j else (by, bx)
+            forms[kind][gatherk.gk_form(plan, W, xs, ws)] += 1
     return dict(name=name, sim=sim, ref=ref, W=W, compile_s=compile_s,
-                n_slices=n_slices, census=census, cases=cases,
-                gk_forms=gk_forms)
+                n_slices=n_slices, census=census, cases=cases, forms=forms)
 
 
 def report(label, r):
@@ -446,6 +490,12 @@ def report(label, r):
           f"library_ms {r['library_ms']} bytes {r['bytes']} flops "
           f"{r['flops']} x_batched {r['x_batched']} w_batched "
           f"{r['w_batched']}", flush=True)
+    if "step_ms" in r:
+        print(f"  rgrow step with glue ({r['step']}): step ms "
+              f"{r['step_ms']:.4f} (kernel {r['ms']:.4f}); copies the kernel's"
+              f" stored-order reads absorb, timed alone: X reorder "
+              f"{r['x_reorder_ms']:.4f} ms, W transpose "
+              f"{r['w_transpose_ms']:.4f} ms", flush=True)
     if "f64_rel_err" in r:
         ratio = r["f64_rel_err"] / max(r["plain_f64_rel_err"], 1e-30)
         print(f"  float64 check ({r['step']}): max|d|/max|ref| kernel "
@@ -462,8 +512,8 @@ def check_kernels(path):
     kind's largest step also at width 1.  Returns, per kind, the largest
     step's result, the slowest step's, the kernel ms of one slice group
     (and the summed bounds of the design each step runs, and the steps'
-    forms) and the largest error of any step.  The largest GK and Pair
-    steps are also held against float64."""
+    forms) and the largest error of any step.  The largest GK, GGK, RGRow
+    and Pair steps are also held against float64."""
     W, cases, out = path["W"], path["cases"], {}
     for n, kind in enumerate(KERNELS):
         if kind not in cases:
@@ -476,7 +526,8 @@ def check_kernels(path):
         for i, width in [(i, W) for i in range(len(cases[kind]))] + [
                 (largest, 1)]:
             plan, bx, by = cases[kind][i]
-            f64 = kind in ("gk", "pair") and i == largest and width == W
+            f64 = (kind in ("gk", "ggk", "rgrow", "pair") and i == largest
+                   and width == W)
             r = run_kernel(kind, plan, bx, by, width, seed=n, f64=f64)
             report(f"{path['name']} {kind} step {i + 1}/{len(cases[kind])}",
                    r)
@@ -492,7 +543,7 @@ def check_kernels(path):
             if "costliest" not in res or r["ms"] > res["costliest"]["ms"]:
                 res["costliest"] = r
         out[kind] = res
-        if kind in ("gk", "pair"):
+        if kind in ("gk", "ggk", "pair"):
             print(f"path {path['name']} {kind}: {res['steps']} steps "
                   f"{json.dumps(res['forms'])}, kernel {res['ms_per_group']:.4f}"
                   f" ms a slice group against summed design bounds "
@@ -579,27 +630,28 @@ def drive(path, wrappers):
     torch.cuda.reset_peak_memory_stats()
     for f in wrappers.values():
         f.launches = 0
-    gk_forms = wrappers["gk"].forms
-    for form in gk_forms:
-        gk_forms[form] = 0
+    for kind in ("gk", "ggk"):
+        for form in wrappers[kind].forms:
+            wrappers[kind].forms[form] = 0
     t0 = time.perf_counter()
     amps = sim.contraction(slice_batch=W, device=DEVICE)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = {k: f.launches for k, f in wrappers.items()}
-    forms = dict(gk_forms)
+    forms = {k: dict(wrappers[k].forms) for k in ("gk", "ggk")}
     print(f"path {name}: first run {first_s:.3f} s (staging included); "
-          f"launches {json.dumps(launches)}; GK launches by form "
+          f"launches {json.dumps(launches)}; GK and GGK launches by form "
           f"{json.dumps(forms)}", flush=True)
     groups = path["n_slices"] // W
     for kind in wrappers:
         want = path["census"].get(kind, 0) * groups
         check(launches[kind] == want,
               f"{name} {kind}: {launches[kind]} launches, expected {want}")
-    for form, n in forms.items():
-        want = path["gk_forms"].get(form, 0) * groups
-        check(n == want, f"{name} gk: {n} launches of the {form} form, "
-              f"expected {want} (gatherk.gk_form of its steps)")
+    for kind, by_form in forms.items():
+        for form, n in by_form.items():
+            want = path["forms"][kind].get(form, 0) * groups
+            check(n == want, f"{name} {kind}: {n} launches of the {form} "
+                  f"form, expected {want} (gatherk.gk_form of its steps)")
     check(amps.shape == (len(ref),), f"{name}: amplitude shape {amps.shape}")
     check(bool(np.isfinite(amps).all()), f"{name}: non-finite amplitudes")
     r = np.array([ref[b] for b in sim.bitstrings_sorted])
@@ -630,7 +682,7 @@ def drive(path, wrappers):
           f"of {['%.4f' % w for w in walls]}; max_memory_allocated "
           f"{peak / 2 ** 30:.2f} GiB", flush=True)
     del run, out
-    return dict(launches=launches, gk_forms=forms, first_s=first_s,
+    return dict(launches=launches, forms=forms, first_s=first_s,
                 warm_s=statistics.median(walls), walls=walls,
                 peak_gib=peak / 2 ** 30, compile_s=path["compile_s"],
                 slice_batch=W, slices=path["n_slices"],
@@ -724,6 +776,9 @@ def main():
         if kind == "lane":
             line[-1]["forms"] = {n: {k: r[k] for k in keys}
                                  for n, r in forms.items()}
+        if kind == "rgrow":
+            line[-1].update({k: big[k] for k in (
+                "step_ms", "x_reorder_ms", "w_transpose_ms")})
     (_, source, replaces), big = OFF_PATH["complex_mm"], cmm[-1]
     line.append({
         "name": "complex_mm", "route": "cuda", "source": source,

@@ -42,10 +42,11 @@ WORKLOADS = {   # name: (plan, amplitude fixture)
 }
 
 FAMILIES = (   # (family, substrings of the kernel name), first match wins
+    ("gatherk.cu (GGK stream)", ("ggk_stream_kernel",)),
+    ("gatherk.cu (GGK mma)", ("ggk_mma_kernel",)),
     ("gatherk.cu (GK stream)", ("gk_stream_kernel",)),
     ("gatherk.cu (GK mma)", ("gk_mma_kernel",)),
     ("pair.cu (Pair, complex matmul)", ("pair_mma_kernel",)),
-    ("gatherk.cu (GGK)", ("gk_tile_kernel",)),
     ("rgrow.cu (RGRow)", ("rgrow_kernel",)),
     ("rgflat.cu (RGFlat)", ("rgflat_kernel",)),
     ("lane.cu (Lane)", ("lane_kernel",)),

@@ -54,8 +54,7 @@ GK_SHAPES = [   # (ix_x, ix_w, iy, dims_x, dims_w)
      ("g1", "n1", "n2", "f1"), (2,) * 7 + (96,), (2,) * 6 + (8, 5)),
     (("c1", "g1", "f1"), ("c1", "n1"), ("g1", "n1", "f1"),
      (2, 3, 4096), (2, 2)),
-    # one shape for each remaining tile of gatherk.cu's launch_any:
-    # 4 x 64 (H 2, F 64), 16 x 128 (H 16, F 128), 32 x 32 (H 32, F 32)
+    # small H or F: H 2 F 64, H 16 F 128, H 32 F 32
     (("g1", "c1", "f1"), ("c1", "n1"), ("g1", "n1", "f1"),
      (5, 4, 64), (4, 2)),
     (("c1", "g1", "f1"), ("c1", "n1"), ("g1", "n1", "f1"),
@@ -162,26 +161,243 @@ WRAPPERS = {gatherk.GKPlan: (gatherk.ggk_call, gatherk.ggk_plain),
             gatherk.RGFlat: (gatherk.rgflat_call, gatherk.rgflat_plain)}
 
 
+def _gathered(case, B, bi_rows, bj_rows, seed=3):
+    rng = np.random.default_rng(seed)
+    gi = np.sort(rng.integers(0, bi_rows, B))
+    gj = rng.integers(0, bj_rows, B)
+    plan = gatherk.plan_ggk_step(*case, gi, gj, bi_rows, bj_rows)
+    assert plan is not None, gatherk.LAST_REJECT
+    return plan
+
+
+def _run_gathered(plan, xb, wb, seed=7, W=4, x_shift=0):
+    """Each gathered wrapper against its plain version; ``x_shift``
+    starts X that many floats into its allocation."""
+    row = plan.row
+    xrow = row.x_elems if isinstance(row, gatherk.GKPlan) else row.F * row.K
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = plan.bi_rows * xrow
+    lx = (W,) if xb else ()
+    x = [_rand((W * n + x_shift,), gen)[x_shift:x_shift + (W if xb else 1)
+                                        * n].reshape(lx + (n,))
+         for _ in "ri"]
+    w = [_rand(((W,) if wb else ()) + (plan.bj_rows * row.H * row.K,), gen)
+         for _ in "ri"]
+    call, plain = WRAPPERS[type(row)]
+    _check(call, plain, (plan, *x, *w, xb, wb))
+
+
 @pytest.mark.parametrize("w_batched", [False, True])
 @pytest.mark.parametrize("form", sorted(GATHERED))
 def test_gathered_kernels_match_plain(cuda, monkeypatch, form, w_batched):
     monkeypatch.setattr(gatherk, "GGK_MIN_WORK", 1)
-    rng = np.random.default_rng(3)
-    gi = np.sort(rng.integers(0, 7, 40))
-    gj = rng.integers(0, 6, 40)
-    plan = gatherk.plan_ggk_step(*GATHERED[form], gi, gj, 7, 6)
-    assert plan is not None, gatherk.LAST_REJECT
+    plan = _gathered(GATHERED[form], 40, 7, 6)
+    assert type(plan.row).__name__ == {"gk_row": "GKPlan",
+                                       "rgrow": "RGRow"}.get(form, "RGFlat")
+    _run_gathered(plan, True, w_batched)
+
+
+BATCHINGS = [(False, False), (True, False), (False, True), (True, True)]
+# (rx_i, rx_j, riy, rd_i, rd_j, B, bi_rows, bj_rows, forms): the three GGK
+# steps of the paths (K, H, F and G as there, B cut to a few hundred)
+GGK_PATH_STEPS = {
+    "1k_k2_h2_f64_g64": (("g0", "k", "g1", "f"), ("k", "h"),
+                         ("h", "g1", "g0", "f"), (8, 2, 8, 64), (2, 2),
+                         300, 290, 4, ("stream",)),
+    "1k_k16_h16_f512": (("k0", "k1", "k2", "k3", "f"),
+                        ("k0", "k1", "k2", "k3", "h0", "h1", "h2", "h3"),
+                        ("h0", "h1", "h2", "h3", "f"), (2, 2, 2, 2, 512),
+                        (2,) * 8, 270, 128, 32, ("stream", "mma")),
+    "10k_k32_h2_f64": (tuple(f"k{d}" for d in range(5)) + ("f",),
+                       ("h",) + tuple(f"k{d}" for d in range(5)),
+                       ("h", "f"), (2,) * 5 + (64,), (2,) * 6,
+                       400, 230, 128, ("stream",)),
+}
+
+
+@pytest.mark.parametrize("batched", BATCHINGS)
+@pytest.mark.parametrize("form", ["stream", "mma"])
+@pytest.mark.parametrize("step", sorted(GGK_PATH_STEPS))
+def test_ggk_forms_at_path_shapes(cuda, monkeypatch, step, form, batched):
+    """GGK in each form that takes the step, at each path step's shape,
+    with X and W each batched or not (X unbatched with W batched is the 1k
+    K 16 H 16 step's case); the mma form refuses an f run that is not a
+    multiple of its 128-wide tile."""
+    monkeypatch.setattr(gatherk, "GGK_MIN_WORK", 1)
+    *case, B, bi, bj, forms = GGK_PATH_STEPS[step]
+    plan = _gathered(tuple(case), B, bi, bj)
+    assert isinstance(plan.row, gatherk.GKPlan) and gatherk.gk_aligned(plan)
+    monkeypatch.setattr(gatherk, "gk_form", lambda *a, **k: form)
+    xb, wb = batched
+    if form not in forms:
+        with pytest.raises(RuntimeError, match="ggk"):
+            _run_gathered(plan, xb, wb)
+        return
+    before = gatherk.ggk_call.forms[form]
+    _run_gathered(plan, xb, wb)
+    assert gatherk.ggk_call.forms[form] == before + 1
+
+
+@pytest.mark.parametrize("case,form", [("f_run_6", "stream"),
+                                       ("x_pointer", "stream"),
+                                       ("x_pointer", "mma")])
+def test_ggk_forms_unaligned(cuda, monkeypatch, case, form):
+    """GGK offsets or buffers off 16-byte alignment take the 4-byte
+    variant: an f run of 6 (a 4-float group spans two outer indices, each
+    with its own W row; the mma form takes no such run), or X one float
+    into its allocation."""
+    monkeypatch.setattr(gatherk, "GGK_MIN_WORK", 1)
+    if case == "f_run_6":
+        monkeypatch.setattr(gatherk, "F_MIN", 2)
+        plan = _gathered((("g", "k", "f"), ("k", "h"), ("g", "h", "f"),
+                          (5, 12, 6), (12, 3)), 50, 9, 7)
+        assert not gatherk.gk_aligned(plan)
+    else:
+        *c, B, bi, bj, _ = GGK_PATH_STEPS["1k_k16_h16_f512"]
+        plan = _gathered(tuple(c), 60, 20, 8)
+        assert gatherk.gk_aligned(plan)
+    monkeypatch.setattr(gatherk, "gk_form", lambda *a, **k: form)
+    _run_gathered(plan, True, True, x_shift=1)
+
+
+@pytest.mark.parametrize("batched,x_shift", [((True, True), 0),
+                                             ((True, False), 1),
+                                             ((False, True), 0)])
+def test_ggk_stream_w_rows_through_l1(cuda, monkeypatch, batched, x_shift):
+    """A GGK step whose W rows for the outer indices one stream block spans
+    would pass the 64 KiB staging cap (F 32, K 256: 17 rows of 4 x 256
+    complex) reads them through L1 instead; aligned and not."""
+    monkeypatch.setattr(gatherk, "GGK_MIN_WORK", 1)
+    plan = _gathered((("k", "f"), ("k", "h"), ("h", "f"), (256, 32),
+                      (256, 4)), 60, 20, 9)
+    assert isinstance(plan.row, gatherk.GKPlan) and plan.row.F == 32
+    monkeypatch.setattr(gatherk, "gk_form", lambda *a, **k: "stream")
+    _run_gathered(plan, *batched, x_shift=x_shift)
+
+
+def _rg_case(F, H, K, hy_first, stored, seed=0):
+    """An RGRow step of F free cells, H fresh and K contract values (binary
+    digits).  ``stored``: X's digits in a shuffled order (the kernel reads
+    it through a non-identity digit permutation), with two free digits
+    minor in storage as on the 1k path, and W's fresh digits minor (its
+    W[:, k] are vector loads); else the canonical order (frees, then
+    contract) and W's fresh digits leading.  W's contract digits are
+    shuffled."""
+    rng = np.random.default_rng(seed)
+    nf, nh, nk = (int(np.log2(v)) for v in (F, H, K))
+    fr = [f"f{d}" for d in range(nf)]
+    kk = [f"k{d}" for d in range(nk)]
+    hh = [f"h{d}" for d in range(nh)]
+    if stored:
+        rest = fr[:-2] + kk if nf >= 2 else fr + kk
+        x = list(rng.permutation(rest)) + (fr[-2:] if nf >= 2 else [])
+    else:
+        x = fr + kk
+    w = list(rng.permutation(kk))
+    w = w + hh if stored else hh + w
+    riy = hh + fr if hy_first else fr + hh
+    return (tuple(x), tuple(w), tuple(riy), (2,) * len(x), (2,) * len(w))
+
+
+RG_SHAPES = [   # (F, H, K, hy_first, stored); H 1 has no fresh leg to lead
+    (1, 1, 256, False, False), (1, 1, 16384, False, False),
+    (16, 4, 2048, True, True), (16, 4, 2048, True, False),
+    (16, 1, 512, False, True), (16, 8, 128, False, True),
+    (256, 8, 128, True, True), (256, 4, 128, False, False),
+    (256, 1, 128, False, True), (64, 2, 256, True, True),
+]
+
+
+@pytest.mark.parametrize("batched", [(True, True), (True, False),
+                                     (False, True)])
+@pytest.mark.parametrize("shape", RG_SHAPES, ids=str)
+def test_rgrow_kernel_shapes(cuda, monkeypatch, shape, batched):
+    """RGRow across its plan's range: F 1, 16 and 256, H 1 to 8, both
+    output orders, X in a stored order that is not the canonical one and
+    in the canonical one; the vector loads of the free cells on and, with
+    X one float into its allocation, off."""
+    monkeypatch.setattr(gatherk, "GGK_MIN_WORK", 1)
+    F, H, K, hy_first, stored = shape
+    plan = _gathered(_rg_case(F, H, K, hy_first, stored), 120, 40, 50)
     row = plan.row
-    assert type(row).__name__ == {"gk_row": "GKPlan", "rgrow": "RGRow"}.get(
-        form, "RGFlat")
-    xrow = row.x_elems if isinstance(row, gatherk.GKPlan) else row.F * row.K
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    W = 4
-    x = [_rand((W, plan.bi_rows * xrow), gen) for _ in "ri"]
-    w = [_rand(((W,) if w_batched else ()) + (plan.bj_rows * row.H * row.K,),
-               gen) for _ in "ri"]
-    call, plain = WRAPPERS[type(row)]
-    _check(call, plain, (plan, *x, *w, True, w_batched))
+    assert isinstance(row, gatherk.RGRow)
+    assert (row.F, row.H, row.K, row.hy_first) == (F, H, K, hy_first)
+    assert (row.pre_perm is not None) == (stored and F > 1)
+    xb, wb = batched
+    _run_gathered(plan, xb, wb)
+    _run_gathered(plan, xb, wb, x_shift=1)
+
+
+def _one_per_kernel(dev):
+    """(wrapper, plain version, arguments) of one small call of each kernel
+    wrapper, on device ``dev``."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rnd = lambda n, lead=(): torch.randn(lead + (n,), generator=gen,
+                                         device=dev)
+    out = []
+    gk = gatherk.plan_gk_step(*GK_FORM_SHAPES["h40_k32"])
+    out.append((gatherk.gk_call, gatherk.gk_plain,
+                (gk, rnd(gk.x_elems, (2,)), rnd(gk.x_elems, (2,)),
+                 rnd(gk.H * gk.K), rnd(gk.H * gk.K), True, False)))
+    for case, B, bi, bj in ((GATHERED["gk_row"], 40, 7, 6),
+                            (_rg_case(16, 4, 256, True, True), 30, 9, 8),
+                            (GATHERED["rgflat"], 40, 7, 6)):
+        p = _gathered(case, B, bi, bj)
+        row = p.row
+        xrow = row.x_elems if isinstance(row, gatherk.GKPlan) \
+            else row.F * row.K
+        call, plain = WRAPPERS[type(row)]
+        n, m = p.bi_rows * xrow, p.bj_rows * row.H * row.K
+        out.append((call, plain, (p, rnd(n, (2,)), rnd(n, (2,)), rnd(m),
+                                  rnd(m), True, False)))
+    ix_x, ix_w, iy, dx, dw, kw = LANE_FORMS["tail"]
+    lp = lanes.plan_lane_step(ix_x, ix_w, iy, dx, dw, **kw)
+    out.append((lanes.lane_call, lanes.lane_plain,
+                (lp, rnd(lp.x_elems), rnd(lp.x_elems), rnd(lp.w_elems),
+                 rnd(lp.w_elems), False, False)))
+    pp = lanes.plan_pair_step(("k", "m"), ("k", "n"), ("m", "n"),
+                              (40, 300), (40, 516))
+    out.append((lanes.pair_call, lanes.pair_plain,
+                (pp, rnd(40 * 300), rnd(40 * 300), rnd(40 * 516),
+                 rnd(40 * 516), False, False)))
+    a = (rnd(37 * 100, (3,)).reshape(3, 100, 37),
+         rnd(37 * 100, (3,)).reshape(3, 100, 37))
+    b = (rnd(37 * 70, (3,)).reshape(3, 37, 70),
+         rnd(37 * 70, (3,)).reshape(3, 37, 70))
+    out.append((pallas_mm.complex_batched_matmul,
+                pallas_mm.complex_batched_matmul_plain, (a, b)))
+    return out
+
+
+def _on_device(dev, monkeypatch):
+    monkeypatch.setattr(gatherk, "MIN_X_ELEMS", 1)
+    monkeypatch.setattr(gatherk, "GGK_MIN_WORK", 1)
+    for call, plain, args in _one_per_kernel(dev):
+        before = call.launches
+        kr, ki = call(*args)
+        pr, pi = plain(*args)
+        torch.cuda.synchronize(dev)
+        assert call.launches == before + 1
+        assert kr.device == torch.device(dev)
+        err = torch.abs(torch.complex(kr - pr, ki - pi)).max().item()
+        scale = torch.abs(torch.complex(pr, pi)).max().item()
+        assert err <= 2e-4 * scale + 1e-5, (call.__name__, err, scale)
+
+
+def test_wrappers_on_explicit_cuda0(cuda, monkeypatch):
+    """Every kernel wrapper on operands given an explicit ``cuda:0``."""
+    _on_device("cuda:0", monkeypatch)
+
+
+def test_wrappers_on_cuda1_while_cuda0_current(cuda, monkeypatch):
+    """Every kernel wrapper on ``cuda:1`` operands while ``cuda:0`` is the
+    current device: each launch must run on the operands' card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards; this machine has "
+                    f"{torch.cuda.device_count()}")
+    with torch.cuda.device(0):
+        _on_device("cuda:1", monkeypatch)
+        assert torch.cuda.current_device() == 0
 
 
 @pytest.mark.parametrize("kmn", [(64, 256, 160), (100, 90, 130),

@@ -109,3 +109,21 @@ def test_index_logical_per_instance(fields):
         want = pf.index_logical(c, (2, 3, 4), 1, b1, (2, 4))
         want = pf.index_logical(want, (2, 4), 0, b2, (4,))
         np.testing.assert_array_equal(got2[0][w].numpy(), want[0].numpy())
+
+
+@pytest.mark.parametrize("caller", [True, False])
+def test_dot_keeps_the_callers_tf32_setting(fields, caller, monkeypatch):
+    """``dot`` runs its products in full float32 and gives the caller's
+    ``allow_tf32`` back: set True (or False) before, the same after, and
+    the product still matches ``np.einsum``."""
+    _, pf = fields
+    flags = torch.backends.cuda.matmul
+    monkeypatch.setattr(flags, "allow_tf32", caller)
+    m1, m2 = _rand((2, 3, 5), 4), _rand((5, 2, 4), 5)
+    dn = (((2,), (0,)), ((0,), (1,)))
+    got = _pt(pf.dot(pf.wrap(m1, "cpu"), pf.wrap(m2, "cpu"), dn))
+    assert flags.allow_tf32 is caller
+    want = np.einsum("bik,kbj->bij", m1.astype(np.complex128),
+                     m2.astype(np.complex128))
+    np.testing.assert_allclose(got, want, **TOL)
+

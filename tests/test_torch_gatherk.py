@@ -183,6 +183,9 @@ def test_wk_index_matches_jax(low_thresholds):
 
 
 # -- gathered steps: (rx_i, rx_j, riy, rd_i, rd_j, B, bi, bj, row kind) ------
+_PATH_X = tuple(f"d{i}" for i in range(15))
+_PATH_W = tuple(f"d{i}" for i in (11, 2, 3, 4, 5, 6, 7, 8, 9, 10, 0)) \
+    + ("n0", "n1")
 GGK_CASES = {
     "gk_row": (("k0", "k1", "f0", "f1"), ("k0", "k1", "h"), ("h", "f0", "f1"),
                (2, 4, 2, 128), (2, 4, 2), 24, 6, 5, "gk"),
@@ -198,6 +201,11 @@ GGK_CASES = {
               24, 5, 4, "rg"),
     "rg_no_frees": (("k0", "k1"), ("k1", "k0", "h"), ("h",), (16, 16),
                     (16, 16, 4), 24, 5, 4, "rg"),
+    # the 1k path's RGRow row (K 2048 H 4 F 16): 15 binary digits, three of
+    # the four free ones minor in storage (pre_perm (12, 13, 1, 14, 0,
+    # 2..11)), W's contract digits in another order than X's
+    "rg_path_row": (_PATH_X, _PATH_W, ("n0", "n1", "d12", "d13", "d1", "d14"),
+                    (2,) * 15, (2,) * 13, 7, 3, 4, "rg"),
     # flat rows (tests/test_gatherk.py:769-818): K = 32 scattered, frees
     # interleaved; then fresh W legs leading and a W digit order that
     # differs from X's contract order
@@ -247,6 +255,43 @@ def test_ggk_step_matches_jax(low_thresholds, name, mode):
     np.testing.assert_allclose(got.reshape(want.shape), want, **TOL)
     np.testing.assert_allclose(got.reshape(want.shape),
                                want_j.reshape(want.shape), **TOL)
+
+
+def test_rg_path_row_plan():
+    """The path row plans as the 1k scheme's RGRow step does, and the
+    kernel's vector lanes cover 4 of its free cells a load."""
+    rx_i, rx_j, riy, rd_i, rd_j = GGK_CASES["rg_path_row"][:5]
+    row = pgk.plan_rg_row(rx_i, rx_j, riy, rd_i, rd_j)
+    jrow = jgk.plan_rg_row(rx_i, rx_j, riy, rd_i, rd_j)
+    assert (row.F, row.K, row.H, row.hy_first) == (16, 2048, 4, True)
+    assert row.pre_perm == jrow.pre_perm == (12, 13, 1, 14, 0, *range(2, 12))
+    assert row.w_perm == jrow.w_perm == (11, 12, 10, *range(1, 10), 0)
+    assert pgk.rg_lanes(row)[0] == 4
+
+
+@pytest.mark.parametrize("name", sorted(n for n, c in GGK_CASES.items()
+                                        if c[-1] == "rg"))
+def test_rg_tables_address_canonical_rows(name):
+    """The RGRow kernel's tables read the canonical (F, K) X row and
+    (H, K) W row out of the stored ones: the free cells in groups of V at
+    consecutive stored offsets (``rg_lanes``), every offset a multiple of
+    V, and x[f, k] = stored[foff[f] + koff[k]] equal to the JAX package's
+    reordered row."""
+    rx_i, rx_j, riy, rd_i, rd_j = GGK_CASES[name][:5]
+    row = pgk.plan_rg_row(rx_i, rx_j, riy, rd_i, rd_j)
+    V, fgoff, fcan = pgk.rg_lanes(row)
+    assert sorted(fcan) == list(range(row.F))
+    lanes = (fgoff[:, None] + np.arange(V)[None, :]).reshape(-1)
+    np.testing.assert_array_equal(lanes, row.foff[fcan])
+    assert not (fgoff % V).any() and not (row.koff % V).any()
+    x = np.arange(np.prod(row.row_dims))
+    canon = x.reshape(row.row_dims)
+    if row.pre_perm is not None:
+        canon = canon.transpose(row.pre_perm)
+    np.testing.assert_array_equal(
+        x[row.foff[:, None] + row.koff[None, :]].reshape(-1),
+        canon.reshape(-1))
+    assert (row.wk_idx == row.wk_idx[:, :1] + row.wk_idx[:1, :]).all()
 
 
 def test_ggk_rejections():
@@ -376,3 +421,52 @@ def test_gk_einsum_yardstick_matches_plain(low_thresholds, name):
     pr, pi = pgk.gk_plain(plan, *x, *w, True, False)
     np.testing.assert_allclose(call().reshape(shape).numpy(),
                                view(pr, pi).numpy(), **TOL)
+
+
+# the GGK steps of the n30 paths as chip_smoke.py runs them (width 32):
+# (K, H, F, G) -> the form gatherk.gk_form picks
+GGK_PATH_FORMS = {
+    "1k": {(16, 16, 512, 1): "stream", (2, 2, 64, 64): "stream"},
+    "10k": {(32, 2, 64, 1): "stream"},
+}
+
+
+@pytest.mark.parametrize("name", sorted(GGK_PATH_FORMS))
+def test_ggk_form_of_every_path_step(name):
+    """``gk_form`` on each GGK step of the committed plans, with the
+    step's operand batching: bytes against flops as for GK, counting only
+    the rows the targets name, and stream wherever the f run does not
+    fill the mma form's 128-wide tile or K is below ``GGK_MMA_K_MIN``."""
+    import chip_smoke
+
+    path = chip_smoke.compile_path(name, 32)
+    got = {}
+    for plan, bx, by in path["cases"]["ggk"]:
+        xs, ws = (bx, by) if plan.w_is_j else (by, bx)
+        row = plan.row
+        got[(row.K, row.H, row.F, len(row.xoff))] = pgk.gk_form(
+            plan, 32, xs, ws)
+        assert pgk.gk_aligned(plan)
+        if row.F % pgk.MMA_TILE_N or row.K < pgk.GGK_MMA_K_MIN:
+            assert got[(row.K, row.H, row.F, len(row.xoff))] == "stream"
+    assert got == GGK_PATH_FORMS[name]
+
+
+def test_ggk_form_rules(low_thresholds):
+    """A GGK step goes to the mma form only where the GK rule would (bytes
+    against flops) and its f run fills whole 128-wide tiles and K is at
+    least ``GGK_MMA_K_MIN``; otherwise it streams."""
+    gi = np.repeat(np.arange(40), 2)
+    gj = np.arange(80) % 8
+
+    def form(k, h, f, x_batched):
+        plan = pgk.plan_ggk_step(("k", "f"), ("k", "h"), ("h", "f"), (k, f),
+                                 (k, h), gi, gj, 40, 8)
+        return pgk.gk_form(plan, 32, x_batched, True)
+
+    assert form(64, 64, 512, True) == "mma"
+    assert form(64, 64, 512, False) == "mma"
+    assert form(64, 64, 192, True) == "stream"      # F not a tile multiple
+    assert form(16, 64, 512, False) == "stream"     # K below the floor
+    assert form(4, 4, 512, True) == "stream"        # bytes bound it
+
