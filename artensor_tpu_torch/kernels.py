@@ -52,7 +52,7 @@ SIGNATURES = {
                                      _L, _L, _I, _P],
     },
     "rgflat": {
-        "rgflat_launch": [_P] * 9 + [_L, _I, _I, _I, _L, _L, _L, _I, _P],
+        "rgflat_launch": [_P] * 9 + [_L] + [_I] * 9 + [_L, _L, _L, _I, _P],
     },
     "lane": {
         "lane_launch": [_P] * 11 + [_L, _I, _I, _I] + [_L] * 7 + [_I, _P],

@@ -35,11 +35,12 @@ and take the CUDA kernels' own limits instead:
   estimate against the dot fallback (``est_s`` decided that on the TPU);
 * the RGFlat row form (``plan_rg_flat``) reads its stored row through an
   (F, K) address table in place of the JAX kernel's two 0/1 digit
-  matrices (an MXU device);
-* the RGRow row form keeps the JAX plan (``pre_perm`` and all) but its
-  kernel reads X and W rows in their stored order through per-digit
-  offset tables (``foff``/``koff``, ``wk_idx``), so the step runs no
-  whole-buffer reorder of X and no transpose of W.
+  matrices (an MXU device); the table is separable (``foff[f] +
+  koff[k]``), and its kernel takes it as int16 offsets;
+* the RGRow row form keeps the JAX plan (``pre_perm`` and all); the
+  RGRow and RGFlat kernels read X and W rows in their stored order
+  through per-digit offset tables (``foff``/``koff``, ``wk_idx``), so
+  their steps run no whole-buffer reorder of X and no transpose of W.
 
 Kernel eligibility may therefore differ from the JAX scheme; the amplitudes
 may not.
@@ -491,6 +492,16 @@ class RGFlat:
     @property
     def xrow(self):
         return self.F * self.K
+
+    # the address table is separable: addr[f, k] = foff[f] + koff[k] (each
+    # the digits of its side; both increase with their index)
+    @property
+    def foff(self):
+        return self.addr[:, 0]
+
+    @property
+    def koff(self):
+        return self.addr[0, :]
 
 
 def plan_rg_flat(rx_i, rx_j, riy, rdims_i, rdims_j):
@@ -967,17 +978,19 @@ rgrow_call.launches = 0
 
 def rgflat_plain(plan, xr, xi, wr, wi, x_batched, w_batched):
     """Plain version of the RGFlat kernel (same operands as
-    ``rgflat_call``): gather rows, pick each row's (F, K) values through
-    the address table, complex multiply-and-sum over k."""
+    ``rgflat_call``): gather rows, pick each X row's (F, K) values through
+    the address table and each W row's (H, K) values through ``wk_idx``,
+    complex multiply-and-sum over k."""
     row = plan.row
     W = kernels.slice_width(x_batched, w_batched, xr, wr)
     t = _device_tables(plan, xr.device, ("gi", "gj"))
-    addr = _device_tables(row, xr.device, ("addr",))["addr"]
+    r = _device_tables(row, xr.device, ("addr", "wk_idx"))
     F, K, H = row.F, row.K, row.H
     lead = (W,) if (x_batched or w_batched) else ()
     xv = lambda c: c.reshape((W if x_batched else 1, -1, F * K))[:, t["gi"]][
-        ..., addr]                                            # (W, B, F, K)
-    wv = lambda c: c.reshape((W if w_batched else 1, -1, H, K))[:, t["gj"]]
+        ..., r["addr"]]                                       # (W, B, F, K)
+    wv = lambda c: c.reshape((W if w_batched else 1, -1, H * K))[:, t["gj"]][
+        ..., r["wk_idx"]]                                     # (W, B, H, K)
     xr_, xi_, wr_, wi_ = xv(xr), xv(xi), wv(wr), wv(wi)
     tr = lambda c: c.transpose(-1, -2)
     re = torch.matmul(wr_, tr(xr_)) - torch.matmul(wi_, tr(xi_))  # (W,B,H,F)
@@ -986,11 +999,87 @@ def rgflat_plain(plan, xr, xi, wr, wi, x_batched, w_batched):
     return re.reshape(shape).contiguous(), im.reshape(shape).contiguous()
 
 
+RGF_THREADS = 256        # threads of an RGFlat block (csrc/rgflat.cu)
+RGF_STAGE_ELEMS = 4096   # X elements a stage holds (32 KiB, re + im): rows
+                         # up to this size take the staged route
+RGF_STAGES = 2           # stages a block of the staged route walks
+RGF_W_STAGE = 4096       # max W elements of a slice instance staged a block
+
+
+def rgf_tables(row, V):
+    """The RGFlat kernel's int16 offset table for vector width ``V``:
+    ``koff[K]``, ``wkoff[K]``, ``fgoff[F / V]``, ``whoff[H]``, then zeros
+    to a multiple of 4.  x[f, k] lies at ``foff[f] + koff[k]`` of the
+    stored X row, group g's V cells at ``fgoff[g]`` + 0..V-1, and w[h, k]
+    at ``whoff[h] + wkoff[k]`` of the stored W row; every offset lies
+    within a row of at most 2^15 elements."""
+    offs = np.concatenate([row.koff, row.wk_idx[0, :],
+                           np.asarray(row.foff)[::V], row.wk_idx[:, 0]])
+    assert 0 <= offs.min() and offs.max() < RG_ROW_CAP
+    tab = np.zeros(-(-len(offs) // 4) * 4, dtype=np.int16)
+    tab[:len(offs)] = offs
+    return tab
+
+
+def rgf_geometry(plan, x_aligned=True):
+    """The RGFlat launch geometry of an aligned step: ``dict(V, T, NS, KS,
+    cp16, wn, blocks)``.  Rows of at most ``RGF_STAGE_ELEMS`` elements take
+    the staged route: T targets a stage (T rows in shared memory), NS
+    stages a block (its run of NS * T consecutive targets), 16-byte copies
+    where the rows are a multiple of 4 floats and ``x_aligned`` (X's
+    buffers 16-byte aligned), and all of a slice instance's W rows (``wn``
+    elements) staged where they fit ``RGF_W_STAGE``.  Larger rows take the
+    direct route (T = 0): one target a block, V free cells a load straight
+    from X, so V falls to 1 unless ``x_aligned``.  V is ``rg_lanes``' vector
+    width: the free cells are already in the order of their stored offsets
+    (``foff`` increases with f), so a group of V is also V consecutive
+    outputs, one V-wide store.  KS lanes split an item's k loop while the
+    block has threads to spare (items are (target, group of V free
+    cells)).  Computed once per plan and alignment."""
+    key = ("rgf_geometry", bool(x_aligned))
+    if key in plan._dev:
+        return dict(plan._dev[key])
+    row = plan.row
+    F, K, H = row.F, row.K, row.H
+    xrow = F * K
+    V, _, fcan = rg_lanes(row)
+    assert (fcan == np.arange(F)).all()
+    if xrow <= RGF_STAGE_ELEMS:
+        T = max(1, min(RGF_STAGE_ELEMS // xrow, plan.B))
+        NS = RGF_STAGES
+        items = T * (F // V)
+        blocks = -(-plan.B // (T * NS))
+        cp16 = bool(x_aligned and xrow % 4 == 0)
+        wn = plan.bj_rows * H * K
+        wn = wn if wn <= RGF_W_STAGE else 0
+    else:
+        if not x_aligned:
+            V = 1
+        T, NS, cp16, wn = 0, 0, False, 0
+        items = min(F // V, RGF_THREADS)
+    KS = 1
+    while KS < 32 and 2 * KS * items <= RGF_THREADS and 2 * KS <= K:
+        KS *= 2
+    if T == 0:
+        per = RGF_THREADS // KS
+        blocks = plan.B * -(-(F // V) // per)
+    plan._dev[key] = dict(V=V, T=T, NS=NS, KS=KS, cp16=cp16, wn=wn,
+                          blocks=blocks)
+    return dict(plan._dev[key])
+
+
+def _rgf_table_dev(row, device, V):
+    key = ("rgf", str(device), V)
+    if key not in row._dev:
+        row._dev[key] = torch.as_tensor(rgf_tables(row, V)).to(device)
+    return row._dev[key]
+
+
 def rgflat_call(plan, xr, xi, wr, wi, x_batched, w_batched):
     """The RGFlat kernel's wrapper.  ``xr``: X-side rows in their stored
-    order ``(Bi*F*K,)`` or ``(W, ...)``; ``wr``: W-side rows pre-gathered
-    to ``(Bj*H*K,)`` or ``(W, ...)``.  Returns Y ``(B*H*F,)`` or
-    ``(W, B*H*F)``."""
+    order ``(Bi*F*K,)`` or ``(W, ...)``; ``wr``: W-side rows in their
+    stored order ``(Bj*H*K,)`` or ``(W, ...)``.  Returns Y ``(B*H*F,)`` or
+    ``(W, B*H*F)``.  The launch geometry is ``rgf_geometry``'s."""
     row = plan.row
     W = kernels.slice_width(x_batched, w_batched, xr, wr)
     F, K, H = row.F, row.K, row.H
@@ -1004,14 +1093,16 @@ def rgflat_call(plan, xr, xi, wr, wi, x_batched, w_batched):
     if dev.type == "cpu":
         return rgflat_plain(plan, xr, xi, wr, wi, x_batched, w_batched)
     t = _device_tables(plan, dev, ("gi", "gj"))
-    addr = _device_tables(row, dev, ("addr",))["addr"]
     lead = (W,) if (x_batched or w_batched) else ()
     yr = torch.empty(lead + (y_n,), dtype=torch.float32, device=dev)
     yi = torch.empty_like(yr)
+    g = rgf_geometry(plan, all(c.data_ptr() % 16 == 0 for c in (xr, xi)))
+    tab = _rgf_table_dev(row, dev, g["V"])
     kernels.launch(
         "rgflat", kernels.load().rgflat_launch, dev,
-        *map(kernels.ptr, (xr, xi, wr, wi, yr, yi, t["gi"], t["gj"], addr)),
-        plan.B, F, K, H, x_n if x_batched else 0, w_n if w_batched else 0,
+        *map(kernels.ptr, (xr, xi, wr, wi, yr, yi, t["gi"], t["gj"], tab)),
+        plan.B, F, K, H, g["V"], g["T"], g["NS"], g["KS"], int(g["cp16"]),
+        g["wn"], x_n if x_batched else 0, w_n if w_batched else 0,
         y_n if lead else 0, W)
     rgflat_call.launches += 1
     return yr, yi
@@ -1057,10 +1148,10 @@ def apply_ggk_step(field, x, y, plan, bx=False, by=False):
     xlead = (xv[0].shape[0],) if bxv else ()
     wlead = (wv[0].shape[0],) if bwv else ()
     xr, xi = _flat(xv, xlead)
-    if isinstance(row, RGRow):
-        # RGRow reads both rows in their stored order: no reorder of X to
-        # the canonical (F, K) layout (the JAX kernel's ``pre_perm``), no
-        # transpose of W
+    if isinstance(row, (RGRow, RGFlat)):
+        # RGRow and RGFlat read both rows in their stored order: no reorder
+        # of X to the canonical (F, K) layout (the JAX kernels'
+        # ``pre_perm``), no transpose of W
         wr, wi = _flat(wv, wlead)
     else:
         wr, wi = _wk_rows(wv, row, plan.bj_rows, wlead)

@@ -7,10 +7,10 @@ their CUDA kernels against its plain PyTorch version.
 Run from the repository root on a machine with a CUDA card and nvcc.  Three
 paths of the generated n30 m14 circuit, each with its committed plan and
 JAX fixture: 1000 bitstrings ("1k", 64 slices), 10000 bitstrings ("10k",
-128 slices; the only path with an RGFlat step) and the 1000 bitstrings at
-memory budget sc_target 25 ("1k-sc25", 32 slices; the only path with a
-lane step, planned by the retail scheduler).  Phases, in order (any failure
-exits non-zero; no phase is caught and passed over):
+128 slices) and the 1000 bitstrings at memory budget sc_target 25
+("1k-sc25", 32 slices; the only path with a lane step, planned by the
+retail scheduler); the last two each have one RGFlat step.  Phases, in
+order (any failure exits non-zero; no phase is caught and passed over):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the kernel build from ``artensor_tpu_torch/csrc`` (nvcc, sm_90a, one
@@ -23,7 +23,10 @@ exits non-zero; no phase is caught and passed over):
    repeats), its bound and the plain version's time; for GK, Lane and Pair
    also one PyTorch call of the same function as a yardstick
    (``torch.einsum`` over X in its logical shape, ``torch.matmul``; the
-   port calls neither);
+   port calls neither); at the largest GK, GGK, RGRow, RGFlat and Pair
+   step both versions' errors against float64; every RGRow and RGFlat
+   step also through ``apply_ggk_step`` with the copies it no longer
+   makes timed alone;
 4. the lane kernel on synthetic plans of the forms the path lacks (head
    orientation, combo legs, a pinned grid leg; X of 2^24 elements), and
    the complex batched matmul (``ops/pallas_mm.py``, on no path) at two
@@ -47,13 +50,14 @@ runs (``form``): bytes for the "stream" form of GK and GGK, 3xTF32 for
 the tensor-core kernels ("mma": their other form, Pair, the complex
 matmul), FP32 FMA for the rest ("fma").  Per path the GK and GGK steps'
 summed time is printed against their summed bounds, and at the largest
-GK, GGK, RGRow and Pair step of each path the kernel's and the plain
+GK, GGK, RGRow, RGFlat and Pair step of each path the kernel's and the plain
 version's errors against a float64 product of the same inputs, over two
 slice instances (the kernel's may be at most ``F64_ERR_RATIO`` times the
-plain version's, which runs in full float32 on cuBLAS).  Each RGRow step
-is also run as the executor runs it (``apply_ggk_step``: the kernel and
-any copy around it), beside the copies its stored-order reads absorb (the
-X reorder and the W transpose, timed alone).
+plain version's, which runs in full float32 on cuBLAS).  Each RGRow and
+RGFlat step is also run as the executor runs it (``apply_ggk_step``: the
+kernel and any copy around it), beside the copies its stored-order reads
+absorb (RGRow: the X reorder and the W transpose; RGFlat: the W
+transpose; each timed alone).
 """
 
 import argparse
@@ -78,6 +82,8 @@ CIRCUIT = dict(rows=5, cols=6, cycles=14, seed=0)   # random_circuit args
 DEVICE = "cuda"
 
 F64_ERR_RATIO = 4             # kernel vs plain error against float64
+F64_KINDS = ("gk", "ggk", "rgrow", "rgflat", "pair")   # ... at the largest
+GLUE_KEYS = ("step_ms", "x_reorder_ms", "w_transpose_ms")   # RGRow, RGFlat
 KERNEL_RTOL = 2e-4            # kernel vs plain: max|d| <= rtol*max|plain| + atol
 KERNEL_ATOL = 1e-5            #   (float32 sums in another order)
 AMP_RTOL = 1e-3               # amplitudes vs fixture:
@@ -139,8 +145,17 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+HOST_COVER_CYCLES = 2_000_000   # device spin before each timed call (~1 ms)
+
+
 def time_ms(fn, reps):
-    """Median of ``reps`` single-call CUDA-event timings after a warm-up."""
+    """Median of ``reps`` single-call CUDA-event timings after a warm-up:
+    the device time of ``fn``'s work.  Each call is queued behind a device
+    spin of ``HOST_COVER_CYCLES`` clocks (``torch.cuda._sleep``), so that
+    the host's time to enqueue it (the wrapper's Python, the launch) falls
+    inside the spin and not between the two events, as it does on the
+    executor's busy stream; a call whose host work outlasts the spin (the
+    plain versions' chains of small operations) still counts its gaps."""
     import torch
 
     fn()
@@ -149,6 +164,7 @@ def time_ms(fn, reps):
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOST_COVER_CYCLES)
         a.record()
         fn()
         b.record()
@@ -354,8 +370,8 @@ def run_kernel(kind, plan, bx, by, width, seed, f64=False):
                x_batched=xs, w_batched=ws)
     if f64:
         out.update(f64_errors(kr, ki, pr, pi, plain, args))
-    if kind == "rgrow":
-        out.update(rgrow_glue(plan, args, (kr, ki), reps))
+    if kind in ("rgrow", "rgflat"):
+        out.update(step_glue(kind, plan, args, (kr, ki), reps))
     lib = None
     if kind == "pair":
         xc = torch.complex(xr, xi).reshape(
@@ -392,13 +408,14 @@ def run_kernel(kind, plan, bx, by, width, seed, f64=False):
     return out
 
 
-def rgrow_glue(plan, args, want, reps):
-    """The RGRow step through ``gatherk.apply_ggk_step`` as the executor
-    runs it (the kernel and any copies around it; checked against the
-    kernel's output), and, timed alone on the same operands, the two
+def step_glue(kind, plan, args, want, reps):
+    """An RGRow or RGFlat step through ``gatherk.apply_ggk_step`` as the
+    executor runs it (the kernel and any copies around it; checked against
+    the kernel's output), and, timed alone on the same operands, the
     copies that the kernel's stored-order reads absorb: the reorder of the
-    whole X buffer to canonical (F, K) rows and the transpose of the W
-    rows to (H, K)."""
+    whole X buffer to canonical (F, K) rows (RGRow's ``pre_perm``; an
+    RGFlat row was always read as stored) and the transpose of the W rows
+    to (H, K)."""
     import torch
 
     from artensor_tpu_torch.ops.field import SplitField
@@ -412,13 +429,13 @@ def rgrow_glue(plan, args, want, reps):
     yr, yi = step()
     d = torch.abs(torch.complex(yr.reshape(want[0].shape) - want[0],
                                 yi.reshape(want[1].shape) - want[1])).max()
-    check(d.item() == 0.0, f"rgrow: the step's output differs from the "
+    check(d.item() == 0.0, f"{kind}: the step's output differs from the "
           f"kernel's by {d.item():.3e}")
     del yr, yi
     xlead = (xr.shape[0],) if xs else ()
     wlead = (wr.shape[0],) if ws else ()
     out = dict(step_ms=time_ms(step, reps), x_reorder_ms=0.0)
-    if row.pre_perm is not None:
+    if getattr(row, "pre_perm", None) is not None:
         r = lowering.plan_reorder(
             (plan.bi_rows,) + row.row_dims,
             (0,) + tuple(p + 1 for p in row.pre_perm),
@@ -491,7 +508,7 @@ def report(label, r):
           f"{r['flops']} x_batched {r['x_batched']} w_batched "
           f"{r['w_batched']}", flush=True)
     if "step_ms" in r:
-        print(f"  rgrow step with glue ({r['step']}): step ms "
+        print(f"  step with glue ({r['step']}): step ms "
               f"{r['step_ms']:.4f} (kernel {r['ms']:.4f}); copies the kernel's"
               f" stored-order reads absorb, timed alone: X reorder "
               f"{r['x_reorder_ms']:.4f} ms, W transpose "
@@ -512,8 +529,8 @@ def check_kernels(path):
     kind's largest step also at width 1.  Returns, per kind, the largest
     step's result, the slowest step's, the kernel ms of one slice group
     (and the summed bounds of the design each step runs, and the steps'
-    forms) and the largest error of any step.  The largest GK, GGK, RGRow
-    and Pair steps are also held against float64."""
+    forms) and the largest error of any step.  The largest GK, GGK,
+    RGRow, RGFlat and Pair steps are also held against float64."""
     W, cases, out = path["W"], path["cases"], {}
     for n, kind in enumerate(KERNELS):
         if kind not in cases:
@@ -526,7 +543,7 @@ def check_kernels(path):
         for i, width in [(i, W) for i in range(len(cases[kind]))] + [
                 (largest, 1)]:
             plan, bx, by = cases[kind][i]
-            f64 = (kind in ("gk", "ggk", "rgrow", "pair") and i == largest
+            f64 = (kind in F64_KINDS and i == largest
                    and width == W)
             r = run_kernel(kind, plan, bx, by, width, seed=n, f64=f64)
             report(f"{path['name']} {kind} step {i + 1}/{len(cases[kind])}",
@@ -771,14 +788,14 @@ def main():
                                         for k in keys},
                           **{k: checked[n][kind]["largest"][k]
                              for k in ("f64_rel_err", "plain_f64_rel_err")
+                             + GLUE_KEYS
                              if k in checked[n][kind]["largest"]}}
                       for n in PATHS if kind in checked[n]}})
         if kind == "lane":
             line[-1]["forms"] = {n: {k: r[k] for k in keys}
                                  for n, r in forms.items()}
-        if kind == "rgrow":
-            line[-1].update({k: big[k] for k in (
-                "step_ms", "x_reorder_ms", "w_transpose_ms")})
+        if kind in ("rgrow", "rgflat"):
+            line[-1].update({k: big[k] for k in GLUE_KEYS})
     (_, source, replaces), big = OFF_PATH["complex_mm"], cmm[-1]
     line.append({
         "name": "complex_mm", "route": "cuda", "source": source,

@@ -328,6 +328,57 @@ def test_rgrow_kernel_shapes(cuda, monkeypatch, shape, batched):
     _run_gathered(plan, xb, wb, x_shift=1)
 
 
+# RGFlat X rows, stored digits major to minor ('k' contract, 'f' free, all
+# binary): the 10k path's (contract major, free minor: V 4), the 1k-sc25
+# path's interleaved one (V 4), a minor free pair (V 2), a minor contract
+# digit (V 1), and a row of RG_ROW_CAP = 2^15 elements (the direct route)
+RGF_LAYOUTS = {"10k": "kkkkfff", "sc25": "kffkkfkkff", "v2": "fkkfkkkf",
+               "v1": "ffffkkkkk", "cap": "ffffkkfffkkkkff"}
+
+
+def _rgf_case(layout, H, seed=0):
+    """An RGFlat step: X's digits as ``RGF_LAYOUTS[layout]`` names them,
+    W's contract digits shuffled with its log2(H) fresh digits placed
+    among them at random, the fresh block leading the output."""
+    rng = np.random.default_rng(seed)
+    x = [f"{r}{d}" for d, r in enumerate(RGF_LAYOUTS[layout])]
+    kk = [l for l in x if l[0] == "k"]
+    hh = [f"h{d}" for d in range(int(np.log2(H)))]
+    w = list(rng.permutation(kk + hh))
+    riy = hh + [l for l in x if l[0] == "f"]
+    return (tuple(x), tuple(w), tuple(riy), (2,) * len(x), (2,) * len(w))
+
+
+@pytest.mark.parametrize("w_batched", [True, False])
+@pytest.mark.parametrize("H", [1, 2, 8])
+@pytest.mark.parametrize("layout", sorted(RGF_LAYOUTS))
+def test_rgflat_kernel_layouts(cuda, monkeypatch, layout, H, w_batched):
+    """The RGFlat kernel against its plain version at widths 1 and 32, X
+    batched, W batched and slice-invariant; targets sorted with repeated
+    and skipped X rows, W rows in random order.  Each case also runs with
+    X one float into its allocation: the staged route then copies with
+    4-byte cp.async, the direct route (the 2^15-element row) reads one
+    float a load.  The route, vector width and W staging asserted are
+    ``gatherk.rgf_geometry``'s."""
+    monkeypatch.setattr(gatherk, "GGK_MIN_WORK", 1)
+    B, bi, bj = (60, 30, 9) if layout == "cap" else (300, 200, 50)
+    plan = _gathered(_rgf_case(layout, H), B, bi, bj, seed=len(layout) + H)
+    row = plan.row
+    assert isinstance(row, gatherk.RGFlat) and row.H == H
+    assert len(np.unique(plan.gi)) < B and (np.diff(plan.gi) > 1).any()
+    g = gatherk.rgf_geometry(plan)
+    assert g["V"] == {"v2": 2, "v1": 1}.get(layout, 4)
+    assert (g["T"] == 0) == (layout == "cap")
+    assert (g["wn"] > 0) == (layout != "cap" and bj * H * row.K
+                             <= gatherk.RGF_W_STAGE)
+    if layout == "cap":
+        assert row.xrow == gatherk.RG_ROW_CAP
+    assert gatherk.rgf_geometry(plan, x_aligned=False)["cp16"] is False
+    for W in (1, 32):
+        for x_shift in (0, 1):
+            _run_gathered(plan, True, w_batched, W=W, x_shift=x_shift)
+
+
 def _one_per_kernel(dev):
     """(wrapper, plain version, arguments) of one small call of each kernel
     wrapper, on device ``dev``."""

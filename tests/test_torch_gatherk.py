@@ -470,3 +470,172 @@ def test_ggk_form_rules(low_thresholds):
     assert form(16, 64, 512, False) == "stream"     # K below the floor
     assert form(4, 4, 512, True) == "stream"        # bytes bound it
 
+
+
+# -- the RGFlat kernel's index scheme, modelled in numpy ---------------------
+
+def _rgf_model(plan, x, w, w_batched, x_aligned=True):
+    """What ``csrc/rgflat.cu`` computes, block by block, from the tables
+    and launch geometry the wrapper passes it (``rgf_tables``,
+    ``rgf_geometry``): the staged route's runs of NS stages of T
+    consecutive targets (a stage is T stored X rows), the direct route's
+    item tiles of one target, items of V free cells at ``fgoff`` over
+    ``koff``, W read at ``whoff + wkoff`` of its stored row, the k loop
+    split over KS lanes and their partial sums added.  ``x``: (W, X)
+    complex, ``w``: (W or 1, W rows) complex.  Asserts that every output
+    is written exactly once."""
+    g = pgk.rgf_geometry(plan, x_aligned)
+    row = plan.row
+    F, K, H, V, KS = row.F, row.K, row.H, g["V"], g["KS"]
+    FG = F // V
+    tab = pgk.rgf_tables(row, V)
+    assert tab.dtype == np.int16 and len(tab) % 4 == 0
+    tab = tab.astype(np.int64)
+    koff, wkoff = tab[:K], tab[K:2 * K]
+    fgoff, whoff = tab[2 * K:2 * K + FG], tab[2 * K + FG:2 * K + FG + H]
+    cell = (koff[None, :, None] + fgoff[:, None, None]
+            + np.arange(V)[None, None, :])                # (FG, K, V)
+    widx = whoff[:, None] + wkoff[None, :]                 # (H, K)
+    lanes = [np.arange(s, K, KS) for s in range(KS)]
+    W = x.shape[0]
+    y = np.zeros((W, plan.B * H * F), complex)
+    hits = np.zeros(y.shape, int)
+
+    def items(s, b0, nt, g0, gn, rows):
+        b = b0 + np.arange(nt)
+        ws = w[s if w_batched else 0].reshape(-1, H * K)[plan.gj[b]][:, widx]
+        xs = rows[:, cell[g0:g0 + gn]]                     # (nt, gn, K, V)
+        acc = sum(np.einsum("tgkv,thk->thgv", xs[:, :, k], ws[:, :, k])
+                  for k in lanes)
+        o = (b[:, None, None, None] * (H * F)
+             + np.arange(H)[None, :, None, None] * F
+             + (g0 + np.arange(gn))[None, None, :, None] * V
+             + np.arange(V)[None, None, None, :])
+        y[s, o.ravel()] = acc.ravel()
+        np.add.at(hits[s], o.ravel(), 1)
+
+    for s in range(W):
+        xw = x[s].reshape(-1, F * K)
+        for blk in range(g["blocks"]):
+            if g["T"]:
+                for st in range(g["NS"]):
+                    b0 = (blk * g["NS"] + st) * g["T"]
+                    nt = min(g["T"], plan.B - b0)
+                    if nt <= 0:
+                        break
+                    items(s, b0, nt, 0, FG, xw[plan.gi[b0:b0 + nt]])
+            else:
+                per = pgk.RGF_THREADS // KS
+                b, tile = divmod(blk, -(-FG // per))
+                g0 = tile * per
+                items(s, b, 1, g0, min(per, FG - g0), xw[plan.gi[b:b + 1]])
+    assert (hits == 1).all()
+    return y, g
+
+
+def _rgf_check(plan, w_batched, x_aligned=True, width=2, seed=0):
+    rng = np.random.default_rng(seed)
+    row = plan.row
+    x = _rand((width, plan.bi_rows * row.xrow), rng).astype(complex)
+    w = _rand((width if w_batched else 1, plan.bj_rows * row.H * row.K),
+              rng).astype(complex)
+    got, g = _rgf_model(plan, x, w, w_batched, x_aligned)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    wa = w if w_batched else w[0]
+    pr, pi = pgk.rgflat_plain(plan, t(x.real), t(x.imag), t(wa.real),
+                              t(wa.imag), True, w_batched)
+    want = pr.numpy() + 1j * pi.numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-9,
+                               atol=1e-9 * np.abs(want).max())
+    return g
+
+
+def _rcs15_rgflat(monkeypatch):
+    """The RGFlat step of the committed small plan's port scheme (gates
+    lowered as in tests/test_torch_sparse.py)."""
+    import json
+    import os
+
+    from artensor_tpu_torch import TensorNetworkSimulation, random_circuit
+    from artensor_tpu_torch.runtime.sparse import kernel_kind
+
+    monkeypatch.setattr(pgk, "MIN_X_ELEMS", 1 << 8)
+    monkeypatch.setattr(pgk, "GGK_MIN_WORK", 1 << 8)
+    with open(os.path.join(os.path.dirname(__file__), "data",
+                           "torch_port_rcs15_rgflat_plan.json")) as f:
+        plan = json.load(f)
+    n, layers = random_circuit(3, 5, 8, seed=13)
+    rng = np.random.default_rng(4)
+    bits = [np.binary_repr(b, n)
+            for b in rng.choice(2 ** n, 128, replace=False)]
+    sim = TensorNetworkSimulation.from_circuit((n, layers), bits).load_plan(
+        plan)
+    (step,) = [s.lane for s in sim.steps if kernel_kind(s) == "rgflat"]
+    return step
+
+
+# the RGFlat steps of the paths: (H, K, F, B) -> the geometry rgf_geometry
+# gives them with aligned buffers (the W rows of a slice instance staged)
+RGF_PATH_GEOMETRY = {
+    "10k": ((2, 16, 8, 9996), dict(V=4, T=32, NS=2, KS=4, cp16=True,
+                                   wn=1024, blocks=157)),
+    "1k-sc25": ((1, 32, 32, 1000), dict(V=4, T=4, NS=2, KS=8, cp16=True,
+                                        wn=1024, blocks=125)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RGF_PATH_GEOMETRY) + ["rcs15"])
+def test_rgflat_kernel_model_matches_plain(monkeypatch, name):
+    """The numpy model of the RGFlat kernel's index scheme equals
+    ``rgflat_plain`` on the RGFlat step of the 10k and 1k-sc25 paths (as
+    ``chip_smoke.py`` compiles them) and of the committed small plan,
+    with X batched and W as the path batches it; the path steps take
+    the staged route with 16-byte copies, V = 4 and W staged."""
+    import chip_smoke
+
+    if name == "rcs15":
+        plan, w_batched = _rcs15_rgflat(monkeypatch), True
+    else:
+        path = chip_smoke.compile_path(name, 32)
+        ((plan, bx, by),) = path["cases"]["rgflat"]
+        w_batched = by if plan.w_is_j else bx
+        shape, geometry = RGF_PATH_GEOMETRY[name]
+        row = plan.row
+        assert (row.H, row.K, row.F, plan.B) == shape
+        assert pgk.rgf_geometry(plan) == geometry
+    g = _rgf_check(plan, w_batched)
+    assert g["T"] > 0 and g["cp16"]
+
+
+# (rx_i, rx_j, riy, rd_i, rd_j, B, bi_rows, bj_rows): a row of RG_ROW_CAP
+# elements (the direct route), and a staged one whose W rows pass
+# RGF_W_STAGE (read through L1)
+RGF_ROUTES = {
+    "cap_row": (("f0", "k0", "f1", "k1", "f2"), ("k1", "h", "k0"),
+                ("h", "f0", "f1", "f2"), (8, 4, 16, 16, 4), (16, 2, 4),
+                12, 7, 5),
+    "w_unstaged": (("k0", "f0", "k1", "f1"), ("k1", "k0", "h"),
+                   ("h", "f0", "f1"), (4, 3, 8, 8), (8, 4, 8), 73, 30, 40),
+}
+
+
+@pytest.mark.parametrize("x_aligned", [True, False])
+@pytest.mark.parametrize("name", sorted(RGF_ROUTES))
+def test_rgflat_kernel_model_routes(low_thresholds, name, x_aligned):
+    """The model on the routes the paths do not take: the direct route of
+    a 2^15-element row (V 1 where X is not 16-byte aligned), and a staged
+    route with W read through L1 and 4-byte copies; a ragged last stage
+    and targets repeating and skipping X rows."""
+    *case, B, bi, bj = RGF_ROUTES[name]
+    rng = np.random.default_rng(3)
+    gi = np.sort(rng.integers(0, bi, B))
+    gj = rng.integers(0, bj, B)
+    plan = pgk.plan_ggk_step(*case, gi, gj, bi, bj)
+    assert isinstance(plan.row, pgk.RGFlat), pgk.LAST_REJECT
+    g = _rgf_check(plan, True, x_aligned)
+    if name == "cap_row":
+        assert plan.row.xrow == pgk.RG_ROW_CAP and g["T"] == 0
+        assert g["V"] == (4 if x_aligned else 1)
+    else:
+        assert g["T"] > 0 and g["wn"] == 0 and g["cp16"] == x_aligned
+        assert plan.B % (g["T"] * g["NS"])

@@ -228,8 +228,9 @@ def rcs15():
 def test_rgflat_route_matches_jax_and_state_vec(rcs15, monkeypatch, width):
     """The RGFlat route end to end on the CPU: the port's scheme of the
     committed small plan runs its one RGFlat merge through
-    ``rgflat_call`` (its plain version here), and every amplitude matches
-    the JAX run and the state vector."""
+    ``rgflat_call`` (its plain version here) with W in its stored order
+    (no ``_wk_rows`` transpose), and every amplitude matches the JAX run
+    and the state vector."""
     monkeypatch.setattr(pgk, "MIN_X_ELEMS", 1 << 8)
     monkeypatch.setattr(pgk, "GGK_MIN_WORK", 1 << 8)
     w = rcs15
@@ -243,6 +244,13 @@ def test_rgflat_route_matches_jax_and_state_vec(rcs15, monkeypatch, width):
     real = pgk.rgflat_call
     monkeypatch.setattr(pgk, "rgflat_call",
                         lambda *a: calls.append(1) or real(*a))
+    wk_rows = pgk._wk_rows
+
+    def no_rgflat_transpose(w, row, *a):
+        assert not isinstance(row, pgk.RGFlat), "RGFlat W transposed"
+        return wk_rows(w, row, *a)
+
+    monkeypatch.setattr(pgk, "_wk_rows", no_rgflat_transpose)
     amps = sim.contraction(slice_batch=width, device="cpu")
     assert len(calls) == 2 ** len(sim.slicing_bonds) // width
     assert sorted(sim.bitstrings_sorted) == sorted(w["jax_amps"])
