@@ -69,3 +69,26 @@ def merge_cost(tn, left, right):
     else:
         mc = log2sumexp2([left.sc, right.sc, sc])
     return tc, sc, mfactor, boundary, mc, contract_bonds, merged
+
+
+# -- the card's budgets for the slice-width choice (runtime/metrics.py) -------
+#
+# Device memory the slice-batched live set (``metrics.scheme_peak_bytes_at_
+# width``) may take on one "NVIDIA H100 80GB HBM3" (PyTorch sees 79.18 GiB).
+# Measured (``torch.cuda.max_memory_allocated`` over warm runs,
+# scripts/fit_calibration_torch_port.py): every path of the three workloads
+# peaks at the modeled live set plus 0.04 GiB at every width from 8 to 128
+# (1k 24.04 GiB at width 64, 10k 48.04 at 128, 1k-sc25 24.04 at 32).  The
+# budget leaves about 25 GB for what the model does not count (the staged
+# operands, ``PEAK_RESERVE_BYTES``, the caching allocator's free blocks).
+HBM_BUDGET_BYTES = 60e9
+# What a run holds beyond the modeled live set and the staged operands, at
+# any width: cuBLAS's workspace and the kernel plans' device index tables
+# (measured 0.04 GiB, above; chip_smoke.py and tests/test_torch_cuda.py
+# hold the measured peak to model + staged + this).
+PEAK_RESERVE_BYTES = 64 << 20
+# Host cost of enqueueing one step at slice width 1 (wrapper Python, tables,
+# launches): the fitted ``step_overhead_w1_s`` of
+# ``scripts/fit_calibration_torch_port.py`` (``data/calibration_h100.json``),
+# used when no calibration file is present.
+STEP_OVERHEAD_W1_S = 323e-6

@@ -72,6 +72,8 @@ F_MIN_BIG = 128          # ... of an X above F_BIG_X elements, and of the
                          # pre-permuted form's run (the JAX rules)
 F_BIG_X = 1 << 20
 PRE_MAX_ELEMS = 1 << 24  # max X elements of the pre-permuted GK form
+PRE_TAIL_F = 1 << 15     # the pre-permuted form's f run is cut to the
+                         # shortest suffix of at least this many elements
 GGK_MIN_WORK = MIN_X_ELEMS   # min B * row elements (whole-step size gate)
 RG_ROW_CAP = 1 << 15     # max row elements of the reduction form
 RG_H_CAP = 8             # fresh-leg bound of the reduction form (registers)
@@ -257,9 +259,12 @@ def plan_gk_step_pre(ix_i, ix_j, iy, dims_i, dims_j, pin=0):
     estimate of the extra transpose against its XLA fallback; here the
     pre-permuted kernel is always taken when it plans.  Its other gates
     are kept: the trailing run is trimmed to a multiple of ``F_MIN_BIG``
+    elements and then to the shortest suffix of at least ``PRE_TAIL_F``
     elements, and X may hold at most ``PRE_MAX_ELEMS`` elements (above that
     the JAX reorder is an element gather, which the JAX planner refuses
-    here)."""
+    here).  The tail cap is the JAX rule: ``px`` becomes the layout
+    request to X's producer (``runtime/sparse.py``), and a longer tail
+    takes legs the producer needs free for its own H and f runs."""
     if pin:
         return None
     iy = tuple(iy)
@@ -284,6 +289,10 @@ def plan_gk_step_pre(ix_i, ix_j, iy, dims_i, dims_j, pin=0):
         tail.insert(0, l)
     F = _prod(dim_of[l] for l in tail)
     while tail and F % F_MIN_BIG:
+        F //= dim_of[tail[0]]
+        tail.pop(0)
+    while (len(tail) > 1 and F // dim_of[tail[0]] >= PRE_TAIL_F
+            and (F // dim_of[tail[0]]) % F_MIN_BIG == 0):
         F //= dim_of[tail[0]]
         tail.pop(0)
     if not tail:
@@ -377,6 +386,9 @@ class RGRow:
     w_perm: tuple = None
     foff: object = None    # (F,) int64 stored offset of free cell f
     koff: object = None    # (K,) int64 stored offset of contract value k
+    px: tuple = None       # canonical X leg order (frees in riy order, then
+                           # the contract run): the layout request to X's
+                           # producer, None when X is stored so already
     _dev: dict = dc_field(default_factory=dict, repr=False, compare=False)
 
     @property
@@ -459,7 +471,8 @@ def plan_rg_row(rx_i, rx_j, riy, rdims_i, rdims_j):
                  _mixed_offsets([dim_of[l] for l in frees_y],
                                 [xs[l] for l in frees_y]),
                  _mixed_offsets([dim_of[l] for l in contract],
-                                [xs[l] for l in contract]))
+                                [xs[l] for l in contract]),
+                 px if pre_perm is not None else None)
 
 
 RGF_ROW_MIN = 128        # min row elements of the flat-row form (JAX gate)

@@ -1,0 +1,446 @@
+"""Cost model of a compiled scheme: flops, traffic, peak live bytes, and the
+calibrated wall estimate that ranks schemes and picks the slice width.
+
+Port of ``artensor_tpu/runtime/metrics.py``.  The device-neutral half keeps
+the JAX logic and gives the JAX numbers on equal schemes: ``step_flops``,
+``scheme_flops``, ``step_traffic_bytes``, ``slice_dynamic_ids``, the peak
+timeline (``scheme_peak_live_bytes``, ``scheme_peak_bytes_at_width``),
+``step_overhead_bytes`` and ``reorder_census``.
+
+The time model is rebuilt for one H100 (``kernels.H100_*``).  A kernel
+step is charged the bound of the design its CUDA kernel runs
+(``plan_design_bound``: GK and GGK by ``gatherk.gk_form``, bytes for the
+stream form and 3xTF32 for the mma form; bytes for RGRow, RGFlat and Lane;
+3xTF32 for Pair), times a measured factor for its kernel family, plus the
+copies the step makes around the kernel (GK's ``pre`` reorder, Pair's
+input reorders and row gather: each read and written once).  A dot
+fallback step is charged its ``torch.matmul`` products at the float32
+rate against its bytes, and every step its gather / concat / select passes
+(``step_overhead_bytes``).  A plan's ``est_s`` (a TPU roofline, kept by
+the lane planner to rank its candidates) is never read here.
+
+The factors come from ``data/calibration_h100.json``, fitted on the card
+by ``scripts/fit_calibration_torch_port.py``; without the file they are
+the identity.  Not ported yet: ``segmented_wall_estimate``,
+``ContractionReport`` and ``Timer`` (they wait for the segmented executor
+and the report plumbing).
+"""
+
+import json
+import os
+from functools import reduce
+from operator import mul
+
+from .. import kernels
+from ..planner.cost import HBM_BUDGET_BYTES, STEP_OVERHEAD_W1_S
+
+CALIBRATION_PATH = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data",
+    "calibration_h100.json")
+FAMILIES = ("gk", "ggk", "rgrow", "rgflat", "lane", "pair")
+
+
+def _prod(xs):
+    return reduce(mul, xs, 1)
+
+
+def _lows(s):
+    return [s.lowered] if getattr(s, "lowered", None) is not None \
+        else list(getattr(s, "lowered_chunks", ()) or ())
+
+
+# -- flops, traffic, peak live bytes (device-neutral) ------------------------
+
+def step_flops(low, complex_algo="naive"):
+    """Real flops of one lowered step (split-complex matmul counting)."""
+    (cx, _cy), (bx, _by) = low.dnums
+    B = _prod(low.shape_l[d] for d in bx)
+    K = _prod(low.shape_l[d] for d in cx)
+    M = _prod(low.shape_l) // max(B * K, 1)
+    N = _prod(low.shape_r) // max(B * K, 1)
+    mults = 3 if complex_algo == "karatsuba" else 4
+    return 2 * B * M * N * K * mults
+
+
+def scheme_flops(steps, complex_algo="naive"):
+    return sum(step_flops(low, complex_algo)
+               for s in steps for low in _lows(s))
+
+
+def step_traffic_bytes(low, bytes_per_elem=4.0, split_components=2):
+    """Minimum device bytes of one lowered step (read operands + write
+    result), plus the reorder pass when the step carries one (gathers cost
+    ~2x a streaming pass)."""
+    n_ops = _prod(low.shape_l) + _prod(low.shape_r) + _prod(low.phys_y)
+    total = n_ops * bytes_per_elem * split_components
+    if low.re_out is not None:
+        extra = _prod(low.re_out.dims) * bytes_per_elem * split_components
+        total += extra * (2 if getattr(low.re_out, "mode", "transpose")
+                          == "transpose" else 4)
+    return total
+
+
+def slice_dynamic_ids(steps, slicing_axes):
+    """Buffer ids that vary by slice: seeded by the tensors the slice
+    selection touches, propagated through the scheme (a step's output is
+    dynamic when either operand is)."""
+    dyn = {tid for spec in slicing_axes for (tid, *_rest) in spec}
+    for s in steps:
+        if s.i in dyn or s.j in dyn:
+            dyn.add(s.i)
+    return dyn
+
+
+def _peak_timeline(steps, slicing_axes=None, bytes_per_elem=4.0,
+                   split_components=2):
+    """(timeline, unit): per program point, the (dynamic, static) elements
+    of the live set plus the step's transients (aligned-gather copies and
+    chunk outputs, cross-merge pre-selection outputs, GK ``pre`` copies,
+    the GGK W-side take and output copy), as the JAX model counts them.
+    ``slicing_axes``: when given, slice-invariant buffers land in the
+    static component (shared by every width instance); without it
+    everything counts as dynamic."""
+    dyn = None if slicing_axes is None else \
+        slice_dynamic_ids(steps, slicing_axes)
+    is_dyn = (lambda tid: True) if dyn is None else (lambda tid: tid in dyn)
+    unit = bytes_per_elem * split_components
+
+    def in_sizes(low):
+        return _prod(low.shape_l), _prod(low.shape_r)
+
+    # first-use size of every buffer (live from the start)
+    size = {}
+    for s in steps:
+        lows = _lows(s)
+        if not lows:
+            continue
+        if getattr(s, "gathers", None) is not None:
+            tot_i = sum(_prod(low.shape_l) for low in lows)
+            tot_j = sum(_prod(low.shape_r) for low in lows)
+            size.setdefault(s.i, tot_i)
+            size.setdefault(s.j, tot_j)
+        else:
+            a, b = in_sizes(lows[0])
+            swapped = getattr(lows[0], "swapped", False)
+            size.setdefault(s.i, b if swapped else a)
+            size.setdefault(s.j, a if swapped else b)
+    live = dict(size)
+    timeline = [(sum(v for t, v in size.items() if is_dyn(t)),
+                 sum(v for t, v in size.items() if not is_dyn(t)))]
+    for s in steps:
+        lows = _lows(s)
+        if not lows:
+            continue
+        out = sum(_prod(low.phys_y) for low in lows)
+        out_dyn = is_dyn(s.i) or is_dyn(s.j)
+        extra_d = extra_s = 0
+        lane = getattr(s, "lane", None)
+        if getattr(s, "gathers", None) is not None and lane is None:
+            # gathered operand copies of the current chunk + every chunk
+            # output held until the final concat
+            gi = max(_prod(low.shape_l) for low in lows)
+            gj = max(_prod(low.shape_r) for low in lows)
+            swapped = getattr(lows[0], "swapped", False)
+            di, dj = (is_dyn(s.j), is_dyn(s.i)) if swapped \
+                else (is_dyn(s.i), is_dyn(s.j))
+            extra_d += (gi if di else 0) + (gj if dj else 0)
+            extra_s += (0 if di else gi) + (0 if dj else gj)
+            if out_dyn:
+                extra_d += out
+            else:
+                extra_s += out
+        elif lane is not None and hasattr(lane, "bj_rows"):
+            # GGK step, two program points: A the kernel (inputs + W-side
+            # take (+ pre-reorder X copy) + output), B the output copy
+            # after it, when both operands and the take are dead
+            row = lane.row
+            w_id = s.j if row.w_is_j else s.i
+            x_id = s.i if row.w_is_j else s.j
+            wk = lane.bj_rows * row.H * row.K
+            if is_dyn(w_id):
+                extra_d += wk
+            else:
+                extra_s += wk
+            ld = sum(v for t, v in live.items() if is_dyn(t))
+            ls = sum(v for t, v in live.items() if not is_dyn(t))
+            dead_d = sum(live.get(t, 0) for t in {s.i, s.j} if is_dyn(t))
+            dead_s = sum(live.get(t, 0) for t in {s.i, s.j}
+                         if not is_dyn(t))
+            if getattr(row, "pre_perm", None) is not None:
+                pre = lane.bi_rows * _prod(row.view_x)
+                src = live.get(x_id, 0)
+                if is_dyn(x_id):
+                    timeline.append((ld + pre, ls))
+                    ld += pre - src
+                    dead_d += pre - src
+                else:
+                    timeline.append((ld, ls + pre))
+                    ls += pre - src
+                    dead_s += pre - src
+            timeline.append((ld + (out if out_dyn else 0) + extra_d,
+                             ls + (0 if out_dyn else out) + extra_s))
+            timeline.append((ld - dead_d + 2 * (out if out_dyn else 0),
+                             ls - dead_s + 2 * (0 if out_dyn else out)))
+            live[s.i] = out
+            live[s.j] = 0
+            continue
+        elif lane is not None and getattr(lane, "pre", None) is not None:
+            # GK step with a pre reorder: the permuted X copy
+            x_id = s.i if getattr(lane, "w_is_j", True) else s.j
+            pre_elems = _prod(lane.pre.dims)
+            if is_dyn(x_id):
+                extra_d += pre_elems
+            else:
+                extra_s += pre_elems
+        elif getattr(s, "post_select", None) is not None:
+            if out_dyn:           # pre-selection output + selected copy
+                extra_d += out
+            else:
+                extra_s += out
+        ld = sum(v for t, v in live.items() if is_dyn(t))
+        ls = sum(v for t, v in live.items() if not is_dyn(t))
+        timeline.append((ld + (out if out_dyn else 0) + extra_d,
+                         ls + (0 if out_dyn else out) + extra_s))
+        live[s.i] = out
+        live[s.j] = 0
+    return timeline, unit
+
+
+def scheme_peak_live_bytes(steps, bytes_per_elem=4.0, split_components=2,
+                           slicing_axes=None):
+    """Per-slice peak live set in bytes (see ``_peak_timeline``)."""
+    timeline, unit = _peak_timeline(steps, slicing_axes, bytes_per_elem,
+                                    split_components)
+    return max(d + st for d, st in timeline) * unit
+
+
+def scheme_peak_bytes_at_width(steps, width, slicing_axes,
+                               bytes_per_elem=4.0, split_components=2):
+    """Total peak bytes when ``width`` slices run at once: dynamic live sets
+    replicate per width instance, slice-invariant buffers are shared."""
+    timeline, unit = _peak_timeline(steps, slicing_axes, bytes_per_elem,
+                                    split_components)
+    return max(width * d + st for d, st in timeline) * unit
+
+
+def step_overhead_bytes(s, lows):
+    """Device bytes a step moves around its products: aligned gathers (the
+    gathered copy written, then read again: 2 passes over each gathered
+    operand per chunk), chunked merges' concat (2 passes over the output)
+    and a cross merge's post-selection (the full output read, the kept
+    rows written)."""
+    unit = 4.0 * 2  # f32 split pair
+    extra = 0.0
+    if getattr(s, "gathers", None) is not None:
+        for low in lows:
+            extra += 2 * unit * (_prod(low.shape_l) + _prod(low.shape_r))
+        if len(lows) > 1:
+            extra += 2 * unit * sum(_prod(low.phys_y) for low in lows)
+    if getattr(s, "post_select", None) is not None:
+        y_pre = sum(_prod(low.phys_y) for low in lows)
+        rows = s.reshape[0] if s.reshape else y_pre   # merged batch rows
+        row_elems = y_pre // max(1, rows)
+        extra += unit * (y_pre + len(s.post_select) * row_elems)
+    return extra
+
+
+def reorder_census(steps):
+    census = {"none": 0, "transpose": 0, "gather": 0}
+    for s in steps:
+        for low in _lows(s):
+            census[getattr(low.re_out, "mode", "transpose")
+                   if low.re_out else "none"] += 1
+    return census
+
+
+# -- bounds of the card's kernels --------------------------------------------
+
+def bounds(nbytes, flops, form):
+    """The bounds of a call, in ms: FP32 FMA (``bound_ms``, and which of
+    bytes and operations sets it), 3xTF32 on the tensor cores, and that of
+    the design ``form`` runs (``design_bound_ms``: "stream" bytes, "mma"
+    3xTF32, any other form FP32 FMA), at the card's peak rates
+    (``kernels.H100_*``)."""
+    t_bytes = nbytes / kernels.H100_HBM_BYTES_PER_S
+    t_ops = flops / kernels.H100_FP32_FLOP_PER_S
+    t_tc = 3 * flops / kernels.H100_TF32_FLOP_PER_S
+    design = {"stream": t_bytes, "mma": max(t_bytes, t_tc)}.get(
+        form, max(t_bytes, t_ops))
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_3xtf32_ms=1e3 * max(t_bytes, t_tc),
+                design_bound_ms=1e3 * design)
+
+
+def _copy_s(elems):
+    """One read and one write of ``elems`` split-complex values."""
+    return 2 * 8.0 * elems / kernels.H100_HBM_BYTES_PER_S
+
+
+def plan_design_bound(p):
+    """``(family, kernel seconds, copy seconds)`` of a kernel plan for one
+    slice instance (both operands per instance): the bound of the design
+    its kernel runs, and the copies its step makes around it."""
+    from .gatherk import (GGKPlan, GKPlan, RGRow, _used_rows,
+                          gk_bytes, gk_flops, gk_form)
+    from .lanes import LanePlan, PairPlan
+
+    if isinstance(p, GKPlan) or (isinstance(p, GGKPlan) and isinstance(
+            p.row, GKPlan)):
+        fam = "gk" if isinstance(p, GKPlan) else "ggk"
+        form = gk_form(p, 1, True, True)
+        b = bounds(gk_bytes(p, 1, True, True), gk_flops(p, 1, True, True),
+                   form)
+        copy = _copy_s(_prod(p.pre.dims)) if p.pre is not None else 0.0
+        return fam, 1e-3 * b["design_bound_ms"], copy
+    if isinstance(p, GGKPlan):
+        row = p.row
+        fam = "rgrow" if isinstance(row, RGRow) else "rgflat"
+        nx, nw = _used_rows(p)
+        nbytes = 8 * (nx * row.F * row.K + nw * row.H * row.K
+                      + p.B * row.F * row.H)
+        return fam, nbytes / kernels.H100_HBM_BYTES_PER_S, 0.0
+    if isinstance(p, LanePlan):
+        nbytes = 8 * (p.x_elems + p.w_elems + p.y_elems)
+        return "lane", nbytes / kernels.H100_HBM_BYTES_PER_S, 0.0
+    if isinstance(p, PairPlan):
+        nbytes = 8 * (p.K * p.M + p.K * p.N + p.M * p.N)
+        b = bounds(nbytes, p.flops, "mma")
+        copy = sum(_copy_s(_prod(r.dims)) for r in (p.re_i, p.re_j)
+                   if r is not None)
+        if p.v_perm is not None:
+            copy += _copy_s(p.K * p.N)
+        return "pair", 1e-3 * b["design_bound_ms"], copy
+    raise TypeError(f"unknown kernel plan {type(p).__name__}")
+
+
+def plan_seconds(p, calibration=None):
+    """A kernel plan's modeled seconds for one slice instance: its design
+    bound times its family's factor, plus its copies."""
+    fam, t, copy = plan_design_bound(p)
+    return load_calibration(calibration)["family_factors"][fam] * t + copy
+
+
+def dot_seconds(low):
+    """A dot fallback product: its ``torch.matmul`` flops at the float32
+    rate (no TF32) against its bytes at the memory rate."""
+    return max(step_flops(low) / kernels.H100_FP32_FLOP_PER_S,
+               step_traffic_bytes(low) / kernels.H100_HBM_BYTES_PER_S)
+
+
+# -- calibration and the wall estimate ----------------------------------------
+
+_CALIBRATION = {}
+
+
+def load_calibration(path=None, refresh=False):
+    """The fitted factors of the wall estimate (cached per path): from
+    ``path``, default ``data/calibration_h100.json``; identity factors when
+    the file is absent."""
+    path = path or CALIBRATION_PATH
+    if path in _CALIBRATION and not refresh:
+        return _CALIBRATION[path]
+    cal = {"kern_factor": 1.0, "dot_factor": 1.0, "byte_factor": 0.0,
+           "step_overhead_w1_s": None,
+           "family_factors": {f: 1.0 for f in FAMILIES}}
+    if os.path.exists(path):
+        with open(path) as f:
+            got = json.load(f)
+        fams = dict(cal["family_factors"], **got.get("family_factors", {}))
+        cal.update({k: got[k] for k in cal if k in got})
+        cal["family_factors"] = fams
+    _CALIBRATION[path] = cal
+    return cal
+
+
+def scheme_wall_components(steps, calibration=None):
+    """Decompose the per-slice model: ``(kern_s, dot_s, bytes_per_slice,
+    n_steps)``.  ``kern_s`` sums each kernel step's design bound times its
+    family's factor, plus the copies around the kernel; ``dot_s`` the dot
+    fallback's products and every step's gather / concat / select passes
+    (none around a GGK, RGRow or RGFlat kernel, which reads the rows in
+    place); ``bytes_per_slice`` every step's minimum traffic plus those
+    passes."""
+    fam_f = load_calibration(calibration)["family_factors"]
+    kern_s = dot_s = bytes_ps = 0.0
+    n_steps = 0
+    for s in steps:
+        n_steps += 1
+        lows = _lows(s)
+        for low in lows:
+            bytes_ps += step_traffic_bytes(low)
+        ggk_fused = getattr(s, "gathers", None) is not None \
+            and getattr(s, "lane", None) is not None
+        over = 0.0 if ggk_fused else step_overhead_bytes(s, lows)
+        bytes_ps += over
+        dot_s += over / kernels.H100_HBM_BYTES_PER_S
+        if getattr(s, "lane", None) is not None:
+            fam, t, copy = plan_design_bound(s.lane)
+            kern_s += fam_f[fam] * t + copy
+            continue
+        for low in lows:
+            dot_s += dot_seconds(low)
+    return kern_s, dot_s, bytes_ps, n_steps
+
+
+def scheme_wall_estimate(steps, k_sliced, xla_traffic_factor=1.0,
+                         hbm_budget_bytes=None, slicing_axes=None,
+                         calibration=None):
+    """Calibrated end-to-end wall estimate on the card: per-slice step
+    costs plus the per-step host overhead amortized by the widest slice
+    width whose at-width peak fits the budget.  ``xla_traffic_factor``
+    (the JAX name) scales the dot fallback's time.  Returns ``(seconds,
+    width, peak_bytes)``."""
+    budget = hbm_budget_bytes or HBM_BUDGET_BYTES
+    cal = load_calibration(calibration)
+    kern_s, dot_s, bytes_ps, n_steps = scheme_wall_components(
+        steps, calibration)
+    per_slice = (cal["kern_factor"] * kern_s
+                 + cal["dot_factor"] * xla_traffic_factor * dot_s
+                 + cal["byte_factor"] * bytes_ps
+                 / kernels.H100_HBM_BYTES_PER_S)
+    overhead_w1 = cal["step_overhead_w1_s"] or STEP_OVERHEAD_W1_S
+    peak = scheme_peak_live_bytes(steps, slicing_axes=slicing_axes)
+    n_slices = 2 ** k_sliced
+    width = 1
+    while (width < min(256, n_slices)
+           and scheme_peak_bytes_at_width(steps, width * 2, slicing_axes)
+           <= budget):
+        width *= 2
+    total = n_slices * (per_slice + n_steps * overhead_w1 / width)
+    return total, width, peak
+
+
+def max_safe_slice_batch(steps, requested, hbm_budget_bytes=None,
+                         slicing_axes=None):
+    """Largest power-of-two slice width <= ``requested`` whose at-width
+    peak live set fits the budget."""
+    budget = hbm_budget_bytes or HBM_BUDGET_BYTES
+    w = 1
+    while (w < requested
+           and scheme_peak_bytes_at_width(steps, w * 2, slicing_axes)
+           <= budget):
+        w *= 2
+    return max(1, min(requested, w))
+
+
+def choose_slice_width(steps, k_sliced, slicing_axes=None, cap=128,
+                       hbm_budget_bytes=None):
+    """The slice width the wall estimate picks (the widest whose at-width
+    peak fits the budget), capped at ``cap``."""
+    _, w_est, _ = scheme_wall_estimate(
+        steps, k_sliced, slicing_axes=slicing_axes,
+        hbm_budget_bytes=hbm_budget_bytes)
+    return max(1, min(cap, w_est))
+
+
+def dividing_slice_width(steps, k_sliced, slicing_axes=None, cap=128,
+                         hbm_budget_bytes=None):
+    """``choose_slice_width`` halved until it divides the ``2**k_sliced``
+    slices (the sliced runner's rule), as the JAX package's ``bench.py``
+    takes it.  ``steps``: the steps the device runs."""
+    width = choose_slice_width(steps, k_sliced, slicing_axes, cap,
+                               hbm_budget_bytes)
+    while (2 ** k_sliced) % width:
+        width //= 2
+    return width

@@ -1,8 +1,7 @@
 """Sparse-state (big-batch) scheme: thousands of bitstring amplitudes in one
 contraction.
 
-Port of ``artensor_tpu/runtime/sparse.py`` in its ``fuse=False,
-negotiate=False`` configuration.  An amplitude batch axis is threaded
+Port of ``artensor_tpu/runtime/sparse.py``.  An amplitude batch axis is threaded
 through the contraction tree: every final-qubit tensor starts with a 2-row
 batch (its output leg's two values), and each merge combines batch
 metadata.  Three merge regimes:
@@ -27,13 +26,19 @@ none of them took, the lane scheduler (``lanes.schedule_step``, both
 orientations) chooses the step's output order and its kernel.  At the end
 ``prune_lane_plans`` caps the number of kernel steps.
 
-Not ported yet (a later slice): the gate-block fusion pass (``fuse.py``),
-producer-order negotiation (``negotiate.py``) and the layout requests that
-feed it, and the calibrated ``metrics.py``.  Where the JAX compiler picks
-by an estimate — the lexsort of an aligned step's targets — this module
-takes a fixed rule (see ``_compile_sparse``).
+``contraction_scheme_sparse`` runs the JAX flow with the JAX defaults: the
+gate-block fusion pass (``fuse.py``) rewrites the contraction order, each
+rewrite kept only if the compiled scheme's wall estimate drops
+(``metrics.py``, the H100 model); then producer-order negotiation
+(``negotiate.py``) searches the layout requests that ``_compile_sparse``
+collects.  ``fuse=False, negotiate=False`` compiles the time-ordered
+scheme alone.  Where the JAX compiler picks by an estimate (an aligned
+step's target order, fusion, negotiation), this module asks the H100
+model, so its choices may differ from the JAX package's; given the same
+order and overrides, the steps are the JAX compiler's.
 """
 
+import time
 from dataclasses import dataclass
 from math import ceil, log2
 
@@ -180,7 +185,8 @@ def _time_sorted_output(bond_i, bond_j, new_bonds, time_of, big_is_i,
 
 
 def contraction_scheme_sparse(ctree, bitstrings, sc_target=31,
-                              lane_schedule=True):
+                              lane_schedule=True, negotiate=True,
+                              lane_max_steps=None, fuse=True):
     """Compile the big-batch scheme.
 
     Parameters
@@ -195,14 +201,167 @@ def contraction_scheme_sparse(ctree, bitstrings, sc_target=31,
     lane_schedule : bool
         Time-ordered layouts and kernel plans (default).  False compiles
         the plain dot lowering only, in the reference's leg orders.
+    negotiate : bool
+        Producer-order negotiation (``runtime/negotiate.py``): pass 1
+        compiles with time-ordered layouts and collects layout requests
+        (a GK ``pre`` reorder, an RGRow's canonical rows, a pair or GK
+        step's own blocking output order); pass 2 searches override sets
+        and keeps the cheapest scheme by the wall estimate
+        (``runtime/metrics.py``).
+    lane_max_steps : int, optional
+        Scheme-size cutoff above which kernel scheduling is skipped
+        (default ``LANE_SCHEDULE_MAX_STEPS``).
+    fuse : bool
+        Gate-block fusion (``runtime/fuse.py``): reassociate small-operand
+        chains so the big carrier is swept once per combined gate block;
+        every candidate rewrite is kept only if the compiled scheme's wall
+        estimate drops.
 
-    Returns (steps, output_bonds, bitstrings_sorted).
+    Returns (steps, output_bonds, bitstrings_sorted).  ``LAST_COMPILE``
+    records the fusion and negotiation seconds and compile counts.
     """
-    return _compile_sparse(ctree, bitstrings, sc_target, lane_schedule)
+    t0 = time.perf_counter()
+    LAST_COMPILE.update(fuse_s=0.0, fuse_compiles=0, rewrites=0,
+                        negotiate_s=0.0, negotiate_compiles=0)
+    order = None
+    base_order = ctree.to_order_dfs()
+    if fuse and lane_schedule and len(base_order) <= (
+            lane_max_steps or LANE_SCHEDULE_MAX_STEPS):
+        from .fuse import reassociate_small_chains
+        from .metrics import scheme_wall_estimate
+
+        tn = ctree.tn
+        final_qubits = list(tn.final_qubits)
+        targets = np.array([[int(c) for c in s] for s in bitstrings],
+                           dtype=np.uint8)
+
+        def est_of(o):
+            LAST_COMPILE["fuse_compiles"] += 1
+            s, *_ = _compile_sparse(ctree, bitstrings, sc_target,
+                                    lane_schedule, None, lane_max_steps,
+                                    _order=o)
+            return scheme_wall_estimate(s, 0)[0]
+
+        state = {}
+
+        def accept(cand):
+            if "est" not in state:      # lazy: no candidates, no compile
+                state["est"] = est_of(None)
+            e = est_of(cand)
+            if e < state["est"]:
+                state["est"] = e
+                LAST_COMPILE["rewrites"] += 1
+                return True
+            return False
+
+        order = reassociate_small_chains(
+            base_order, tn.tensor_bonds, tn.bond_dims,
+            targets=targets,
+            qubit_of_tensor={tid: (q,) for q, tid
+                             in enumerate(final_qubits)},
+            accept=accept)
+    t1 = time.perf_counter()
+    LAST_COMPILE["fuse_s"] = t1 - t0
+    if not lane_schedule or not negotiate:
+        steps1, ob1, bits1, _ = _compile_sparse(
+            ctree, bitstrings, sc_target, lane_schedule, None,
+            lane_max_steps, _order=order)
+        return steps1, ob1, bits1
+    from . import negotiate as _neg
+
+    memo = {}
+
+    def compile_fn(overrides):
+        steps, ob, bits, req = _compile_sparse(
+            ctree, bitstrings, sc_target, lane_schedule, overrides,
+            lane_max_steps, _memo=memo, _order=order)
+        return (steps, ob, bits), steps, req
+
+    out = _neg.negotiate(compile_fn)
+    LAST_COMPILE.update(negotiate_s=time.perf_counter() - t1,
+                        negotiate_compiles=_neg.LAST_STATS["compiles"])
+    return out
 
 
-def _compile_sparse(ctree, bitstrings, sc_target, lane_schedule):
-    order = ctree.to_order_dfs()
+# the last contraction_scheme_sparse call's work (diagnostics): fusion and
+# negotiation host seconds, their trial compiles, the rewrites kept
+LAST_COMPILE = {"fuse_s": 0.0, "fuse_compiles": 0, "rewrites": 0,
+                "negotiate_s": 0.0, "negotiate_compiles": 0}
+
+_BATCH_LABELS = {"batch", "batch_i", "batch_j"}
+
+
+def _layout_request_candidates(ix_x0, ix_w0, iy0, dim_of, h_block,
+                               px_named):
+    """Candidate output orders to request from X's producer, friendliest
+    first.
+
+    The minimal-hoist candidates keep X's stored order and move only the
+    consumer-contract legs found inside the trailing suffix window (the
+    part the consumer needs as a free run) to just before it, so an
+    in-place GK producer keeps its f run, its grid legs and its H block
+    (``h_block``; the insertion point steps before it rather than split
+    it).  The full pre-permuted form ``px_named`` (every contract leg
+    hoisted, tail in consumer-iy order) goes last: it suits the consumer
+    but may cost the producer its own kernel."""
+    x_named = [b for b in ix_x0 if b not in _BATCH_LABELS]
+    if len(x_named) != len(ix_x0) - (1 if ix_x0 and ix_x0[0]
+                                     in _BATCH_LABELS else 0):
+        return ()               # batch label in a non-leading slot
+    w_set = set(ix_w0)
+    out_set = set(iy0)
+    cset = {b for b in x_named if b in w_set and b not in out_set}
+    hset = set(h_block)
+    cands = []
+    for target in (1 << 15, 1 << 12):
+        F = 1
+        k = len(x_named)
+        while k > 0 and F < target:
+            lab = x_named[k - 1]
+            if lab not in cset:
+                F *= dim_of.get(lab, 2)
+            k -= 1
+        hoisted = [lab for lab in x_named[k:] if lab in cset]
+        if not hoisted or F < 128:
+            continue
+        # never split the producer's H block: if the window boundary
+        # lands inside it, insert the hoisted legs before the whole block
+        p = k
+        hpos = [n for n, lab in enumerate(x_named) if lab in hset]
+        if hpos and hpos[0] < k <= hpos[-1]:
+            p = hpos[0]
+        hset_h = set(hoisted)
+        cand = (tuple(x_named[:p]) + tuple(hoisted)
+                + tuple(lab for lab in x_named[p:] if lab not in hset_h))
+        if len(cand) == len(x_named) and cand != tuple(x_named) \
+                and cand not in cands:
+            cands.append(cand)
+    if px_named and px_named[0] in _BATCH_LABELS:
+        px_named = px_named[1:]
+    px = tuple(px_named)
+    if px and not any(b in _BATCH_LABELS for b in px) and px not in cands:
+        cands.append(px)
+    return tuple(cands)
+
+
+LANE_SCHEDULE_MAX_STEPS = 300
+
+
+def _compile_sparse(ctree, bitstrings, sc_target, lane_schedule,
+                    _overrides, lane_max_steps=None, _memo=None,
+                    _order=None):
+    """One compile of the scheme in the contraction order ``_order``
+    (default the tree's DFS order), with the output orders of the steps
+    in ``_overrides`` (step index -> bond order) replaced.  ``_memo``
+    caches the batch metadata of both-batched steps by step index across
+    negotiation trials.  Returns ``(steps, output_bonds,
+    bitstrings_sorted, requests)``: ``requests`` maps a producer step's
+    index to its candidate output orders (friendliest first)."""
+    from .metrics import plan_seconds
+
+    order = _order if _order is not None else ctree.to_order_dfs()
+    if len(order) > (lane_max_steps or LANE_SCHEDULE_MAX_STEPS):
+        lane_schedule = False
     tn = ctree.tn
     dim_of = {b: int(d) for b, d in tn.bond_dims.items()}
     bonds = {t: list(bs) for t, bs in tn.tensor_bonds.items()}
@@ -229,7 +388,13 @@ def _compile_sparse(ctree, bitstrings, sc_target, lane_schedule):
         if lane_schedule else {}
     steps = []
     last = None
-    for i, j in order:
+    produced_by = {}     # tensor id -> index of the step that wrote it
+    fresh_of = {}        # tensor id -> legs its producing step took from
+                         # its small (W) operand: the producer kernel's H
+                         # block, which any layout request keeps contiguous
+    requests = {}        # producer step index -> candidate output orders
+    overrides = _overrides or {}
+    for t, (i, j) in enumerate(order):
         bond_i, bond_j = bonds[i], bonds[j]
         common = sorted(set(bond_i) & set(bond_j), key=str)
         still_used = {
@@ -258,11 +423,12 @@ def _compile_sparse(ctree, bitstrings, sc_target, lane_schedule):
                            or (not q_i and not q_j
                                and min(size_i, size_j) > gatherk.HK_CAP)),
                 fresh_first=bool(q_i and q_j))
+        if t in overrides and set(overrides[t]) == set(new_bonds):
+            new_bonds = list(overrides[t])
         bonds[i], bonds[j] = new_bonds, []
         merged_q = sorted(q_i + q_j)
         gathers = reshape = None
         post_select = None
-        ggk = None
         batched_i, batched_j = len(q_i) > 0, len(q_j) > 0
 
         dims_bi = [dim_of[b] for b in bond_i]
@@ -280,27 +446,82 @@ def _compile_sparse(ctree, bitstrings, sc_target, lane_schedule):
             dims_i = (len(rep_i), *dims_bi) if batched_i else tuple(dims_bi)
             dims_j = (len(rep_j), *dims_bj) if batched_j else tuple(dims_bj)
         else:
-            loc_i = [merged_q.index(q) for q in q_i]
-            loc_j = [merged_q.index(q) for q in q_j]
-            # unique required partial bitstrings over the merged qubits,
-            # sorted lexicographically
-            sub = np.unique(targets[:, merged_q], axis=0)
-            need = _bits_to_ints(sub)
-            full_cross = len(need) == 2 ** len(merged_q)
-            cheap = len(merged_q) + len(new_bonds) <= sc_target
-            if full_cross or cheap:
-                # ---- cross regime ---------------------------------------
-                xb = _ints_to_bits(rep_i, len(q_i))
-                yb = _ints_to_bits(rep_j, len(q_j))
-                cross = np.zeros((len(rep_i), len(rep_j), len(merged_q)),
-                                 dtype=np.uint8)
-                cross[:, :, loc_i] = xb[:, None, :]
-                cross[:, :, loc_j] = yb[None, :, :]
-                rep = _bits_to_ints(cross.reshape(-1, len(merged_q)))
-                if len(need) != len(rep):
-                    keep = np.sort(_lookup_positions(rep, need))
-                    rep = rep[keep]
-                    post_select = keep
+            # the batch-merge products depend only on the order's sets,
+            # never on bond order: memoized by step index across
+            # negotiation trials
+            if _memo is not None and t in _memo:
+                regime, rep, post_select, gathers = _memo[t]
+            else:
+                loc_i = [merged_q.index(q) for q in q_i]
+                loc_j = [merged_q.index(q) for q in q_j]
+                # unique required partial bitstrings over the merged
+                # qubits, sorted lexicographically
+                sub = np.unique(targets[:, merged_q], axis=0)
+                need = _bits_to_ints(sub)
+                full_cross = len(need) == 2 ** len(merged_q)
+                cheap = len(merged_q) + len(new_bonds) <= sc_target
+                if full_cross or cheap:
+                    # ---- cross regime ---------------------------------
+                    regime = "cross"
+                    xb = _ints_to_bits(rep_i, len(q_i))
+                    yb = _ints_to_bits(rep_j, len(q_j))
+                    cross = np.zeros(
+                        (len(rep_i), len(rep_j), len(merged_q)),
+                        dtype=np.uint8)
+                    cross[:, :, loc_i] = xb[:, None, :]
+                    cross[:, :, loc_j] = yb[None, :, :]
+                    rep = _bits_to_ints(cross.reshape(-1, len(merged_q)))
+                    if len(need) != len(rep):
+                        keep = np.sort(_lookup_positions(rep, need))
+                        rep = rep[keep]
+                        post_select = keep
+                else:
+                    # ---- aligned-gather regime ------------------------
+                    regime = "aligned"
+                    part_i = _bits_to_ints(sub[:, loc_i])
+                    part_j = _bits_to_ints(sub[:, loc_j])
+                    gi = _lookup_positions(rep_i, part_i)
+                    gj = _lookup_positions(rep_j, part_j)
+                    # target row order is free (downstream metadata
+                    # matches by rep value): plan a kernel form under both
+                    # lexsort orders and keep the cheaper estimate (gi-
+                    # major on a tie); with no kernel form, sort by the
+                    # larger-batch side's gather index
+                    sort_idx = None
+                    if lane_schedule:
+                        best = None
+                        for cand in (np.lexsort((gj, gi)),
+                                     np.lexsort((gi, gj))):
+                            p = plan_ggk_step(
+                                tuple(bond_i), tuple(bond_j),
+                                tuple(new_bonds), tuple(dims_bi),
+                                tuple(dims_bj), gi[cand], gj[cand],
+                                len(rep_i), len(rep_j))
+                            if p is None:
+                                continue
+                            est = plan_seconds(p)
+                            if best is None or est < best:
+                                best, sort_idx = est, cand
+                    if sort_idx is None:
+                        major = gi if len(rep_i) >= len(rep_j) else gj
+                        sort_idx = np.argsort(major, kind="stable")
+                    gi, gj, rep = gi[sort_idx], gj[sort_idx], need[sort_idx]
+                    B = len(rep)
+                    overshoot = log2(B) + max(len(bond_i), len(bond_j)) \
+                        - (sc_target - 2)
+                    n_chunks = min(2 ** ceil(max(0.0, overshoot)), B)
+                    if n_chunks > 1:
+                        # ceil-based chunking covers ALL B rows
+                        L = -(-B // n_chunks)
+                        n_chunks = -(-B // L)
+                        gathers = tuple(
+                            (gi[c * L:(c + 1) * L], gj[c * L:(c + 1) * L])
+                            for c in range(n_chunks))
+                    else:
+                        gathers = ((gi, gj),)
+                if _memo is not None:
+                    _memo[t] = (regime, rep, post_select, gathers)
+            if regime == "cross":
                 BI, BJ = "batch_i", "batch_j"
                 ix_i, ix_j = (BI, *bond_i), (BJ, *bond_j)
                 iy = (BI, BJ, *new_bonds)
@@ -311,52 +532,13 @@ def _compile_sparse(ctree, bitstrings, sc_target, lane_schedule):
                 reshape = ((len(rep_i) * len(rep_j), rest)
                            if new_bonds else (len(rep_i) * len(rep_j),))
             else:
-                # ---- aligned-gather regime ------------------------------
-                part_i = _bits_to_ints(sub[:, loc_i])
-                part_j = _bits_to_ints(sub[:, loc_j])
-                gi = _lookup_positions(rep_i, part_i)
-                gj = _lookup_positions(rep_j, part_j)
-                # target row order is free (downstream metadata matches by
-                # rep VALUE).  Fixed rule in place of the JAX estimate
-                # pick: when a kernel form plans (a GK row, RGRow or
-                # RGFlat: plan_ggk_step tries all three), order the targets
-                # gi-major (lexsort by (gi, gj)) so consecutive rows share
-                # the big side's gathered row in cache; else sort by the
-                # larger-batch side's gather index (the JAX fallback)
-                sort_idx = None
-                if lane_schedule:
-                    cand = np.lexsort((gj, gi))
-                    gatherk.LAST_REJECT = None
-                    ggk = plan_ggk_step(
-                        tuple(bond_i), tuple(bond_j), tuple(new_bonds),
-                        tuple(dims_bi), tuple(dims_bj), gi[cand], gj[cand],
-                        len(rep_i), len(rep_j))
-                    if ggk is not None:
-                        sort_idx = cand
-                    else:
-                        note = str(gatherk.LAST_REJECT)
-                if sort_idx is None:
-                    major = gi if len(rep_i) >= len(rep_j) else gj
-                    sort_idx = np.argsort(major, kind="stable")
-                gi, gj, rep = gi[sort_idx], gj[sort_idx], need[sort_idx]
-                B = len(rep)
-                overshoot = log2(B) + max(len(bond_i), len(bond_j)) \
-                    - (sc_target - 2)
-                n_chunks = min(2 ** ceil(max(0.0, overshoot)), B)
-                if n_chunks > 1:
-                    # ceil-based chunking covers ALL B rows
-                    L = -(-B // n_chunks)
-                    n_chunks = -(-B // L)
-                    gathers = tuple(
-                        (gi[c * L:(c + 1) * L], gj[c * L:(c + 1) * L])
-                        for c in range(n_chunks))
-                else:
-                    gathers = ((gi, gj),)
                 Bl = "batch"
                 ix_i, ix_j = (Bl, *bond_i), (Bl, *bond_j)
                 iy = (Bl, *new_bonds)
+                dims_i = dims_j = None  # chunked: dims vary per chunk
 
         iy0 = tuple(iy)
+        ix_i0, ix_j0 = tuple(ix_i), tuple(ix_j)
         ix_i, ix_j, iy = _relabel(ix_i, ix_j, iy)
         if gathers is not None:
             lowered = None
@@ -364,7 +546,41 @@ def _compile_sparse(ctree, bitstrings, sc_target, lane_schedule):
                 lower_step(ix_i, ix_j, iy,
                            (len(gi), *dims_bi), (len(gi), *dims_bj))
                 for gi, gj in gathers)
-            lane = ggk
+            if lane_schedule:
+                # the whole aligned merge as one kernel reading its rows
+                # by index: no gathered copies, no chunks (the chunked
+                # lowering stays as the fallback)
+                gatherk.LAST_REJECT = None
+                lane = plan_ggk_step(
+                    tuple(bond_i), tuple(bond_j), tuple(new_bonds),
+                    tuple(dims_bi), tuple(dims_bj),
+                    np.concatenate([g[0] for g in gathers]),
+                    np.concatenate([g[1] for g in gathers]),
+                    len(rep_i), len(rep_j))
+                if lane is None:
+                    note = str(gatherk.LAST_REJECT)
+                elif isinstance(lane.row, gatherk.RGRow):
+                    # ask X's producer for the canonical rows (frees in
+                    # iy order, contract in W's stored digit order), the
+                    # JAX kernel's operand layout; the port's RGRow reads
+                    # rows in stored order, so the estimate decides
+                    rrow = lane.row
+                    x_tid = i if lane.w_is_j else j
+                    xb, wb = (bond_i, bond_j) if lane.w_is_j \
+                        else (bond_j, bond_i)
+                    cset = (set(xb) & set(wb)) - set(new_bonds)
+                    frees = [lab for lab in new_bonds if lab in set(xb)]
+                    cand_w = tuple(frees) + tuple(
+                        lab for lab in wb if lab in cset)
+                    cands = (cand_w,)
+                    if rrow.px is not None and tuple(rrow.px) != cand_w:
+                        cands += (tuple(rrow.px),)
+                    cands = tuple(c for c in cands if c != tuple(xb))
+                    prod = produced_by.get(x_tid)
+                    if cands and prod is not None \
+                            and prod not in requests \
+                            and prod not in overrides:
+                        requests[prod] = cands
         else:
             lowered = lower_step(ix_i, ix_j, iy, dims_i, dims_j)
             lowered_chunks = None
@@ -408,17 +624,78 @@ def _compile_sparse(ctree, bitstrings, sc_target, lane_schedule):
                                               or iy2[0] == batch_rel):
                         lane = lane2
                         orig_of = dict(zip(iy, iy0))
-                        new_bonds = [orig_of[l] for l in iy2
-                                     if not str(orig_of[l]).startswith(
+                        new_bonds = [orig_of[lab] for lab in iy2
+                                     if not str(orig_of[lab]).startswith(
                                          "batch")]
                         bonds[i] = new_bonds
                         iy = tuple(iy2)
                         lowered = lower_step(ix_i, ix_j, iy, dims_i, dims_j)
                         note += "/retail:ok"
+                if (lane is None and "/pair:pair-iy" in note
+                        and t not in overrides and t not in requests):
+                    # the step's own output order blocks the pair kernel
+                    # (iy interleaves the two operands' rows): request the
+                    # grouped orders, each group time-sorted as before
+                    set_bi = set(bond_i)
+                    gi_ = [lab for lab in new_bonds if lab in set_bi]
+                    gj_ = [lab for lab in new_bonds if lab not in set_bi]
+                    if gi_ and gj_:
+                        cands = tuple(
+                            c for c in ((*gi_, *gj_), (*gj_, *gi_))
+                            if c != tuple(new_bonds))
+                        if cands:
+                            requests[t] = cands
+                if (lane is None and "h-contig" in note
+                        and t not in overrides and t not in requests):
+                    # time sorting scattered the small operand's fresh
+                    # legs (the GK H block must be contiguous in iy):
+                    # request this step's order with them grouped at their
+                    # first occurrence
+                    big_i = _prod_dims(dim_of, bond_i) * (
+                        len(rep_i) if batched_i else 1) >= \
+                        _prod_dims(dim_of, bond_j) * (
+                        len(rep_j) if batched_j else 1)
+                    wb = (set(bond_j) - set(bond_i)) if big_i \
+                        else (set(bond_i) - set(bond_j))
+                    hs = [lab for lab in new_bonds if lab in wb]
+                    if 0 < len(hs) < len(new_bonds):
+                        rest = [lab for lab in new_bonds if lab not in wb]
+                        if batched_i != batched_j:
+                            # iy leads with the batch axis, which counts
+                            # as a fresh W leg too: the bond H legs must
+                            # sit directly after it
+                            pos = 0
+                        else:
+                            pos = sum(1 for lab in new_bonds[
+                                :new_bonds.index(hs[0])] if lab not in wb)
+                        cand = tuple(rest[:pos] + hs + rest[pos:])
+                        if cand != tuple(new_bonds):
+                            requests[t] = (cand,)
+        if (isinstance(lane, GKPlan)
+                and lane.pre is not None and lane.px is not None
+                and produced_by.get(i if lane.w_is_j else j)
+                not in overrides):
+            # ask X's producer to emit a GK-friendly order directly
+            x_tid = i if lane.w_is_j else j
+            ix_x0 = ix_i0 if lane.w_is_j else ix_j0
+            orig_of_x = dict(zip(ix_i if lane.w_is_j else ix_j, ix_x0))
+            prod = produced_by.get(x_tid)
+            if prod is not None and prod not in requests:
+                cands = _layout_request_candidates(
+                    ix_x0, ix_j0 if lane.w_is_j else ix_i0, iy0,
+                    dim_of, fresh_of.get(x_tid, ()),
+                    [orig_of_x[lab] for lab in lane.px])
+                if cands:
+                    requests[prod] = cands
         steps.append(SparseStep(i, j, ix_i, ix_j, iy,
                                 gathers, reshape, post_select,
                                 lowered, lowered_chunks, lane, note))
         info[i] = (merged_q, rep)
+        produced_by[i] = t
+        small_j = _prod_dims(dim_of, bond_i) >= _prod_dims(dim_of, bond_j)
+        sm, bg = (bond_j, bond_i) if small_j else (bond_i, bond_j)
+        fresh_of[i] = tuple(b for b in new_bonds
+                            if b in set(sm) and b not in set(bg))
         last = i
 
     out_reps = info[last][1]
@@ -426,7 +703,7 @@ def _compile_sparse(ctree, bitstrings, sc_target, lane_schedule):
                          for row in _ints_to_bits(out_reps, n_qubits)]
     if lane_schedule:
         prune_lane_plans(steps)
-    return steps, bonds[last], bitstrings_sorted
+    return steps, bonds[last], bitstrings_sorted, requests
 
 
 def kernel_kind(step):
@@ -492,3 +769,14 @@ def execute_sparse(tensors, steps, field, batched=()):
             bat.add(s.i)
         last = s.i
     return bufs[last], last in bat
+
+
+def scheme_digest(steps):
+    """SHA-1 over every step's operand pair, output order and kernel kind:
+    two compiles with equal digests made the same scheme decisions."""
+    import hashlib
+    import json
+
+    rows = [[s.i, s.j, [str(lab) for lab in s.iy], kernel_kind(s)]
+            for s in steps]
+    return hashlib.sha1(json.dumps(rows).encode()).hexdigest()

@@ -4,9 +4,11 @@ sparse scheme -> sliced execution on the card.
 Port of the sparse half of ``artensor_tpu/simulation.py``
 (``TensorNetworkSimulation``, ``:101-198`` and ``contraction`` ``:199``).
 The planner search is not ported yet: a simulation loads a committed plan
-(``load_plan``), as ``python -m artensor_tpu simulate --plan`` does.  The
-slice width is passed in explicitly (the JAX package's
-``choose_slice_width`` is calibrated on the TPU and is not ported).
+(``load_plan``), as ``python -m artensor_tpu simulate --plan`` does, and
+compiles the JAX package's default scheme (gate-block fusion and
+producer-order negotiation on).  ``prepare`` and ``contraction`` take the
+slice width the caller passes; ``runtime/metrics.dividing_slice_width``
+gives the one the H100 model picks.
 """
 
 import json
@@ -87,12 +89,18 @@ class TensorNetworkSimulation:
         return self
 
     def _compile_scheme(self):
-        from .runtime import executor as ex
         from .runtime.sparse import contraction_scheme_sparse
 
-        self.steps, self.output_bonds, self.bitstrings_sorted = \
-            contraction_scheme_sparse(self.ctree, self.bitstrings,
-                                      sc_target=self.sc_target)
+        self._set_scheme(*contraction_scheme_sparse(
+            self.ctree, self.bitstrings, sc_target=self.sc_target))
+
+    def _set_scheme(self, steps, output_bonds, bitstrings_sorted):
+        """Take a compiled scheme (``contraction_scheme_sparse``'s result)
+        and derive the slicing axes and the output permutation for it."""
+        from .runtime import executor as ex
+
+        self.steps, self.output_bonds = steps, output_bonds
+        self.bitstrings_sorted = bitstrings_sorted
         self.slicing_axes = ex.build_slicing_axes(
             self.tensor_bonds, self.slicing_bonds,
             batched_tensors=self.final_qubits)

@@ -5,23 +5,32 @@ their CUDA kernels against its plain PyTorch version.
     python3 chip_smoke.py [--slice-batch 32]
 
 Run from the repository root on a machine with a CUDA card and nvcc.  Three
-paths of the generated n30 m14 circuit, each with its committed plan and
-JAX fixture: 1000 bitstrings ("1k", 64 slices), 10000 bitstrings ("10k",
-128 slices) and the 1000 bitstrings at memory budget sc_target 25
-("1k-sc25", 32 slices; the only path with a lane step, planned by the
-retail scheduler); the last two each have one RGFlat step.  Phases, in
-order (any failure exits non-zero; no phase is caught and passed over):
+workloads of the generated n30 m14 circuit, each with its committed plan
+and JAX fixture: 1000 bitstrings ("1k", 64 slices), 10000 bitstrings
+("10k", 128 slices) and the 1000 bitstrings at memory budget sc_target 25
+("1k-sc25", 32 slices); the last two each have one RGFlat step.  Each
+workload runs as two paths: its scheme in the "off" form (time-ordered
+layouts, no fusion, no negotiation: ``contraction_scheme_sparse(...,
+fuse=False, negotiate=False)``) at ``--slice-batch``, and in the
+"default" form that ``TensorNetworkSimulation.load_plan`` compiles
+(gate-block fusion and producer-order negotiation under the H100 wall
+estimate) at the slice width ``runtime/metrics.dividing_slice_width``
+picks.  The lane step is on the 1k-sc25 off path only (its default
+scheme has none).  Phases, in order (any failure exits non-zero; no phase
+is caught and passed over):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the kernel build from ``artensor_tpu_torch/csrc`` (nvcc, sm_90a, one
-   compiler per source, all at once), timed; then the three schemes
-   compiled;
+   compiler per source, all at once), timed; then the six schemes
+   compiled, each default one with its compile seconds split into fusion
+   and negotiation, its chosen width and its modeled peak bytes there;
 3. per path and kernel (GK, GGK, RGRow, RGFlat, Lane, Pair), at every step
    of its kind in the path's scheme at the path's slice width, and at the
    largest step (by flops) also at width 1: the kernel against its plain
    version on the same inputs, the kernel time (CUDA events, median of
    repeats), its bound and the plain version's time; for GK, Lane and Pair
-   also one PyTorch call of the same function as a yardstick
+   (at widths up to ``LIBRARY_MAX_WIDTH``) also one PyTorch call of the
+   same function as a yardstick
    (``torch.einsum`` over X in its logical shape, ``torch.matmul``; the
    port calls neither); at the largest GK, GGK, RGRow, RGFlat and Pair
    step both versions' errors against float64; every RGRow and RGFlat
@@ -34,16 +43,23 @@ order (any failure exits non-zero; no phase is caught and passed over):
 5. each path end to end: ``TensorNetworkSimulation`` with all its slices
    on the card; every amplitude against the fixture keyed by bitstring,
    the kernel launch counts of that run, the warm wall time (median of 3
-   after one warm-up) and the peak device memory.
+   after one warm-up) and the peak device memory, held to the peak model
+   (at most the modeled live set plus the staged operands and
+   ``planner/cost.PEAK_RESERVE_BYTES``; the model at least
+   ``PEAK_MODEL_SHARE`` of it); a default path also its
+   wall estimate and modeled peak beside the measured ones, and the off
+   form's warm wall at the default's width.
 
 Then one JSON line with every kernel's numbers (for each kernel its
 largest step on the first path that runs it, under ``costliest`` that
-path's slowest step of the kind, and under ``paths`` every path's launches
-and steps; the complex matmul's larger shape, 0 launches), the card line,
-and last ``{"ok": true, "device": {...}}``.
-The bound of a kernel call is the larger of its bytes (each input read
-once, each output written once) over 3.35 TB/s and its flops over
-67 TFLOP/s, the H100 SXM's float32 rate outside the tensor cores;
+path's slowest step of the kind, and under ``paths`` every path's
+("<workload>/<form>") launches and steps; the complex matmul's larger
+shape, 0 launches), the card line, and last ``{"ok": true, "device":
+{...}}``.
+The bound of a kernel call (``runtime/metrics.bounds``, which the wall
+estimate shares) is the larger of its bytes (each input read once, each
+output written once) over 3.35 TB/s and its flops over 67 TFLOP/s, the
+H100 SXM's float32 rate outside the tensor cores;
 ``bound_3xtf32_ms`` puts 3 x its flops over the 495 TFLOP/s TF32 tensor
 core rate instead.  Each step is also held to the bound of the design it
 runs (``form``): bytes for the "stream" form of GK and GGK, 3xTF32 for
@@ -79,11 +95,17 @@ PATHS = {   # name: (plan, JAX fixture), in the order they are driven
                 os.path.join(DATA, "rcs_n30_m14_s0_amps1000.txt")),
 }
 CIRCUIT = dict(rows=5, cols=6, cycles=14, seed=0)   # random_circuit args
+FORMS = ("off", "default")
 DEVICE = "cuda"
 
 F64_ERR_RATIO = 4             # kernel vs plain error against float64
 F64_KINDS = ("gk", "ggk", "rgrow", "rgflat", "pair")   # ... at the largest
 GLUE_KEYS = ("step_ms", "x_reorder_ms", "w_transpose_ms")   # RGRow, RGFlat
+LIBRARY_MAX_WIDTH = 32        # widest call that also times the yardstick (its
+                              # complex64 copies of a width-128 step would not
+                              # fit beside the step's buffers)
+PLAIN_CHUNK = 32              # slice instances a plain-version call covers
+PEAK_MODEL_SHARE = 0.9        # the peak model's share of the measured peak
 KERNEL_RTOL = 2e-4            # kernel vs plain: max|d| <= rtol*max|plain| + atol
 KERNEL_ATOL = 1e-5            #   (float32 sums in another order)
 AMP_RTOL = 1e-3               # amplitudes vs fixture:
@@ -252,23 +274,6 @@ def gk_library(plan, xr, xi, wr, wi, xs, ws):
     return call, lambda yr, yi: torch.complex(yr, yi)[..., yidx], shape
 
 
-def bounds(nbytes, flops, form):
-    """The bounds of a call: FP32 FMA (``bound_ms``), 3xTF32 on the tensor
-    cores, and that of the design ``form`` runs (``design_bound_ms``), at
-    the card's peak rates (``kernels.H100_*``, as gatherk.gk_form uses)."""
-    from artensor_tpu_torch import kernels
-
-    t_bytes = nbytes / kernels.H100_HBM_BYTES_PER_S
-    t_ops = flops / kernels.H100_FP32_FLOP_PER_S
-    t_tc = 3 * flops / kernels.H100_TF32_FLOP_PER_S
-    design = {"stream": t_bytes, "mma": max(t_bytes, t_tc)}.get(
-        form, max(t_bytes, t_ops))
-    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bound_3xtf32_ms=1e3 * max(t_bytes, t_tc),
-                design_bound_ms=1e3 * design)
-
-
 def f64_errors(kr, ki, pr, pi, plain, args, instances=2):
     """Max |d| / max |ref| of the kernel's and the plain version's output
     against the plain version run in float64 on the same inputs, over the
@@ -294,6 +299,21 @@ def f64_errors(kr, ki, pr, pi, plain, args, instances=2):
     return dict(f64_rel_err=d_k / scale, plain_f64_rel_err=d_p / scale)
 
 
+def max_modulus(ar, ai, br=None, bi=None, chunk=1 << 26):
+    """max |a - b| (or max |a| without ``b``) over split-complex pairs,
+    a chunk of the flat buffers at a time: the complex copies of a whole
+    width-128 step would not fit beside its buffers."""
+    import torch
+
+    flat = [t.reshape(-1) for t in (ar, ai, br, bi) if t is not None]
+    out = 0.0
+    for s in range(0, flat[0].numel(), chunk):
+        c = [t[s:s + chunk] for t in flat]
+        re, im = (c[0], c[1]) if len(c) == 2 else (c[0] - c[2], c[1] - c[3])
+        out = max(out, torch.hypot(re, im).max().item())
+    return out
+
+
 def run_kernel(kind, plan, bx, by, width, seed, f64=False):
     """One kernel call against its plain version at slice width ``width``.
     Returns a dict of measurements; with ``f64`` also both versions'
@@ -301,7 +321,7 @@ def run_kernel(kind, plan, bx, by, width, seed, f64=False):
     import numpy as np
     import torch
 
-    from artensor_tpu_torch.runtime import gatherk, lanes
+    from artensor_tpu_torch.runtime import gatherk, lanes, metrics
 
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     rnd = lambda shape: torch.randn(shape, generator=gen, device=DEVICE)
@@ -343,19 +363,39 @@ def run_kernel(kind, plan, bx, by, width, seed, f64=False):
         rnd(((width,) if ws else ()) + (w_n,))
     args = (plan, xr, xi, wr, wi, xs, ws)
     kr, ki = call(*args)
-    pr, pi = plain(*args)
+    lead = xs or ws
+    chunk = PLAIN_CHUNK if lead else width
+
+    def plain_chunks():
+        """The plain version over the same inputs, ``chunk`` slice
+        instances at a time (a whole width-128 call's temporaries would
+        not fit beside the kernel's output)."""
+        for c0 in range(0, width if lead else 1, chunk):
+            sl = slice(c0, c0 + chunk)
+            yield sl, plain(plan, xr[sl] if xs else xr, xi[sl] if xs else xi,
+                            wr[sl] if ws else wr, wi[sl] if ws else wi,
+                            xs, ws)
+
+    err = scale = 0.0
+    pr = pi = None
+    for sl, (cr, ci) in plain_chunks():
+        kc = (kr[sl], ki[sl]) if lead else (kr, ki)
+        check(tuple(kc[0].shape) == tuple(cr.shape),
+              f"{kind}: kernel shape {tuple(kc[0].shape)} != plain "
+              f"{tuple(cr.shape)}")
+        err = max(err, max_modulus(*kc, cr, ci))
+        scale = max(scale, max_modulus(cr, ci))
+        if pr is None:          # the first instances, for the float64 check
+            pr, pi = cr, ci
+        del cr, ci
     torch.cuda.synchronize()
-    check(tuple(kr.shape) == tuple(pr.shape),
-          f"{kind}: kernel shape {tuple(kr.shape)} != plain {tuple(pr.shape)}")
-    err = torch.abs(torch.complex(kr - pr, ki - pi)).max().item()
-    scale = torch.abs(torch.complex(pr, pi)).max().item()
     tol = KERNEL_RTOL * scale + KERNEL_ATOL
     check(np.isfinite(err) and err <= tol,
           f"{kind} at width {width}: kernel disagrees with its plain version:"
           f" max|d| {err:.3e} > tol {tol:.3e}")
     reps = 5 if plan.flops * wy > 1e12 else 20
     ms = time_ms(lambda: call(*args), reps)
-    plain_ms = time_ms(lambda: plain(*args), 3)
+    plain_ms = time_ms(lambda: [None for _ in plain_chunks()], 3)
     nbytes = 8 * (wx * x_need + ww * w_need + wy * y_n)
     flops = plan.flops * wy
     form = (gatherk.gk_form(plan, width, xs, ws) if kind in ("gk", "ggk")
@@ -365,7 +405,7 @@ def run_kernel(kind, plan, bx, by, width, seed, f64=False):
               f"{kind}: byte count differs from gatherk.gk_bytes")
     out = dict(width=width, step=describe(kind, plan), form=form,
                max_abs_err=err, max_rel_err=err / scale, tol=tol, ms=ms,
-               plain_ms=plain_ms, **bounds(nbytes, flops, form),
+               plain_ms=plain_ms, **metrics.bounds(nbytes, flops, form),
                library_ms=None, bytes=nbytes, flops=flops,
                x_batched=xs, w_batched=ws)
     if f64:
@@ -373,7 +413,9 @@ def run_kernel(kind, plan, bx, by, width, seed, f64=False):
     if kind in ("rgrow", "rgflat"):
         out.update(step_glue(kind, plan, args, (kr, ki), reps))
     lib = None
-    if kind == "pair":
+    if width > LIBRARY_MAX_WIDTH:
+        pass
+    elif kind == "pair":
         xc = torch.complex(xr, xi).reshape(
             ((width,) if xs else ()) + (plan.K, plan.M))
         vc = torch.complex(wr, wi).reshape(
@@ -458,33 +500,87 @@ def load_fixture(path):
 
 
 def compile_path(name, W):
-    """Load the path's fixture and plan and compile its scheme.  Returns
-    the path's state: simulation, fixture, slice width, device steps,
-    kernel census and kernel steps by kind."""
-    from collections import Counter
-
+    """Load a workload's fixture and plan and compile its scheme in the off
+    form (``contraction_scheme_sparse(..., fuse=False, negotiate=False)``)
+    at slice width ``W``.  Returns the path's state (``path_state``)."""
     from artensor_tpu_torch import TensorNetworkSimulation, random_circuit
-    from artensor_tpu_torch.runtime import gatherk
-    from artensor_tpu_torch.runtime.executor import precompute_static_steps
-    from artensor_tpu_torch.runtime.sparse import kernel_kind
+    from artensor_tpu_torch.plan_io import plan_from_dict
+    from artensor_tpu_torch.runtime import sparse
 
     plan, fixture = PATHS[name]
     ref = load_fixture(fixture)
+    sim = TensorNetworkSimulation.from_circuit(random_circuit(**CIRCUIT),
+                                               list(ref))
+    with open(plan) as f:
+        pd = json.load(f)
     t0 = time.perf_counter()
-    sim = TensorNetworkSimulation.from_circuit(
-        random_circuit(**CIRCUIT), list(ref)).load_plan(plan)
-    compile_s = time.perf_counter() - t0
+    sim.order, sim.slicing_bonds, sim.ctree = plan_from_dict(pd)
+    sim.sc_target = float(pd["meta"]["sc_target"])
+    sim._set_scheme(*sparse.contraction_scheme_sparse(
+        sim.ctree, sim.bitstrings, sim.sc_target, fuse=False,
+        negotiate=False))
+    return path_state(name, "off", sim, ref, W, time.perf_counter() - t0, {})
+
+
+def compile_paths(name, W):
+    """Both forms of a workload's scheme: the off form at ``W``
+    (``compile_path``), then the default form through ``load_plan`` at the
+    width the wall estimate picks (timed, split into fusion and
+    negotiation by ``sparse.LAST_COMPILE``).  Returns the two paths'
+    states, off first."""
+    from artensor_tpu_torch import TensorNetworkSimulation, random_circuit
+    from artensor_tpu_torch.runtime import sparse
+
+    off = compile_path(name, W)
+    sim = TensorNetworkSimulation.from_circuit(random_circuit(**CIRCUIT),
+                                               list(off["ref"]))
+    t0 = time.perf_counter()
+    sim.load_plan(PATHS[name][0])
+    default_s = time.perf_counter() - t0
+    return [off, path_state(name, "default", sim, off["ref"], None,
+                            default_s, dict(sparse.LAST_COMPILE))]
+
+
+def path_state(name, form, sim, ref, W, compile_s, stats):
+    """One path's state; ``W`` None: the width the wall estimate picks."""
+    from collections import Counter
+
+    import numpy as np
+
+    from artensor_tpu_torch.runtime import gatherk, metrics
+    from artensor_tpu_torch.runtime.executor import precompute_static_steps
+    from artensor_tpu_torch.runtime.sparse import kernel_kind
+
+    label = f"{name}/{form}"
     n_slices = 2 ** len(sim.slicing_bonds)
-    check(n_slices % W == 0, f"{name}: slice width {W} does not divide "
-          f"the {n_slices} slices")
-    run_steps, _ = precompute_static_steps(
+    run_steps, host = precompute_static_steps(
         sim.steps, [sim.tensors[i] for i in range(len(sim.tensors))],
         sim.slicing_axes)
+    k = len(sim.slicing_bonds)
+    if W is None:
+        W = metrics.dividing_slice_width(run_steps, k, sim.slicing_axes)
+    check(n_slices % W == 0, f"{label}: slice width {W} does not divide "
+          f"the {n_slices} slices")
     census = Counter(kernel_kind(s) or "dot" for s in run_steps)
-    print(f"scheme {name}: {len(sim.steps)} steps compiled in "
-          f"{compile_s:.2f} s, {len(run_steps)} on the device per slice: "
+    est_s, est_w, _ = metrics.scheme_wall_estimate(
+        run_steps, k, slicing_axes=sim.slicing_axes)
+    model_peak = metrics.scheme_peak_bytes_at_width(run_steps, W,
+                                                    sim.slicing_axes)
+    # the staged operands, on the card for the whole run: the peak model
+    # counts a sliced leaf's width copies, not the staged tensor itself
+    staged = sum(8 * int(np.prod(np.shape(a))) for a in host)
+    print(f"scheme {label}: {len(sim.steps)} steps compiled in "
+          f"{compile_s:.2f} s (fusion {stats.get('fuse_s', 0.0):.2f} s, "
+          f"{stats.get('fuse_compiles', 0)} compiles, "
+          f"{stats.get('rewrites', 0)} rewrites kept; negotiation "
+          f"{stats.get('negotiate_s', 0.0):.2f} s, "
+          f"{stats.get('negotiate_compiles', 0)} compiles), "
+          f"{len(run_steps)} on the device per slice: "
           f"{json.dumps(dict(sorted(census.items())))}; {n_slices} slices, "
-          f"slice_batch {W}", flush=True)
+          f"slice_batch {W} (estimate's width {est_w}); wall estimate "
+          f"{est_s:.4f} s; modeled peak at width {W} "
+          f"{model_peak / 2 ** 30:.3f} GiB, staged operands "
+          f"{staged / 2 ** 30:.3f} GiB", flush=True)
     cases = kernel_cases(run_steps, operand_batching(run_steps,
                                                      sim.slicing_axes))
     forms = {}   # GK and GGK steps by the form gatherk.gk_form picks
@@ -493,8 +589,10 @@ def compile_path(name, W):
         for plan, bx, by in cases.get(kind, []):
             xs, ws = (bx, by) if plan.w_is_j else (by, bx)
             forms[kind][gatherk.gk_form(plan, W, xs, ws)] += 1
-    return dict(name=name, sim=sim, ref=ref, W=W, compile_s=compile_s,
-                n_slices=n_slices, census=census, cases=cases, forms=forms)
+    return dict(name=label, workload=name, form=form, sim=sim, ref=ref, W=W,
+                compile_s=compile_s, compile_stats=stats, n_slices=n_slices,
+                census=census, cases=cases, forms=forms, est_s=est_s,
+                model_peak=model_peak, staged=staged)
 
 
 def report(label, r):
@@ -594,6 +692,7 @@ def check_complex_mm():
     import torch
 
     from artensor_tpu_torch.ops import pallas_mm
+    from artensor_tpu_torch.runtime import metrics
 
     out = []
     gen = torch.Generator(device=DEVICE).manual_seed(200)
@@ -625,7 +724,8 @@ def check_complex_mm():
         nbytes = 8 * (B * M * K + B * K * N + B * M * N)
         r = dict(width=1, step=step, form="mma", max_abs_err=err,
                  max_rel_err=err / scale, tol=tol, ms=time_ms(call, reps),
-                 plain_ms=time_ms(plain, 3), **bounds(nbytes, flops, "mma"),
+                 plain_ms=time_ms(plain, 3),
+                 **metrics.bounds(nbytes, flops, "mma"),
                  library_ms=time_ms(lib, reps), bytes=nbytes, flops=flops,
                  x_batched=True, w_batched=True)
         report("complex_mm", r)
@@ -685,9 +785,47 @@ def drive(path, wrappers):
           f"{name}: amplitudes disagree with the fixture beyond "
           "1e-3*|ref| + 1e-6*rms(ref)")
 
+    walls, peak = warm_walls(sim, W)
+    print(f"path {name} warm wall: median {statistics.median(walls):.4f} s "
+          f"of {['%.4f' % w for w in walls]}; max_memory_allocated "
+          f"{peak / 2 ** 30:.2f} GiB", flush=True)
+    out = dict(launches=launches, forms=forms, first_s=first_s,
+               warm_s=statistics.median(walls), walls=walls,
+               peak_gib=peak / 2 ** 30, compile_s=path["compile_s"],
+               compile_stats=path["compile_stats"], slice_batch=W,
+               slices=path["n_slices"], census=dict(path["census"]),
+               est_s=path["est_s"], model_peak_gib=path["model_peak"] / 2 ** 30,
+               staged_gib=path["staged"] / 2 ** 30,
+               worst_over_bound=float(err[worst] / bound[worst]))
+    from artensor_tpu_torch.planner.cost import PEAK_RESERVE_BYTES
+
+    covered = path["model_peak"] + path["staged"] + PEAK_RESERVE_BYTES
+    check(peak <= covered and path["model_peak"] >= PEAK_MODEL_SHARE * peak,
+          f"{name}: measured peak {peak / 2 ** 30:.3f} GiB against the "
+          f"modeled {path['model_peak'] / 2 ** 30:.3f} GiB (+ staged "
+          f"operands and the runtime reserve: {covered / 2 ** 30:.3f} GiB)")
+    if path["form"] == "default":
+        off_walls, _ = warm_walls(path["off_sim"], W)
+        out["off_warm_s_same_width"] = statistics.median(off_walls)
+        print(f"path {name} at width {W}: warm wall {out['warm_s']:.4f} s "
+              f"against the estimate {path['est_s']:.4f} s and the off "
+              f"form's {out['off_warm_s_same_width']:.4f} s (of "
+              f"{['%.4f' % w for w in off_walls]}); peak "
+              f"{out['peak_gib']:.3f} GiB measured, modeled "
+              f"{out['model_peak_gib']:.3f} GiB (+ staged operands "
+              f"{out['staged_gib']:.3f} GiB)", flush=True)
+    return out
+
+
+def warm_walls(sim, W):
+    """Warm wall times of three whole runs after one warm-up, and the peak
+    device memory over them."""
+    import torch
+
     run = sim.prepare(slice_batch=W, device=DEVICE)
     run()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -695,15 +833,9 @@ def drive(path, wrappers):
         out[0].sum().item()
         walls.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
-    print(f"path {name} warm wall: median {statistics.median(walls):.4f} s "
-          f"of {['%.4f' % w for w in walls]}; max_memory_allocated "
-          f"{peak / 2 ** 30:.2f} GiB", flush=True)
     del run, out
-    return dict(launches=launches, forms=forms, first_s=first_s,
-                warm_s=statistics.median(walls), walls=walls,
-                peak_gib=peak / 2 ** 30, compile_s=path["compile_s"],
-                slice_batch=W, slices=path["n_slices"],
-                worst_over_bound=float(err[worst] / bound[worst]))
+    torch.cuda.empty_cache()
+    return walls, peak
 
 
 def main():
@@ -737,7 +869,15 @@ def main():
         for ln in log.splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"  ptxas {name}: {ln.strip()}")
-    paths = [compile_path(name, args.slice_batch) for name in PATHS]
+    paths = [p for name in PATHS for p in compile_paths(name,
+                                                        args.slice_batch)]
+    for off, dflt in zip(paths[::2], paths[1::2]):
+        dflt["off_sim"] = off["sim"]
+        dropped = sorted(set(off["census"]) - set(dflt["census"]))
+        if dropped:
+            print(f"scheme {dflt['name']}: no {', '.join(dropped)} step "
+                  f"(held on {off['name']})", flush=True)
+    labels = [p["name"] for p in paths]
     missing = [k for k in KERNELS if not any(k in p["cases"] for p in paths)]
     check(not missing, f"no path plans a step for {missing}")
 
@@ -754,19 +894,21 @@ def main():
     for p in paths:
         runs[p["name"]] = drive(p, wrappers)
         p["sim"] = None
+        if p["form"] == "default":
+            p["off_sim"] = None
     print(f"paths: {json.dumps(runs)}", flush=True)
 
     line = []
     keys = ("step", "form", "ms", "bound_ms", "bound_by", "bound_3xtf32_ms",
             "design_bound_ms", "plain_ms", "library_ms", "max_abs_err")
     for kind, (_, source, replaces) in KERNELS.items():
-        first = next(n for n in PATHS if kind in checked[n])
+        first = next(n for n in labels if kind in checked[n])
         res = checked[first][kind]
         big = res["largest"]
         line.append({
             "name": kind, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": sum(runs[n]["launches"][kind] for n in PATHS),
+            "launches": sum(runs[n]["launches"][kind] for n in labels),
             "max_abs_err": big["max_abs_err"], "ms": big["ms"],
             "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
             "bound_by": big["bound_by"], "library_ms": big["library_ms"],
@@ -790,7 +932,7 @@ def main():
                              for k in ("f64_rel_err", "plain_f64_rel_err")
                              + GLUE_KEYS
                              if k in checked[n][kind]["largest"]}}
-                      for n in PATHS if kind in checked[n]}})
+                      for n in labels if kind in checked[n]}})
         if kind == "lane":
             line[-1]["forms"] = {n: {k: r[k] for k in keys}
                                  for n, r in forms.items()}
@@ -800,7 +942,7 @@ def main():
     line.append({
         "name": "complex_mm", "route": "cuda", "source": source,
         "replaces": replaces,
-        "launches": sum(runs[n]["launches"]["complex_mm"] for n in PATHS),
+        "launches": sum(runs[n]["launches"]["complex_mm"] for n in labels),
         **{k: big[k] for k in keys}, "path": None,
         "shapes": [{k: r[k] for k in keys} for r in cmm]})
     print(json.dumps({"kernels": line}))

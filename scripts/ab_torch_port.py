@@ -2,11 +2,18 @@
 time of each kernel kind's steps, in turns A B B A.
 
     python3 scripts/ab_torch_port.py --a DIR [--b DIR] [--workload 1k ...]
-        [--slice-batch 32]
+        [--slice-batch W] [--form off|default [--form off|default]]
 
 ``--a`` and ``--b`` are repository roots (``--b`` defaults to this one),
 for example a ``git archive`` of the parent commit unpacked into a
-git-ignored directory.  For each workload of ``chip_smoke.py`` (all three
+git-ignored directory.  ``--form`` picks the scheme each side compiles:
+"default" (what ``load_plan`` compiles: fusion and negotiation on) or
+"off" (``contraction_scheme_sparse(..., fuse=False, negotiate=False)``);
+given once it holds for both sides, twice it is A's then B's, so
+``--a . --form off --form default`` compares the two forms of this
+checkout.  ``--slice-batch`` defaults to the width the side's own wall
+estimate picks (``metrics.dividing_slice_width``), or 32 in a checkout
+that has no estimate.  For each workload of ``chip_smoke.py`` (all three
 unless ``--workload`` names some) it runs the turns A, B, B, A, each in a
 fresh process that imports ``artensor_tpu_torch`` from that root only.  A
 turn loads the committed plan, builds the kernels (outside the timing),
@@ -37,9 +44,9 @@ WORKLOADS = {   # name: (plan, amplitude fixture), as in chip_smoke.py
 }
 
 
-def turn(root, name, slice_batch):
-    """One turn, in this process: ``root``'s package on workload ``name``.
-    Prints one JSON line."""
+def turn(root, name, slice_batch, form):
+    """One turn, in this process: ``root``'s package on workload ``name``,
+    its scheme in ``form``.  Prints one JSON line."""
     sys.path.insert(0, root)
     import statistics
     import time
@@ -59,8 +66,32 @@ def turn(root, name, slice_batch):
     with open(os.path.join(data, fixture)) as f:
         bits = [ln.split()[0] for ln in f if ln.strip()]
     sim = TensorNetworkSimulation.from_circuit(
-        random_circuit(5, 6, 14, seed=0), bits).load_plan(
-        os.path.join(data, plan))
+        random_circuit(5, 6, 14, seed=0), bits)
+    if form == "off":
+        from artensor_tpu_torch.plan_io import plan_from_dict
+
+        with open(os.path.join(data, plan)) as f:
+            pd = json.load(f)
+        sim.order, sim.slicing_bonds, sim.ctree = plan_from_dict(pd)
+        sim.sc_target = float(pd["meta"]["sc_target"])
+        sim._set_scheme(*sparse.contraction_scheme_sparse(
+            sim.ctree, bits, sim.sc_target, fuse=False, negotiate=False))
+    else:
+        sim.load_plan(os.path.join(data, plan))
+    if not slice_batch:
+        try:
+            from artensor_tpu_torch.runtime import executor, metrics
+        except ImportError:
+            metrics = None
+        if metrics is None:
+            slice_batch = 32
+        else:
+            run_steps, _ = executor.precompute_static_steps(
+                sim.steps, [sim.tensors[i] for i in range(len(sim.tensors))],
+                sim.slicing_axes)
+            slice_batch = metrics.dividing_slice_width(
+                run_steps, len(sim.slicing_bonds), sim.slicing_axes)
+    kinds = [sparse.kernel_kind(s) or "dot" for s in sim.steps]
     run = sim.prepare(slice_batch=slice_batch, device="cuda")
     out = run()
     torch.cuda.synchronize()
@@ -94,7 +125,9 @@ def turn(root, name, slice_batch):
         by_kind[kind] += a.elapsed_time(b)
     amps = sim.contraction(slice_batch=slice_batch, device="cuda")
     a = np.asarray(amps)[np.argsort(np.array(sim.bitstrings_sorted))]
-    print(json.dumps({"root": root, "workload": name,
+    print(json.dumps({"root": root, "workload": name, "form": form,
+                      "slice_batch": slice_batch,
+                      "census": {k: kinds.count(k) for k in sorted(set(kinds))},
                       "warm_wall_s": statistics.median(walls),
                       "walls_s": walls, "ms_by_kind": dict(by_kind),
                       "card": torch.cuda.get_device_name(0),
@@ -107,13 +140,21 @@ def main():
     ap.add_argument("--a", required=True, help="root of checkout A")
     ap.add_argument("--b", default=ROOT, help="root of checkout B")
     ap.add_argument("--workload", action="append", choices=list(WORKLOADS))
-    ap.add_argument("--slice-batch", type=int, default=32)
-    ap.add_argument("--turn", nargs=2, metavar=("ROOT", "WORKLOAD"),
+    ap.add_argument("--slice-batch", type=int, default=0,
+                    help="slices per group (default: the side's model)")
+    ap.add_argument("--form", action="append", choices=("off", "default"),
+                    help="scheme form: once for both sides, or A's then B's")
+    ap.add_argument("--turn", nargs=3, metavar=("ROOT", "WORKLOAD", "FORM"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.turn:
-        turn(os.path.abspath(args.turn[0]), args.turn[1], args.slice_batch)
+        turn(os.path.abspath(args.turn[0]), args.turn[1], args.slice_batch,
+             args.turn[2])
         return 0
+    forms = args.form or ["default"]
+    if len(forms) > 2:
+        ap.error("--form is given at most twice")
+    form_of = {"A": forms[0], "B": forms[-1]}
 
     import numpy as np
 
@@ -125,7 +166,7 @@ def main():
             proc = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--a",
                  args.a, "--slice-batch", str(args.slice_batch), "--turn",
-                 sides[side], name],
+                 sides[side], name, form_of[side]],
                 capture_output=True, text=True, cwd=sides[side])
             if proc.returncode != 0:
                 sys.stderr.write(proc.stdout + proc.stderr)
@@ -146,13 +187,17 @@ def main():
             walls = [r["warm_wall_s"] for r in recs]
             kinds = sorted({k for r in recs for k in r["ms_by_kind"]})
             res[side] = {
+                "form": form_of[side],
+                "slice_batch": recs[0]["slice_batch"],
+                "census": recs[0]["census"],
                 "warm_wall_s": walls,
                 "spread_s": max(walls) - min(walls),
                 "ms_by_kind": {k: [r["ms_by_kind"].get(k, 0.0) for r in recs]
                                for k in kinds}}
         summary[name] = res
         print(f"{name} summary: {json.dumps(res)}", flush=True)
-    print(json.dumps({"ab": summary, "a": sides["A"], "b": sides["B"]}))
+    print(json.dumps({"ab": summary, "a": sides["A"], "b": sides["B"],
+                      "forms": form_of}))
     return 0
 
 

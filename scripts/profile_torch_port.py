@@ -1,8 +1,12 @@
 """Where the port's main path spends its time on the card.
 
 Runs the n30 m14 sliced contraction of a committed plan (one of the three
-paths of ``chip_smoke.py``, by ``--workload``: ``1k``, ``10k`` or
-``1k-sc25``) once to warm up, then:
+workloads of ``chip_smoke.py``, by ``--workload``: ``1k``, ``10k`` or
+``1k-sc25``; its scheme in ``--form``: "default", what ``load_plan``
+compiles, or "off", ``contraction_scheme_sparse(..., fuse=False,
+negotiate=False)``) at ``--slice-batch`` (default: the width
+``metrics.dividing_slice_width`` picks for the scheme) once to warm up,
+then:
 
 1. one run with a CUDA-event pair around every step, summed by the kernel
    that runs the step (``dot`` = the matmul fallback ``apply_lowered``);
@@ -19,8 +23,9 @@ on, off, off, on, and checks that both give the same amplitudes;
 
 Usage, from the repo root on a machine with a CUDA card::
 
-    python3 scripts/profile_torch_port.py [--slice-batch 32] \
-        [--workload 1k|10k|1k-sc25] [--ab-rgflat | --no-rgflat]
+    python3 scripts/profile_torch_port.py [--slice-batch W] \
+        [--workload 1k|10k|1k-sc25] [--form off|default] \
+        [--ab-rgflat | --no-rgflat]
 """
 
 import argparse
@@ -84,15 +89,39 @@ def describe(s):
     return f"K {row.K} H {row.H} F {row.F}{extra}"
 
 
-def workload(name):
+def workload(name, form="default"):
+    """The workload's simulation, its scheme compiled in ``form``."""
+    import json
+
     from artensor_tpu_torch import TensorNetworkSimulation, random_circuit
+    from artensor_tpu_torch.plan_io import plan_from_dict
+    from artensor_tpu_torch.runtime.sparse import contraction_scheme_sparse
 
     plan, fixture = WORKLOADS[name]
     with open(os.path.join(DATA, fixture)) as f:
         bits = [ln.split()[0] for ln in f if ln.strip()]
-    return TensorNetworkSimulation.from_circuit(
-        random_circuit(5, 6, 14, seed=0), bits).load_plan(
-        os.path.join(DATA, plan))
+    sim = TensorNetworkSimulation.from_circuit(
+        random_circuit(5, 6, 14, seed=0), bits)
+    if form == "default":
+        return sim.load_plan(os.path.join(DATA, plan))
+    with open(os.path.join(DATA, plan)) as f:
+        pd = json.load(f)
+    sim.order, sim.slicing_bonds, sim.ctree = plan_from_dict(pd)
+    sim.sc_target = float(pd["meta"]["sc_target"])
+    sim._set_scheme(*contraction_scheme_sparse(
+        sim.ctree, bits, sim.sc_target, fuse=False, negotiate=False))
+    return sim
+
+
+def model_width(sim):
+    """The slice width the wall estimate picks for ``sim``'s scheme."""
+    from artensor_tpu_torch.runtime import executor, metrics
+
+    run_steps, _ = executor.precompute_static_steps(
+        sim.steps, [sim.tensors[i] for i in range(len(sim.tensors))],
+        sim.slicing_axes)
+    return metrics.dividing_slice_width(run_steps, len(sim.slicing_bonds),
+                                        sim.slicing_axes)
 
 
 @contextmanager
@@ -110,7 +139,7 @@ def rgflat(on):
         gatherk.plan_rg_flat = saved
 
 
-def ab(slice_batch, name):
+def ab(slice_batch, name, form):
     """Warm wall of the whole run with the RGFlat form on and off, in the
     order on, off, off, on; both sides must give the same amplitudes."""
     import numpy as np
@@ -121,7 +150,8 @@ def ab(slice_batch, name):
     walls, amps = {True: [], False: []}, {}
     for on in (True, False, False, True):
         with rgflat(on):
-            sim = workload(name)
+            sim = workload(name, form)
+        slice_batch = slice_batch or model_width(sim)
         kinds = [sparse.kernel_kind(s) or "dot" for s in sim.steps]
         run = sim.prepare(slice_batch=slice_batch, device="cuda")
         run()
@@ -153,9 +183,12 @@ def ab(slice_batch, name):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--slice-batch", type=int, default=32)
+    ap.add_argument("--slice-batch", type=int, default=0,
+                    help="slices per group (default: the model's width)")
     ap.add_argument("--workload", default="1k", choices=list(WORKLOADS),
-                    help="the path of chip_smoke.py to profile")
+                    help="the workload of chip_smoke.py to profile")
+    ap.add_argument("--form", default="default", choices=("off", "default"),
+                    help="the scheme's form")
     ap.add_argument("--ab-rgflat", action="store_true",
                     help="time the run with and without the RGFlat form")
     ap.add_argument("--no-rgflat", action="store_true",
@@ -170,13 +203,21 @@ def main():
         return 2
     from artensor_tpu_torch.runtime import sparse
 
-    print(f"card: {torch.cuda.get_device_name(0)}; workload {args.workload},"
-          f" slice_batch {args.slice_batch}", flush=True)
     if args.ab_rgflat:
-        ab(args.slice_batch, args.workload)
+        print(f"card: {torch.cuda.get_device_name(0)}; workload "
+              f"{args.workload}, form {args.form}", flush=True)
+        ab(args.slice_batch, args.workload, args.form)
         return 0
+    t0 = time.perf_counter()
     with rgflat(not args.no_rgflat):
-        sim = workload(args.workload)
+        sim = workload(args.workload, args.form)
+    compile_s = time.perf_counter() - t0
+    args.slice_batch = args.slice_batch or model_width(sim)
+    kinds = [sparse.kernel_kind(s) or "dot" for s in sim.steps]
+    print(f"card: {torch.cuda.get_device_name(0)}; workload {args.workload},"
+          f" form {args.form} (load and compile {compile_s:.2f} s; kernel "
+          f"steps {dict((k, kinds.count(k)) for k in sorted(set(kinds)))}),"
+          f" slice_batch {args.slice_batch}", flush=True)
     torch.cuda.reset_peak_memory_stats()
     run = sim.prepare(slice_batch=args.slice_batch, device="cuda")
     run()

@@ -554,3 +554,77 @@ def test_n30_main_path_matches_fixture(cuda, n_bits, plan):
     r = np.array([ref[b] for b in sim.bitstrings_sorted])
     rms = np.sqrt(np.mean(np.abs(r) ** 2))
     assert (np.abs(amps - r) <= 1e-3 * np.abs(r) + 1e-6 * rms).all()
+
+
+DEFAULT_RECORD = os.path.join(os.path.dirname(__file__), "data",
+                              "torch_port_default_schemes.json")
+N30_WORKLOADS = {"1k": (1000, "rcs_n30_m14_s0_sparse_sc24.json"),
+                 "10k": (10000, "rcs_n30_m14_s0_sparse10k_sc24.json"),
+                 "1k-sc25": (1000, "rcs_n30_m14_s0_sparse_sc25.json")}
+
+
+@pytest.fixture(scope="module", params=sorted(N30_WORKLOADS))
+def n30_default(request):
+    """A workload's simulation as ``load_plan`` compiles it (the default
+    form) on this host, with its device steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from artensor_tpu_torch import TensorNetworkSimulation, random_circuit
+    from artensor_tpu_torch.runtime.executor import precompute_static_steps
+
+    n_bits, plan = N30_WORKLOADS[request.param]
+    with open(os.path.join(DATA, f"rcs_n30_m14_s0_amps{n_bits}.txt")) as f:
+        bits = [ln.split()[0] for ln in f if ln.strip()]
+    sim = TensorNetworkSimulation.from_circuit(
+        random_circuit(5, 6, 14, seed=0), bits).load_plan(
+        os.path.join(DATA, plan))
+    run_steps, host = precompute_static_steps(
+        sim.steps, [sim.tensors[i] for i in range(len(sim.tensors))],
+        sim.slicing_axes)
+    return request.param, sim, run_steps, host
+
+
+def test_n30_default_scheme_as_on_the_cpu(cuda, n30_default):
+    """The default form compiled on the card's host makes the scheme that
+    the CPU compile recorded (``scripts/default_schemes_torch_port.py``)."""
+    import json
+    from collections import Counter
+
+    from artensor_tpu_torch.runtime.sparse import kernel_kind, scheme_digest
+
+    name, sim, _, _ = n30_default
+    with open(DEFAULT_RECORD) as f:
+        want = json.load(f)[name]
+    census = Counter(kernel_kind(s) or "dot" for s in sim.steps)
+    assert dict(census) == want["census"]
+    assert scheme_digest(sim.steps) == want["digest"]
+
+
+def test_n30_default_width_peak_is_modeled(cuda, n30_default):
+    """At the width the wall estimate picks, the modeled peak (the live
+    set at that width, plus what the model leaves out: the staged
+    operands and the runtime's reserve, ``PEAK_RESERVE_BYTES``) is at
+    least the peak the run allocates, and the live set alone at least 90%
+    of it."""
+    from artensor_tpu_torch.planner.cost import PEAK_RESERVE_BYTES
+    from artensor_tpu_torch.runtime import metrics
+
+    name, sim, run_steps, host = n30_default
+    W = metrics.dividing_slice_width(run_steps, len(sim.slicing_bonds),
+                                     sim.slicing_axes)
+    model = metrics.scheme_peak_bytes_at_width(run_steps, W,
+                                               sim.slicing_axes)
+    staged = sum(8 * int(np.prod(np.shape(a))) for a in host)
+    torch.cuda.empty_cache()
+    run = sim.prepare(slice_batch=W, device="cuda")
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated()
+    del run, out
+    torch.cuda.empty_cache()
+    assert measured <= model + staged + PEAK_RESERVE_BYTES, \
+        (name, W, measured, model, staged)
+    assert model >= 0.9 * measured

@@ -265,14 +265,34 @@ def test_runner_rejects_non_dividing_width(rcs12):
                                slice_batch=3)
 
 
+def _off_form_sim(circuit, bits, plan):
+    """A simulation of a plan (dict or path) with the scheme in the off
+    form (time-ordered layouts, no fusion, no negotiation), compiled as
+    the JAX package's tests compile it: ``contraction_scheme_sparse(...,
+    fuse=False, negotiate=False)``."""
+    import json
+
+    from artensor_tpu_torch.plan_io import plan_from_dict
+    from artensor_tpu_torch.runtime.sparse import contraction_scheme_sparse
+
+    if not isinstance(plan, dict):
+        with open(plan) as f:
+            plan = json.load(f)
+    sim = TensorNetworkSimulation.from_circuit(circuit, bits)
+    sim.order, sim.slicing_bonds, sim.ctree = plan_from_dict(plan)
+    sim.sc_target = float(plan["meta"]["sc_target"])
+    sim._set_scheme(*contraction_scheme_sparse(
+        sim.ctree, bits, sim.sc_target, fuse=False, negotiate=False))
+    return sim
+
+
 def _n30_sim():
     with open(os.path.join(DATA, "rcs_n30_m14_s0_amps1000.txt")) as f:
         bits = [ln.split()[0] for ln in f if ln.strip()]
     from artensor_tpu_torch import random_circuit as prc
 
-    return TensorNetworkSimulation.from_circuit(
-        prc(5, 6, 14, seed=0), bits).load_plan(
-        os.path.join(DATA, "rcs_n30_m14_s0_sparse_sc24.json"))
+    return _off_form_sim(prc(5, 6, 14, seed=0), bits,
+                         os.path.join(DATA, "rcs_n30_m14_s0_sparse_sc24.json"))
 
 
 def test_n30_plan_census_in_the_jax_order():
@@ -358,8 +378,7 @@ def test_n30_10k_plan_kernel_census():
     from artensor_tpu_torch import random_circuit as prc
 
     bits, plan = _n30_10k()
-    sim = TensorNetworkSimulation.from_circuit(
-        prc(5, 6, 14, seed=0), bits).load_plan(plan)
+    sim = _off_form_sim(prc(5, 6, 14, seed=0), bits, plan)
     kinds = [kernel_kind(s) for s in sim.steps]
     census = Counter(kinds)
     census.pop(None, None)
@@ -417,8 +436,7 @@ def test_n30_sc25_plan_kernel_census():
     assert sliced == ["16-9", "18-8", "16-5", "14-10", "12-11"]
     np.testing.assert_allclose(ctree.complexity(),
                                (10.459710, 25.0, 8.974364), atol=1e-6)
-    sim = TensorNetworkSimulation.from_circuit(
-        prc(5, 6, 14, seed=0), bits).load_plan(SC25_PLAN)
+    sim = _off_form_sim(prc(5, 6, 14, seed=0), bits, SC25_PLAN)
     assert sim.sc_target == 25 and len(sim.steps) == 187
     kinds = [kernel_kind(s) for s in sim.steps]
     census = Counter(kinds)
@@ -486,8 +504,7 @@ def test_small_plan_lane_census_matches_jax(rcs15, monkeypatch):
         monkeypatch.setattr(mod, val, 1 << 8)
     monkeypatch.setattr(jgk, "SLACK", 1e9)
     w = rcs15
-    sim = TensorNetworkSimulation.from_circuit(
-        (w["n"], w["layers"]), w["bits"]).load_plan(w["plan"])
+    sim = _off_form_sim((w["n"], w["layers"]), w["bits"], w["plan"])
     _, _, ctree = plan_from_dict(w["plan"])
     jsteps, _, _ = jcs(ctree, w["bits"], sc_target=12, negotiate=False,
                        fuse=False)
@@ -498,3 +515,77 @@ def test_small_plan_lane_census_matches_jax(rcs15, monkeypatch):
         if kernel_kind(s) == "lane":
             assert s.iy == j.iy
             assert_lane_plans_equal(s.lane, j.lane)
+
+
+@pytest.mark.parametrize("width", [1, 4])
+def test_fused_order_runs_exact(rcs15, width, monkeypatch):
+    """Gate-block fusion end to end on the CPU: with the size gates
+    lowered, every rewrite of the candidate model taken (no arbiter), the
+    port's scheme of the committed small plan's fused order runs through
+    its kernels' plain versions and every amplitude matches the JAX run
+    and the state vector.  (``rcs12``'s plan is planned in the process,
+    and what the planner returns depends on the runs before it.)"""
+    from artensor_tpu_torch.plan_io import plan_from_dict
+    from artensor_tpu_torch.runtime import fuse as pfuse
+    from artensor_tpu_torch.runtime import sparse as psparse
+
+    for mod, name in ((pgk, "MIN_X_ELEMS"), (pgk, "GGK_MIN_WORK"),
+                      (pfuse, "MIN_X_ELEMS")):
+        monkeypatch.setattr(mod, name, 1 << 8)
+    w = rcs15
+    sc = w["plan"]["meta"]["sc_target"]
+    sim = _off_form_sim((w["n"], w["layers"]), w["bits"], w["plan"])
+    _, _, ctree = plan_from_dict(w["plan"])
+    base = ctree.to_order_dfs()
+    targets = np.array([[int(c) for c in b] for b in w["bits"]],
+                       dtype=np.uint8)
+    tn = ctree.tn
+    order = pfuse.reassociate_small_chains(
+        base, tn.tensor_bonds, tn.bond_dims, targets=targets,
+        qubit_of_tensor={t: (q,) for q, t in enumerate(tn.final_qubits)})
+    assert order != [tuple(p) for p in base]
+    steps, ob, bits_sorted, _ = psparse._compile_sparse(
+        ctree, w["bits"], sc, True, None, _order=order)
+    assert [(s.i, s.j) for s in steps] == order
+    assert any(kernel_kind(s) for s in steps)
+    sim._set_scheme(steps, ob, bits_sorted)
+    amps = sim.contraction(slice_batch=width, device="cpu")
+    assert sorted(sim.bitstrings_sorted) == sorted(w["jax_amps"])
+    for a, b in zip(amps, sim.bitstrings_sorted):
+        assert abs(a - w["exact"][int(b, 2)]) < 2e-5, b
+        assert abs(a - w["jax_amps"][b]) < 2e-5, b
+
+
+DEFAULT_RECORD = os.path.join(os.path.dirname(__file__), "data",
+                              "torch_port_default_schemes.json")
+
+
+@pytest.mark.parametrize("name,plan,fixture", [
+    ("1k", "rcs_n30_m14_s0_sparse_sc24.json", "rcs_n30_m14_s0_amps1000.txt"),
+    ("1k-sc25", "rcs_n30_m14_s0_sparse_sc25.json",
+     "rcs_n30_m14_s0_amps1000.txt")])
+def test_n30_default_scheme_matches_record(name, plan, fixture):
+    """The default form (fusion and negotiation under the committed H100
+    calibration) of the 1k and 1k-sc25 plans is the scheme recorded by
+    ``scripts/default_schemes_torch_port.py`` (census and digest), which
+    the card tests also hold the card host's compile to (the 10k plan's
+    default compile takes too long for this suite and is held there
+    only).  Its passes ran: fusion kept rewrites and negotiation made
+    trial compiles."""
+    import json
+
+    from artensor_tpu_torch import load_plan
+    from artensor_tpu_torch.runtime import sparse as psparse
+
+    with open(DEFAULT_RECORD) as f:
+        want = json.load(f)[name]
+    with open(os.path.join(DATA, fixture)) as f:
+        bits = [ln.split()[0] for ln in f if ln.strip()]
+    _, _, ctree = load_plan(os.path.join(DATA, plan))
+    sc = 25 if name == "1k-sc25" else 24
+    steps, _, _ = psparse.contraction_scheme_sparse(ctree, bits, sc)
+    census = Counter(kernel_kind(s) or "dot" for s in steps)
+    assert dict(census) == want["census"]
+    assert psparse.scheme_digest(steps) == want["digest"]
+    stats = psparse.LAST_COMPILE
+    assert stats["rewrites"] > 0 and stats["negotiate_compiles"] > 1

@@ -31,15 +31,15 @@ PATHS = {   # name: (plan, fixture), as chip_smoke.py drives them
                 "rcs_n30_m14_s0_amps1000.txt"),
 }
 WIDTH = 32   # chip_smoke.py's slice width
-# the mma steps of each path as (K, H, F, G); every other GK step streams
+# the mma steps of each off-form path as (K, H, F, G), the pre-permuted
+# steps' f runs cut to gatherk.PRE_TAIL_F; every other GK step streams
 MMA_STEPS = {
-    "1k": {(32, 32, 2048, 256), (32, 32, 65536, 8), (32, 64, 4096, 1),
+    "1k": {(32, 32, 2048, 256), (32, 32, 32768, 16), (32, 64, 4096, 1),
            (32, 128, 128, 64), (32, 512, 4096, 2), (64, 64, 16384, 16),
-           (64, 64, 32768, 8), (64, 64, 65536, 4), (128, 128, 128, 256),
-           (128, 128, 512, 4)},
-    "10k": {(16, 128, 128, 128), (32, 32, 2048, 256), (32, 32, 65536, 8),
-            (32, 32, 131072, 2), (32, 32, 262144, 1), (64, 64, 65536, 2),
-            (64, 64, 131072, 1), (64, 128, 1024, 2), (64, 256, 65536, 1)},
+           (64, 64, 32768, 8), (128, 128, 128, 256), (128, 128, 512, 4)},
+    "10k": {(16, 128, 128, 128), (32, 32, 2048, 256), (32, 32, 32768, 8),
+            (32, 32, 32768, 16), (64, 64, 32768, 4), (64, 128, 1024, 2),
+            (64, 256, 32768, 2)},
     "1k-sc25": {(32, 32, 8192, 128), (32, 128, 1024, 8),
                 (64, 256, 64, 256)},
 }
@@ -50,14 +50,25 @@ FORM_COUNTS = {"1k": {"stream": 8, "mma": 10},
 
 @lru_cache(maxsize=None)
 def _gk_steps(name):
-    """(plan, x batched, w batched) of every GK step the path runs per
-    slice group, after the static folds."""
+    """(plan, x batched, w batched) of every GK step the off-form path
+    runs per slice group, after the static folds."""
+    import json
+
+    from artensor_tpu_torch.plan_io import plan_from_dict
+    from artensor_tpu_torch.runtime.sparse import contraction_scheme_sparse
+
     plan, fixture = PATHS[name]
     with open(os.path.join(DATA, fixture)) as f:
         bits = [ln.split()[0] for ln in f if ln.strip()]
+    with open(os.path.join(DATA, plan)) as f:
+        pd = json.load(f)
+    # the off form, as chip_smoke.py's off paths compile it
     sim = TensorNetworkSimulation.from_circuit(
-        random_circuit(5, 6, 14, seed=0), bits).load_plan(
-        os.path.join(DATA, plan))
+        random_circuit(5, 6, 14, seed=0), bits)
+    sim.order, sim.slicing_bonds, sim.ctree = plan_from_dict(pd)
+    sim._set_scheme(*contraction_scheme_sparse(
+        sim.ctree, bits, pd["meta"]["sc_target"], fuse=False,
+        negotiate=False))
     run_steps, _ = precompute_static_steps(
         sim.steps, [sim.tensors[i] for i in range(len(sim.tensors))],
         sim.slicing_axes)
