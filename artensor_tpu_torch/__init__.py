@@ -1,9 +1,12 @@
 """artensor_tpu_torch: the PyTorch + CUDA port of ``artensor_tpu``.
 
-The sparse big-batch amplitude path runs on one NVIDIA H100: circuit ->
-``simplify('sparse')`` -> a committed plan -> the sparse scheme compiler ->
-the sliced executor, with hand-written CUDA kernels (``csrc/``) for the
-gather-K, gathered gather-K, RGRow and pair steps.  Entry points run on the
+Two paths run on one NVIDIA H100: the sparse big-batch amplitudes
+(circuit -> ``simplify('sparse')`` -> a committed plan -> the sparse
+scheme compiler -> the sliced executor) and the dense full amplitude
+(``simplify('normal')`` -> ``contraction_scheme`` -> the same sliced
+runner over the dense executor, whole or an output block at a time),
+with hand-written CUDA kernels (``csrc/``) for the gather-K, gathered
+gather-K, RGRow, RGFlat, lane and pair steps.  Entry points run on the
 card unless the caller passes ``device='cpu'``, where every kernel wrapper
 takes its plain PyTorch version.  This package imports nothing of JAX or of
 ``artensor_tpu``.
@@ -13,10 +16,16 @@ from .circuits import TensorNetworkCircuit, random_circuit
 from .network import AbstractTensorNetwork, NumericalTensorNetwork
 from .ops.field import SplitField
 from .plan_io import load_plan, plan_from_dict
+from .planner import ContractionTree
+from .runtime.executor import tensor_contraction
+from .runtime.scheme import contraction_scheme
+from .runtime.sparse import contraction_scheme_sparse
 from .simulation import TensorNetworkSimulation
 
 __all__ = [
     "TensorNetworkCircuit", "random_circuit", "AbstractTensorNetwork",
     "NumericalTensorNetwork", "SplitField", "load_plan",
-    "plan_from_dict", "TensorNetworkSimulation",
+    "plan_from_dict", "ContractionTree", "contraction_scheme",
+    "contraction_scheme_sparse", "tensor_contraction",
+    "TensorNetworkSimulation",
 ]

@@ -48,16 +48,45 @@ class AbstractTensorNetwork:
         }
         self.max_bitstring = max_bitstring
         self.log2_max_bitstring = log2(max_bitstring)
-        # bonds currently removed by slicing: label -> (dim, tensors it touched)
+        # bonds currently removed by slicing: label -> (dim, tensors it
+        # touched, per tensor the bonds that followed it there)
         self.sliced = {}
 
+    @property
+    def slicing_bonds(self):
+        """Mapping of sliced bond -> dimension."""
+        return {b: dim for b, (dim, _t, _a) in self.sliced.items()}
+
     def slicing(self, bond):
-        """Remove ``bond`` from the live network, remembering how to restore it."""
+        """Remove ``bond`` from the live network, remembering how to restore
+        it: its dimension, the tensors it touches, and for each of them
+        the bonds that followed it in the tensor's bond list."""
         dim = self.bond_dims.pop(bond)
         touching = self.bond_tensors.pop(bond)
+        after = {}
         for tid in touching:
-            self.tensor_bonds[tid].remove(bond)
-        self.sliced[bond] = (dim, touching)
+            bonds = self.tensor_bonds[tid]
+            after[tid] = bonds[bonds.index(bond) + 1:]
+            bonds.remove(bond)
+        self.sliced[bond] = (dim, touching, after)
+
+    def add_bond(self, bond):
+        """Restore a previously sliced bond at its original position in
+        every tensor's bond list: before the first bond that followed it
+        there and is live now (at the end if none is), so that any order
+        of restores rebuilds the lists as they were.  (The JAX package
+        appends it, which reorders a leaf's axes for later scheme
+        compiles.)  Returns the tensors it touches."""
+        dim, touching, after = self.sliced.pop(bond)
+        self.bond_dims[bond] = dim
+        self.bond_tensors[bond] = touching
+        for tid in touching:
+            bonds = self.tensor_bonds[tid]
+            live = set(bonds)
+            nxt = next((b for b in after[tid] if b in live), None)
+            bonds.insert(len(bonds) if nxt is None else bonds.index(nxt),
+                         bond)
+        return touching
 
     def contract(self, x, y):
         """Symbolically merge tensor ``y`` into ``x``."""

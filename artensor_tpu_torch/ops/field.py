@@ -24,24 +24,47 @@ _REAL = {np.dtype(np.complex64): torch.float32,
          np.dtype(np.complex128): torch.float64}
 
 
-def _dot_general(a, b, dnums):
-    """``lax.dot_general`` on real tensors as permute/reshape + matmul.
+def _split_dot(a, b, dnums):
+    """``lax.dot_general`` on split pairs as permute/reshape + ``matmul``.
 
     Output axes: batch dims, then a's free dims, then b's free dims (in
-    their stored order), as XLA's dot_general produces them."""
+    their stored order), as XLA's dot_general produces them.  Each
+    operand component is permuted into (batch, rows, k) / (batch, k,
+    cols) form once (a copy unless the permutation is the identity), and
+    the four real products accumulate in place into the output
+    (``baddbmm_``).  The larger operand's components are permuted one at a
+    time, the second after the first's copy is dropped, so the step holds
+    one component copy of it (``metrics.dot_copy_elems``)."""
     (ca, cb), (ba, bb) = dnums
-    fa = [d for d in range(a.dim()) if d not in ca and d not in ba]
-    fb = [d for d in range(b.dim()) if d not in cb and d not in bb]
-    bsz = [a.shape[d] for d in ba]
-    fa_sz = [a.shape[d] for d in fa]
-    fb_sz = [b.shape[d] for d in fb]
+    fa = [d for d in range(a[0].dim()) if d not in ca and d not in ba]
+    fb = [d for d in range(b[0].dim()) if d not in cb and d not in bb]
+    bsz = [a[0].shape[d] for d in ba]
+    fa_sz = [a[0].shape[d] for d in fa]
+    fb_sz = [b[0].shape[d] for d in fb]
     nb = int(np.prod(bsz)) if bsz else 1
-    k = int(np.prod([a.shape[d] for d in ca])) if ca else 1
+    k = int(np.prod([a[0].shape[d] for d in ca])) if ca else 1
     m = int(np.prod(fa_sz)) if fa_sz else 1
     n = int(np.prod(fb_sz)) if fb_sz else 1
-    am = a.permute(*ba, *fa, *ca).reshape(nb, m, k)
-    bm = b.permute(*bb, *cb, *fb).reshape(nb, k, n)
-    return torch.matmul(am, bm).reshape(*bsz, *fa_sz, *fb_sz)
+    am = lambda c: c.permute(*ba, *fa, *ca).reshape(nb, m, k)
+    bm = lambda c: c.permute(*bb, *cb, *fb).reshape(nb, k, n)
+    if a[0].numel() >= b[0].numel():
+        br, bi = bm(b[0]), bm(b[1])
+        x = am(a[0])
+        yr, yi = torch.matmul(x, br), torch.matmul(x, bi)
+        del x
+        x = am(a[1])
+        yr.baddbmm_(x, bi, alpha=-1.0)
+        yi.baddbmm_(x, br)
+    else:
+        ar, ai = am(a[0]), am(a[1])
+        x = bm(b[0])
+        yr, yi = torch.matmul(ar, x), torch.matmul(ai, x)
+        del x
+        x = bm(b[1])
+        yr.baddbmm_(ai, x, alpha=-1.0)
+        yi.baddbmm_(ar, x)
+    shape = (*bsz, *fa_sz, *fb_sz)
+    return yr.reshape(shape), yi.reshape(shape)
 
 
 class SplitField:
@@ -88,10 +111,7 @@ class SplitField:
 
     def dot(self, a, b, dnums):
         """General dot_general (multi-dim batch/contract) on split pairs:
-        the naive four real products."""
-        ar, ai = a
-        br, bi = b
-        mm = lambda x, y: _dot_general(x, y, dnums)
+        the naive four real products (``_split_dot``)."""
         # full-f32 products (PyTorch's default, pinned for the call: a
         # caller that turned TF32 on would otherwise round these to ~3
         # digits); the caller's setting is given back
@@ -99,7 +119,7 @@ class SplitField:
         caller = flags.allow_tf32
         flags.allow_tf32 = False
         try:
-            return mm(ar, br) - mm(ai, bi), mm(ar, bi) + mm(ai, br)
+            return _split_dot(a, b, dnums)
         finally:
             flags.allow_tf32 = caller
 

@@ -82,10 +82,12 @@ def merge_cost(tn, left, right):
 # budget leaves about 25 GB for what the model does not count (the staged
 # operands, ``PEAK_RESERVE_BYTES``, the caching allocator's free blocks).
 HBM_BUDGET_BYTES = 60e9
-# What a run holds beyond the modeled live set and the staged operands, at
-# any width: cuBLAS's workspace and the kernel plans' device index tables
-# (measured 0.04 GiB, above; chip_smoke.py and tests/test_torch_cuda.py
-# hold the measured peak to model + staged + this).
+# What a run holds beyond the modeled peak (``metrics.scheme_device_peak_
+# bytes``: the live set, the dot fallback's operand copies and the GK
+# tables) and the staged operands, at any width: cuBLAS's workspace and the
+# other kernels' device index tables (measured 0.04 GiB, above;
+# chip_smoke.py and tests/test_torch_cuda.py hold the measured peak to
+# model + staged + this).
 PEAK_RESERVE_BYTES = 64 << 20
 # Host cost of enqueueing one step at slice width 1 (wrapper Python, tables,
 # launches): the fitted ``step_overhead_w1_s`` of

@@ -1,9 +1,10 @@
 """Binary contraction tree with cached per-node costs.
 
 Port of the plan-loading half of ``artensor_tpu/planner/tree.py``: building
-a tree from a pairwise order, ``complexity()`` and the scheme-emission order
-``to_order_dfs()``.  The annealer's local rewrites and what-if slicing are
-not ported: this package loads committed plans.
+a tree from a pairwise order, ``complexity()``, the scheme-emission order
+``to_order_dfs()``, and ``slicing`` / ``add_bond`` (the dense output-block
+walk slices open legs post hoc).  The annealer's local rewrites and
+what-if slicing are not ported: this package loads committed plans.
 """
 
 from ..utils import log10sumexp2
@@ -35,6 +36,9 @@ class Node:
         else:
             (self.tc, self.sc, self.mfactor, self.boundary, self.mc,
              self.contract_bonds, _) = merge_cost(tn, self.left, self.right)
+
+    def has_bond(self, bond):
+        return bond in self.boundary or bond in self.contract_bonds
 
 
 class ContractionTree:
@@ -100,6 +104,36 @@ class ContractionTree:
                 tcs.append(v.tc)
                 mcs.append(v.mc)
         return log10sumexp2(tcs), max(scs), log10sumexp2(mcs)
+
+    def _refresh_marked(self, marked):
+        for v in self.nodes_leaves_to_root():
+            if v in marked:
+                v.refresh(self.tn)
+
+    def slicing(self, bond):
+        """Remove ``bond`` from the network and refresh affected caches."""
+        endpoints = self.tn.bond_tensors[bond]
+        marked = set()
+        for tid in endpoints:
+            v = self.leaves[tid]
+            while v is not None and v not in marked:
+                marked.add(v)
+                if bond in v.contract_bonds:
+                    break
+                v = v.parent
+        self.tn.slicing(bond)
+        self._refresh_marked(marked)
+
+    def add_bond(self, bond):
+        """Restore a sliced bond and refresh affected caches."""
+        endpoints = self.tn.add_bond(bond)
+        marked = set()
+        for tid in endpoints:
+            v = self.leaves[tid]
+            while v is not None and v not in marked:
+                marked.add(v)
+                v = v.parent
+        self._refresh_marked(marked)
 
     def mark_representatives(self):
         """Pick, per node, the child branch whose result tensor is larger

@@ -773,33 +773,38 @@ def _device_tables(plan, device, names):
     return plan._dev[key]
 
 
+PLAIN_GATHER_ELEMS = 1 << 24   # X elements the plain GK version gathers
+                               # at once (a 2^30-element X of the dense
+                               # path would not fit the card twice over)
+
+
 def _gk_plain(xr, xi, wr, wi, xoff, yoff, woff, koff, H, K, F, hstride,
               y_elems, x_batched, w_batched, W):
     """Plain version of the GK / GGK kernels: the same index scheme as
-    gatherk.cu, with gathers and a batched matmul, one slice instance at a
-    time (bounds the gathered copy)."""
+    gatherk.cu, with gathers and a batched matmul, one slice instance and
+    at most ``PLAIN_GATHER_ELEMS`` gathered X elements at a time."""
     dev = xr.device
     ar = lambda n: torch.arange(n, device=dev)
-    xidx = xoff[:, None, None] + koff[None, :, None] + ar(F)[None, None, :]
-    yidx = yoff[:, None, None] + hstride * ar(H)[None, :, None] \
-        + ar(F)[None, None, :]
-    widx = ar(H)[:, None] * K + ar(K)[None, :]
-    if woff is not None:
-        widx = woff[:, None, None] + widx[None]
+    wk = ar(H)[:, None] * K + ar(K)[None, :]
+    rows = max(1, PLAIN_GATHER_ELEMS // (K * F))
     lead = (W,) if (x_batched or w_batched) else ()
     yr = torch.zeros(lead + (y_elems,), dtype=xr.dtype, device=dev)
     yi = torch.zeros_like(yr)
     for s in range(W):
-        xs_r = (xr[s] if x_batched else xr)[xidx]      # (G, K, F)
-        xs_i = (xi[s] if x_batched else xi)[xidx]
-        ws_r = (wr[s] if w_batched else wr)[widx]      # (G|1, H, K)
-        ws_i = (wi[s] if w_batched else wi)[widx]
-        re = torch.matmul(ws_r, xs_r) - torch.matmul(ws_i, xs_i)
-        im = torch.matmul(ws_r, xs_i) + torch.matmul(ws_i, xs_r)
-        out_r = yr[s] if lead else yr
-        out_i = yi[s] if lead else yi
-        out_r[yidx] = re
-        out_i[yidx] = im
+        xs = [(c[s] if x_batched else c) for c in (xr, xi)]
+        ws = [(c[s] if w_batched else c) for c in (wr, wi)]
+        ys = [(c[s] if lead else c) for c in (yr, yi)]
+        for o0 in range(0, xoff.shape[0], rows):
+            o = slice(o0, o0 + rows)
+            xidx = xoff[o, None, None] + koff[None, :, None] \
+                + ar(F)[None, None, :]
+            yidx = yoff[o, None, None] + hstride * ar(H)[None, :, None] \
+                + ar(F)[None, None, :]
+            widx = wk if woff is None else woff[o, None, None] + wk[None]
+            xs_r, xs_i = (c[xidx] for c in xs)         # (G, K, F)
+            ws_r, ws_i = (c[widx] for c in ws)         # (G|1, H, K)
+            ys[0][yidx] = torch.matmul(ws_r, xs_r) - torch.matmul(ws_i, xs_i)
+            ys[1][yidx] = torch.matmul(ws_r, xs_i) + torch.matmul(ws_i, xs_r)
     return yr, yi
 
 

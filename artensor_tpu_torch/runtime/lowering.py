@@ -186,6 +186,24 @@ def lower_step(ix_i, ix_j, iy, dims_i, dims_j):
     return best[1]
 
 
+def batched_dnums(low, bl, br):
+    """``(dnums, pos)`` of ``apply_lowered``'s dot when its left / right
+    operand (after the swap) carries a leading slice-width axis: both
+    batched, the width is one more dot batch dim; one batched, it is a
+    free dim of that operand.  ``pos``: the output axis it lands on."""
+    (cl, cr), (bl_dims, br_dims) = low.dnums
+    up = lambda t: tuple(d + 1 for d in t)
+    if bl and br:
+        return ((up(cl), up(cr)),
+                ((0,) + up(bl_dims), (0,) + up(br_dims))), 0
+    if bl:
+        return ((up(cl), cr), (up(bl_dims), br_dims)), len(bl_dims)
+    if br:
+        return ((cl, up(cr)), (bl_dims, up(br_dims))), \
+            len(low.shape_l) - len(cl)
+    return low.dnums, 0
+
+
 def apply_lowered(field, x, y, low, bx=False, by=False):
     """Execute one lowered step on physical (flat) field tensors.
 
@@ -195,7 +213,6 @@ def apply_lowered(field, x, y, low, bx=False, by=False):
     The result leads with the width whenever an operand had one."""
     l, r = (y, x) if low.swapped else (x, y)
     bl, br = (by, bx) if low.swapped else (bx, by)
-    (cl, cr), (bl_dims, br_dims) = low.dnums
     if not (bl or br):
         out = field.dot(field.reshape(l, low.shape_l),
                         field.reshape(r, low.shape_r), low.dnums)
@@ -204,16 +221,7 @@ def apply_lowered(field, x, y, low, bx=False, by=False):
         w = (l if bl else r)[0].shape[0]
         lg = field.reshape(l, ((w,) if bl else ()) + low.shape_l)
         rg = field.reshape(r, ((w,) if br else ()) + low.shape_r)
-        up = lambda t: tuple(d + 1 for d in t)
-        if bl and br:
-            dn = ((up(cl), up(cr)), ((0,) + up(bl_dims), (0,) + up(br_dims)))
-            pos = 0
-        elif bl:
-            dn = ((up(cl), cr), (up(bl_dims), br_dims))
-            pos = len(bl_dims)
-        else:
-            dn = ((cl, up(cr)), (bl_dims, up(br_dims)))
-            pos = len(low.shape_l) - len(cl)
+        dn, pos = batched_dnums(low, bl, br)
         out = field.dot(lg, rg, dn)
         if pos:
             out = tuple(c.movedim(pos, 0) for c in out)

@@ -91,15 +91,48 @@ def slice_dynamic_ids(steps, slicing_axes):
     return dyn
 
 
+def dot_copy_elems(low, bl=False, br=False, width=1):
+    """The permuted operand copies that ``ops/field._split_dot`` holds at
+    once in ``apply_lowered``'s dot of ``low`` (``bl`` / ``br``: the left /
+    right operand, after the swap, carries a width axis of ``width``), as
+    ``(left, right)`` split-pair elements, per width instance for a
+    batched operand.  An operand is copied unless its permutation into
+    matrix form is the identity on its axes longer than 1 (a permuted view
+    that the product takes as it is counts as a copy: an upper bound); the
+    larger operand is copied a component at a time (half its elements),
+    the smaller whole."""
+    from .lowering import batched_dnums
+
+    (ca, cb), (ba, bb) = batched_dnums(low, bl, br)[0]
+    shp_l = ((width,) if bl else ()) + tuple(low.shape_l)
+    shp_r = ((width,) if br else ()) + tuple(low.shape_r)
+
+    def copied(shape, first, last):
+        free = [d for d in range(len(shape)) if d not in first + last]
+        perm = [d for d in (*first, *free, *last) if shape[d] > 1]
+        return perm != sorted(perm)
+
+    n_l, n_r = _prod(shp_l), _prod(shp_r)
+    left_big = n_l >= n_r
+    cp_l = copied(shp_l, tuple(ba), tuple(ca))
+    cp_r = copied(shp_r, tuple(bb) + tuple(cb), ())
+    el = (0.5 if left_big else 1.0) * _prod(low.shape_l) if cp_l else 0
+    er = (1.0 if left_big else 0.5) * _prod(low.shape_r) if cp_r else 0
+    return el, er
+
+
 def _peak_timeline(steps, slicing_axes=None, bytes_per_elem=4.0,
-                   split_components=2):
+                   split_components=2, dot_width=None):
     """(timeline, unit): per program point, the (dynamic, static) elements
     of the live set plus the step's transients (aligned-gather copies and
     chunk outputs, cross-merge pre-selection outputs, GK ``pre`` copies,
     the GGK W-side take and output copy), as the JAX model counts them.
     ``slicing_axes``: when given, slice-invariant buffers land in the
     static component (shared by every width instance); without it
-    everything counts as dynamic."""
+    everything counts as dynamic.  ``dot_width``: when given, each step
+    the dot fallback runs also holds its permuted operand copies
+    (``dot_copy_elems`` at that width, the largest chunk's for a chunked
+    step), which the JAX model leaves to XLA."""
     dyn = None if slicing_axes is None else \
         slice_dynamic_ids(steps, slicing_axes)
     is_dyn = (lambda tid: True) if dyn is None else (lambda tid: tid in dyn)
@@ -197,6 +230,18 @@ def _peak_timeline(steps, slicing_axes=None, bytes_per_elem=4.0,
                 extra_d += out
             else:
                 extra_s += out
+        if dot_width is not None and lane is None:
+            copies = []
+            for low in lows:
+                ids = (s.j, s.i) if low.swapped else (s.i, s.j)
+                dl, dr = (is_dyn(t) for t in ids)
+                el, er = dot_copy_elems(low, dot_width > 1 and dl,
+                                        dot_width > 1 and dr, dot_width)
+                copies.append(((el if dl else 0) + (er if dr else 0),
+                               (0 if dl else el) + (0 if dr else er)))
+            cd, cs = max(copies, key=lambda c: dot_width * c[0] + c[1])
+            extra_d += cd
+            extra_s += cs
         ld = sum(v for t, v in live.items() if is_dyn(t))
         ls = sum(v for t, v in live.items() if not is_dyn(t))
         timeline.append((ld + (out if out_dyn else 0) + extra_d,
@@ -221,6 +266,31 @@ def scheme_peak_bytes_at_width(steps, width, slicing_axes,
     timeline, unit = _peak_timeline(steps, slicing_axes, bytes_per_elem,
                                     split_components)
     return max(width * d + st for d, st in timeline) * unit
+
+
+def kernel_table_bytes(steps):
+    """Device bytes of the GK plans' index tables (``gatherk._device_
+    tables``: ``xoff``, ``yoff`` and ``koff`` as int64), uploaded by a
+    run's first call and kept with the plans."""
+    from .gatherk import GKPlan
+
+    return sum(8 * (len(s.lane.xoff) + len(s.lane.yoff) + len(s.lane.koff))
+               for s in steps if isinstance(getattr(s, "lane", None), GKPlan))
+
+
+def scheme_device_peak_bytes(steps, width, slicing_axes,
+                             bytes_per_elem=4.0, split_components=2):
+    """The peak the port's runner allocates at ``width`` beyond its staged
+    operands: the live-set model of ``scheme_peak_bytes_at_width`` with
+    the dot fallback's operand copies at each of its steps (``_peak_
+    timeline``'s ``dot_width``), plus the GK plans' device tables
+    (``kernel_table_bytes``).  ``chip_smoke.py`` and
+    ``tests/test_torch_cuda.py`` hold the card's measured peak to it plus
+    the staged operands and ``planner/cost.PEAK_RESERVE_BYTES``."""
+    timeline, unit = _peak_timeline(steps, slicing_axes, bytes_per_elem,
+                                    split_components, dot_width=width)
+    return max(width * d + st for d, st in timeline) * unit \
+        + kernel_table_bytes(steps)
 
 
 def step_overhead_bytes(s, lows):
@@ -385,12 +455,12 @@ def scheme_wall_components(steps, calibration=None):
 
 def scheme_wall_estimate(steps, k_sliced, xla_traffic_factor=1.0,
                          hbm_budget_bytes=None, slicing_axes=None,
-                         calibration=None):
+                         calibration=None, width=None):
     """Calibrated end-to-end wall estimate on the card: per-slice step
-    costs plus the per-step host overhead amortized by the widest slice
-    width whose at-width peak fits the budget.  ``xla_traffic_factor``
-    (the JAX name) scales the dot fallback's time.  Returns ``(seconds,
-    width, peak_bytes)``."""
+    costs plus the per-step host overhead amortized by the slice width:
+    ``width``, or by default the widest whose at-width peak fits the
+    budget.  ``xla_traffic_factor`` (the JAX name) scales the dot
+    fallback's time.  Returns ``(seconds, width, peak_bytes)``."""
     budget = hbm_budget_bytes or HBM_BUDGET_BYTES
     cal = load_calibration(calibration)
     kern_s, dot_s, bytes_ps, n_steps = scheme_wall_components(
@@ -402,11 +472,12 @@ def scheme_wall_estimate(steps, k_sliced, xla_traffic_factor=1.0,
     overhead_w1 = cal["step_overhead_w1_s"] or STEP_OVERHEAD_W1_S
     peak = scheme_peak_live_bytes(steps, slicing_axes=slicing_axes)
     n_slices = 2 ** k_sliced
-    width = 1
-    while (width < min(256, n_slices)
-           and scheme_peak_bytes_at_width(steps, width * 2, slicing_axes)
-           <= budget):
-        width *= 2
+    if width is None:
+        width = 1
+        while (width < min(256, n_slices)
+               and scheme_peak_bytes_at_width(steps, width * 2,
+                                              slicing_axes) <= budget):
+            width *= 2
     total = n_slices * (per_slice + n_steps * overhead_w1 / width)
     return total, width, peak
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's sparse main paths on one NVIDIA card and hold each of
-their CUDA kernels against its plain PyTorch version.
+"""Drive the port's sparse and dense main paths on one NVIDIA card and hold
+each of their CUDA kernels against its plain PyTorch version.
 
     python3 chip_smoke.py [--slice-batch 32]
 
@@ -16,12 +16,22 @@ fuse=False, negotiate=False)``) at ``--slice-batch``, and in the
 (gate-block fusion and producer-order negotiation under the H100 wall
 estimate) at the slice width ``runtime/metrics.dividing_slice_width``
 picks.  The lane step is on the 1k-sc25 off path only (its default
-scheme has none).  Phases, in order (any failure exits non-zero; no phase
-is caught and passed over):
+scheme has none).  Then the dense workload, the whole 2^30-amplitude
+state of the same circuit (plan ``rcs_n30_m14_s0_dense_sc30.json``, no
+sliced bond), as three paths: "dense/off" and "dense/default" (the state
+at once, through ``prepare()``) and "dense-blocks"
+(``contraction_output_blocks(6)``: 64 blocks of 2^24, the slice-invariant
+steps run once); each is held to both fixtures' 11000 amplitudes (their
+indices mapped through the output order on the card), its norm^2 (a
+float64 sum on the card) to 1 within ``NORM_TOL``, and every block to the
+same block of the default path's state within ``BLOCK_TOL`` x its rms.
+A GK call already checked on another path (equal tables and sizes: the
+block walk's slice-invariant steps) is not made twice.  Phases, in order
+(any failure exits non-zero; no phase is caught and passed over):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the kernel build from ``artensor_tpu_torch/csrc`` (nvcc, sm_90a, one
-   compiler per source, all at once), timed; then the six schemes
+   compiler per source, all at once), timed; then the nine schemes
    compiled, each default one with its compile seconds split into fusion
    and negotiation, its chosen width and its modeled peak bytes there;
 3. per path and kernel (GK, GGK, RGRow, RGFlat, Lane, Pair), at every step
@@ -33,9 +43,10 @@ is caught and passed over):
    same function as a yardstick
    (``torch.einsum`` over X in its logical shape, ``torch.matmul``; the
    port calls neither); at the largest GK, GGK, RGRow, RGFlat and Pair
-   step both versions' errors against float64; every RGRow and RGFlat
-   step also through ``apply_ggk_step`` with the copies it no longer
-   makes timed alone;
+   step both versions' errors against float64 (where the float64 copies
+   fit: not at the dense paths' 2^30-element steps, ``F64_MAX_ELEMS``);
+   every RGRow and RGFlat step also through ``apply_ggk_step`` with the
+   copies it no longer makes timed alone;
 4. the lane kernel on synthetic plans of the forms the path lacks (head
    orientation, combo legs, a pinned grid leg; X of 2^24 elements), and
    the complex batched matmul (``ops/pallas_mm.py``, on no path) at two
@@ -44,11 +55,18 @@ is caught and passed over):
    on the card; every amplitude against the fixture keyed by bitstring,
    the kernel launch counts of that run, the warm wall time (median of 3
    after one warm-up) and the peak device memory, held to the peak model
-   (at most the modeled live set plus the staged operands and
-   ``planner/cost.PEAK_RESERVE_BYTES``; the model at least
-   ``PEAK_MODEL_SHARE`` of it); a default path also its
+   (at most ``runtime/metrics.scheme_device_peak_bytes`` plus the staged
+   operands and ``planner/cost.PEAK_RESERVE_BYTES``; the model at least
+   ``PEAK_MODEL_SHARE`` of it; the kernel checks' device tables are
+   dropped before each path); a default path also its
    wall estimate and modeled peak beside the measured ones, and the off
-   form's warm wall at the default's width.
+   form's warm wall at the default's width; a dense path its amplitudes,
+   norm^2 and (the walk) blocks as above, its warm wall beside the
+   estimate (the walk: the median of 3 walks after one, each from the
+   generator's start to its last block less the scheme compile, timed
+   apart; its blocks after the first, a block, beside the estimate's per
+   block steps), and its peak, less the whole state it holds for the
+   amplitude and block checks.
 
 Then one JSON line with every kernel's numbers (for each kernel its
 largest step on the first path that runs it, under ``costliest`` that
@@ -94,6 +112,13 @@ PATHS = {   # name: (plan, JAX fixture), in the order they are driven
     "1k-sc25": (os.path.join(DATA, "rcs_n30_m14_s0_sparse_sc25.json"),
                 os.path.join(DATA, "rcs_n30_m14_s0_amps1000.txt")),
 }
+DENSE_PLAN = os.path.join(DATA, "rcs_n30_m14_s0_dense_sc30.json")
+DENSE_FIXTURES = (os.path.join(DATA, "rcs_n30_m14_s0_amps1000.txt"),
+                  os.path.join(DATA, "rcs_n30_m14_s0_amps10000.txt"))
+D_OUT = 6                     # the block walk's sliced output legs: 64
+                              # blocks of 2^24 amplitudes
+NORM_TOL = 1e-4               # |norm^2 - 1| of a dense state (float64 sum)
+BLOCK_TOL = 1e-5              # block vs whole state: max|d| <= tol*rms
 CIRCUIT = dict(rows=5, cols=6, cycles=14, seed=0)   # random_circuit args
 FORMS = ("off", "default")
 DEVICE = "cuda"
@@ -105,6 +130,9 @@ LIBRARY_MAX_WIDTH = 32        # widest call that also times the yardstick (its
                               # complex64 copies of a width-128 step would not
                               # fit beside the step's buffers)
 PLAIN_CHUNK = 32              # slice instances a plain-version call covers
+F64_MAX_ELEMS = 1 << 28       # largest step (X + Y elements of one slice
+                              # instance) whose float64 check fits beside
+                              # its buffers
 PEAK_MODEL_SHARE = 0.9        # the peak model's share of the measured peak
 KERNEL_RTOL = 2e-4            # kernel vs plain: max|d| <= rtol*max|plain| + atol
 KERNEL_ATOL = 1e-5            #   (float32 sums in another order)
@@ -244,8 +272,9 @@ def describe(kind, plan):
 def gk_library(plan, xr, xi, wr, wi, xs, ws):
     """One ``torch.einsum`` that computes the GK step: X in its logical
     shape (scattered contract legs and all) against W as (H, K digits).
-    Returns the call and a function that views the GK output the same way
-    (outer index, H, f run), for the check."""
+    Returns the call, a function ``view(yr, yi, o=slice(None))`` that
+    views the GK output the same way (outer index, H, f run) over the
+    outer indices ``o``, for the check, and the call's output shape."""
     import string
 
     import torch
@@ -265,13 +294,18 @@ def gk_library(plan, xr, xi, wr, wi, xs, ws):
     wc = torch.complex(wr, wi).reshape(wr.shape[:-1] + (plan.H,)
                                        + tuple(k_d))
     dev = xr.device
-    yidx = (torch.as_tensor(plan.yoff, device=dev)[:, None, None]
-            + plan.hstride * torch.arange(plan.H, device=dev)[None, :, None]
-            + torch.arange(plan.F, device=dev)[None, None, :])
+    yoff = torch.as_tensor(plan.yoff, device=dev)
+    hf = (plan.hstride * torch.arange(plan.H, device=dev)[:, None]
+          + torch.arange(plan.F, device=dev)[None, :])
+
+    def view(yr, yi, o=slice(None)):
+        idx = yoff[o, None, None] + hf[None]
+        return torch.complex(yr[..., idx], yi[..., idx])
+
     call = lambda: torch.einsum(spec, xc, wc)
     shape = ((xr.shape[0] if xs else wr.shape[0],) if lead else ()) + \
         (len(plan.xoff), plan.H, plan.F)
-    return call, lambda yr, yi: torch.complex(yr, yi)[..., yidx], shape
+    return call, view, shape
 
 
 def f64_errors(kr, ki, pr, pi, plain, args, instances=2):
@@ -378,6 +412,10 @@ def run_kernel(kind, plan, bx, by, width, seed, f64=False):
 
     err = scale = 0.0
     pr = pi = None
+    # the float64 check takes double copies of a slice instance's operands
+    # and output: only where they fit beside the step's buffers (not at
+    # the dense path's 2^30-element steps)
+    f64 = f64 and x_n + y_n <= F64_MAX_ELEMS
     for sl, (cr, ci) in plain_chunks():
         kc = (kr[sl], ki[sl]) if lead else (kr, ki)
         check(tuple(kc[0].shape) == tuple(cr.shape),
@@ -393,7 +431,8 @@ def run_kernel(kind, plan, bx, by, width, seed, f64=False):
     check(np.isfinite(err) and err <= tol,
           f"{kind} at width {width}: kernel disagrees with its plain version:"
           f" max|d| {err:.3e} > tol {tol:.3e}")
-    reps = 5 if plan.flops * wy > 1e12 else 20
+    reps = 5 if plan.flops * wy > 1e12 or 8 * (x_n + y_n) > 1 << 32 \
+        else 20
     ms = time_ms(lambda: call(*args), reps)
     plain_ms = time_ms(lambda: [None for _ in plain_chunks()], 3)
     nbytes = 8 * (wx * x_need + ww * w_need + wy * y_n)
@@ -412,6 +451,7 @@ def run_kernel(kind, plan, bx, by, width, seed, f64=False):
         out.update(f64_errors(kr, ki, pr, pi, plain, args))
     if kind in ("rgrow", "rgflat"):
         out.update(step_glue(kind, plan, args, (kr, ki), reps))
+    del kr, ki
     lib = None
     if width > LIBRARY_MAX_WIDTH:
         pass
@@ -421,12 +461,19 @@ def run_kernel(kind, plan, bx, by, width, seed, f64=False):
         vc = torch.complex(wr, wi).reshape(
             ((width,) if ws else ()) + (plan.K, plan.N))
         lib = lambda: torch.matmul(xc.transpose(-1, -2), vc)
-        y = lib().reshape(kr.shape)
-        ref = torch.complex(pr, pi)
+        lib_err = torch.abs(lib().reshape(pr.shape)
+                            - torch.complex(pr, pi)).max().item()
     elif kind == "gk":
         lib, view, shape = gk_library(plan, xr, xi, wr, wi, xs, ws)
         y = lib().reshape(shape)
-        ref = view(pr, pi)
+        # a block of outer indices at a time: the index of a whole
+        # 2^30-element output would not fit beside it
+        rows = max(1, (1 << 24) // (plan.H * plan.F))
+        lib_err = max(
+            torch.abs(y[..., o0:o0 + rows, :, :]
+                      - view(pr, pi, slice(o0, o0 + rows))).max().item()
+            for o0 in range(0, len(plan.xoff), rows))
+        del y
     elif kind == "lane":
         # the step over X's and W's stored legs, output in iy order: the
         # lane kernel's output layout
@@ -437,15 +484,13 @@ def run_kernel(kind, plan, bx, by, width, seed, f64=False):
         xc = torch.complex(xr, xi).reshape(xr.shape[:-1] + plan.x_dims)
         wc = torch.complex(wr, wi).reshape(wr.shape[:-1] + plan.w_dims)
         lib = lambda: torch.einsum(spec, xc, wc)
-        y = lib().reshape(kr.shape)
-        ref = torch.complex(pr, pi)
+        lib_err = torch.abs(lib().reshape(pr.shape)
+                            - torch.complex(pr, pi)).max().item()
     if lib is not None:
-        lib_err = torch.abs(y - ref).max().item()
         check(lib_err <= tol, f"{kind} yardstick disagrees with the plain "
               f"version: {lib_err:.3e} > tol {tol:.3e}")
-        del y, ref
         out["library_ms"] = time_ms(lib, reps)
-    del xr, xi, wr, wi, kr, ki, pr, pi, lib
+    del xr, xi, wr, wi, pr, pi, lib
     torch.cuda.empty_cache()
     return out
 
@@ -541,6 +586,93 @@ def compile_paths(name, W):
                             default_s, dict(sparse.LAST_COMPILE))]
 
 
+def compile_dense_paths():
+    """The dense workload's two whole-state paths: the off form
+    (``scheme.contraction_scheme(..., fuse=False, negotiate=False)``) and
+    the default form that ``load_plan`` compiles, each at width 1 (nothing
+    is sliced).  The reference is both fixtures' 11000 amplitudes."""
+    from artensor_tpu_torch import TensorNetworkSimulation, random_circuit
+    from artensor_tpu_torch.plan_io import plan_from_dict
+    from artensor_tpu_torch.runtime import scheme
+
+    ref = {}
+    for path in DENSE_FIXTURES:
+        ref.update(load_fixture(path))
+    with open(DENSE_PLAN) as f:
+        pd = json.load(f)
+    sim = TensorNetworkSimulation.from_circuit(random_circuit(**CIRCUIT))
+    t0 = time.perf_counter()
+    sim.order, sim.slicing_bonds, sim.ctree = plan_from_dict(pd)
+    sim._set_scheme(*scheme.contraction_scheme(sim.ctree, fuse=False,
+                                               negotiate=False))
+    off = path_state("dense", "off", sim, ref, 1, time.perf_counter() - t0,
+                     {})
+    sim = TensorNetworkSimulation.from_circuit(random_circuit(**CIRCUIT))
+    t0 = time.perf_counter()
+    sim.load_plan(DENSE_PLAN)
+    dflt = path_state("dense", "default", sim, ref, 1,
+                      time.perf_counter() - t0, dict(scheme.LAST_COMPILE))
+    return [off, dflt]
+
+
+def compile_block_path(dense):
+    """The block walk's scheme on the dense default path's simulation:
+    ``D_OUT`` open legs sliced post hoc and the default form recompiled,
+    as ``contraction_output_blocks`` does (the legs are restored at
+    once); a slice instance of it is one block."""
+    from collections import Counter
+    from types import SimpleNamespace
+
+    from artensor_tpu_torch.runtime import gatherk, metrics, scheme
+    from artensor_tpu_torch.runtime.executor import (precompute_static_steps,
+                                                     split_invariant_steps)
+    from artensor_tpu_torch.runtime.sparse import kernel_kind
+    from artensor_tpu_torch.simulation import _dense_shard_setup
+
+    sim = dense["sim"]
+    t0 = time.perf_counter()
+    steps, axes, chosen, _, k, restore = _dense_shard_setup(sim, D_OUT)
+    restore()
+    view = SimpleNamespace(steps=steps, slicing_axes=axes,
+                           slicing_bonds=chosen + list(sim.slicing_bonds),
+                           tensors=sim.tensors)
+    check(k == 0, f"the dense plan slices {k} bonds: a block has 2^{k} "
+          "slices")
+    out = path_state("dense-blocks", "default", view, dense["ref"], 1,
+                     time.perf_counter() - t0, dict(scheme.LAST_COMPILE))
+    # the walk runs the slice-invariant steps once, the rest per block
+    run_steps, _ = precompute_static_steps(
+        steps, [sim.tensors[i] for i in range(len(sim.tensors))], axes)
+    once, rest = split_invariant_steps(run_steps, axes)
+    census = lambda st: Counter(kernel_kind(s) or "dot" for s in st)
+    bat = dict(zip(map(id, run_steps), operand_batching(run_steps, axes)))
+
+    def gk_forms(st):
+        c = Counter()
+        for s in st:
+            if kernel_kind(s) == "gk":
+                bx, by = bat[id(s)]
+                xs, ws = (bx, by) if s.lane.w_is_j else (by, bx)
+                c[gatherk.gk_form(s.lane, 1, xs, ws)] += 1
+        return {"gk": c, "ggk": Counter()}
+
+    est_once = metrics.scheme_wall_estimate(once, 0, slicing_axes=axes)[0]
+    est_rest = metrics.scheme_wall_estimate(rest, D_OUT, slicing_axes=axes,
+                                            width=1)[0]
+    out.update(name="dense-blocks", sim=sim, census=census(rest),
+               census_once=census(once), forms=gk_forms(rest),
+               forms_once=gk_forms(once), est_s=est_once + est_rest,
+               est_block_s=est_rest / 2 ** D_OUT)
+    print(f"scheme dense-blocks: {len(once)} steps run once "
+          f"{json.dumps(dict(sorted(out['census_once'].items())))}, "
+          f"{len(rest)} per block "
+          f"{json.dumps(dict(sorted(out['census'].items())))}; wall "
+          f"estimate of the walk {est_once + est_rest:.4f} s ({est_once:.4f}"
+          f" s once, {est_rest / 2 ** D_OUT * 1e3:.3f} ms a block)",
+          flush=True)
+    return out
+
+
 def path_state(name, form, sim, ref, W, compile_s, stats):
     """One path's state; ``W`` None: the width the wall estimate picks."""
     from collections import Counter
@@ -563,9 +695,9 @@ def path_state(name, form, sim, ref, W, compile_s, stats):
           f"the {n_slices} slices")
     census = Counter(kernel_kind(s) or "dot" for s in run_steps)
     est_s, est_w, _ = metrics.scheme_wall_estimate(
-        run_steps, k, slicing_axes=sim.slicing_axes)
-    model_peak = metrics.scheme_peak_bytes_at_width(run_steps, W,
-                                                    sim.slicing_axes)
+        run_steps, k, slicing_axes=sim.slicing_axes, width=W)
+    model_peak = metrics.scheme_device_peak_bytes(run_steps, W,
+                                                  sim.slicing_axes)
     # the staged operands, on the card for the whole run: the peak model
     # counts a sliced leaf's width copies, not the staged tensor itself
     staged = sum(8 * int(np.prod(np.shape(a))) for a in host)
@@ -577,7 +709,7 @@ def path_state(name, form, sim, ref, W, compile_s, stats):
           f"{stats.get('negotiate_compiles', 0)} compiles), "
           f"{len(run_steps)} on the device per slice: "
           f"{json.dumps(dict(sorted(census.items())))}; {n_slices} slices, "
-          f"slice_batch {W} (estimate's width {est_w}); wall estimate "
+          f"slice_batch {W}; wall estimate at that width "
           f"{est_s:.4f} s; modeled peak at width {W} "
           f"{model_peak / 2 ** 30:.3f} GiB, staged operands "
           f"{staged / 2 ** 30:.3f} GiB", flush=True)
@@ -596,7 +728,8 @@ def path_state(name, form, sim, ref, W, compile_s, stats):
 
 
 def report(label, r):
-    print(f"kernel {label} ({r['step']}) width {r['width']}: "
+    print(f"kernel {label} ({r['step']}) width {r['width']}, checked in "
+          f"{r.get('check_s', 0.0):.2f} s: "
           f"max_abs_err {r['max_abs_err']:.3e} (rel {r['max_rel_err']:.2e}, "
           f"tol {r['tol']:.2e}) form {r['form']} ms {r['ms']:.4f} bound_ms "
           f"{r['bound_ms']:.4f} ({r['bound_by']}) bound_3xtf32_ms "
@@ -622,6 +755,29 @@ def report(label, r):
               f"version's {r['plain_f64_rel_err']:.3e}")
 
 
+SEEN = {}   # call_key -> result: a kernel call made once for every path
+
+
+def call_key(kind, plan, bx, by, width, f64):
+    """What a GK kernel call depends on (its operands' sizes and width
+    axes, its index tables and scalars): two steps of equal keys, on one
+    path or two (the block walk's slice-invariant steps are the default
+    whole-state path's), are one call, checked once.  Other kinds: the
+    plan object itself."""
+    if kind != "gk":
+        return (kind, id(plan), bx, by, width, f64)
+    import hashlib
+
+    import numpy as np
+
+    tables = hashlib.sha1(b"".join(
+        np.ascontiguousarray(t, dtype=np.int64).tobytes()
+        for t in (plan.xoff, plan.yoff, plan.koff))).hexdigest()
+    return (kind, plan.w_is_j, plan.K, plan.H, plan.F, plan.hstride,
+            plan.x_elems, plan.y_elems, tuple(plan.x_dims), plan.x_roles,
+            tables, bx, by, width, f64)
+
+
 def check_kernels(path):
     """Phase 3 for one path: every kernel step at the path's width, each
     kind's largest step also at width 1.  Returns, per kind, the largest
@@ -638,14 +794,24 @@ def check_kernels(path):
         res = dict(steps=len(cases[kind]), ms_per_group=0.0, max_err=0.0,
                    design_bound_ms_per_group=0.0, fp32_bound_ms_per_group=0.0,
                    forms={})
-        for i, width in [(i, W) for i in range(len(cases[kind]))] + [
-                (largest, 1)]:
+        for i, width in [(i, W) for i in range(len(cases[kind]))] + (
+                [(largest, 1)] if W > 1 else []):
             plan, bx, by = cases[kind][i]
             f64 = (kind in F64_KINDS and i == largest
                    and width == W)
-            r = run_kernel(kind, plan, bx, by, width, seed=n, f64=f64)
-            report(f"{path['name']} {kind} step {i + 1}/{len(cases[kind])}",
-                   r)
+            label = f"{path['name']} {kind} step {i + 1}/{len(cases[kind])}"
+            key = call_key(kind, plan, bx, by, width, f64)
+            if key in SEEN:
+                r = SEEN[key]
+                print(f"kernel {label} ({r['step']}) width {width}: the "
+                      f"same call as {r['label']}", flush=True)
+            else:
+                t0 = time.perf_counter()
+                r = SEEN[key] = dict(run_kernel(kind, plan, bx, by, width,
+                                                seed=n, f64=f64),
+                                     label=label)
+                r["check_s"] = time.perf_counter() - t0
+                report(label, r)
             res["max_err"] = max(res["max_err"], r["max_abs_err"])
             if width != W:
                 continue
@@ -745,45 +911,20 @@ def drive(path, wrappers):
     sim, ref, W, name = path["sim"], path["ref"], path["W"], path["name"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for f in wrappers.values():
-        f.launches = 0
-    for kind in ("gk", "ggk"):
-        for form in wrappers[kind].forms:
-            wrappers[kind].forms[form] = 0
+    reset_counts(wrappers)
     t0 = time.perf_counter()
     amps = sim.contraction(slice_batch=W, device=DEVICE)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {k: f.launches for k, f in wrappers.items()}
-    forms = {k: dict(wrappers[k].forms) for k in ("gk", "ggk")}
+    launches, forms = check_counts(path, wrappers, path["n_slices"] // W)
     print(f"path {name}: first run {first_s:.3f} s (staging included); "
           f"launches {json.dumps(launches)}; GK and GGK launches by form "
           f"{json.dumps(forms)}", flush=True)
-    groups = path["n_slices"] // W
-    for kind in wrappers:
-        want = path["census"].get(kind, 0) * groups
-        check(launches[kind] == want,
-              f"{name} {kind}: {launches[kind]} launches, expected {want}")
-    for kind, by_form in forms.items():
-        for form, n in by_form.items():
-            want = path["forms"][kind].get(form, 0) * groups
-            check(n == want, f"{name} {kind}: {n} launches of the {form} "
-                  f"form, expected {want} (gatherk.gk_form of its steps)")
     check(amps.shape == (len(ref),), f"{name}: amplitude shape {amps.shape}")
-    check(bool(np.isfinite(amps).all()), f"{name}: non-finite amplitudes")
     r = np.array([ref[b] for b in sim.bitstrings_sorted])
-    rms = float(np.sqrt(np.mean(np.abs(r) ** 2)))
-    err = np.abs(amps - r)
-    bound = AMP_RTOL * np.abs(r) + AMP_RMS_TOL * rms
-    worst = int(np.argmax(err / bound))
-    print(f"path {name} amplitudes: {len(amps)} vs fixture, max|d| "
-          f"{err.max():.3e}, max rel {float((err / np.abs(r)).max()):.3e}, "
-          f"worst |d|/bound {float(err[worst] / bound[worst]):.3e} at "
-          f"{sim.bitstrings_sorted[worst]}; mean 2^30|a|^2 "
+    worst = amp_check(name, amps, r, sim.bitstrings_sorted)
+    print(f"path {name}: mean 2^30|a|^2 "
           f"{(2 ** 30) * float(np.mean(np.abs(amps) ** 2)):.4f}", flush=True)
-    check(bool((err <= bound).all()),
-          f"{name}: amplitudes disagree with the fixture beyond "
-          "1e-3*|ref| + 1e-6*rms(ref)")
 
     walls, peak = warm_walls(sim, W)
     print(f"path {name} warm wall: median {statistics.median(walls):.4f} s "
@@ -795,15 +936,8 @@ def drive(path, wrappers):
                compile_stats=path["compile_stats"], slice_batch=W,
                slices=path["n_slices"], census=dict(path["census"]),
                est_s=path["est_s"], model_peak_gib=path["model_peak"] / 2 ** 30,
-               staged_gib=path["staged"] / 2 ** 30,
-               worst_over_bound=float(err[worst] / bound[worst]))
-    from artensor_tpu_torch.planner.cost import PEAK_RESERVE_BYTES
-
-    covered = path["model_peak"] + path["staged"] + PEAK_RESERVE_BYTES
-    check(peak <= covered and path["model_peak"] >= PEAK_MODEL_SHARE * peak,
-          f"{name}: measured peak {peak / 2 ** 30:.3f} GiB against the "
-          f"modeled {path['model_peak'] / 2 ** 30:.3f} GiB (+ staged "
-          f"operands and the runtime reserve: {covered / 2 ** 30:.3f} GiB)")
+               staged_gib=path["staged"] / 2 ** 30, worst_over_bound=worst)
+    check_peak(path, peak)
     if path["form"] == "default":
         off_walls, _ = warm_walls(path["off_sim"], W)
         out["off_warm_s_same_width"] = statistics.median(off_walls)
@@ -817,9 +951,10 @@ def drive(path, wrappers):
     return out
 
 
-def warm_walls(sim, W):
+def warm_walls(sim, W, held=0):
     """Warm wall times of three whole runs after one warm-up, and the peak
-    device memory over them."""
+    device memory over them, less ``held``: the bytes of a result the
+    caller holds on purpose."""
     import torch
 
     run = sim.prepare(slice_batch=W, device=DEVICE)
@@ -832,10 +967,294 @@ def warm_walls(sim, W):
         out = run()
         out[0].sum().item()
         walls.append(time.perf_counter() - t0)
-    peak = torch.cuda.max_memory_allocated()
-    del run, out
+        del out
+    peak = torch.cuda.max_memory_allocated() - held
+    del run
     torch.cuda.empty_cache()
     return walls, peak
+
+
+def _qubit(bond):
+    return int(str(bond).split("-")[1])
+
+
+def flat_index(bits, bonds):
+    """Index of each bitstring (MSB first, qubit 0 first) in a flat state
+    whose axes are the open legs ``bonds`` in order."""
+    import numpy as np
+
+    digits = np.array([[int(c) for c in b] for b in bits], dtype=np.int64)
+    n = len(bonds)
+    return sum(digits[:, _qubit(b)] << (n - 1 - a)
+               for a, b in enumerate(bonds))
+
+
+def norm2(re, im, chunk=1 << 26):
+    """Sum of |amplitude|^2 over a flat split state, in float64 on the
+    device, a chunk at a time."""
+    import torch
+
+    tot = torch.zeros((), dtype=torch.float64, device=re.device)
+    fr, fi = re.reshape(-1), im.reshape(-1)
+    for s in range(0, fr.numel(), chunk):
+        tot += fr[s:s + chunk].double().square().sum() \
+            + fi[s:s + chunk].double().square().sum()
+    return tot.item()
+
+
+def amp_check(name, got, ref_vals, bits):
+    """The fixture gate over amplitudes keyed by bitstring."""
+    import numpy as np
+
+    check(bool(np.isfinite(got).all()), f"{name}: non-finite amplitudes")
+    rms = float(np.sqrt(np.mean(np.abs(ref_vals) ** 2)))
+    err = np.abs(got - ref_vals)
+    bound = AMP_RTOL * np.abs(ref_vals) + AMP_RMS_TOL * rms
+    worst = int(np.argmax(err / bound))
+    print(f"path {name} amplitudes: {len(got)} vs fixture, max|d| "
+          f"{err.max():.3e}, max rel "
+          f"{float((err / np.abs(ref_vals)).max()):.3e}, worst |d|/bound "
+          f"{float(err[worst] / bound[worst]):.3e} at {bits[worst]}",
+          flush=True)
+    check(bool((err <= bound).all()),
+          f"{name}: amplitudes disagree with the fixture beyond "
+          "1e-3*|ref| + 1e-6*rms(ref)")
+    return float(err[worst] / bound[worst])
+
+
+def reset_counts(wrappers):
+    for f in wrappers.values():
+        f.launches = 0
+    for kind in ("gk", "ggk"):
+        for form in getattr(wrappers.get(kind), "forms", ()):
+            wrappers[kind].forms[form] = 0
+
+
+def check_counts(path, wrappers, groups):
+    """The launches of the run just made: each kernel's census times the
+    slice groups (blocks) run, plus its steps run once (``census_once``:
+    the block walk's slice-invariant steps)."""
+    name = path["name"]
+    launches = {k: f.launches for k, f in wrappers.items()}
+    forms = {k: dict(wrappers[k].forms) for k in ("gk", "ggk")
+             if k in wrappers}
+    once = path.get("census_once", {})
+    for kind in wrappers:
+        want = path["census"].get(kind, 0) * groups + once.get(kind, 0)
+        check(launches[kind] == want,
+              f"{name} {kind}: {launches[kind]} launches, expected {want}")
+    for kind, by_form in forms.items():
+        for form, n in by_form.items():
+            want = path["forms"][kind].get(form, 0) * groups + \
+                path.get("forms_once", {}).get(kind, {}).get(form, 0)
+            check(n == want, f"{name} {kind}: {n} launches of the {form} "
+                  f"form, expected {want} (gatherk.gk_form of its steps)")
+    return launches, forms
+
+
+def check_peak(path, peak):
+    from artensor_tpu_torch.planner.cost import PEAK_RESERVE_BYTES
+
+    covered = path["model_peak"] + path["staged"] + PEAK_RESERVE_BYTES
+    check(peak <= covered and path["model_peak"] >= PEAK_MODEL_SHARE * peak,
+          f"{path['name']}: measured peak {peak / 2 ** 30:.3f} GiB against "
+          f"the modeled {path['model_peak'] / 2 ** 30:.3f} GiB (+ staged "
+          f"operands and the runtime reserve: {covered / 2 ** 30:.3f} GiB)")
+
+
+def drive_dense(path, wrappers):
+    """A dense whole-state path end to end through ``prepare()``: the
+    launch counts of one run, the 11000 fixture amplitudes read from the
+    state on the card (the output permutation applied to their indices,
+    not to the state), the state's norm^2 in float64, then the warm wall
+    and the peak memory, held to the peak model.  Returns the run's
+    numbers and the state (split pair, ``output_bonds`` order)."""
+    import numpy as np
+    import torch
+
+    sim, ref, name = path["sim"], path["ref"], path["name"]
+    torch.cuda.empty_cache()
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    run = sim.prepare(slice_batch=1, device=DEVICE)
+    re, im = run()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    del run
+    launches, forms = check_counts(path, wrappers, 1)
+    print(f"path {name}: first run {first_s:.3f} s (staging included); "
+          f"launches {json.dumps(launches)}; GK launches by form "
+          f"{json.dumps(forms['gk'])}", flush=True)
+    n_q = CIRCUIT["rows"] * CIRCUIT["cols"]
+    check(re.numel() == 2 ** len(sim.output_bonds) == 2 ** n_q,
+          f"{name}: state of {re.numel()} amplitudes")
+    bits = list(ref)
+    idx = torch.as_tensor(flat_index(bits, sim.output_bonds), device=DEVICE)
+    got = (re.reshape(-1)[idx].double().cpu().numpy()
+           + 1j * im.reshape(-1)[idx].double().cpu().numpy())
+    worst = amp_check(name, got, np.array([ref[b] for b in bits]), bits)
+    nrm = norm2(re, im)
+    print(f"path {name}: norm^2 {nrm:.9f} (|norm^2 - 1| "
+          f"{abs(nrm - 1):.3e}, limit {NORM_TOL})", flush=True)
+    check(abs(nrm - 1) <= NORM_TOL, f"{name}: norm^2 {nrm} off 1")
+    walls, peak = warm_walls(sim, 1, held=nbytes(re, im))
+    warm = statistics.median(walls)
+    print(f"path {name} warm wall: median {warm:.4f} s of "
+          f"{['%.4f' % w for w in walls]}, estimate {path['est_s']:.4f} s; "
+          f"peak {peak / 2 ** 30:.3f} GiB measured, modeled "
+          f"{path['model_peak'] / 2 ** 30:.3f} GiB (+ staged operands "
+          f"{path['staged'] / 2 ** 30:.3f} GiB)", flush=True)
+    check_peak(path, peak)
+    out = dict(launches=launches, forms=forms, first_s=first_s,
+               warm_s=warm, walls=walls, peak_gib=peak / 2 ** 30,
+               compile_s=path["compile_s"],
+               compile_stats=path["compile_stats"], slice_batch=1,
+               slices=1, census=dict(path["census"]), est_s=path["est_s"],
+               model_peak_gib=path["model_peak"] / 2 ** 30,
+               staged_gib=path["staged"] / 2 ** 30, norm2=nrm,
+               worst_over_bound=worst)
+    return out, (re, im)
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def drop_tables(paths):
+    """Free the device index tables that the kernel checks and earlier
+    runs left on the paths' kernel plans (``_dev``), so that a run's peak
+    counts its own (``metrics.kernel_table_bytes``) and no other's."""
+    for p in paths:
+        for cases in p["cases"].values():
+            for plan, _, _ in cases:
+                for obj in (plan, getattr(plan, "row", None)):
+                    if hasattr(obj, "_dev"):
+                        obj._dev.clear()
+
+
+def block_walk(path, post):
+    """One ``contraction_output_blocks(D_OUT)`` walk with ``post`` as its
+    postprocess; returns the results, the seconds from the generator's
+    start to its last block less the block scheme's compile, the
+    compile's seconds (``scheme.LAST_COMPILE``: fusion and negotiation,
+    the whole of the default form's compile) and the seconds of the blocks
+    after the first."""
+    from artensor_tpu_torch.runtime import scheme
+
+    sim = path["sim"]
+    t0 = time.perf_counter()
+    stamps, res = [], []
+    for bits, qubits, v in sim.contraction_output_blocks(
+            D_OUT, postprocess=post, device=DEVICE):
+        stamps.append(time.perf_counter())
+        res.append((bits, qubits, v))
+    compile_s = scheme.LAST_COMPILE["fuse_s"] \
+        + scheme.LAST_COMPILE["negotiate_s"]
+    return (res, stamps[-1] - t0 - compile_s, compile_s,
+            stamps[-1] - stamps[0])
+
+
+def drive_blocks(path, wrappers, state, state_bonds):
+    """The block walk end to end: every block on the card against the
+    same block of the whole state ``state`` (axes ``state_bonds``), read
+    through an index built on the card; the fixture amplitudes and the
+    norm^2 from the blocks; the launch counts of that walk; the warm
+    walk (median of 3 after one warm-up; each walk recompiles the block
+    scheme, timed apart) and its seconds a block; the walk's peak memory
+    (less the whole state held here) against the model."""
+    import numpy as np
+    import torch
+
+    name, ref = path["name"], path["ref"]
+    sim = path["sim"]
+    n_q = len(state_bonds)
+    n, L = 2 ** D_OUT, n_q - D_OUT
+    full = [c.reshape(-1) for c in state]
+    pos = {_qubit(b): a for a, b in enumerate(state_bonds)}
+    rms = (norm2(*state) / 2 ** n_q) ** 0.5
+    bits = list(ref)
+    lead_q = sorted(pos)[:D_OUT]
+    oid_of = np.array([int("".join(b[q] for q in lead_q), 2) for b in bits])
+    tab = {}
+
+    def check_block(field, oid, raw):
+        if "local" not in tab:      # the block scheme's axes are known now
+            lb = sim.block_output_bonds
+            ar = torch.arange(2 ** L, device=DEVICE)
+            tab["local"] = sum(((ar >> (L - 1 - p)) & 1)
+                               << (n_q - 1 - pos[_qubit(b)])
+                               for p, b in enumerate(lb))
+            tab["fix"] = torch.as_tensor(flat_index(bits, lb),
+                                         device=DEVICE)
+        sel = np.nonzero(oid_of == oid)[0]
+        bb = np.binary_repr(oid, D_OUT)
+        idx = tab["local"] + sum(int(c) << (n_q - 1 - pos[q])
+                                 for q, c in zip(lead_q, bb))
+        r, i = (c.reshape(-1) for c in raw)
+        d = torch.hypot(r - full[0][idx], i - full[1][idx]).max()
+        nrm = r.double().square().sum() + i.double().square().sum()
+        loc = tab["fix"][torch.as_tensor(sel, device=DEVICE)]
+        stats = torch.stack([d.double(), nrm]).float()
+        return (torch.cat([r[loc], stats]),
+                torch.cat([i[loc], torch.zeros_like(stats)]))
+
+    torch.cuda.empty_cache()
+    reset_counts(wrappers)
+    res, walk_s, compile_s, _ = block_walk(path, check_block)
+    launches, forms = check_counts(path, wrappers, n)
+    check(len(res) == n and [r[0] for r in res] ==
+          [np.binary_repr(o, D_OUT) for o in range(n)],
+          f"{name}: blocks {[r[0] for r in res]}")
+    worst_d = max(float(v[-2].real) for _, _, v in res)
+    nrm = sum(float(v[-1].real) for _, _, v in res)
+    got = np.zeros(len(bits), dtype=np.complex128)
+    for oid, (_, qubits, v) in enumerate(res):
+        check(qubits == lead_q, f"{name}: block qubits {qubits}")
+        got[np.nonzero(oid_of == oid)[0]] = v[:-2]
+    print(f"path {name}: {n} blocks of 2^{L} in {walk_s:.3f} s after a "
+          f"{compile_s:.3f} s compile (first walk); launches "
+          f"{json.dumps(launches)};"
+          f" max|block - whole state| {worst_d:.3e} (limit "
+          f"{BLOCK_TOL} x rms {rms:.3e}); norm^2 {nrm:.9f}", flush=True)
+    check(worst_d <= BLOCK_TOL * rms, f"{name}: a block differs from the "
+          f"whole state by {worst_d:.3e}")
+    check(abs(nrm - 1) <= NORM_TOL, f"{name}: norm^2 {nrm} off 1")
+    worst = amp_check(name, got, np.array([ref[b] for b in bits]), bits)
+
+    # warm walks: a postprocess that pulls one value (the walk's own work)
+    tab.clear()
+    touch = lambda field, oid, raw: tuple(c.reshape(-1)[:1] for c in raw)
+    block_walk(path, touch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walks, compiles, blocks = [], [], []
+    for _ in range(3):
+        _, a, c, b = block_walk(path, touch)
+        walks.append(a)
+        compiles.append(c)
+        blocks.append(b / (n - 1))
+    peak = torch.cuda.max_memory_allocated() - nbytes(*state)
+    warm, per_block = statistics.median(walks), statistics.median(blocks)
+    print(f"path {name} warm walk: median {warm:.4f} s of "
+          f"{['%.4f' % w for w in walks]} for {n} blocks (the steps run "
+          f"once, staging included; the scheme compile apart: "
+          f"{['%.3f' % t for t in compiles]} s), estimate "
+          f"{path['est_s']:.4f} s; blocks 2-{n} {per_block * 1e3:.3f} ms a "
+          f"block, estimate {path['est_block_s'] * 1e3:.3f} ms; peak "
+          f"{peak / 2 ** 30:.3f} GiB measured (the whole state held apart),"
+          f" modeled {path['model_peak'] / 2 ** 30:.3f} GiB (+ staged "
+          f"operands {path['staged'] / 2 ** 30:.3f} GiB)", flush=True)
+    check_peak(path, peak)
+    return dict(launches=launches, forms=forms, first_s=compile_s + walk_s,
+                warm_s=warm, walls=walks, s_per_block=per_block,
+                est_block_s=path["est_block_s"], scheme_compile_s=compiles,
+                peak_gib=peak / 2 ** 30,
+                compile_s=path["compile_s"],
+                compile_stats=path["compile_stats"], slice_batch=1,
+                slices=n, census=dict(path["census"]), est_s=path["est_s"],
+                model_peak_gib=path["model_peak"] / 2 ** 30,
+                staged_gib=path["staged"] / 2 ** 30, norm2=nrm,
+                max_block_diff=worst_d, worst_over_bound=worst)
 
 
 def main():
@@ -871,12 +1290,14 @@ def main():
                 print(f"  ptxas {name}: {ln.strip()}")
     paths = [p for name in PATHS for p in compile_paths(name,
                                                         args.slice_batch)]
+    paths += compile_dense_paths()
     for off, dflt in zip(paths[::2], paths[1::2]):
         dflt["off_sim"] = off["sim"]
         dropped = sorted(set(off["census"]) - set(dflt["census"]))
         if dropped:
             print(f"scheme {dflt['name']}: no {', '.join(dropped)} step "
                   f"(held on {off['name']})", flush=True)
+    paths.append(compile_block_path(paths[-1]))
     labels = [p["name"] for p in paths]
     missing = [k for k in KERNELS if not any(k in p["cases"] for p in paths)]
     check(not missing, f"no path plans a step for {missing}")
@@ -890,12 +1311,20 @@ def main():
 
     # -- 5. the paths end to end ----------------------------------------------
     wrappers = {k: wrapper(v[0]) for k, v in {**KERNELS, **OFF_PATH}.items()}
-    runs = {}
+    runs, state = {}, None
     for p in paths:
-        runs[p["name"]] = drive(p, wrappers)
-        p["sim"] = None
-        if p["form"] == "default":
-            p["off_sim"] = None
+        drop_tables(paths)
+        if p["workload"] == "dense":
+            runs[p["name"]], st = drive_dense(p, wrappers)
+            if p["form"] == "default":    # the block walk's reference
+                state, state_bonds = st, p["sim"].output_bonds
+            del st
+        elif p["workload"] == "dense-blocks":
+            runs[p["name"]] = drive_blocks(p, wrappers, state, state_bonds)
+            state = None
+        else:
+            runs[p["name"]] = drive(p, wrappers)
+        p["sim"] = p["off_sim"] = None
     print(f"paths: {json.dumps(runs)}", flush=True)
 
     line = []

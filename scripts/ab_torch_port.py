@@ -13,8 +13,11 @@ given once it holds for both sides, twice it is A's then B's, so
 ``--a . --form off --form default`` compares the two forms of this
 checkout.  ``--slice-batch`` defaults to the width the side's own wall
 estimate picks (``metrics.dividing_slice_width``), or 32 in a checkout
-that has no estimate.  For each workload of ``chip_smoke.py`` (all three
-unless ``--workload`` names some) it runs the turns A, B, B, A, each in a
+that has no estimate.  For each workload of ``chip_smoke.py`` (the three
+sparse ones unless ``--workload`` names some; "dense" is the whole
+2^30-amplitude state through ``prepare()`` at width 1, "dense-blocks" the
+walk ``contraction_output_blocks(6)``, which always compiles the default
+form) it runs the turns A, B, B, A, each in a
 fresh process that imports ``artensor_tpu_torch`` from that root only.  A
 turn loads the committed plan, builds the kernels (outside the timing),
 runs the sliced contraction once to warm up, then three times for the warm
@@ -22,7 +25,11 @@ wall (host clock around work that ends in a synchronize; the median is
 reported), then once more with a CUDA-event pair around every step, summed
 by the step's kernel kind (``dot`` = the matmul fallback; each step's time
 includes its glue).  The amplitudes of every turn must agree with the
-first turn's to 1e-4 of max|a|.  Each turn prints one JSON line (its
+first turn's to 1e-4 of max|a| (a dense turn's: the state at the 1000
+fixture bitstrings).  A dense turn also gives its peak device memory over
+the warm runs (``max_memory_allocated``) and the walk its seconds from the
+generator's start to the last block less the scheme compile (timed apart),
+and the blocks after the first, a block.  Each turn prints one JSON line (its
 amplitudes, by bitstring, ride along and are dropped from the printed
 record); the summary gives both sides' walls and kind times and the
 spread of each side (max - min of its two turns).
@@ -42,11 +49,127 @@ WORKLOADS = {   # name: (plan, amplitude fixture), as in chip_smoke.py
     "1k-sc25": ("rcs_n30_m14_s0_sparse_sc25.json",
                 "rcs_n30_m14_s0_amps1000.txt"),
 }
+DENSE = {name: ("rcs_n30_m14_s0_dense_sc30.json",
+                "rcs_n30_m14_s0_amps1000.txt")
+         for name in ("dense", "dense-blocks")}
+D_OUT = 6          # the walk's sliced output legs, as in chip_smoke.py
+
+
+def dense_turn(root, name, form):
+    """One dense turn, in this process (see the module docstring)."""
+    sys.path.insert(0, root)
+    import statistics
+    import time
+    from collections import defaultdict
+
+    import numpy as np
+    import torch
+
+    from artensor_tpu_torch import TensorNetworkSimulation, kernels
+    from artensor_tpu_torch import random_circuit
+    from artensor_tpu_torch.runtime import executor, scheme
+    from artensor_tpu_torch.runtime.sparse import kernel_kind
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels.load()
+    plan, fixture = DENSE[name]
+    data = os.path.join(root, "artensor_tpu_torch", "data")
+    with open(os.path.join(data, fixture)) as f:
+        bits = [ln.split()[0] for ln in f if ln.strip()]
+    digits = np.array([[int(c) for c in b] for b in bits], dtype=np.int64)
+    qubit = lambda bond: int(str(bond).split("-")[1])
+    sim = TensorNetworkSimulation.from_circuit(random_circuit(5, 6, 14,
+                                                              seed=0))
+    sim.load_plan(os.path.join(data, plan))
+    if form == "off" and name == "dense":
+        sim._set_scheme(*scheme.contraction_scheme(sim.ctree, fuse=False,
+                                                   negotiate=False))
+    rec = {"root": root, "workload": name, "form": form, "slice_batch": 1,
+           "card": torch.cuda.get_device_name(0)}
+    if name == "dense":
+        kinds = [kernel_kind(s) or "dot" for s in sim.steps]
+        run = sim.prepare(slice_batch=1, device="cuda")
+        out = run()
+        torch.cuda.synchronize()
+        del out
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = run()
+            out[0].sum().item()
+            walls.append(time.perf_counter() - t0)
+            del out
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        marks = []
+        inner = executor.apply_dense_step
+
+        def timed_step(field, x, y, s, bx=False, by=False):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            res = inner(field, x, y, s, bx, by)
+            b.record()
+            marks.append((kernel_kind(s) or "dot", a, b))
+            return res
+
+        executor.apply_dense_step = timed_step
+        try:
+            re, im = run()
+            torch.cuda.synchronize()
+        finally:
+            executor.apply_dense_step = inner
+        by_kind = defaultdict(float)
+        for kind, a, b in marks:
+            by_kind[kind] += a.elapsed_time(b)
+        n = len(sim.output_bonds)
+        idx = sum(digits[:, qubit(b)] << (n - 1 - p)
+                  for p, b in enumerate(sim.output_bonds))
+        idx = torch.as_tensor(idx, device="cuda")
+        amps = re.reshape(-1)[idx].cpu().numpy() \
+            + 1j * im.reshape(-1)[idx].cpu().numpy()
+        rec.update(census={k: kinds.count(k) for k in sorted(set(kinds))},
+                   warm_wall_s=statistics.median(walls), walls_s=walls,
+                   ms_by_kind=dict(by_kind))
+    else:
+        touch = lambda field, oid, raw: tuple(c.reshape(-1)[:1] for c in raw)
+
+        def walk():
+            t0 = time.perf_counter()
+            blocks = sim.contraction_output_blocks(D_OUT, postprocess=touch,
+                                                   device="cuda")
+            stamps = [time.perf_counter() for _ in blocks]
+            comp = scheme.LAST_COMPILE["fuse_s"] \
+                + scheme.LAST_COMPILE["negotiate_s"]
+            return (stamps[-1] - t0 - comp, comp,
+                    (stamps[-1] - stamps[0]) / (len(stamps) - 1))
+
+        walk()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs = [walk() for _ in range(3)]
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        amps = np.zeros(len(bits), dtype=np.complex64)
+        for fixed, qubits, v in sim.contraction_output_blocks(
+                D_OUT, device="cuda"):
+            sel = np.nonzero(digits[:, qubits] @ (1 << np.arange(
+                D_OUT - 1, -1, -1)) == int(fixed, 2))[0]
+            rest = [q for q in range(digits.shape[1]) if q not in qubits]
+            amps[sel] = v[tuple(digits[sel][:, rest].T)]
+        walls = [r[0] for r in runs]
+        rec.update(census={}, warm_wall_s=statistics.median(walls),
+                   walls_s=walls, compile_s=[r[1] for r in runs],
+                   s_per_block=statistics.median(r[2] for r in runs),
+                   ms_by_kind={})
+    rec["amps"] = [amps.real.tolist(), amps.imag.tolist()]
+    print(json.dumps(rec), flush=True)
 
 
 def turn(root, name, slice_batch, form):
     """One turn, in this process: ``root``'s package on workload ``name``,
     its scheme in ``form``.  Prints one JSON line."""
+    if name in DENSE:
+        return dense_turn(root, name, form)
     sys.path.insert(0, root)
     import statistics
     import time
@@ -139,7 +262,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--a", required=True, help="root of checkout A")
     ap.add_argument("--b", default=ROOT, help="root of checkout B")
-    ap.add_argument("--workload", action="append", choices=list(WORKLOADS))
+    ap.add_argument("--workload", action="append",
+                    choices=list(WORKLOADS) + list(DENSE))
     ap.add_argument("--slice-batch", type=int, default=0,
                     help="slices per group (default: the side's model)")
     ap.add_argument("--form", action="append", choices=("off", "default"),
@@ -192,6 +316,9 @@ def main():
                 "census": recs[0]["census"],
                 "warm_wall_s": walls,
                 "spread_s": max(walls) - min(walls),
+                **{k: [r[k] for r in recs] for k in ("peak_gib",
+                                                      "s_per_block")
+                   if k in recs[0]},
                 "ms_by_kind": {k: [r["ms_by_kind"].get(k, 0.0) for r in recs]
                                for k in kinds}}
         summary[name] = res

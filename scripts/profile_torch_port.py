@@ -1,10 +1,12 @@
 """Where the port's main path spends its time on the card.
 
-Runs the n30 m14 sliced contraction of a committed plan (one of the three
-workloads of ``chip_smoke.py``, by ``--workload``: ``1k``, ``10k`` or
-``1k-sc25``; its scheme in ``--form``: "default", what ``load_plan``
-compiles, or "off", ``contraction_scheme_sparse(..., fuse=False,
-negotiate=False)``) at ``--slice-batch`` (default: the width
+Runs the n30 m14 sliced contraction of a committed plan (one of the
+workloads of ``chip_smoke.py``, by ``--workload``: the sparse ``1k``,
+``10k`` or ``1k-sc25``, or ``dense``, the whole 2^30-amplitude state; its
+scheme in ``--form``: "default", what ``load_plan`` compiles, or "off",
+``contraction_scheme_sparse(..., fuse=False, negotiate=False)`` or
+``scheme.contraction_scheme(..., fuse=False, negotiate=False)``) at
+``--slice-batch`` (default: the width
 ``metrics.dividing_slice_width`` picks for the scheme) once to warm up,
 then:
 
@@ -24,7 +26,7 @@ on, off, off, on, and checks that both give the same amplitudes;
 Usage, from the repo root on a machine with a CUDA card::
 
     python3 scripts/profile_torch_port.py [--slice-batch W] \
-        [--workload 1k|10k|1k-sc25] [--form off|default] \
+        [--workload 1k|10k|1k-sc25|dense] [--form off|default] \
         [--ab-rgflat | --no-rgflat]
 """
 
@@ -44,6 +46,7 @@ WORKLOADS = {   # name: (plan, amplitude fixture)
             "rcs_n30_m14_s0_amps10000.txt"),
     "1k-sc25": ("rcs_n30_m14_s0_sparse_sc25.json",
                 "rcs_n30_m14_s0_amps1000.txt"),
+    "dense": ("rcs_n30_m14_s0_dense_sc30.json", None),
 }
 
 FAMILIES = (   # (family, substrings of the kernel name), first match wins
@@ -77,8 +80,9 @@ def describe(s):
     lane = s.lane
     if lane is None:
         low = s.lowered if s.lowered is not None else s.lowered_chunks[0]
+        gathers = getattr(s, "gathers", None)
         return f"dot {low.shape_l} x {low.shape_r}" + (
-            f" ({len(s.gathers)} gathered chunks)" if s.gathers else "")
+            f" ({len(gathers)} gathered chunks)" if gathers else "")
     if hasattr(lane, "M"):
         return f"K {lane.K} M {lane.M} N {lane.N}"
     if hasattr(lane, "orient"):
@@ -95,11 +99,14 @@ def workload(name, form="default"):
 
     from artensor_tpu_torch import TensorNetworkSimulation, random_circuit
     from artensor_tpu_torch.plan_io import plan_from_dict
+    from artensor_tpu_torch.runtime.scheme import contraction_scheme
     from artensor_tpu_torch.runtime.sparse import contraction_scheme_sparse
 
     plan, fixture = WORKLOADS[name]
-    with open(os.path.join(DATA, fixture)) as f:
-        bits = [ln.split()[0] for ln in f if ln.strip()]
+    bits = ()
+    if fixture:
+        with open(os.path.join(DATA, fixture)) as f:
+            bits = [ln.split()[0] for ln in f if ln.strip()]
     sim = TensorNetworkSimulation.from_circuit(
         random_circuit(5, 6, 14, seed=0), bits)
     if form == "default":
@@ -107,6 +114,10 @@ def workload(name, form="default"):
     with open(os.path.join(DATA, plan)) as f:
         pd = json.load(f)
     sim.order, sim.slicing_bonds, sim.ctree = plan_from_dict(pd)
+    if not fixture:
+        sim._set_scheme(*contraction_scheme(sim.ctree, fuse=False,
+                                            negotiate=False))
+        return sim
     sim.sc_target = float(pd["meta"]["sc_target"])
     sim._set_scheme(*contraction_scheme_sparse(
         sim.ctree, bits, sim.sc_target, fuse=False, negotiate=False))
@@ -201,7 +212,7 @@ def main():
     if not torch.cuda.is_available():
         print("profile_torch_port: no CUDA device", file=sys.stderr)
         return 2
-    from artensor_tpu_torch.runtime import sparse
+    from artensor_tpu_torch.runtime import executor, sparse
 
     if args.ab_rgflat:
         print(f"card: {torch.cuda.get_device_name(0)}; workload "
@@ -227,7 +238,9 @@ def main():
 
     # -- 1. per step kind, CUDA events ---------------------------------------
     marks = []
-    inner = sparse.apply_sparse_step
+    mod = executor if args.workload == "dense" else sparse
+    name = "apply_dense_step" if mod is executor else "apply_sparse_step"
+    inner = getattr(mod, name)
 
     def timed_step(field, x, y, s, bx=False, by=False):
         a = torch.cuda.Event(enable_timing=True)
@@ -239,7 +252,7 @@ def main():
                       (id(s), describe(s), tuple(out[0].shape))))
         return out
 
-    sparse.apply_sparse_step = timed_step
+    setattr(mod, name, timed_step)
     try:
         t0 = time.perf_counter()
         start = torch.cuda.Event(enable_timing=True)
@@ -250,7 +263,7 @@ def main():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        sparse.apply_sparse_step = inner
+        setattr(mod, name, inner)
     by_kind = defaultdict(float)
     n_kind = defaultdict(int)
     by_step = defaultdict(float)

@@ -602,18 +602,19 @@ def test_n30_default_scheme_as_on_the_cpu(cuda, n30_default):
 
 def test_n30_default_width_peak_is_modeled(cuda, n30_default):
     """At the width the wall estimate picks, the modeled peak (the live
-    set at that width, plus what the model leaves out: the staged
-    operands and the runtime's reserve, ``PEAK_RESERVE_BYTES``) is at
-    least the peak the run allocates, and the live set alone at least 90%
-    of it."""
+    set at that width with the dot fallback's operand copies and the GK
+    tables, ``metrics.scheme_device_peak_bytes``, plus what the model
+    leaves out: the staged operands and the runtime's reserve,
+    ``PEAK_RESERVE_BYTES``) is at least the peak the run allocates, and
+    the model alone at least 90% of it."""
     from artensor_tpu_torch.planner.cost import PEAK_RESERVE_BYTES
     from artensor_tpu_torch.runtime import metrics
 
     name, sim, run_steps, host = n30_default
     W = metrics.dividing_slice_width(run_steps, len(sim.slicing_bonds),
                                      sim.slicing_axes)
-    model = metrics.scheme_peak_bytes_at_width(run_steps, W,
-                                               sim.slicing_axes)
+    model = metrics.scheme_device_peak_bytes(run_steps, W,
+                                             sim.slicing_axes)
     staged = sum(8 * int(np.prod(np.shape(a))) for a in host)
     torch.cuda.empty_cache()
     run = sim.prepare(slice_batch=W, device="cuda")
@@ -628,3 +629,77 @@ def test_n30_default_width_peak_is_modeled(cuda, n30_default):
     assert measured <= model + staged + PEAK_RESERVE_BYTES, \
         (name, W, measured, model, staged)
     assert model >= 0.9 * measured
+
+
+DENSE_PLAN = os.path.join(DATA, "rcs_n30_m14_s0_dense_sc30.json")
+
+
+@pytest.fixture(scope="module")
+def dense_gk_steps():
+    """The GK steps of the n30 dense path with their operands' width axes:
+    ``whole``, the whole-state default scheme (unbatched, X up to 2^30
+    elements); ``block``, the scheme of one of the 64 output blocks of
+    ``contraction_output_blocks(6)`` (width 1 on the operands that carry
+    a sliced open leg)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from artensor_tpu_torch import TensorNetworkSimulation, random_circuit
+    from artensor_tpu_torch.runtime.executor import precompute_static_steps
+    from artensor_tpu_torch.runtime.sparse import kernel_kind
+    from artensor_tpu_torch.simulation import _dense_shard_setup
+
+    sim = TensorNetworkSimulation.from_circuit(
+        random_circuit(5, 6, 14, seed=0)).load_plan(DENSE_PLAN)
+    leaves = [sim.tensors[i] for i in range(len(sim.tensors))]
+    out = {}
+    steps, axes, _, _, _, restore = _dense_shard_setup(sim, 6)
+    restore()
+    for name, (st, ax) in {"whole": (sim.steps, sim.slicing_axes),
+                           "block": (steps, axes)}.items():
+        run_steps, _ = precompute_static_steps(st, leaves, ax)
+        dyn = {tid for entries in ax for tid, *_ in entries}
+        cases = []
+        for s in run_steps:
+            if kernel_kind(s) == "gk":
+                bx, by = s.i in dyn, s.j in dyn
+                xs, ws = (bx, by) if s.lane.w_is_j else (by, bx)
+                cases.append((s.lane, xs, ws))
+            if s.j in dyn:
+                dyn.add(s.i)
+        out[name] = cases
+    return out
+
+
+@pytest.mark.parametrize("which", ["whole", "block"])
+def test_gk_kernel_at_dense_path_steps(cuda, dense_gk_steps, which):
+    """The GK kernel against its plain version at the dense path's GK step
+    with the largest X, and of those the most outer indices: on the
+    whole-state path a 2^30-element carrier (its 64-bit offsets and
+    grid); on the block walk the largest step that runs per block, with
+    an operand at width 1."""
+    cases = dense_gk_steps[which]
+    if which == "block":
+        cases = [c for c in cases if c[1] or c[2]]
+    plan, xs, ws = max(cases, key=lambda c: (c[0].x_elems, len(c[0].xoff)))
+    if which == "whole":
+        assert plan.x_elems == 1 << 30 and not (xs or ws)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    lead = lambda b: (1,) if b else ()
+    xr, xi = (_rand(lead(xs) + (plan.x_elems,), gen) for _ in range(2))
+    wr, wi = (_rand(lead(ws) + (plan.H * plan.K,), gen) for _ in range(2))
+    before = gatherk.gk_call.launches
+    kr, ki = gatherk.gk_call(plan, xr, xi, wr, wi, xs, ws)
+    pr, pi = gatherk.gk_plain(plan, xr, xi, wr, wi, xs, ws)
+    torch.cuda.synchronize()
+    assert gatherk.gk_call.launches == before + 1
+    err = scale = 0.0
+    chunk = 1 << 26       # complex copies of a whole 2^30 output would not fit
+    for s in range(0, kr.numel(), chunk):
+        k, p = (torch.complex(a.reshape(-1)[s:s + chunk],
+                              b.reshape(-1)[s:s + chunk])
+                for a, b in ((kr, ki), (pr, pi)))
+        err = max(err, torch.abs(k - p).max().item())
+        scale = max(scale, torch.abs(p).max().item())
+    assert err <= 2e-4 * scale + 1e-5, (err, scale)
+    del xr, xi, kr, ki, pr, pi
+    torch.cuda.empty_cache()

@@ -127,3 +127,46 @@ def test_dot_keeps_the_callers_tf32_setting(fields, caller, monkeypatch):
                      m2.astype(np.complex128))
     np.testing.assert_allclose(got, want, **TOL)
 
+
+
+# (a shape, b shape, dnums): no batch axes with the contracted axes between
+# free ones; batch axes not leading; the rhs the larger operand; both
+# operands already in matrix form (views, no copy)
+SPLIT_DOT_CASES = {
+    "free": ((4, 3, 5, 2), (2, 6, 3), (((1, 3), (2, 0)), ((), ()))),
+    "batch": ((3, 4, 2, 5), (4, 2, 3, 2), (((1,), (0,)), ((0, 2), (2, 1)))),
+    "rhs_larger": ((2, 3), (3, 2, 4, 5), (((1,), (0,)), ((0,), (1,)))),
+    "views": ((2, 6, 4), (2, 4, 3), (((2,), (1,)), ((0,), (0,)))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_DOT_CASES))
+def test_split_dot_matches_einsum(case):
+    """``_split_dot`` (both orders of the component copies) against a
+    complex128 ``torch.einsum`` of the same dot_general: output axes
+    batch, then a's free, then b's free, in stored order."""
+    from artensor_tpu_torch.ops.field import _split_dot
+
+    sa, sb, dn = SPLIT_DOT_CASES[case]
+    (ca, cb), (ba, bb) = dn
+    a, b = _rand(sa, 1).astype(np.complex128), _rand(sb, 2)
+    b = b.astype(np.complex128)
+    la, lb = [None] * len(sa), [None] * len(sb)
+    letters = iter("abcdefghijklmnop")
+    for i, j in zip(ba, bb):
+        la[i] = lb[j] = next(letters)
+    bat = [la[i] for i in ba]
+    for i, j in zip(ca, cb):
+        la[i] = lb[j] = next(letters)
+    fa = [la.__setitem__(d, next(letters)) or la[d]
+          for d in range(len(sa)) if la[d] is None]
+    fb = [lb.__setitem__(d, next(letters)) or lb[d]
+          for d in range(len(sb)) if lb[d] is None]
+    want = torch.einsum(f"{''.join(la)},{''.join(lb)}->"
+                        f"{''.join(bat + fa + fb)}",
+                        torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    split = lambda x: (torch.from_numpy(x.real.copy()),
+                       torch.from_numpy(x.imag.copy()))
+    got = _split_dot(split(a), split(b), dn)
+    assert got[0].dtype == torch.float64
+    np.testing.assert_allclose(_pt(got), want, rtol=1e-12, atol=1e-12)
