@@ -18,6 +18,7 @@ wrapper that first launches a kernel.  A failed build raises.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -155,10 +156,31 @@ def launch(name, fn, dev, *args):
     ``torch.cuda.device`` makes ``dev``'s context current (through
     PyTorch's runtime, and so for the CUDA driver both share), so an
     operand on ``cuda:1`` is launched on card 1 whichever card is current
-    around the call."""
+    around the call.
+
+    Returns the launches made, for the wrapper's count: 1, or 0 when the
+    stream is being captured into a CUDA graph (the kernel is recorded,
+    and runs at each replay, where no wrapper is called; a profiler's
+    kernel events count those, ``kernel_family``)."""
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        check(fn(*args, ctypes.c_void_p(stream)), name)
+        stream = torch.cuda.current_stream(dev)
+        check(fn(*args, ctypes.c_void_p(stream.cuda_stream)), name)
+        return 0 if torch.cuda.is_current_stream_capturing() else 1
+
+
+# the device kernels of the wrappers, as a profiler names them: (wrapper
+# kind, form); Pair's kernel also serves the complex matmul
+_KERNEL_NAME = re.compile(
+    r"\b(ggk|gk|rgrow|rgflat|lane|pair)(?:_(stream|mma))?_kernel\b")
+
+
+def kernel_family(name):
+    """``(kind, form)`` of a device kernel event's name from one of the
+    port's sources ("gk", "ggk", "rgrow", "rgflat", "lane", "pair"; the
+    form "stream" or "mma" for GK and GGK, else None), or None for any
+    other kernel."""
+    m = _KERNEL_NAME.search(name)
+    return None if m is None else (m.group(1), m.group(2))
 
 
 def check_operands(name, tensors, shapes):

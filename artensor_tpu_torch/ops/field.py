@@ -14,6 +14,11 @@ them.  A value may carry a leading slice-width axis (see
 ``runtime/executor.py``); methods that take a ``shape`` or ``axis`` are
 given the full shape including it.
 
+Index arrays that a step takes (``take``) are int64 tensors on the
+operand's device, made once per step and device before a run
+(``runtime/sparse.step_tables``): a run uploads nothing from the host, so
+a slice group can be captured as a CUDA graph.
+
 ``FusedField`` and ``ComplexField`` are not ported yet.
 """
 
@@ -109,6 +114,14 @@ class SplitField:
     def scale(self, x, s):
         return x[0] * s, x[1] * s
 
+    def max_abs(self, x):
+        """max(|re|, |im|) over every element, as a device scalar: within
+        sqrt(2) of the largest complex modulus, enough for the rescaled
+        run's renormalisation (``runtime/rescaled.py``)."""
+        inf = float("inf")      # a fused reduction: no |x| copy is made
+        return torch.maximum(torch.linalg.vector_norm(x[0], inf),
+                             torch.linalg.vector_norm(x[1], inf))
+
     def dot(self, a, b, dnums):
         """General dot_general (multi-dim batch/contract) on split pairs:
         the naive four real products (``_split_dot``)."""
@@ -161,6 +174,9 @@ class SplitField:
         return tuple(one(c) for c in x)
 
     def take(self, x, indices, axis=0):
+        """Select ``indices`` along ``axis``.  The executor passes int64
+        tensors on ``x``'s device; numpy indices are uploaded on every
+        call, which a captured run cannot do."""
         if not isinstance(indices, torch.Tensor):
             indices = torch.as_tensor(np.asarray(indices), dtype=torch.long)
         indices = indices.to(x[0].device)

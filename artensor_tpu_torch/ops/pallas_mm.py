@@ -11,7 +11,8 @@ raising when its tiles do not divide them.
 No path of the port calls it, as no path of the JAX package does.  The
 wrapper takes its plain PyTorch version (``complex_batched_matmul_plain``)
 only for CPU tensors; for CUDA tensors it launches the kernel or raises.
-``complex_batched_matmul.launches`` counts kernel launches.
+``complex_batched_matmul.launches`` counts kernel launches (none while a
+CUDA graph is captured: ``kernels.launch``).
 """
 
 import torch
@@ -42,9 +43,9 @@ def complex_batched_matmul(a, b):
         return complex_batched_matmul_plain(a, b)
     yr = torch.empty((B, M, N), dtype=torch.float32, device=dev)
     yi = torch.empty_like(yr)
-    kernels.launch("complex_mm", kernels.load().cmm_launch, dev,
-                   *map(kernels.ptr, (ar, ai, br, bi, yr, yi)), B, M, K, N)
-    complex_batched_matmul.launches += 1
+    n = kernels.launch("complex_mm", kernels.load().cmm_launch, dev,
+                       *map(kernels.ptr, (ar, ai, br, bi, yr, yi)), B, M, K, N)
+    complex_batched_matmul.launches += n
     return yr, yi
 
 

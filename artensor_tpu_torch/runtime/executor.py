@@ -5,16 +5,24 @@ Port of ``artensor_tpu/runtime/executor.py`` (``stage_tensors``,
 ``execute_dense`` / ``tensor_contraction``, ``slice_select``,
 ``build_slicing_axes`` and the sliced runner, which drives the dense and
 the sparse executors alike).  The JAX package traces the slice loop into
-one XLA program (``lax.scan`` over ``jax.vmap``-ed groups); here the
-runner loops in Python over groups of ``slice_batch`` slices and runs
-every step eagerly.
+one XLA program (``lax.scan`` over ``jax.vmap``-ed groups, ``jax.jit``).
+Here the runner walks groups of ``slice_batch`` slices; on a CUDA device
+it captures one group (slice selection, every step, the width reduction
+and the accumulation into a static accumulator) as a CUDA graph and
+replays it for every group, with the group's slice ids copied into a
+static id buffer before each replay (``GroupRunner``, which also drives
+the segmented and the rescaled runs): the card runs every step without
+the host in between, the counterpart of the one XLA program.  On the
+CPU, or when asked (``eager=True``), it runs every step eagerly from the
+Python loop: the plain version of the graph run, which the tests and the
+card's graph-against-eager check use.
 In place of ``vmap``, slice-dependent buffers carry an explicit leading
 width axis of ``slice_batch`` instances; slice-invariant buffers stay
 unbatched, and every step (dot fallback or kernel) reads them once for all
 instances.  Slice bits are taken MSB-first, as in the reference.
-
-CUDA-graph capture of a group's step sequence is not done yet.
 """
+
+import time
 
 import numpy as np
 import torch
@@ -199,58 +207,334 @@ def slice_select(tensors, slicing_axes, slice_ids, num_sliced, field):
     return bufs, batched
 
 
+def reduce_group(field, part, is_batched, width, phys_out):
+    """A slice group's result summed over its ``width`` instances, flat
+    physical: a result without the width axis is the same for every
+    instance (scaled by the width)."""
+    if not is_batched:
+        return field.scale(field.reshape(part, phys_out), width)
+    if width > 1:
+        return field.sum0(field.reshape(part, (width,) + phys_out))
+    return field.reshape(part, phys_out)   # drop the width axis, no copy
+
+
+_STREAM = {}
+
+
+def capture_stream(device):
+    """The side stream every capture (and the warm-up before it) runs on,
+    one per device: captures that share a memory pool must share their
+    stream, and the warm-up makes the stream's cuBLAS workspace before the
+    capture needs it."""
+    key = str(device)
+    if key not in _STREAM:
+        _STREAM[key] = torch.cuda.Stream(device)
+    return _STREAM[key]
+
+
+def on_capture_stream(fn, device):
+    """Run ``fn()`` eagerly on the capture stream, ordered after the work
+    already queued on the current stream and before the work queued after
+    it; returns its result."""
+    stream = capture_stream(device)
+    cur = torch.cuda.current_stream(device)
+    stream.wait_stream(cur)
+    with torch.cuda.stream(stream):
+        out = fn()
+    cur.wait_stream(stream)
+    return out
+
+
+def out_of_memory(e):
+    """True if a ``torch.cuda.OutOfMemoryError`` is on the exception's
+    chain (``__cause__``, else ``__context__``): the end of a failed
+    capture may raise its own error on top of it."""
+    seen = set()
+    while e is not None and id(e) not in seen:
+        seen.add(id(e))
+        if isinstance(e, torch.cuda.OutOfMemoryError):
+            return True
+        e = e.__cause__ or e.__context__
+    return False
+
+
+class CaptureOutOfMemory(Exception):
+    """The card ran out of memory in a slice group's warm-up or while its
+    graph ``segment`` was captured: nothing has been accumulated, so a
+    caller may retry at a smaller width."""
+
+    def __init__(self, segment, cause):
+        self.segment = segment
+        self.cause = cause
+        super().__init__(f"segment {segment} failed to capture: {cause}")
+
+
+class GroupGraphs:
+    """A slice group's work captured as CUDA graphs, in order, sharing one
+    memory pool (``torch.cuda.graph_pool_handle``): the graphs are replayed
+    in the order they were captured, so memory that one frees is reused
+    by the next, as donation does between JAX's programs."""
+
+    def __init__(self, device):
+        self.device = device
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs = []
+
+    def capture(self, fn):
+        """Capture ``fn()`` as the next graph."""
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, pool=self.pool,
+                              stream=capture_stream(self.device)):
+            fn()
+        self.graphs.append(g)
+
+    def replay(self):
+        for g in self.graphs:
+            g.replay()
+
+
+def _key(tensors, width):
+    """What a capture depends on: the staged buffers' addresses and the
+    width."""
+    return (width,) + tuple((t[0].data_ptr(), t[1].data_ptr())
+                            for t in tensors if t is not None)
+
+
+def _device(tensors):
+    return next(t[0].device for t in tensors if t is not None)
+
+
+def slice_ids_tensor(slice_ids, n_slices, device):
+    """The slice ids to sum as an int64 tensor on ``device``: all
+    ``n_slices`` by default; a ``range`` is made on the device (no
+    upload)."""
+    if slice_ids is None:
+        return torch.arange(n_slices, device=device)
+    if isinstance(slice_ids, range):
+        return torch.arange(slice_ids.start, slice_ids.stop,
+                            slice_ids.step, device=device)
+    return torch.as_tensor(np.asarray(slice_ids),
+                           dtype=torch.long).to(device)
+
+
+def add_into(acc, part):
+    """The summing runs' combine: ``part`` added into ``acc`` in place."""
+    for a, p in zip(acc, part):
+        a.add_(p)
+
+
+class GroupRunner:
+    """Runs a slice group's work for every group of a run and combines the
+    groups' parts into one accumulator, for the sliced, the segmented and
+    the rescaled runs alike.
+
+    ``segments``: callables ``seg(tensors, table)``, run in order on one
+    group; ``table`` starts as ``{"ids": ids}`` (the group's slice ids,
+    None with nothing sliced), carries buffers from a segment to the next,
+    and the last segment leaves the group's part, a tuple of tensors,
+    under ``"part"``.  ``combine(acc, part)`` folds a part into the
+    accumulator in place; ``acc_spec``: the accumulator's components as
+    ``(shape, empty value)``, of ``dtype``.
+
+    On a CUDA device (unless ``eager``) the first call runs one eager
+    warm-up group on the capture stream (it makes every device table the
+    steps use, loads the kernels and the stream's cuBLAS workspace, and
+    is discarded), then captures each segment as a CUDA graph, all in one
+    pool (``GroupGraphs``), the last one folding the part into a static
+    accumulator; every group of this and later calls copies its ids into
+    the static id buffer and replays the graphs, as long as the staged
+    buffers (by ``data_ptr``) are the same, else it captures anew.  With
+    nothing sliced the run is one group whose part is the result (no
+    accumulator).  Results are copies, never the graphs' static buffers.
+    An out-of-memory error in the warm-up or a capture raises
+    ``CaptureOutOfMemory``; any other failure propagates; nothing falls
+    back to the eager run.  Elsewhere every group runs eagerly: the plain
+    version of the graph run.  ``stats``: captures, replays, warm-up
+    groups, capture seconds (warm-up included), and ``run_s``, the last
+    call's group loop (on the card to a synchronize)."""
+
+    def __init__(self, segments, combine, acc_spec, dtype, width=1,
+                 eager=False):
+        self.segments, self.combine = segments, combine
+        self.acc_spec, self.dtype = acc_spec, dtype
+        self.width, self.eager = width, eager
+        self.stats = dict(captures=0, replays=0, warmup_groups=0,
+                          capture_s=0.0, run_s=0.0)
+        self._cap = {}
+
+    def _group(self, tensors, ids):
+        table = {"ids": ids}
+        for seg in self.segments:
+            seg(tensors, table)
+        return table["part"]
+
+    def __call__(self, tensors, ids=None, init=None, progress=None):
+        """``init`` (default the empty accumulator) combined with every
+        group's part over the slice ids ``ids`` (an int64 tensor on the
+        tensors' device, a multiple of the width; None: nothing sliced,
+        one group).  ``progress(done, total)`` after each group."""
+        device = _device(tensors)
+        W = self.width
+        n = 1 if ids is None else len(ids)
+        if n % W:
+            raise ValueError(f"slice_batch {W} must divide the {n} slices "
+                             "summed")
+        if device.type == "cuda" and not self.eager:
+            if self._cap.get("key") != _key(tensors, W):
+                self._capture(tensors, ids, device)
+            return self._replay(ids, init, device, progress)
+        t0 = time.perf_counter()
+        acc = None if init is None else tuple(c.clone() for c in init)
+        for g0 in range(0, n, W):
+            part = self._group(tensors, None if ids is None
+                               else ids[g0:g0 + W])
+            if acc is None:
+                acc = part
+            else:
+                self.combine(acc, part)
+            if progress is not None:
+                progress(min(g0 + W, n), n)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        self.stats["run_s"] = time.perf_counter() - t0
+        return acc
+
+    def _capture(self, tensors, ids, device):
+        cap = self._cap
+        torch.cuda.synchronize(device)
+        cap.clear()             # the old graphs and their pool go first
+        t0 = time.perf_counter()
+        sel = None if ids is None else ids[:self.width].clone()
+        try:
+            on_capture_stream(lambda: self._group(tensors, sel), device)
+        except Exception as e:
+            if out_of_memory(e):
+                raise CaptureOutOfMemory(0, e) from e
+            raise
+        torch.cuda.synchronize(device)
+        self.stats["warmup_groups"] += 1
+        acc = None if ids is None else tuple(
+            torch.full(shape, v, dtype=self.dtype, device=device)
+            for shape, v in self.acc_spec)
+        graphs = GroupGraphs(device)
+        table = {}
+        last = len(self.segments) - 1
+        for si, seg in enumerate(self.segments):
+            def body(si=si, seg=seg):
+                if si == 0:
+                    table["ids"] = sel
+                seg(tensors, table)
+                if si == last:
+                    part = table.pop("part")
+                    table.clear()   # no buffer of the group outlives it
+                    if acc is None:
+                        table["out"] = part
+                    else:
+                        self.combine(acc, part)
+
+            try:
+                graphs.capture(body)
+            except Exception as e:
+                if out_of_memory(e):
+                    raise CaptureOutOfMemory(si, e) from e
+                raise
+        self.stats["captures"] += 1
+        self.stats["capture_s"] += time.perf_counter() - t0
+        cap.update(graphs=graphs, ids=sel, acc=acc, out=table.get("out"),
+                   key=_key(tensors, self.width))
+
+    def _replay(self, ids, init, device, progress):
+        cap, W = self._cap, self.width
+        t0 = time.perf_counter()
+        if ids is None:
+            cap["graphs"].replay()
+            self.stats["replays"] += 1
+            acc = tuple(c.clone() for c in cap["out"])
+            if init is not None:
+                self.combine(acc, init)
+            n = 1
+        else:
+            acc, n = cap["acc"], len(ids)
+            if init is None:
+                for c, (_, v) in zip(acc, self.acc_spec):
+                    c.fill_(v)
+            else:
+                for c, v in zip(acc, init):
+                    c.copy_(v)
+            for g0 in range(0, n, W):
+                cap["ids"].copy_(ids[g0:g0 + W])
+                cap["graphs"].replay()
+                self.stats["replays"] += 1
+                if progress is not None:
+                    progress(min(g0 + W, n), n)
+            acc = tuple(c.clone() for c in acc)
+        torch.cuda.synchronize(device)
+        self.stats["run_s"] = time.perf_counter() - t0
+        if ids is None and progress is not None:
+            progress(1, 1)
+        return acc
+
+
+def sum_spec(phys_out):
+    """A summed split-complex accumulator's ``acc_spec``."""
+    return [(phys_out, 0.0), (phys_out, 0.0)]
+
+
 def make_sliced_runner(execute, steps, slicing_axes, num_sliced,
-                       output_shape, field, slice_batch=1):
-    """fn(tensors, slice_ids=None) -> sum over the slices ``slice_ids``
-    (default all 2^k) of ``execute(sliced, steps)``.
+                       output_shape, field, slice_batch=1, eager=False):
+    """fn(tensors, slice_ids=None, init=None) -> ``init`` (default zero)
+    plus the sum over the slices ``slice_ids`` (default all 2^k) of
+    ``execute(sliced, steps)``.
 
     Drives the dense (``execute_dense``) and the sparse
     (``sparse.execute_sparse``) executors.  ``output_shape`` is LOGICAL;
     the result uses the flat physical form.  ``slice_batch`` slices run
     per group as one width-``slice_batch`` pass; it must divide the
     number of slices summed.  Peak memory grows with it.  ``slice_ids``
-    (a range or sequence of ints) sums a subset: the dense output-block
-    walk passes the ids of one block.
+    (a range or a sequence of ints) sums a subset: the
+    dense output-block walk passes the ids of one block, the
+    checkpointed run a chunk.  ``init``: the accumulator to add to (flat
+    physical form), as JAX's runner takes it.
+
+    On a CUDA device a group (slice selection, every step, the width sum,
+    the accumulation) is one CUDA graph, replayed for every group
+    (``GroupRunner``); with nothing sliced the whole execution is one
+    graph.  ``eager`` (or a CPU device): every step runs from the host.
+    ``fn.stats``: the ``GroupRunner``'s.
     """
     phys_out = physical_shape(output_shape)
     n_slices = 2 ** num_sliced
     if slice_batch < 1 or n_slices % slice_batch:
         raise ValueError(f"slice_batch {slice_batch} must divide the "
                          f"{n_slices} slices")
+    W = slice_batch
 
-    def run(tensors, slice_ids=None):
-        if num_sliced == 0:
+    def group(tensors, table):
+        """One group's part, reduced over its width, flat physical."""
+        if not num_sliced:
             out, _ = execute(tensors, steps, field)
-            return field.reshape(out, phys_out)
-        device = next(t[0].device for t in tensors if t is not None)
-        ids_all = torch.arange(n_slices, device=device) \
-            if slice_ids is None else torch.as_tensor(
-                np.asarray(slice_ids), dtype=torch.long).to(device)
-        if len(ids_all) % slice_batch:
-            raise ValueError(f"slice_batch {slice_batch} must divide the "
-                             f"{len(ids_all)} slices summed")
-        acc = None
-        for g0 in range(0, len(ids_all), slice_batch):
-            ids = ids_all[g0:g0 + slice_batch]
-            sliced, batched = slice_select(tensors, slicing_axes, ids,
-                                           num_sliced, field)
-            part, is_batched = execute(sliced, steps, field, batched)
-            if not is_batched:
-                part = field.scale(field.reshape(part, phys_out),
-                                   slice_batch)
-            elif slice_batch > 1:
-                part = field.sum0(field.reshape(part, (slice_batch,)
-                                                + phys_out))
-            else:               # one instance: drop the width axis, no copy
-                part = field.reshape(part, phys_out)
-            acc = part if acc is None else field.add(acc, part)
-        return acc
+            table["part"] = field.reshape(out, phys_out)
+            return
+        sliced, batched = slice_select(tensors, slicing_axes, table["ids"],
+                                       num_sliced, field)
+        part, is_batched = execute(sliced, steps, field, batched)
+        table["part"] = reduce_group(field, part, is_batched, W, phys_out)
 
+    runner = GroupRunner([group], add_into, sum_spec(phys_out),
+                         field.rdtype, W, eager)
+
+    def run(tensors, slice_ids=None, init=None):
+        ids = slice_ids_tensor(slice_ids, n_slices, _device(tensors)) \
+            if num_sliced else None
+        return runner(tensors, ids, init)
+
+    run.stats = runner.stats
     return run
 
 
 def make_sliced_contraction(steps, slicing_axes, num_sliced, output_shape,
-                            field, slice_batch=1):
+                            field, slice_batch=1, eager=False):
     """The dense path's sliced runner (see ``make_sliced_runner``)."""
     return make_sliced_runner(execute_dense, steps, slicing_axes,
-                              num_sliced, output_shape, field, slice_batch)
+                              num_sliced, output_shape, field, slice_batch,
+                              eager)

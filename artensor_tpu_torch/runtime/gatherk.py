@@ -49,7 +49,7 @@ Every kernel wrapper (``gk_call``, ``ggk_call``, ``rgrow_call``,
 ``rgflat_call``) takes its plain PyTorch version only for CPU tensors; for
 CUDA tensors it launches the kernel (on the operands' card, through
 ``kernels.launch``) or raises.  ``launches`` on each wrapper counts kernel
-launches.  The GK kernel runs GK and GGK steps in two forms, "stream"
+launches (none while a CUDA graph is captured: ``kernels.launch``).  The GK kernel runs GK and GGK steps in two forms, "stream"
 (bound by bytes, float32 FMAs) and "mma" (3xTF32 on the tensor cores);
 ``gk_form`` picks one from the step's bytes and flops.
 """
@@ -848,7 +848,7 @@ def gk_call(plan, xr, xi, wr, wi, x_batched, w_batched):
     form = gk_form(plan, W, x_batched, w_batched)
     vec = gk_aligned(plan) and all(c.data_ptr() % 16 == 0
                                    for c in (xr, xi, yr, yi))
-    kernels.launch(
+    n = kernels.launch(
         "gk", kernels.load().gk_launch, dev,
         *map(kernels.ptr, (xr, xi, wr, wi, yr, yi,
                            t["xoff"], t["yoff"], t["koff"])),
@@ -856,8 +856,8 @@ def gk_call(plan, xr, xi, wr, wi, x_batched, w_batched):
         plan.x_elems if x_batched else 0,
         plan.H * plan.K if w_batched else 0,
         plan.y_elems if lead else 0, W, GK_FORMS.index(form), int(vec))
-    gk_call.launches += 1
-    gk_call.forms[form] += 1
+    gk_call.launches += n
+    gk_call.forms[form] += n
     return yr, yi
 
 
@@ -891,15 +891,15 @@ def ggk_call(plan, xr, xi, wr, wi, x_batched, w_batched):
     form = gk_form(plan, W, x_batched, w_batched)
     vec = gk_aligned(plan) and all(c.data_ptr() % 16 == 0
                                    for c in (xr, xi, yr, yi))
-    kernels.launch(
+    n = kernels.launch(
         "ggk", kernels.load().ggk_launch, dev,
         *map(kernels.ptr, (xr, xi, wr, wi, yr, yi,
                            t["xoff"], t["yoff"], t["woff"], koff)),
         len(plan.xoff), row.H, row.K, row.F, row.hstride,
         x_n if x_batched else 0, w_n if w_batched else 0,
         y_n if lead else 0, W, GK_FORMS.index(form), int(vec))
-    ggk_call.launches += 1
-    ggk_call.forms[form] += 1
+    ggk_call.launches += n
+    ggk_call.forms[form] += n
     return yr, yi
 
 
@@ -979,7 +979,7 @@ def rgrow_call(plan, xr, xi, wr, wi, x_batched, w_batched):
             and (row.wk_idx[:, 0] == np.arange(H)).all()
             and not (row.wk_idx[0, :] % vw).any()
             and not any(c.data_ptr() % (4 * vw) for c in (wr, wi)))
-    kernels.launch(
+    n = kernels.launch(
         "rgrow", kernels.load().rgrow_launch, dev,
         *map(kernels.ptr, (xr, xi, wr, wi, yr, yi, t["gi"], t["gj"],
                            r["fgoff"], r["fcan"], r["koff"], r["whoff"],
@@ -987,7 +987,7 @@ def rgrow_call(plan, xr, xi, wr, wi, x_batched, w_batched):
         plan.B, F, K, H, V, int(row.hy_first), int(wvec), F * K, H * K,
         x_n if x_batched else 0, w_n if w_batched else 0,
         y_n if lead else 0, W)
-    rgrow_call.launches += 1
+    rgrow_call.launches += n
     return yr, yi
 
 
@@ -1116,13 +1116,13 @@ def rgflat_call(plan, xr, xi, wr, wi, x_batched, w_batched):
     yi = torch.empty_like(yr)
     g = rgf_geometry(plan, all(c.data_ptr() % 16 == 0 for c in (xr, xi)))
     tab = _rgf_table_dev(row, dev, g["V"])
-    kernels.launch(
+    n = kernels.launch(
         "rgflat", kernels.load().rgflat_launch, dev,
         *map(kernels.ptr, (xr, xi, wr, wi, yr, yi, t["gi"], t["gj"], tab)),
         plan.B, F, K, H, g["V"], g["T"], g["NS"], g["KS"], int(g["cp16"]),
         g["wn"], x_n if x_batched else 0, w_n if w_batched else 0,
         y_n if lead else 0, W)
-    rgflat_call.launches += 1
+    rgflat_call.launches += n
     return yr, yi
 
 

@@ -59,7 +59,8 @@ step-form checks runs the kernel).
 
 Every kernel wrapper (``lane_call``, ``pair_call``) takes its plain
 PyTorch version only for CPU tensors; for CUDA tensors it launches the
-kernel or raises.  ``launches`` on each wrapper counts kernel launches.
+kernel or raises.  ``launches`` on each wrapper counts kernel launches
+(none while a CUDA graph is captured: ``kernels.launch``).
 """
 
 from dataclasses import dataclass, field as dc_field, replace
@@ -732,14 +733,14 @@ def lane_call(plan, xr, xi, wr, wi, x_batched, w_batched):
     lead = (W,) if (x_batched or w_batched) else ()
     yr = torch.empty(lead + (plan.y_elems,), dtype=torch.float32, device=dev)
     yi = torch.empty_like(yr)
-    kernels.launch(
+    n = kernels.launch(
         "lane", kernels.load().lane_launch, dev,
         *map(kernels.ptr, (xr, xi, wr, wi, yr, yi, t["xd"], t["wi"],
                            t["doff"], t["xoff"], t["yoff"])),
         len(plan.xoff), len(plan.doff), plan.H, plan.T, plan.F, plan.x_fs,
         plan.y_fs, plan.y_hs, plan.x_elems if x_batched else 0,
         plan.w_elems if w_batched else 0, plan.y_elems if lead else 0, W)
-    lane_call.launches += 1
+    lane_call.launches += n
     return yr, yi
 
 
@@ -773,6 +774,9 @@ class PairPlan:
     flops: int
     re_i: object = None  # input Reorder to (contract, rows) form (or None)
     re_j: object = None
+    # ``v_perm`` on each device it ran on (``apply_pair_step``)
+    _dev: dict = dc_field(default_factory=dict, init=False, repr=False,
+                          compare=False)
 
 
 def plan_pair_step(ix_i, ix_j, iy, dims_i, dims_j):
@@ -871,12 +875,12 @@ def pair_call(plan, xr, xi, vr, vi, x_batched, v_batched):
     lead = (W,) if (x_batched or v_batched) else ()
     yr = torch.empty(lead + (M * N,), dtype=torch.float32, device=dev)
     yi = torch.empty_like(yr)
-    kernels.launch(
+    n = kernels.launch(
         "pair", kernels.load().pair_launch, dev,
         *map(kernels.ptr, (xr, xi, vr, vi, yr, yi)), K, M, N,
         K * M if x_batched else 0, K * N if v_batched else 0,
         M * N if lead else 0, W)
-    pair_call.launches += 1
+    pair_call.launches += n
     return yr, yi
 
 
@@ -895,7 +899,11 @@ def apply_pair_step(field, x, y, plan, bx=False, by=False):
         y = apply_reorder(field, y, plan.re_j, ylead)
     vs = field.reshape(y, ylead + (plan.K, plan.N))
     if plan.v_perm is not None:
-        vs = field.take(vs, plan.v_perm, axis=len(ylead))
+        dev = vs[0].device
+        if str(dev) not in plan._dev:
+            plan._dev[str(dev)] = torch.as_tensor(
+                np.ascontiguousarray(plan.v_perm), dtype=torch.long).to(dev)
+        vs = field.take(vs, plan._dev[str(dev)], axis=len(ylead))
     xr, xi = (c.reshape(xlead + (-1,)).contiguous() for c in x)
     vr, vi = (c.reshape(ylead + (-1,)).contiguous() for c in vs)
     yr, yi = pair_call(plan, xr, xi, vr, vi, bx, by)

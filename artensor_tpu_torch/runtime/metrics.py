@@ -21,13 +21,17 @@ the lane planner to rank its candidates) is never read here.
 
 The factors come from ``data/calibration_h100.json``, fitted on the card
 by ``scripts/fit_calibration_torch_port.py``; without the file they are
-the identity.  Not ported yet: ``segmented_wall_estimate``,
-``ContractionReport`` and ``Timer`` (they wait for the segmented executor
-and the report plumbing).
+the identity.  ``segmented_wall_estimate`` charges the segmented executor
+(``segmented.py``) the same per-slice device cost plus a measured replay
+cost per CUDA graph (``SEGMENT_REPLAY_S``); ``ContractionReport`` and
+``Timer`` carry ``TensorNetworkSimulation.contraction``'s report.
 """
 
 import json
+import math
 import os
+import time
+from dataclasses import dataclass, field
 from functools import reduce
 from operator import mul
 
@@ -515,3 +519,76 @@ def dividing_slice_width(steps, k_sliced, slicing_axes=None, cap=128,
     while (2 ** k_sliced) % width:
         width //= 2
     return width
+
+
+# What one segment's graph replay adds to a slice group: a one-kernel
+# graph replayed back to back takes 10.3-13.8 us a replay (three
+# measurements, ``chip_smoke.py`` "segmented" phase, "NVIDIA H100 80GB
+# HBM3, 700.00 W"); the segmented run's replay wall at 16 steps a segment
+# less one segment's, over the extra replays, is below that phase's
+# resolution (30 us over 32 extra replays of the 1k default scheme at
+# width 8).  It takes the place of the JAX package's per-segment dispatch
+# of a TPU program.
+SEGMENT_REPLAY_S = 12.6e-6
+
+
+def segmented_wall_estimate(steps, n_slices, width, segment_steps=64,
+                            replay_s=None):
+    """Wall estimate of the SEGMENTED run on the card: the calibrated
+    per-slice device cost (``scheme_wall_components``, the model of
+    ``scheme_wall_estimate`` without its host term, which the graphs
+    remove) plus one replay cost (``SEGMENT_REPLAY_S``) per segment per
+    slice group.  ``steps``: the steps the executor walks (after the
+    static folds).  Returns ``(total_seconds, per_slice_device_s,
+    n_segments)``."""
+    cal = load_calibration()
+    kern_s, dot_s, bytes_ps, n_steps = scheme_wall_components(steps)
+    per_slice = (cal["kern_factor"] * kern_s + cal["dot_factor"] * dot_s
+                 + cal["byte_factor"] * bytes_ps
+                 / kernels.H100_HBM_BYTES_PER_S)
+    n_seg = math.ceil(n_steps / segment_steps)
+    d = SEGMENT_REPLAY_S if replay_s is None else replay_s
+    width = max(1, width)
+    n_batches = math.ceil(n_slices / width)
+    total = n_batches * (width * per_slice + n_seg * d)
+    return total, per_slice, n_seg
+
+
+@dataclass
+class ContractionReport:
+    """Filled by ``TensorNetworkSimulation.contraction(report=...)``."""
+
+    predicted_flops: float = 0.0       # per full contraction (all slices)
+    wall_s: float = 0.0
+    compile_s: float = 0.0             # warm-up and CUDA-graph capture
+    num_slices: int = 1
+    num_steps: int = 0
+    reorders: dict = field(default_factory=dict)
+    tc: float = 0.0                    # planner log10 per-slice mul-adds
+    sc: float = 0.0
+    executor: str = ""                 # "graph", "eager", "segmented",
+                                       # "rescaled" or "checkpointed"
+    slice_batch: int = 1               # the width the run used
+
+    @property
+    def tflops(self):
+        return self.predicted_flops / self.wall_s / 1e12 \
+            if self.wall_s else 0.0
+
+    def summary(self):
+        return (f"{self.num_steps} steps x {self.num_slices} slices, "
+                f"predicted {self.predicted_flops:.3e} flops, wall "
+                f"{self.wall_s:.3f}s ({self.tflops:.2f} TFLOP/s), "
+                f"capture {self.compile_s:.2f}s, {self.executor} at width "
+                f"{self.slice_batch}, reorders {self.reorders}")
+
+
+class Timer:
+    """Wall seconds of a ``with`` block (``elapsed``)."""
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.elapsed = time.perf_counter() - self.t0

@@ -39,12 +39,16 @@ order and overrides, the steps are the JAX compiler's.
 """
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field as dc_field
 from math import ceil, log2
 
 import numpy as np
+import torch
 
 from . import gatherk, lanes
+# imported with this module, not at the first compile: fuse binds
+# gatherk's size gate when it is imported
+from .fuse import reassociate_small_chains
 from .gatherk import (GGKPlan, GKPlan, apply_ggk_step, apply_gk_step,
                       plan_ggk_step, plan_gk_step, plan_gk_step_pre)
 from .lanes import (LanePlan, PairPlan, apply_lane_step, apply_pair_step,
@@ -72,6 +76,9 @@ class SparseStep:
     lane: object = None      # GKPlan / GGKPlan / LanePlan / PairPlan when a
                              # kernel runs
     note: str = None         # diagnostics: why no kernel plan was attached
+    # device copies of the index arrays (``step_tables``), per device
+    _dev: dict = dc_field(default_factory=dict, init=False, repr=False,
+                          compare=False)
 
 
 def _prod_dims(dim_of, bonds):
@@ -227,7 +234,6 @@ def contraction_scheme_sparse(ctree, bitstrings, sc_target=31,
     base_order = ctree.to_order_dfs()
     if fuse and lane_schedule and len(base_order) <= (
             lane_max_steps or LANE_SCHEDULE_MAX_STEPS):
-        from .fuse import reassociate_small_chains
         from .metrics import scheme_wall_estimate
 
         tn = ctree.tn
@@ -722,6 +728,22 @@ def kernel_kind(step):
     return None
 
 
+def step_tables(s, device):
+    """The step's index arrays as int64 tensors on ``device``: the aligned
+    chunks' ``(gi, gj)`` and the cross merge's ``post_select``, uploaded
+    on the step's first run on that device and kept with the step."""
+    key = str(device)
+    if key not in s._dev:
+        to = lambda a: torch.as_tensor(np.ascontiguousarray(a),
+                                       dtype=torch.long).to(device)
+        s._dev[key] = dict(
+            gathers=None if s.gathers is None
+            else tuple((to(gi), to(gj)) for gi, gj in s.gathers),
+            post_select=None if s.post_select is None
+            else to(s.post_select))
+    return s._dev[key]
+
+
 def apply_sparse_step(field, x, y, s, bx=False, by=False):
     """One sparse step on flat-stored field tensors.  ``bx`` / ``by``: the
     operand carries a leading slice-width axis (so does the result, if
@@ -731,10 +753,11 @@ def apply_sparse_step(field, x, y, s, bx=False, by=False):
     if s.gathers is not None:
         if kernels_ok:
             return apply_ggk_step(field, x, y, s.lane, bx, by)
+        gathers = step_tables(s, x[0].device)["gathers"]
         parts = [
             apply_lowered(field, field.take(x, gi, axis=int(bx)),
                           field.take(y, gj, axis=int(by)), low, bx, by)
-            for (gi, gj), low in zip(s.gathers, s.lowered_chunks)
+            for (gi, gj), low in zip(gathers, s.lowered_chunks)
         ]
         return parts[0] if len(parts) == 1 \
             else field.concat(parts, axis=int(lead))
@@ -750,7 +773,8 @@ def apply_sparse_step(field, x, y, s, bx=False, by=False):
         w = (out[0].shape[0],) if lead else ()
         out = field.reshape(out, w + s.reshape)
     if s.post_select is not None:
-        out = field.take(out, s.post_select, axis=int(lead))
+        out = field.take(out, step_tables(s, out[0].device)["post_select"],
+                         axis=int(lead))
     return out
 
 

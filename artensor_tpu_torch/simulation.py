@@ -13,12 +13,21 @@ artensor_tpu simulate --plan`` does, and compiles the JAX package's
 default scheme (gate-block fusion and producer-order negotiation on).
 ``prepare`` and ``contraction`` take the slice width the caller passes;
 ``runtime/metrics.dividing_slice_width`` gives the one the H100 model
-picks.  Not ported yet: ``prepare_output_sharded`` (it plans, and waits
-for the planner) and ``contraction_output_sharded`` (it waits for
-multi-device).
+picks.  ``contraction`` has the JAX package's single-card modes, routed
+in its order: scientific notation (``runtime/rescaled.py``),
+checkpoint/resume (``runtime/checkpoint.py``), the segmented executor
+for schemes above ``SEGMENT_AUTO_THRESHOLD`` device steps
+(``runtime/segmented.py``), else the whole-group run; with a ``report``
+and a ``profile_dir`` (``torch.profiler``).  On the card every mode runs
+as CUDA-graph replay (``runtime/executor.py``).  Not ported yet:
+``prepare_output_sharded`` (it plans, and waits for the planner),
+``contraction_output_sharded`` and the ``mesh`` of ``contraction`` (they
+wait for multi-device), and ``make_field``'s other modes.
 """
 
 import json
+import logging
+import os
 
 import numpy as np
 import torch
@@ -26,6 +35,10 @@ import torch
 from .circuits import TensorNetworkCircuit
 from .network import NumericalTensorNetwork
 from .plan_io import plan_from_dict
+
+# schemes above this many device steps run segmented (one CUDA graph per
+# ``segment_steps`` steps, runtime/segmented.py), as in the JAX package
+SEGMENT_AUTO_THRESHOLD = 256
 
 
 def check_bitstrings(bitstrings):
@@ -124,8 +137,13 @@ class TensorNetworkSimulation:
             return
         from .runtime.sparse import contraction_scheme_sparse
 
+        # schemes that will run segmented take kernels on up to 10000
+        # steps, as in the JAX package
+        n_order = len(self.ctree.to_order_dfs())
+        lane_max = 10_000 if n_order > SEGMENT_AUTO_THRESHOLD else None
         self._set_scheme(*contraction_scheme_sparse(
-            self.ctree, self.bitstrings, sc_target=self.sc_target))
+            self.ctree, self.bitstrings, sc_target=self.sc_target,
+            lane_max_steps=lane_max))
 
     def _set_scheme(self, steps, output_bonds, bitstrings_sorted=None):
         """Take a compiled scheme (``contraction_scheme_sparse``'s result,
@@ -145,49 +163,199 @@ class TensorNetworkSimulation:
             perm = (0,) + tuple(p + 1 for p in perm)
         self.permute_dims = perm
 
-    def prepare(self, slice_batch=1, device="cuda"):
-        """Fold the static steps, stage the tensors on ``device`` as
-        complex64 split pairs and build the sliced runner.  Returns a
-        callable that runs the whole sliced contraction and returns the flat
-        split-complex result on the device, its axes in
-        ``self.output_bonds`` order (after the amplitude axis in sparse
-        mode); repeatable: the staged tensors are reused."""
+    def _staged(self, device, dtype=np.complex64):
+        """``(field, run_steps, arrays, out_shape, execute, apply_step)``:
+        the static steps folded, the tensors staged on ``device``."""
         from .ops.field import SplitField
         from .runtime import executor as ex
-        from .runtime.sparse import execute_sparse
+        from .runtime.sparse import apply_sparse_step, execute_sparse
 
-        device = require_device(device)
-        field = SplitField()
+        field = SplitField(dtype)
         run_steps, host_arrays = ex.precompute_static_steps(
             self.steps, [self.tensors[i] for i in range(len(self.tensors))],
             self.slicing_axes)
         arrays = ex.stage_tensors(field, host_arrays, device)
         if self.pattern == "normal":
             out_shape = (2,) * len(self.output_bonds)
-            execute = ex.execute_dense
+            execute, apply_step = ex.execute_dense, ex.apply_dense_step
         else:
             out_shape = (len(self.bitstrings_sorted),) + \
                 (2,) * len(self.output_bonds)
-            execute = execute_sparse
+            execute, apply_step = execute_sparse, apply_sparse_step
+        self.field = field
+        self.out_shape = out_shape
+        return field, run_steps, arrays, out_shape, execute, apply_step
+
+    def prepare(self, slice_batch=1, device="cuda", eager=False):
+        """Fold the static steps, stage the tensors on ``device`` as
+        complex64 split pairs and build the sliced runner.  Returns a
+        callable that runs the whole sliced contraction and returns the flat
+        split-complex result on the device, its axes in
+        ``self.output_bonds`` order (after the amplitude axis in sparse
+        mode); repeatable: the staged tensors are reused.  On the card its
+        first call captures a slice group as a CUDA graph (the whole run,
+        with nothing sliced) and every call replays it; ``eager``: every
+        step runs from the host, as on the CPU.  ``callable.stats``: the
+        runner's captures, replays and capture seconds."""
+        from .runtime import executor as ex
+
+        device = require_device(device)
+        field, run_steps, arrays, out_shape, execute, _ = \
+            self._staged(device)
         run = ex.make_sliced_runner(
             execute, run_steps, self.slicing_axes,
             len(self.slicing_bonds), out_shape, field,
-            slice_batch=slice_batch)
-        self.field = field
-        self.out_shape = out_shape
-        return lambda: run(arrays)
+            slice_batch=slice_batch, eager=eager)
+        call = lambda: run(arrays)
+        call.stats = run.stats
+        return call
 
-    def contraction(self, slice_batch=1, device="cuda"):
+    def contraction(self, dtype=np.complex64, scientific_notation=False,
+                    checkpoint_path=None, report=None, slice_batch=1,
+                    profile_dir=None, device="cuda"):
         """Execute the compiled plan; returns a numpy array: in dense mode
         the ``(2,)*n`` state in qubit order, in sparse mode the amplitudes
         ``(len(bitstrings_sorted),)`` in the order of
-        ``self.bitstrings_sorted``."""
-        run = self.prepare(slice_batch, device)
-        result = self.field.unwrap(run()).reshape(self.out_shape)
-        return result.transpose(self.permute_dims)
+        ``self.bitstrings_sorted``.
+
+        ``dtype``: complex64 (the kernels' type) or complex128 (the dot
+        fallback alone).  ``scientific_notation``: renormalise every
+        intermediate; returns ``(amplitudes, log10_factor)``, true values
+        = amplitudes * 10**factor (slices one at a time).
+        ``checkpoint_path``: save the partial slice sum after every chunk
+        of slices (an eighth, at least ``slice_batch``) and resume from
+        the file; it is removed on success.  Above
+        ``SEGMENT_AUTO_THRESHOLD`` device steps the run is segmented.
+        Otherwise the whole-group run, whose width halves on a
+        ``torch.cuda.OutOfMemoryError`` (logged).  ``report``: a
+        ``runtime.metrics.ContractionReport`` to fill in.
+        ``profile_dir``: a ``torch.profiler`` trace of the execution,
+        written there as ``trace.json``.  ``self.run_stats`` holds the
+        executor, the width it used, and its captures, replays and
+        capture seconds.
+        """
+        import torch
+
+        from .runtime import executor as ex
+        from .runtime import metrics as mt
+
+        device = require_device(device)
+        field, run_steps, arrays, out_shape, execute, apply_step = \
+            self._staged(device, dtype)
+        k = len(self.slicing_bonds)
+        graphs = device.type == "cuda"
+        factor = None
+        prof = None
+        if profile_dir is not None:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU] + \
+                ([ProfilerActivity.CUDA] if graphs else [])
+            prof = profile(activities=acts)
+            prof.__enter__()
+        try:
+            with mt.Timer() as wall:
+                if scientific_notation:
+                    from .runtime.rescaled import make_rescaled_runner
+
+                    run = make_rescaled_runner(
+                        apply_step, run_steps, self.slicing_axes, k,
+                        out_shape, field)
+                    result, factor = run(arrays)
+                    stats = dict(run.stats, executor="rescaled",
+                                 slice_batch=1)
+                elif checkpoint_path is not None:
+                    from .runtime.checkpoint import run_sliced_checkpointed
+
+                    run = ex.make_sliced_runner(
+                        execute, run_steps, self.slicing_axes, k, out_shape,
+                        field, slice_batch=slice_batch)
+                    result = run_sliced_checkpointed(
+                        run, arrays, k, out_shape, field, checkpoint_path,
+                        chunk=max(slice_batch, 2 ** k // 8))
+                    stats = dict(run.stats, executor="checkpointed",
+                                 slice_batch=slice_batch)
+                elif len(run_steps) > SEGMENT_AUTO_THRESHOLD:
+                    from .runtime import segmented
+
+                    result = segmented.run_segmented(
+                        arrays, run_steps, self.slicing_axes, k, out_shape,
+                        field, apply_step, slice_batch=slice_batch)
+                    last = segmented.LAST_RUN
+                    stats = dict(executor="segmented",
+                                 slice_batch=last["width"],
+                                 segments=last["segments"],
+                                 capture_s=last["capture_s"],
+                                 replays=last["replays"])
+                else:
+                    result, stats = self._whole_group(
+                        execute, run_steps, arrays, out_shape, field,
+                        slice_batch)
+                if graphs:
+                    torch.cuda.synchronize(device)
+                result = field.unwrap(result).reshape(out_shape)
+        finally:
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                os.makedirs(profile_dir, exist_ok=True)
+                prof.export_chrome_trace(
+                    os.path.join(profile_dir, "trace.json"))
+        stats["graphs"] = graphs
+        self.run_stats = stats
+        if report is not None:
+            report.predicted_flops = (2 ** k) * mt.scheme_flops(run_steps)
+            report.wall_s = wall.elapsed
+            report.compile_s = stats.get("capture_s", 0.0)
+            report.num_slices = 2 ** k
+            report.num_steps = len(run_steps)
+            report.reorders = mt.reorder_census(run_steps)
+            report.tc, report.sc, _ = self.ctree.complexity()
+            report.executor = stats["executor"]
+            report.slice_batch = stats["slice_batch"]
+        if self.permute_dims:
+            result = result.transpose(self.permute_dims)
+        if scientific_notation:
+            return result, float(factor.cpu())
+        return result
+
+    def _whole_group(self, execute, run_steps, arrays, out_shape, field,
+                     slice_batch):
+        """The whole-group run (graph replay on the card), its width
+        halved on a ``torch.cuda.OutOfMemoryError`` anywhere on the error's
+        chain (``executor.out_of_memory``: a failed capture raises its own
+        error on top of it), as the JAX package halves it on a
+        compile-time memory failure.  Returns the result
+        and the runner's stats."""
+        import torch
+
+        from .runtime import executor as ex
+
+        while True:
+            run = ex.make_sliced_runner(
+                execute, run_steps, self.slicing_axes,
+                len(self.slicing_bonds), out_shape, field,
+                slice_batch=slice_batch)
+            try:
+                result = run(arrays)
+                break
+            except Exception as e:  # noqa: BLE001 — narrowed to OOM
+                if slice_batch <= 1 or not ex.out_of_memory(e):
+                    raise
+                msg = str(e).splitlines()[0][:120]
+            # outside the handler: the error's frames no longer hold the
+            # failed run's buffers
+            del run
+            slice_batch //= 2
+            logging.getLogger(__name__).warning(
+                "out of device memory (%s); retrying with slice_batch=%d",
+                msg, slice_batch)
+            torch.cuda.empty_cache()
+        graphs = ex._device(arrays).type == "cuda"
+        return result, dict(run.stats, slice_batch=slice_batch,
+                            executor="graph" if graphs else "eager")
 
     def contraction_output_blocks(self, d_out, postprocess=None,
-                                  device="cuda"):
+                                  device="cuda", eager=False):
         """Generator over the 2^d_out disjoint output blocks, one at a
         time on ONE card (dense mode): the walk of a state too large for
         the card, or of one the host should never hold whole.
@@ -202,7 +370,9 @@ class TensorNetworkSimulation:
         is yielded as ``block`` instead.  The ``2^k`` slices of a block
         run one at a time.  The steps that no sliced leg reaches run once,
         before the first block (``executor.fold_invariant_steps``); the
-        rest run per block.
+        rest run per block: on the card one graph, captured at the first
+        block and replayed for all of them (``eager``: from the host, as
+        on the CPU).  ``self.block_run_stats``: that runner's stats.
         """
         from .ops.field import SplitField
         from .runtime import executor as ex
@@ -221,7 +391,8 @@ class TensorNetworkSimulation:
                                                     field)
             local_shape = (2,) * len(output_bonds)
             run = ex.make_sliced_contraction(steps, axes, d_out + k,
-                                             local_shape, field)
+                                             local_shape, field, eager=eager)
+            self.block_run_stats = run.stats
             self.field = field
             self.block_output_bonds = list(output_bonds)
             qubits = [_bond_sort_key(b)[1] for b in chosen]

@@ -52,28 +52,55 @@ block walk's slice-invariant steps) is not made twice.  Phases, in order
    the complex batched matmul (``ops/pallas_mm.py``, on no path) at two
    shapes, each against its plain version, with the same numbers;
 5. each path end to end: ``TensorNetworkSimulation`` with all its slices
-   on the card; every amplitude against the fixture keyed by bitstring,
-   the kernel launch counts of that run, the warm wall time (median of 3
-   after one warm-up) and the peak device memory, held to the peak model
-   (at most ``runtime/metrics.scheme_device_peak_bytes`` plus the staged
-   operands and ``planner/cost.PEAK_RESERVE_BYTES``; the model at least
+   on the card, as ``contraction()`` runs it there (a slice group
+   captured as a CUDA graph after one eager warm-up group, replayed for
+   every group: ``runtime/executor.py``), at the width asked for (no
+   out-of-memory halving); every amplitude against the fixture keyed by
+   bitstring, the run's report (``report.summary()``) and the kernel
+   launches of that run, counted two ways and each held to the census:
+   by the wrappers (the launches they make: the warm-up group's; a
+   capture records the kernels, a replay calls no wrapper) and by
+   ``torch.profiler`` over the run (the kernels the card ran, named
+   as in ``csrc``: the warm-up group's and every replay's); then the same run
+   eagerly and as graph replay on the same staged inputs: the max |d|
+   between the two (held to the fixture's gate) and each one's error
+   against the fixture, both warm walls (median of 3), the capture
+   seconds, and the graph run's peak device memory (its warm-up and
+   capture included, from a fresh allocator: cached blocks and every
+   stream's cuBLAS workspace freed) held to the peak model (at most
+   ``runtime/metrics.scheme_device_peak_bytes`` plus the staged operands
+   and ``planner/cost.PEAK_RESERVE_BYTES``; the model at least
    ``PEAK_MODEL_SHARE`` of it; the kernel checks' device tables are
-   dropped before each path); a default path also its
-   wall estimate and modeled peak beside the measured ones, and the off
-   form's warm wall at the default's width; a dense path its amplitudes,
-   norm^2 and (the walk) blocks as above, its warm wall beside the
-   estimate (the walk: the median of 3 walks after one, each from the
-   generator's start to its last block less the scheme compile, timed
-   apart; its blocks after the first, a block, beside the estimate's per
-   block steps), and its peak, less the whole state it holds for the
-   amplitude and block checks.
+   dropped before each path); a default path also its wall estimates
+   (eager, and as one graph a group: ``metrics.segmented_wall_estimate``)
+   and modeled peak beside the measured ones, and the off form's warm
+   wall at the default's width; a dense path its amplitudes, norm^2 and
+   (the walk) blocks as above, its warm wall beside the estimate (the
+   walk: the median of 3 walks after one, each from the generator's
+   start to its last block less the scheme compile, timed apart; its
+   blocks after the first, a block, beside the estimate's per block
+   steps; against an eager walk block by block), and its peak, less the
+   whole state it holds for the amplitude and block checks;
+6. the other execution modes: the segmented executor
+   (``runtime/segmented.run_segmented``, one graph a segment, one pool)
+   on 1k/default and dense/default at ``SEGMENT_STEPS`` steps a segment
+   against one segment, at the path's width and (1k) at
+   ``SEGMENT_COST_WIDTH``: the per-segment replay cost, the result
+   against the fixture, the peak against the model; scientific notation
+   (``runtime/rescaled.py``) on 1k-sc25/default and dense/default, t *
+   10^f against the fixture; a checkpointed run of 10k/default
+   (``runtime/checkpoint.py``) stopped on purpose after chunk 3 of 8,
+   resumed through ``contraction(checkpoint_path=...)``, held to the
+   fixture, the file gone at the end.
 
-Then one JSON line with every kernel's numbers (for each kernel its
-largest step on the first path that runs it, under ``costliest`` that
-path's slowest step of the kind, and under ``paths`` every path's
-("<workload>/<form>") launches and steps; the complex matmul's larger
-shape, 0 launches), the card line, and last ``{"ok": true, "device":
-{...}}``.
+Then the paths' and the modes' numbers, one JSON line with every
+kernel's numbers (for each kernel its largest step on the first path
+that runs it, under ``costliest`` that path's slowest step of the kind,
+and under ``paths`` every path's ("<workload>/<form>") launches, kernels
+run on the card (``device_launches``), replays and steps; ``launches``
+and ``device_launches`` summed over the paths; the complex matmul's
+larger shape, 0 launches), the card line, and last ``{"ok": true,
+"device": {...}}``.
 The bound of a kernel call (``runtime/metrics.bounds``, which the wall
 estimate shares) is the larger of its bytes (each input read once, each
 output written once) over 3.35 TB/s and its flops over 67 TFLOP/s, the
@@ -138,6 +165,10 @@ KERNEL_RTOL = 2e-4            # kernel vs plain: max|d| <= rtol*max|plain| + ato
 KERNEL_ATOL = 1e-5            #   (float32 sums in another order)
 AMP_RTOL = 1e-3               # amplitudes vs fixture:
 AMP_RMS_TOL = 1e-6            #   |d| <= rtol*|ref| + rms_tol*rms(ref)
+SEGMENT_STEPS = 16            # steps a segment in the segmented phase
+SEGMENT_COST_WIDTH = 8        # the per-segment replay cost also at this
+                              # width (more groups: more extra replays)
+CKPT_WIDTH = 16               # the checkpointed run's width (a chunk's)
 
 KERNELS = {   # name: (wrapper as module.attr, source, TPU kernel it replaces)
     "gk": ("runtime.gatherk.gk_call", "artensor_tpu_torch/csrc/gatherk.cu",
@@ -901,43 +932,243 @@ def check_complex_mm():
     return out
 
 
-def drive(path, wrappers):
-    """Phases 4 and 5: the path end to end through the entry points, all
-    slices on the card; the launch counts of that run, every amplitude
-    against the fixture, then the warm wall and the peak memory."""
+def fresh_memory():
+    """Free what earlier phases left cached (the caching allocator's free
+    blocks, every stream's cuBLAS workspace), so that a run's measured
+    peak counts its own allocations: a graph run's warm-up makes the
+    capture stream's workspace, an eager run the current stream's."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+
+
+def timed_runs(fn, n=3):
+    """Host seconds of ``n`` calls of ``fn``, each to its result's first
+    value on the host."""
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        out[0].reshape(-1)[0].item()
+        walls.append(time.perf_counter() - t0)
+        del out
+    return walls
+
+
+def state_gate(got, ref, chunk=1 << 26):
+    """max|got - ref| over two flat split results on the card, and the
+    largest share of the fixture gate (``AMP_RTOL*|ref| +
+    AMP_RMS_TOL*rms(ref)``) it reaches, a chunk at a time."""
+    import torch
+
+    gr, gi = (c.reshape(-1) for c in got)
+    rr, ri = (c.reshape(-1) for c in ref)
+    rms = (norm2(rr, ri) / rr.numel()) ** 0.5
+    d_max = share = 0.0
+    for s in range(0, rr.numel(), chunk):
+        sl = slice(s, s + chunk)
+        d = torch.hypot(gr[sl] - rr[sl], gi[sl] - ri[sl])
+        bound = AMP_RTOL * torch.hypot(rr[sl], ri[sl]) + AMP_RMS_TOL * rms
+        d_max = max(d_max, d.max().item())
+        share = max(share, (d / bound).max().item())
+    return d_max, share
+
+
+def fixture_share(path, res):
+    """Worst |d|/bound of a run's flat result against the fixture."""
     import numpy as np
     import torch
 
-    sim, ref, W, name = path["sim"], path["ref"], path["W"], path["name"]
-    torch.cuda.empty_cache()
+    sim, ref = path["sim"], path["ref"]
+    if sim.pattern == "sparse":
+        amps = sim.field.unwrap(res).reshape(sim.out_shape).transpose(
+            sim.permute_dims)
+        r = np.array([ref[b] for b in sim.bitstrings_sorted])
+    else:
+        bits = list(ref)
+        idx = torch.as_tensor(flat_index(bits, sim.output_bonds),
+                              device=DEVICE)
+        amps = (res[0].reshape(-1)[idx].double().cpu().numpy()
+                + 1j * res[1].reshape(-1)[idx].double().cpu().numpy())
+        r = np.array([ref[b] for b in bits])
+    rms = float(np.sqrt(np.mean(np.abs(r) ** 2)))
+    return float((np.abs(amps - r) / (AMP_RTOL * np.abs(r)
+                                      + AMP_RMS_TOL * rms)).max())
+
+
+def graph_vs_eager(path, held=0):
+    """The path's whole run, eagerly and as graph replay, on the same
+    staged inputs (one ``_staged``): the graph run first, from a fresh
+    allocator (its peak over its first call, capture included, and over
+    three warm runs, less ``held`` and the first call's result, and the
+    allocator's largest reserve), then the eager
+    one; both warm walls (median of 3), the capture seconds, both
+    results against the fixture and against each other (held to the
+    fixture's gate, ``state_gate``)."""
+    import torch
+
+    from artensor_tpu_torch.runtime import executor as ex
+
+    sim, W, name = path["sim"], path["W"], path["name"]
+    fresh_memory()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(wrappers)
+    field, run_steps, arrays, out_shape, execute, _ = sim._staged(
+        torch.device(DEVICE))
+    mk = lambda eager: ex.make_sliced_runner(
+        execute, run_steps, sim.slicing_axes, len(sim.slicing_bonds),
+        out_shape, field, slice_batch=W, eager=eager)
+    run = mk(False)
     t0 = time.perf_counter()
-    amps = sim.contraction(slice_batch=W, device=DEVICE)
+    res_g = run(arrays)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches, forms = check_counts(path, wrappers, path["n_slices"] // W)
-    print(f"path {name}: first run {first_s:.3f} s (staging included); "
-          f"launches {json.dumps(launches)}; GK and GGK launches by form "
-          f"{json.dumps(forms)}", flush=True)
+    peak = torch.cuda.max_memory_allocated() - held
+    # the warm runs' peak, less the first call's result kept for the
+    # comparison (a caller's copy, not the run's)
+    torch.cuda.reset_peak_memory_stats()
+    walls_g = timed_runs(lambda: run(arrays))
+    peak = max(peak, torch.cuda.max_memory_allocated() - held
+               - nbytes(*res_g))
+    reserved = torch.cuda.max_memory_reserved()
+    stats = dict(run.stats)
+    check(stats["captures"] == 1 and stats["replays"] ==
+          4 * path["n_slices"] // W,
+          f"{name}: graph runner stats {stats}")
+    del run
+    run = mk(True)
+    res_e = run(arrays)
+    walls_e = timed_runs(lambda: run(arrays))
+    del run
+    d, share = state_gate(res_g, res_e)
+    err_g, err_e = fixture_share(path, res_g), fixture_share(path, res_e)
+    est = metrics_seg(run_steps, path["n_slices"], W)["one_s"]
+    out = dict(graph_s=statistics.median(walls_g), graph_walls=walls_g,
+               graph_est_s=est,
+               eager_s=statistics.median(walls_e), eager_walls=walls_e,
+               first_s=first_s, capture_s=stats["capture_s"],
+               graph_vs_eager_max_abs=d, graph_vs_eager_gate_share=share,
+               graph_fixture_share=err_g, eager_fixture_share=err_e,
+               peak_gib=peak / 2 ** 30, reserved_gib=reserved / 2 ** 30)
+    print(f"graph {name} at width {W}: graph replay {out['graph_s']:.4f} s "
+          f"of {['%.4f' % w for w in walls_g]}, eager {out['eager_s']:.4f} "
+          f"s of {['%.4f' % w for w in walls_e]}; first call {first_s:.3f} "
+          f"s, warm-up and capture {stats['capture_s']:.3f} s; max|graph - "
+          f"eager| {d:.3e} ({share:.3e} of the gate); worst |d|/bound vs "
+          f"fixture graph {err_g:.3e} eager {err_e:.3e}; estimates: as "
+          f"one graph a group {est:.4f} s, eager {path['est_s']:.4f} s; "
+          f"graph peak "
+          f"{out['peak_gib']:.3f} GiB (model {path['model_peak'] / 2 ** 30:.3f}"
+          f" + staged {path['staged'] / 2 ** 30:.3f} + reserve), reserved "
+          f"{out['reserved_gib']:.3f} GiB", flush=True)
+    check(share <= 1.0, f"{name}: graph and eager runs differ beyond the "
+          "gate")
+    check(max(err_g, err_e) <= 1.0, f"{name}: a run misses the fixture")
+    check_peak(path, peak)
+    del res_g, res_e, arrays
+    return out
+
+
+def main_run(path, wrappers, report=None):
+    """The path through ``contraction()``, as a user calls it (graph
+    replay on the card), from a fresh allocator, under ``torch.profiler``
+    (``profiled``), with the kernel launch counts of that run
+    (``run_counts``).  Checks that it ran at the width asked for."""
+    sim, W, name = path["sim"], path["W"], path["name"]
+    fresh_memory()
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    amps, ran = profiled(lambda: sim.contraction(
+        slice_batch=W, device=DEVICE, report=report))
+    first_s = time.perf_counter() - t0
+    st = sim.run_stats
+    check(st["executor"] == "graph" and st["slice_batch"] == W,
+          f"{name}: ran as {st['executor']} at width {st['slice_batch']}, "
+          f"asked for graph replay at {W}")
+    return amps, first_s, run_counts(path, wrappers, ran, st)
+
+
+def profiled(fn):
+    """``fn()`` under ``torch.profiler`` (host and device activity): its
+    result and the port's kernels that the card ran meanwhile, counted
+    from the kernel events' names (``kernels.kernel_family``): by kind,
+    and for GK and GGK by form.  The profiler records the kernels of a
+    graph replay as it does eager ones."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from artensor_tpu_torch.kernels import kernel_family
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(KERNELS, 0)
+    forms = {"gk": {}, "ggk": {}}
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(events, "the profiler recorded no device event")
+    for e in events:
+        fam = kernel_family(e.name)
+        if fam is not None:
+            kind, form = fam
+            counts[kind] += 1
+            if kind in forms:
+                forms[kind][form] = forms[kind].get(form, 0) + 1
+    return out, dict(counts=counts, forms=forms)
+
+
+def run_counts(path, wrappers, ran, st):
+    """The kernel launches of the run just made, two ways: the wrappers'
+    counts (``launches``, the launches they made: the warm-up group's and
+    the steps run once eagerly; a capture records the kernels and a
+    replay calls no wrapper), and the kernels that the card ran
+    (``device_launches``, from the profiler: the warm-up group's and
+    every replay's).  Each is held to the census times the groups it
+    covers."""
+    launches, forms = check_counts(
+        path, {k: f.launches for k, f in wrappers.items()},
+        {k: dict(wrappers[k].forms) for k in ("gk", "ggk")},
+        st["warmup_groups"], "launches")
+    device, device_forms = check_counts(
+        path, ran["counts"], ran["forms"],
+        st["warmup_groups"] + st["replays"], "kernels run on the card")
+    return dict(launches=launches, forms=forms, device_launches=device,
+                device_forms=device_forms, replays=st["replays"],
+                warmup_groups=st["warmup_groups"])
+
+
+def drive(path, wrappers):
+    """Phase 5 for a sparse path: the run through ``contraction()`` (its
+    report, its launch counts, every amplitude against the fixture), then
+    graph against eager (``graph_vs_eager``: walls, capture, peak)."""
+    import numpy as np
+
+    from artensor_tpu_torch.runtime.metrics import ContractionReport
+
+    sim, ref, W, name = path["sim"], path["ref"], path["W"], path["name"]
+    rep = ContractionReport()
+    amps, first_s, counts = main_run(path, wrappers, rep)
+    print(f"path {name}: first run {first_s:.3f} s (staging, warm-up, "
+          f"capture and the profiler included); {counts_line(counts)}",
+          flush=True)
+    print(f"report {name}: {rep.summary()}", flush=True)
     check(amps.shape == (len(ref),), f"{name}: amplitude shape {amps.shape}")
     r = np.array([ref[b] for b in sim.bitstrings_sorted])
     worst = amp_check(name, amps, r, sim.bitstrings_sorted)
     print(f"path {name}: mean 2^30|a|^2 "
           f"{(2 ** 30) * float(np.mean(np.abs(amps) ** 2)):.4f}", flush=True)
-
-    walls, peak = warm_walls(sim, W)
-    print(f"path {name} warm wall: median {statistics.median(walls):.4f} s "
-          f"of {['%.4f' % w for w in walls]}; max_memory_allocated "
-          f"{peak / 2 ** 30:.2f} GiB", flush=True)
-    out = dict(launches=launches, forms=forms, first_s=first_s,
-               warm_s=statistics.median(walls), walls=walls,
-               peak_gib=peak / 2 ** 30, compile_s=path["compile_s"],
+    cmp = graph_vs_eager(path)
+    out = dict(**counts, first_s=first_s,
+               warm_s=cmp["graph_s"], walls=cmp["graph_walls"],
+               peak_gib=cmp["peak_gib"], compile_s=path["compile_s"],
                compile_stats=path["compile_stats"], slice_batch=W,
                slices=path["n_slices"], census=dict(path["census"]),
-               est_s=path["est_s"], model_peak_gib=path["model_peak"] / 2 ** 30,
-               staged_gib=path["staged"] / 2 ** 30, worst_over_bound=worst)
-    check_peak(path, peak)
+               est_s=path["est_s"],
+               model_peak_gib=path["model_peak"] / 2 ** 30,
+               staged_gib=path["staged"] / 2 ** 30, worst_over_bound=worst,
+               report=rep.summary(), graph=cmp)
     if path["form"] == "default":
         off_walls, _ = warm_walls(path["off_sim"], W)
         out["off_warm_s_same_width"] = statistics.median(off_walls)
@@ -952,22 +1183,17 @@ def drive(path, wrappers):
 
 
 def warm_walls(sim, W, held=0):
-    """Warm wall times of three whole runs after one warm-up, and the peak
-    device memory over them, less ``held``: the bytes of a result the
-    caller holds on purpose."""
+    """Warm wall times of three whole runs (graph replay) after one
+    warm-up, and the peak device memory over all four, less ``held``:
+    the bytes of a result the caller holds on purpose."""
     import torch
 
+    fresh_memory()
+    torch.cuda.reset_peak_memory_stats()
     run = sim.prepare(slice_batch=W, device=DEVICE)
     run()
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        out = run()
-        out[0].sum().item()
-        walls.append(time.perf_counter() - t0)
-        del out
+    walls = timed_runs(run)
     peak = torch.cuda.max_memory_allocated() - held
     del run
     torch.cuda.empty_cache()
@@ -1030,26 +1256,33 @@ def reset_counts(wrappers):
             wrappers[kind].forms[form] = 0
 
 
-def check_counts(path, wrappers, groups):
-    """The launches of the run just made: each kernel's census times the
-    slice groups (blocks) run, plus its steps run once (``census_once``:
-    the block walk's slice-invariant steps)."""
+def check_counts(path, counts, forms, groups, what):
+    """``counts`` (by kind) and ``forms`` (GK and GGK by form) of the run
+    just made: each kernel's census times ``groups`` slice groups
+    (blocks), plus its steps run once (``census_once``: the block walk's
+    slice-invariant steps, run eagerly).  Returns them."""
     name = path["name"]
-    launches = {k: f.launches for k, f in wrappers.items()}
-    forms = {k: dict(wrappers[k].forms) for k in ("gk", "ggk")
-             if k in wrappers}
     once = path.get("census_once", {})
-    for kind in wrappers:
+    for kind, n in counts.items():
         want = path["census"].get(kind, 0) * groups + once.get(kind, 0)
-        check(launches[kind] == want,
-              f"{name} {kind}: {launches[kind]} launches, expected {want}")
+        check(n == want, f"{name} {kind}: {n} {what}, expected {want}")
     for kind, by_form in forms.items():
-        for form, n in by_form.items():
+        for form in set(by_form) | set(path["forms"][kind]):
+            n = by_form.get(form, 0)
             want = path["forms"][kind].get(form, 0) * groups + \
                 path.get("forms_once", {}).get(kind, {}).get(form, 0)
-            check(n == want, f"{name} {kind}: {n} launches of the {form} "
+            check(n == want, f"{name} {kind}: {n} {what} of the {form} "
                   f"form, expected {want} (gatherk.gk_form of its steps)")
-    return launches, forms
+    return counts, forms
+
+
+def counts_line(c):
+    return (f"launches (warm-up group, by the wrappers) "
+            f"{json.dumps(c['launches'])}, kernels run on the card "
+            f"(profiler; warm-up group and {c['replays']} replays) "
+            f"{json.dumps(c['device_launches'])}; GK and GGK by form: "
+            f"launches {json.dumps(c['forms'])}, run "
+            f"{json.dumps(c['device_forms'])}")
 
 
 def check_peak(path, peak):
@@ -1063,28 +1296,31 @@ def check_peak(path, peak):
 
 
 def drive_dense(path, wrappers):
-    """A dense whole-state path end to end through ``prepare()``: the
-    launch counts of one run, the 11000 fixture amplitudes read from the
-    state on the card (the output permutation applied to their indices,
-    not to the state), the state's norm^2 in float64, then the warm wall
-    and the peak memory, held to the peak model.  Returns the run's
-    numbers and the state (split pair, ``output_bonds`` order)."""
+    """A dense whole-state path end to end through ``prepare()`` (one
+    graph, captured at its first call): the launch counts of one run, the
+    11000 fixture amplitudes read from the state on the card (the output
+    permutation applied to their indices, not to the state), the state's
+    norm^2 in float64, then graph against eager (``graph_vs_eager``, the
+    state held apart).  Returns the run's numbers and the state (split
+    pair, ``output_bonds`` order)."""
     import numpy as np
     import torch
 
     sim, ref, name = path["sim"], path["ref"], path["name"]
-    torch.cuda.empty_cache()
+    fresh_memory()
     reset_counts(wrappers)
     t0 = time.perf_counter()
     run = sim.prepare(slice_batch=1, device=DEVICE)
-    re, im = run()
-    torch.cuda.synchronize()
+    (re, im), ran = profiled(run)
     first_s = time.perf_counter() - t0
+    st = dict(run.stats)
     del run
-    launches, forms = check_counts(path, wrappers, 1)
-    print(f"path {name}: first run {first_s:.3f} s (staging included); "
-          f"launches {json.dumps(launches)}; GK launches by form "
-          f"{json.dumps(forms['gk'])}", flush=True)
+    check(st["captures"] == 1 and st["replays"] == 1,
+          f"{name}: graph runner stats {st}")
+    counts = run_counts(path, wrappers, ran, st)
+    print(f"path {name}: first run {first_s:.3f} s (staging, warm-up, "
+          f"capture and the profiler included); {counts_line(counts)}",
+          flush=True)
     n_q = CIRCUIT["rows"] * CIRCUIT["cols"]
     check(re.numel() == 2 ** len(sim.output_bonds) == 2 ** n_q,
           f"{name}: state of {re.numel()} amplitudes")
@@ -1097,22 +1333,19 @@ def drive_dense(path, wrappers):
     print(f"path {name}: norm^2 {nrm:.9f} (|norm^2 - 1| "
           f"{abs(nrm - 1):.3e}, limit {NORM_TOL})", flush=True)
     check(abs(nrm - 1) <= NORM_TOL, f"{name}: norm^2 {nrm} off 1")
-    walls, peak = warm_walls(sim, 1, held=nbytes(re, im))
-    warm = statistics.median(walls)
-    print(f"path {name} warm wall: median {warm:.4f} s of "
-          f"{['%.4f' % w for w in walls]}, estimate {path['est_s']:.4f} s; "
-          f"peak {peak / 2 ** 30:.3f} GiB measured, modeled "
-          f"{path['model_peak'] / 2 ** 30:.3f} GiB (+ staged operands "
-          f"{path['staged'] / 2 ** 30:.3f} GiB)", flush=True)
-    check_peak(path, peak)
-    out = dict(launches=launches, forms=forms, first_s=first_s,
-               warm_s=warm, walls=walls, peak_gib=peak / 2 ** 30,
-               compile_s=path["compile_s"],
+    cmp = graph_vs_eager(path, held=nbytes(re, im))
+    print(f"path {name} warm wall: median {cmp['graph_s']:.4f} s, estimate "
+          f"{path['est_s']:.4f} s; peak {cmp['peak_gib']:.3f} GiB measured, "
+          f"modeled {path['model_peak'] / 2 ** 30:.3f} GiB (+ staged "
+          f"operands {path['staged'] / 2 ** 30:.3f} GiB)", flush=True)
+    out = dict(**counts, first_s=first_s,
+               warm_s=cmp["graph_s"], walls=cmp["graph_walls"],
+               peak_gib=cmp["peak_gib"], compile_s=path["compile_s"],
                compile_stats=path["compile_stats"], slice_batch=1,
                slices=1, census=dict(path["census"]), est_s=path["est_s"],
                model_peak_gib=path["model_peak"] / 2 ** 30,
                staged_gib=path["staged"] / 2 ** 30, norm2=nrm,
-               worst_over_bound=worst)
+               worst_over_bound=worst, graph=cmp)
     return out, (re, im)
 
 
@@ -1132,20 +1365,21 @@ def drop_tables(paths):
                         obj._dev.clear()
 
 
-def block_walk(path, post):
+def block_walk(path, post, eager=False):
     """One ``contraction_output_blocks(D_OUT)`` walk with ``post`` as its
-    postprocess; returns the results, the seconds from the generator's
-    start to its last block less the block scheme's compile, the
-    compile's seconds (``scheme.LAST_COMPILE``: fusion and negotiation,
-    the whole of the default form's compile) and the seconds of the blocks
-    after the first."""
+    postprocess (``eager``: every step from the host, else one graph
+    replayed a block); returns the results, the seconds from the
+    generator's start to its last block less the block scheme's compile,
+    the compile's seconds (``scheme.LAST_COMPILE``: fusion and
+    negotiation, the whole of the default form's compile) and the seconds
+    of the blocks after the first."""
     from artensor_tpu_torch.runtime import scheme
 
     sim = path["sim"]
     t0 = time.perf_counter()
     stamps, res = [], []
     for bits, qubits, v in sim.contraction_output_blocks(
-            D_OUT, postprocess=post, device=DEVICE):
+            D_OUT, postprocess=post, device=DEVICE, eager=eager):
         stamps.append(time.perf_counter())
         res.append((bits, qubits, v))
     compile_s = scheme.LAST_COMPILE["fuse_s"] \
@@ -1198,10 +1432,14 @@ def drive_blocks(path, wrappers, state, state_bonds):
         return (torch.cat([r[loc], stats]),
                 torch.cat([i[loc], torch.zeros_like(stats)]))
 
-    torch.cuda.empty_cache()
+    fresh_memory()
     reset_counts(wrappers)
-    res, walk_s, compile_s, _ = block_walk(path, check_block)
-    launches, forms = check_counts(path, wrappers, n)
+    (res, walk_s, compile_s, _), ran = profiled(
+        lambda: block_walk(path, check_block))
+    st = dict(sim.block_run_stats)
+    check(st["captures"] == 1 and st["replays"] == n,
+          f"{name}: block graph stats {st}")
+    counts = run_counts(path, wrappers, ran, st)
     check(len(res) == n and [r[0] for r in res] ==
           [np.binary_repr(o, D_OUT) for o in range(n)],
           f"{name}: blocks {[r[0] for r in res]}")
@@ -1212,8 +1450,8 @@ def drive_blocks(path, wrappers, state, state_bonds):
         check(qubits == lead_q, f"{name}: block qubits {qubits}")
         got[np.nonzero(oid_of == oid)[0]] = v[:-2]
     print(f"path {name}: {n} blocks of 2^{L} in {walk_s:.3f} s after a "
-          f"{compile_s:.3f} s compile (first walk); launches "
-          f"{json.dumps(launches)};"
+          f"{compile_s:.3f} s compile (first walk, under the profiler); "
+          f"{counts_line(counts)};"
           f" max|block - whole state| {worst_d:.3e} (limit "
           f"{BLOCK_TOL} x rms {rms:.3e}); norm^2 {nrm:.9f}", flush=True)
     check(worst_d <= BLOCK_TOL * rms, f"{name}: a block differs from the "
@@ -1224,9 +1462,10 @@ def drive_blocks(path, wrappers, state, state_bonds):
     # warm walks: a postprocess that pulls one value (the walk's own work)
     tab.clear()
     touch = lambda field, oid, raw: tuple(c.reshape(-1)[:1] for c in raw)
+    fresh_memory()
+    torch.cuda.reset_peak_memory_stats()
     block_walk(path, touch)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     walks, compiles, blocks = [], [], []
     for _ in range(3):
         _, a, c, b = block_walk(path, touch)
@@ -1234,6 +1473,7 @@ def drive_blocks(path, wrappers, state, state_bonds):
         compiles.append(c)
         blocks.append(b / (n - 1))
     peak = torch.cuda.max_memory_allocated() - nbytes(*state)
+    reserved = torch.cuda.max_memory_reserved()
     warm, per_block = statistics.median(walks), statistics.median(blocks)
     print(f"path {name} warm walk: median {warm:.4f} s of "
           f"{['%.4f' % w for w in walks]} for {n} blocks (the steps run "
@@ -1243,9 +1483,47 @@ def drive_blocks(path, wrappers, state, state_bonds):
           f"block, estimate {path['est_block_s'] * 1e3:.3f} ms; peak "
           f"{peak / 2 ** 30:.3f} GiB measured (the whole state held apart),"
           f" modeled {path['model_peak'] / 2 ** 30:.3f} GiB (+ staged "
-          f"operands {path['staged'] / 2 ** 30:.3f} GiB)", flush=True)
+          f"operands {path['staged'] / 2 ** 30:.3f} GiB), reserved "
+          f"{reserved / 2 ** 30:.3f} GiB", flush=True)
+    # graph against eager: the graph walk's blocks kept on the card, then
+    # an eager walk held to them block by block; two more eager walks
+    kept = {}
+
+    def keep(field, oid, raw):
+        kept[oid] = tuple(c.clone() for c in raw)
+        return touch(field, oid, raw)
+
+    block_walk(path, keep)
+    cmp = dict(d=0.0, share=0.0)
+
+    def against(field, oid, raw):
+        d, share = state_gate(kept.pop(oid), raw)
+        cmp["d"], cmp["share"] = max(cmp["d"], d), max(cmp["share"], share)
+        return touch(field, oid, raw)
+
+    eager_walks, eager_blocks = [], []
+    for post in (against, touch, touch):
+        _, a, _, b = block_walk(path, post, eager=True)
+        eager_walks.append(a)
+        eager_blocks.append(b / (n - 1))
+    check(not kept, f"{name}: {len(kept)} blocks not compared")
+    print(f"graph {name}: graph walk {warm:.4f} s ({per_block * 1e3:.3f} ms "
+          f"a block), eager walk {statistics.median(eager_walks):.4f} s of "
+          f"{['%.4f' % w for w in eager_walks]} "
+          f"({statistics.median(eager_blocks) * 1e3:.3f} ms a block); "
+          f"capture (first block's warm-up included) {st['capture_s']:.3f}"
+          f" s; max|graph - eager| over the blocks {cmp['d']:.3e} "
+          f"({cmp['share']:.3e} of the gate)", flush=True)
+    check(cmp["share"] <= 1.0, f"{name}: graph and eager walks differ "
+          "beyond the gate")
     check_peak(path, peak)
-    return dict(launches=launches, forms=forms, first_s=compile_s + walk_s,
+    graph = dict(graph_s=warm, eager_s=statistics.median(eager_walks),
+                 eager_walls=eager_walks, graph_walls=walks,
+                 eager_s_per_block=statistics.median(eager_blocks),
+                 capture_s=st["capture_s"], graph_vs_eager_max_abs=cmp["d"],
+                 graph_vs_eager_gate_share=cmp["share"],
+                 peak_gib=peak / 2 ** 30, reserved_gib=reserved / 2 ** 30)
+    return dict(**counts, first_s=compile_s + walk_s,
                 warm_s=warm, walls=walks, s_per_block=per_block,
                 est_block_s=path["est_block_s"], scheme_compile_s=compiles,
                 peak_gib=peak / 2 ** 30,
@@ -1254,7 +1532,266 @@ def drive_blocks(path, wrappers, state, state_bonds):
                 slices=n, census=dict(path["census"]), est_s=path["est_s"],
                 model_peak_gib=path["model_peak"] / 2 ** 30,
                 staged_gib=path["staged"] / 2 ** 30, norm2=nrm,
-                max_block_diff=worst_d, worst_over_bound=worst)
+                max_block_diff=worst_d, worst_over_bound=worst, graph=graph)
+
+
+def staged(sim):
+    """``sim._staged`` on the card: ``(field, run_steps, arrays,
+    out_shape, execute, apply_step)``."""
+    import torch
+
+    return sim._staged(torch.device(DEVICE))
+
+
+def drive_segmented(path, held=None):
+    """The segmented executor (``runtime/segmented.run_segmented``) on the
+    path's staged inputs at ``SEGMENT_STEPS`` steps a segment and as one
+    segment, three runs each, at the path's width and (sparse) at
+    ``SEGMENT_COST_WIDTH``: the segments, the width used, the capture and
+    replay seconds, the per-segment replay cost (the replay seconds'
+    difference over the extra replays), the result at the path's width
+    against the fixture (and the whole state ``held``, on the dense path)
+    and its peak against the model."""
+    import torch
+
+    from artensor_tpu_torch.runtime import segmented
+
+    sim, name = path["sim"], path["name"]
+    field, run_steps, arrays, out_shape, _, step = staged(sim)
+    k = len(sim.slicing_bonds)
+    held_b = nbytes(*held) if held is not None else 0
+    widths = [path["W"]] + ([SEGMENT_COST_WIDTH]
+                            if path["n_slices"] > SEGMENT_COST_WIDTH else [])
+    out = {}
+    for W in widths:
+        rows = {}
+        for ss in (SEGMENT_STEPS, len(run_steps)):
+            fresh_memory()
+            torch.cuda.reset_peak_memory_stats()
+            runs, res = [], None
+            for _ in range(3):
+                res = None      # a run's result is not held over the next
+                res = segmented.run_segmented(
+                    arrays, run_steps, sim.slicing_axes, k, out_shape,
+                    field, step, segment_steps=ss, slice_batch=W)
+                runs.append(dict(segmented.LAST_RUN))
+                check(runs[-1]["width"] == W and runs[-1]["graphs"],
+                      f"{name} segmented: ran {runs[-1]}, asked for "
+                      f"graphs at width {W}")
+            peak = torch.cuda.max_memory_allocated() - held_b
+            rows[ss] = dict(
+                segments=runs[-1]["segments"], replays=runs[-1]["replays"],
+                replay_s=statistics.median(r["replay_s"] for r in runs),
+                capture_s=statistics.median(r["capture_s"] for r in runs),
+                peak_gib=peak / 2 ** 30)
+            if W == path["W"] and ss == SEGMENT_STEPS:
+                share = fixture_share(path, res)
+                rows[ss]["fixture_share"] = share
+                check(share <= 1.0, f"{name} segmented misses the fixture")
+                if held is not None:
+                    d, g = state_gate(res, held)
+                    rows[ss].update(vs_state_max_abs=d, vs_state_share=g)
+                    check(g <= 1.0, f"{name} segmented: differs from the "
+                          "whole-group state beyond the gate")
+                check_peak(path, peak)
+            del res
+        seg, one = rows[SEGMENT_STEPS], rows[len(run_steps)]
+        extra = (seg["segments"] - one["segments"]) * path["n_slices"] // W
+        check(extra > 0, f"{name} segmented: one segment only")
+        per_seg = (seg["replay_s"] - one["replay_s"]) / extra
+        launch_s = graph_launch_s()
+        est = metrics_seg(run_steps, path["n_slices"], W)
+        out[W] = dict(rows={str(kk): v for kk, v in rows.items()},
+                      per_segment_replay_s=per_seg, graph_launch_s=launch_s,
+                      est=est)
+        print(f"segmented {name} at width {W}: {seg['segments']} segments "
+              f"of {SEGMENT_STEPS} steps, {seg['replays']} group replays: "
+              f"replays {seg['replay_s']:.4f} s (capture with warm-up "
+              f"{seg['capture_s']:.3f} s) against one segment's "
+              f"{one['replay_s']:.4f} s ({one['capture_s']:.3f} s): "
+              f"{per_seg * 1e6:.1f} us a segment replay over {extra} extra "
+              f"replays (a one-kernel graph's replay, back to back: "
+              f"{launch_s * 1e6:.2f} us); estimate {est['seg_s']:.4f} s segmented, "
+              f"{est['one_s']:.4f} s as one graph; peak "
+              f"{seg['peak_gib']:.3f} GiB; "
+              f"{json.dumps({kk: v for kk, v in seg.items() if 'share' in kk or 'max_abs' in kk})}",
+              flush=True)
+    del arrays
+    return out
+
+
+def graph_launch_s(n=2000):
+    """Seconds a replay of a one-kernel graph takes, replayed ``n`` times
+    back to back (``executor.GroupGraphs``, as the segmented run replays
+    its segments): the launch cost a segment adds to a group."""
+    import torch
+
+    from artensor_tpu_torch.runtime.executor import GroupGraphs
+
+    x = torch.zeros(1, device=DEVICE)
+    graphs = GroupGraphs(x.device)
+    graphs.capture(lambda: x.add_(1))
+    for _ in range(10):
+        graphs.replay()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        graphs.replay()
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / n
+    check(x.item() == n + 10, "the one-kernel graph did not run")
+    return dt
+
+
+def metrics_seg(run_steps, n_slices, W):
+    """The segmented wall estimate at ``SEGMENT_STEPS`` and as one graph
+    (``metrics.segmented_wall_estimate``)."""
+    from artensor_tpu_torch.runtime import metrics
+
+    return dict(
+        seg_s=metrics.segmented_wall_estimate(run_steps, n_slices, W,
+                                              SEGMENT_STEPS)[0],
+        one_s=metrics.segmented_wall_estimate(run_steps, n_slices, W,
+                                              len(run_steps))[0])
+
+
+def drive_rescaled(path, held=None):
+    """Scientific notation (``runtime/rescaled.py``, width 1): on a sparse
+    path through ``contraction(scientific_notation=True)``, on the dense
+    path through the rescaled runner on the staged inputs (the state
+    stays on the card); t * 10**f against the fixture (and the whole
+    state ``held``: its norm^2 too), the wall, the factor and the peak
+    against the device model at width 1."""
+    import numpy as np
+    import torch
+
+    from artensor_tpu_torch.planner.cost import PEAK_RESERVE_BYTES
+    from artensor_tpu_torch.runtime import metrics
+    from artensor_tpu_torch.runtime.rescaled import make_rescaled_runner
+
+    sim, name, ref = path["sim"], path["name"], path["ref"]
+    fresh_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = {}
+    if sim.pattern == "sparse":
+        amps, f = sim.contraction(scientific_notation=True, device=DEVICE)
+        wall = time.perf_counter() - t0
+        st = sim.run_stats
+        check(st["executor"] == "rescaled" and st["slice_batch"] == 1
+              and st["graphs"], f"{name} rescaled: ran {st}")
+        r = np.array([ref[b] for b in sim.bitstrings_sorted])
+        out["worst_over_bound"] = amp_check(
+            f"{name} rescaled", amps * 10.0 ** f, r, sim.bitstrings_sorted)
+        mant = float(np.abs(amps).max())
+        run_steps = staged(sim)[1]
+    else:
+        field, run_steps, arrays, out_shape, _, step = staged(sim)
+        run = make_rescaled_runner(step, run_steps, sim.slicing_axes,
+                                   len(sim.slicing_bonds), out_shape, field)
+        t, fac = run(arrays)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = dict(run.stats)
+        del run
+        f = float(fac)
+        mant = max(float(torch.linalg.vector_norm(c, float("inf")))
+                   for c in t)
+        for c in t:
+            c.mul_(10.0 ** f)
+        out["worst_over_bound"] = fixture_share(path, t)
+        # the renormalised products round elsewhere than the plain ones:
+        # held to the state as a block is (BLOCK_TOL x rms)
+        out["vs_state_max_abs"], _ = state_gate(t, held)
+        rms = (norm2(*held) / held[0].numel()) ** 0.5
+        nrm = norm2(*t)
+        out["norm2"] = nrm
+        check(out["worst_over_bound"] <= 1.0
+              and out["vs_state_max_abs"] <= BLOCK_TOL * rms
+              and abs(nrm - 1) <= NORM_TOL, f"{name} rescaled: fixture "
+              f"{out['worst_over_bound']}, max|d| to the state "
+              f"{out['vs_state_max_abs']:.3e} (rms {rms:.3e}), norm^2 {nrm}")
+        del t, arrays
+    peak = torch.cuda.max_memory_allocated() - (nbytes(*held) if held
+                                                is not None else 0)
+    model = metrics.scheme_device_peak_bytes(run_steps, 1, sim.slicing_axes)
+    out.update(wall_s=wall, factor=f, max_mantissa=mant,
+               capture_s=st["capture_s"], replays=st["replays"],
+               peak_gib=peak / 2 ** 30, model_peak_gib=model / 2 ** 30)
+    print(f"rescaled {name}: {wall:.3f} s at width 1 ({st['replays']} "
+          f"replays, warm-up and capture {st['capture_s']:.3f} s), log10 "
+          f"factor {f:.6f}, largest |mantissa| {mant:.4f}; worst |d|/bound "
+          f"of t*10^f vs fixture {out['worst_over_bound']:.3e}"
+          f"{'' if held is None else '; max|d| to the state %.3e, norm^2 %.9f' % (out['vs_state_max_abs'], out['norm2'])}; peak "
+          f"{out['peak_gib']:.3f} GiB, model at width 1 "
+          f"{out['model_peak_gib']:.3f} GiB (+ staged "
+          f"{path['staged'] / 2 ** 30:.3f})", flush=True)
+    check(mant < 10.0, f"{name} rescaled: mantissa {mant} not O(1)")
+    check(peak <= model + path["staged"] + PEAK_RESERVE_BYTES,
+          f"{name} rescaled: peak {peak / 2 ** 30:.3f} GiB over the model")
+    return out
+
+
+class Interrupted(Exception):
+    pass
+
+
+def drive_checkpoint(path):
+    """Checkpoint/resume (``runtime/checkpoint.py``) at width
+    ``CKPT_WIDTH``, a chunk an eighth of the slices: a run stopped on
+    purpose after chunk 3 of 8 (the file then holds slice 3 * chunk),
+    resumed through ``contraction(checkpoint_path=...)``, held to the
+    fixture; the file is gone at the end."""
+    import tempfile
+
+    import numpy as np
+
+    from artensor_tpu_torch.runtime import executor as ex
+    from artensor_tpu_torch.runtime.checkpoint import run_sliced_checkpointed
+
+    sim, name, ref = path["sim"], path["name"], path["ref"]
+    k = len(sim.slicing_bonds)
+    chunk = 2 ** k // 8
+    fresh_memory()
+    with tempfile.TemporaryDirectory() as d:
+        ck = os.path.join(d, "acc.npz")
+        field, run_steps, arrays, out_shape, execute, _ = staged(sim)
+        run = ex.make_sliced_runner(execute, run_steps, sim.slicing_axes, k,
+                                    out_shape, field, slice_batch=CKPT_WIDTH)
+
+        def stop(done, total):
+            if done == 3 * chunk:
+                raise Interrupted
+
+        t0 = time.perf_counter()
+        try:
+            run_sliced_checkpointed(run, arrays, k, out_shape, field, ck,
+                                    chunk=chunk, progress=stop)
+        except Interrupted:
+            pass
+        first_s = time.perf_counter() - t0
+        check(os.path.exists(ck) and int(np.load(ck)["next_slice"])
+              == 3 * chunk, f"{name} checkpoint: no file at slice "
+              f"{3 * chunk}")
+        del run, arrays
+        t0 = time.perf_counter()
+        amps = sim.contraction(checkpoint_path=ck, slice_batch=CKPT_WIDTH,
+                               device=DEVICE)
+        resume_s = time.perf_counter() - t0
+        st = sim.run_stats
+        check(st["executor"] == "checkpointed" and st["graphs"]
+              and st["slice_batch"] == CKPT_WIDTH
+              and st["replays"] == 5 * chunk // CKPT_WIDTH,
+              f"{name} checkpoint: resumed run {st}")
+        check(not os.path.exists(ck), f"{name} checkpoint: file left")
+    r = np.array([ref[b] for b in sim.bitstrings_sorted])
+    worst = amp_check(f"{name} checkpointed", amps, r, sim.bitstrings_sorted)
+    print(f"checkpoint {name}: stopped after chunk 3 of 8 ({chunk} slices "
+          f"a chunk, width {CKPT_WIDTH}) in {first_s:.3f} s, resumed chunks "
+          f"4-8 in {resume_s:.3f} s ({st['replays']} replays); the file is "
+          f"gone", flush=True)
+    return dict(stop_s=first_s, resume_s=resume_s, replays=st["replays"],
+                worst_over_bound=worst)
 
 
 def main():
@@ -1311,21 +1848,32 @@ def main():
 
     # -- 5. the paths end to end ----------------------------------------------
     wrappers = {k: wrapper(v[0]) for k, v in {**KERNELS, **OFF_PATH}.items()}
-    runs, state = {}, None
+    runs, modes, state = {}, {}, None
     for p in paths:
         drop_tables(paths)
         if p["workload"] == "dense":
             runs[p["name"]], st = drive_dense(p, wrappers)
             if p["form"] == "default":    # the block walk's reference
                 state, state_bonds = st, p["sim"].output_bonds
+                # -- 6. the other execution modes on the dense state -------
+                modes["segmented dense/default"] = drive_segmented(p, st)
+                modes["rescaled dense/default"] = drive_rescaled(p, st)
             del st
         elif p["workload"] == "dense-blocks":
             runs[p["name"]] = drive_blocks(p, wrappers, state, state_bonds)
             state = None
         else:
             runs[p["name"]] = drive(p, wrappers)
+            # -- 6. the other execution modes on the sparse paths ----------
+            if p["name"] == "1k/default":
+                modes["segmented 1k/default"] = drive_segmented(p)
+            elif p["name"] == "1k-sc25/default":
+                modes["rescaled 1k-sc25/default"] = drive_rescaled(p)
+            elif p["name"] == "10k/default":
+                modes["checkpoint 10k/default"] = drive_checkpoint(p)
         p["sim"] = p["off_sim"] = None
     print(f"paths: {json.dumps(runs)}", flush=True)
+    print(f"modes: {json.dumps(modes)}", flush=True)
 
     line = []
     keys = ("step", "form", "ms", "bound_ms", "bound_by", "bound_3xtf32_ms",
@@ -1338,6 +1886,8 @@ def main():
             "name": kind, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": sum(runs[n]["launches"][kind] for n in labels),
+            "device_launches": sum(runs[n]["device_launches"][kind]
+                                   for n in labels),
             "max_abs_err": big["max_abs_err"], "ms": big["ms"],
             "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
             "bound_by": big["bound_by"], "library_ms": big["library_ms"],
@@ -1346,6 +1896,9 @@ def main():
             "kernel_ms_per_group": res["ms_per_group"],
             "costliest": {k: res["costliest"][k] for k in keys},
             "paths": {n: {"launches": runs[n]["launches"][kind],
+                          "device_launches":
+                              runs[n]["device_launches"][kind],
+                          "replays": runs[n]["replays"],
                           "steps": checked[n][kind]["steps"],
                           "kernel_ms_per_group":
                               checked[n][kind]["ms_per_group"],
@@ -1372,6 +1925,7 @@ def main():
         "name": "complex_mm", "route": "cuda", "source": source,
         "replaces": replaces,
         "launches": sum(runs[n]["launches"]["complex_mm"] for n in labels),
+        "device_launches": None,    # its kernel is Pair's: counted there
         **{k: big[k] for k in keys}, "path": None,
         "shapes": [{k: r[k] for k in keys} for r in cmm]})
     print(json.dumps({"kernels": line}))

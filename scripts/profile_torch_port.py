@@ -13,9 +13,14 @@ then:
 1. one run with a CUDA-event pair around every step, summed by the kernel
    that runs the step (``dot`` = the matmul fallback ``apply_lowered``);
    each step's time includes its glue (reorders, W preparation, gathers);
-   the rest of the run is slice selection and accumulation;
-2. one run under ``torch.profiler``: device time by kernel family, and the
-   device's busy share of the span from its first to its last kernel.
+   the rest of the run is slice selection and accumulation; this run is
+   eager (every step from the host), the events need it;
+2. the warm wall (median of 3) and one run under ``torch.profiler`` as
+   ``contraction()`` runs on the card, one slice group captured as a CUDA
+   graph and replayed (``--eager``: every step from the host, as the port
+   ran before graph capture): device time by kernel family, and the
+   device's busy share of the span from its first to its last kernel and
+   the largest gaps between kernels (the host holding the card back).
 
 With ``--ab-rgflat`` it instead times the whole run (warm wall, median of
 3 after one warm-up) with and without the RGFlat row form of aligned
@@ -27,7 +32,7 @@ Usage, from the repo root on a machine with a CUDA card::
 
     python3 scripts/profile_torch_port.py [--slice-batch W] \
         [--workload 1k|10k|1k-sc25|dense] [--form off|default] \
-        [--ab-rgflat | --no-rgflat]
+        [--ab-rgflat | --no-rgflat] [--eager]
 """
 
 import argparse
@@ -204,6 +209,8 @@ def main():
                     help="time the run with and without the RGFlat form")
     ap.add_argument("--no-rgflat", action="store_true",
                     help="profile the run without the RGFlat form")
+    ap.add_argument("--eager", action="store_true",
+                    help="profile the eager run (no CUDA graph)")
     args = ap.parse_args()
 
     import torch
@@ -230,10 +237,11 @@ def main():
           f"steps {dict((k, kinds.count(k)) for k in sorted(set(kinds)))}),"
           f" slice_batch {args.slice_batch}", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    run = sim.prepare(slice_batch=args.slice_batch, device="cuda")
+    run = sim.prepare(slice_batch=args.slice_batch, device="cuda",
+                      eager=True)
     run()
     torch.cuda.synchronize()
-    print(f"peak device memory of a run: "
+    print(f"peak device memory of an eager run: "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
 
     # -- 1. per step kind, CUDA events ---------------------------------------
@@ -290,7 +298,21 @@ def main():
         if kind in ("ggk", "rgrow", "rgflat") or "gathered" in desc:
             print(f"  {ms:9.3f} ms  {kind:6s} {desc}  out {shape}")
 
-    # -- 2. torch.profiler: kernels by family ---------------------------------
+    # -- 2. the run as profiled: warm wall, then torch.profiler -------------
+    del run
+    torch.cuda.empty_cache()
+    run = sim.prepare(slice_batch=args.slice_batch, device="cuda",
+                      eager=args.eager)
+    run()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()[0].reshape(-1)[0].item()
+        walls.append(time.perf_counter() - t0)
+    mode = "eager" if args.eager else "graph replay"
+    print(f"{mode}: warm wall {sorted(walls)[1]:.4f} s of "
+          f"{['%.4f' % w for w in walls]}; runner {run.stats}", flush=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
@@ -308,9 +330,19 @@ def main():
     busy = sum(fam_us.values())
     span = max(e.time_range.end for e in kern) \
         - min(e.time_range.start for e in kern)
-    print(f"profiler: {len(kern)} device events, busy {busy / 1e3:.3f} ms "
-          f"of a {span / 1e3:.3f} ms span: idle share "
+    print(f"profiler ({mode}): {len(kern)} device events, busy "
+          f"{busy / 1e3:.3f} ms of a {span / 1e3:.3f} ms span: idle share "
           f"{100 * (1 - busy / span):.1f}%")
+    ranges = sorted((e.time_range.start, e.time_range.end) for e in kern)
+    gaps, end = [], ranges[0][1]
+    for a, b in ranges[1:]:
+        if a > end:
+            gaps.append(a - end)
+        end = max(end, b)
+    gaps.sort(reverse=True)
+    print(f"  gaps between kernels: {len(gaps)}, summing "
+          f"{sum(gaps) / 1e3:.3f} ms; largest (us) "
+          f"{[round(g, 1) for g in gaps[:8]]}")
     for fam, us in sorted(fam_us.items(), key=lambda t: -t[1]):
         print(f"  {fam:38s} {us / 1e3:9.3f} ms  {100 * us / busy:5.1f}% "
               f"of busy  ({fam_n[fam]} launches)")

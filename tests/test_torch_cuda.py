@@ -606,7 +606,8 @@ def test_n30_default_width_peak_is_modeled(cuda, n30_default):
     tables, ``metrics.scheme_device_peak_bytes``, plus what the model
     leaves out: the staged operands and the runtime's reserve,
     ``PEAK_RESERVE_BYTES``) is at least the peak the run allocates, and
-    the model alone at least 90% of it."""
+    the model alone at least 90% of it: the graph run (warm-up group and
+    capture included) is held to the model of the eager one."""
     from artensor_tpu_torch.planner.cost import PEAK_RESERVE_BYTES
     from artensor_tpu_torch.runtime import metrics
 
@@ -616,11 +617,14 @@ def test_n30_default_width_peak_is_modeled(cuda, n30_default):
     model = metrics.scheme_device_peak_bytes(run_steps, W,
                                              sim.slicing_axes)
     staged = sum(8 * int(np.prod(np.shape(a))) for a in host)
+    # the run's own allocations: its warm-up group, its graph capture and
+    # two replays (no workspace or cached block of an earlier test)
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     run = sim.prepare(slice_batch=W, device="cuda")
     run()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     out = run()
     torch.cuda.synchronize()
     measured = torch.cuda.max_memory_allocated()
@@ -703,3 +707,232 @@ def test_gk_kernel_at_dense_path_steps(cuda, dense_gk_steps, which):
     assert err <= 2e-4 * scale + 1e-5, (err, scale)
     del xr, xi, kr, ki, pr, pi
     torch.cuda.empty_cache()
+
+
+# -- CUDA-graph replay (runtime/executor.GroupGraphs) -------------------------
+
+FAMILIES = ("gk", "ggk", "rgrow", "rgflat", "lane", "pair", "complex_mm")
+RGF_PLAN = os.path.join(os.path.dirname(__file__), "data",
+                        "torch_port_rcs15_rgflat_plan.json")
+
+
+def _tensors(args):
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            yield a
+        elif isinstance(a, tuple):
+            yield from _tensors(a)
+
+
+def _device_kernels(fn):
+    """``fn()`` under ``torch.profiler``: the port's kernels the card ran,
+    counted by (kind, form) (``kernels.kernel_family``)."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from artensor_tpu_torch.kernels import kernel_family
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return Counter(kernel_family(e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and kernel_family(e.name) is not None)
+
+
+def _ran(counts, kind):
+    return sum(n for (k, _), n in counts.items() if k == kind)
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_graph_replay_equals_eager(cuda, monkeypatch, family):
+    """Each kernel family captured in a CUDA graph: the capture launches
+    nothing and the wrapper counts nothing, a replay runs the kernel once
+    on the card (a profiler's kernel events; it calls no wrapper) and
+    gives the eager call's result, and after new values are copied into
+    the same inputs a replay gives the eager call's result on them."""
+    from artensor_tpu_torch.runtime.executor import GroupGraphs
+
+    monkeypatch.setattr(gatherk, "MIN_X_ELEMS", 1)
+    monkeypatch.setattr(gatherk, "GGK_MIN_WORK", 1)
+    call, _, args = _one_per_kernel("cuda")[FAMILIES.index(family)]
+    want = [c.clone() for c in call(*args)]     # warm-up: device tables
+    before = call.launches
+    graphs = GroupGraphs(torch.device("cuda"))
+    out = {}
+    graphs.capture(lambda: out.update(y=call(*args)))
+    assert call.launches == before
+    kind = "pair" if family == "complex_mm" else family   # Pair's kernel
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for _ in range(2):
+        assert _ran(_device_kernels(graphs.replay), kind) == 1
+        assert call.launches == before
+        for g, w in zip(out["y"], want):
+            assert torch.allclose(g, w, rtol=1e-6, atol=1e-7), family
+        for t in _tensors(args):
+            if t.dtype == torch.float32:
+                t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+        want = [c.clone() for c in call(*args)]
+        before = call.launches
+
+
+def _greedy_order(tensor_bonds, bond_dims):
+    """A pairwise order that always merges the connected pair with the
+    smallest result (the planner is not ported: the card's machine has no
+    JAX to plan with)."""
+    from math import log2
+
+    bonds = {t: set(b) for t, b in tensor_bonds.items()}
+    order = []
+    while len(bonds) > 1:
+        best = None
+        for i in bonds:
+            for j in bonds:
+                if i < j and bonds[i] & bonds[j]:
+                    size = sum(log2(bond_dims[b]) for b in bonds[i] ^ bonds[j])
+                    if best is None or size < best[0]:
+                        best = (size, i, j)
+        _, i, j = best
+        bonds[i] ^= bonds.pop(j)
+        order.append((i, j))
+    return order
+
+
+def _small_sim(monkeypatch, bits=True):
+    """With the size gates lowered (GK, RGFlat and Lane steps): sparse,
+    random_circuit(3, 5, 8, seed=13) with 128 bitstrings on the committed
+    small plan; or (``bits=False``) dense, random_circuit(3, 4, 8,
+    seed=13) on a greedy order of its network (no sliced bond)."""
+    import json
+
+    from artensor_tpu_torch import (TensorNetworkCircuit,
+                                    TensorNetworkSimulation, random_circuit)
+    from artensor_tpu_torch.runtime import lanes as planes
+    from artensor_tpu_torch.runtime import sparse as psparse
+
+    monkeypatch.setattr(gatherk, "MIN_X_ELEMS", 1 << 8)
+    monkeypatch.setattr(gatherk, "GGK_MIN_WORK", 1 << 8)
+    monkeypatch.setattr(planes, "MIN_X_ELEMS", 1 << 6)
+    monkeypatch.setattr(psparse, "RETAIL_MIN_ELEMS", 1 << 6)
+    if not bits:
+        circ = TensorNetworkCircuit(random_circuit(3, 4, 8, seed=13))
+        sim = TensorNetworkSimulation.from_circuit(circ)
+        plan = dict(version=1, tensor_bonds=sim.tensor_bonds,
+                    bond_dims=sim.bond_dims, final_qubits=sim.final_qubits,
+                    max_bitstring=1, slicing_bonds=[],
+                    order=_greedy_order(sim.tensor_bonds, sim.bond_dims),
+                    meta={})
+        return sim.load_plan(plan), circ
+    circ = TensorNetworkCircuit(random_circuit(3, 5, 8, seed=13))
+    rng = np.random.default_rng(4)
+    bits = [np.binary_repr(b, 15)
+            for b in rng.choice(2 ** 15, 128, replace=False)]
+    with open(RGF_PLAN) as f:
+        plan = json.load(f)
+    return TensorNetworkSimulation.from_circuit(circ, bits).load_plan(
+        plan), circ
+
+
+def _close(a, b):
+    scale = max(c.abs().max().item() for c in b)
+    return max((x - y).abs().max().item() for x, y in zip(a, b)) \
+        <= 1e-6 * scale
+
+
+def test_runner_replays_other_slice_ids(cuda, monkeypatch):
+    """One capture serves every later call on the same staged tensors: a
+    second call with other slice ids replays it and equals the eager run
+    on those ids; the two halves sum to the whole run."""
+    from artensor_tpu_torch.runtime import executor as ex
+
+    sim, _ = _small_sim(monkeypatch)
+    field, run_steps, arrays, out_shape, execute, _ = sim._staged(
+        torch.device("cuda"))
+    mk = lambda eager: ex.make_sliced_runner(
+        execute, run_steps, sim.slicing_axes, len(sim.slicing_bonds),
+        out_shape, field, slice_batch=2, eager=eager)
+    graph, eager = mk(False), mk(True)
+    n = 2 ** len(sim.slicing_bonds)
+    a = graph(arrays, range(0, n // 2))
+    b = graph(arrays, range(n // 2, n))
+    assert graph.stats["captures"] == 1
+    assert graph.stats["replays"] == n // 2
+    assert _close(a, eager(arrays, range(0, n // 2)))
+    assert _close(b, eager(arrays, range(n // 2, n)))
+    assert _close(field.add(a, b), graph(arrays))
+    assert graph.stats["captures"] == 1
+
+
+def test_segmented_graphs_equal_whole_group(cuda, monkeypatch):
+    """The segmented run (one graph a segment, one shared pool) equals the
+    whole-group graph at width 2, with the width it asked for."""
+    from artensor_tpu_torch.runtime import executor as ex
+    from artensor_tpu_torch.runtime import segmented
+
+    sim, _ = _small_sim(monkeypatch)
+    field, run_steps, arrays, out_shape, execute, step = sim._staged(
+        torch.device("cuda"))
+    k = len(sim.slicing_bonds)
+    whole = ex.make_sliced_runner(execute, run_steps, sim.slicing_axes, k,
+                                  out_shape, field, slice_batch=2)(arrays)
+    seg = segmented.run_segmented(arrays, run_steps, sim.slicing_axes, k,
+                                  out_shape, field, step, segment_steps=3,
+                                  slice_batch=2)
+    run = segmented.LAST_RUN
+    assert run["graphs"] and run["width"] == 2
+    assert run["segments"] == -(-len(run_steps) // 3)
+    assert run["replays"] == 2 ** k // 2
+    assert _close(seg, whole)
+
+
+def test_block_walk_under_graphs_equals_state(cuda, monkeypatch):
+    """The dense output-block walk, one graph replayed a block, gives the
+    whole state's blocks and the state vector."""
+    sim, circ = _small_sim(monkeypatch, bits=False)
+    state = sim.contraction(device="cuda")
+    assert sim.run_stats["executor"] == "graph"
+    exact = circ.state_vec()
+    assert np.abs(state - exact).max() <= 2e-5 * np.abs(exact).max()
+    n = 0
+    for bits, qubits, block in sim.contraction_output_blocks(
+            3, device="cuda"):
+        idx = tuple(int(b) for b in bits)
+        want = np.moveaxis(state, qubits, range(len(qubits)))[idx]
+        assert np.abs(block - want).max() <= 1e-6 * np.abs(state).max()
+        n += 1
+    assert n == 8
+    st = sim.block_run_stats
+    assert st["captures"] == 1 and st["replays"] == 8
+
+
+def test_contraction_runs_kernels_at_every_replay(cuda, monkeypatch):
+    """``contraction()`` on the card from scratch, under ``torch.profiler``
+    (its warm-up group, capture and replays): the card runs every kernel
+    step once a group, the warm-up group and each replay, while the
+    wrappers count the warm-up group's launches only."""
+    from collections import Counter
+
+    from artensor_tpu_torch.runtime.executor import precompute_static_steps
+    from artensor_tpu_torch.runtime.sparse import kernel_kind
+
+    sim, _ = _small_sim(monkeypatch)
+    run_steps, _ = precompute_static_steps(
+        sim.steps, [sim.tensors[i] for i in range(len(sim.tensors))],
+        sim.slicing_axes)
+    census = Counter(kernel_kind(s) for s in run_steps if kernel_kind(s))
+    assert {"gk", "rgflat", "lane"} <= set(census)
+    wrappers = dict(zip(FAMILIES, (gatherk.gk_call, gatherk.ggk_call,
+                                   gatherk.rgrow_call, gatherk.rgflat_call,
+                                   lanes.lane_call, lanes.pair_call)))
+    before = {k: f.launches for k, f in wrappers.items()}
+    ran = _device_kernels(lambda: sim.contraction(slice_batch=2,
+                                                  device="cuda"))
+    st = sim.run_stats
+    assert st["executor"] == "graph" and st["captures"] == 1
+    assert st["warmup_groups"] == 1
+    assert st["replays"] == 2 ** len(sim.slicing_bonds) // 2
+    for kind, f in wrappers.items():
+        assert f.launches - before[kind] == census[kind], kind
+        assert _ran(ran, kind) == census[kind] * (1 + st["replays"]), kind

@@ -40,6 +40,25 @@ def test_import_loads_no_jax():
     assert "BAD []" in r.stdout
 
 
+@pytest.mark.parametrize("module", ["runtime.executor", "runtime.segmented",
+                                    "runtime.rescaled", "runtime.checkpoint",
+                                    "runtime.metrics", "simulation"])
+def test_execution_modules_load_no_jax(module):
+    """Each module of the execution modes, imported alone in a fresh
+    process, loads neither JAX nor the JAX package."""
+    probe = (f"import importlib, sys\n"
+             f"importlib.import_module('artensor_tpu_torch.{module}')\n"
+             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'artensor_tpu'))\n"
+             "print('BAD', bad)\n"
+             "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300,
+                       env=_clean_env())
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "BAD []" in r.stdout
+
+
 def test_port_sources_never_name_jax():
     pkg = os.path.join(ROOT, "artensor_tpu_torch")
     for dirpath, _, files in os.walk(pkg):
