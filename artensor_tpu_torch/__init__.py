@@ -6,7 +6,9 @@ scheme compiler -> the sliced executor) and the dense full amplitude
 (``simplify('normal')`` -> ``contraction_scheme`` -> the same sliced
 runner over the dense executor, whole or an output block at a time),
 with hand-written CUDA kernels (``csrc/``) for the gather-K, gathered
-gather-K, RGRow, RGFlat, lane and pair steps.  Entry points run on the
+gather-K, RGRow, RGFlat, lane and pair steps; the number field is the
+JAX package's choice (``make_field``: split pairs, native complex or
+fused, at three precisions), the kernels running in split mode.  Entry points run on the
 card unless the caller passes ``device='cpu'``, where every kernel wrapper
 takes its plain PyTorch version.  This package imports nothing of JAX or of
 ``artensor_tpu``.
@@ -14,7 +16,7 @@ takes its plain PyTorch version.  This package imports nothing of JAX or of
 
 from .circuits import TensorNetworkCircuit, random_circuit
 from .network import AbstractTensorNetwork, NumericalTensorNetwork
-from .ops.field import SplitField
+from .ops.field import ComplexField, FusedField, SplitField, make_field
 from .plan_io import load_plan, plan_from_dict
 from .planner import ContractionTree
 from .runtime.executor import tensor_contraction
@@ -24,7 +26,8 @@ from .simulation import TensorNetworkSimulation
 
 __all__ = [
     "TensorNetworkCircuit", "random_circuit", "AbstractTensorNetwork",
-    "NumericalTensorNetwork", "SplitField", "load_plan",
+    "NumericalTensorNetwork", "SplitField", "ComplexField", "FusedField",
+    "make_field", "load_plan",
     "plan_from_dict", "ContractionTree", "contraction_scheme",
     "contraction_scheme_sparse", "tensor_contraction",
     "TensorNetworkSimulation",

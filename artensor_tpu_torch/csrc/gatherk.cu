@@ -45,7 +45,10 @@
 //   block's outer index at woff[o], so its f run must be a multiple of the
 //   128-wide N tile (a tile never spans two outer indices).  Bound by
 //   operations at the 3xTF32 rate or, for most such steps, by bytes.
+//   ``passes`` 1 runs its one-pass TF32 form (precision "default",
+//   tc_core.cuh); the stream form keeps float32 FMAs at every precision.
 
+#include "runs.cuh"
 #include "tc_core.cuh"
 
 namespace {
@@ -211,10 +214,15 @@ stream_body(const float* __restrict__ xr, const float* __restrict__ xi,
 #define STREAM_ARGS xr, xi, wr, wi, yr, yi, xoff, yoff, woff, koff, H, K, F, \
     hstride, x_ws, w_ws, y_ws, nflat, n_hchunks
 
+// launches that ran on the card (runs.cuh): GK stream, GK mma, GGK
+// stream, GGK mma
+__device__ unsigned long long g_runs[4];
+
 template <int HC, bool VEC>
 __global__ void __launch_bounds__(STREAM_THREADS)
 gk_stream_kernel(STREAM_PARAMS)
 {
+    runs::count(&g_runs[0]);
     stream_body<HC, VEC, W_SHARED>(STREAM_ARGS);
 }
 
@@ -222,6 +230,7 @@ template <int HC, bool VEC, int WS>
 __global__ void __launch_bounds__(STREAM_THREADS)
 ggk_stream_kernel(STREAM_PARAMS)
 {
+    runs::count(&g_runs[2]);
     stream_body<HC, VEC, WS>(STREAM_ARGS);
 }
 
@@ -322,19 +331,30 @@ int stream_any(const float* xr, const float* xi, const float* wr,
 using GkNarrow = tc::Tile<2, 4, 1, 4>;
 using GkWide = tc::Tile<2, 4, 2, 4>;
 
-template <class T, int MIN_BLOCKS, bool ROW>
+template <class T, int MIN_BLOCKS, bool ROW, int PASSES>
 __global__ void __launch_bounds__(T::THREADS, MIN_BLOCKS)
 gk_mma_kernel(tc::Operands p, int n_mtiles)
 {
-    tc::cgemm<T, true, true, ROW>(p, n_mtiles);
+    runs::count(&g_runs[1]);
+    tc::cgemm<T, true, true, ROW, PASSES>(p, n_mtiles);
 }
 
 // the same for GGK (p.aoff set), under its own name for the profile
-template <class T, int MIN_BLOCKS, bool ROW>
+template <class T, int MIN_BLOCKS, bool ROW, int PASSES>
 __global__ void __launch_bounds__(T::THREADS, MIN_BLOCKS)
 ggk_mma_kernel(tc::Operands p, int n_mtiles)
 {
-    tc::cgemm<T, true, true, ROW>(p, n_mtiles);
+    runs::count(&g_runs[1]);
+    tc::cgemm<T, true, true, ROW, PASSES>(p, n_mtiles);
+}
+
+// the GK or GGK kernel of tile T in ``PASSES`` passes
+template <class T, int MIN_BLOCKS, bool ROW, int PASSES>
+int gk_mma_tile(const tc::Operands& p, int W, cudaStream_t s)
+{
+    return tc::launch<T, true>(
+        p.aoff ? ggk_mma_kernel<T, MIN_BLOCKS, ROW, PASSES>
+               : gk_mma_kernel<T, MIN_BLOCKS, ROW, PASSES>, p, W, s);
 }
 
 int gk_mma(const float* xr, const float* xi, const float* wr,
@@ -342,11 +362,11 @@ int gk_mma(const float* xr, const float* xi, const float* wr,
            const long long* yoff, const long long* woff,
            const long long* koff, long long O, int H, int K, int F,
            long long hstride, long long x_ws, long long w_ws,
-           long long y_ws, int W, bool vec, cudaStream_t s)
+           long long y_ws, int W, bool vec, int passes, cudaStream_t s)
 {
     // a block's N tile lies in one outer index where W follows it
     if (O * F > 0x7fffffffLL || (woff && F % GkNarrow::BN)
-        || GkNarrow::BN != GkWide::BN)
+        || GkNarrow::BN != GkWide::BN || !tc::passes_ok(passes))
         return (int)cudaErrorInvalidValue;
     tc::Operands p{};
     p.ar = wr; p.ai = wi; p.br = xr; p.bi = xi; p.yr = yr; p.yi = yi;
@@ -359,12 +379,10 @@ int gk_mma(const float* xr, const float* xi, const float* wr,
               w_ws % 4 == 0;
     p.vec = vec;
     if (H <= 32)
-        return tc::launch<GkNarrow, true>(
-            woff ? ggk_mma_kernel<GkNarrow, 1, true>
-                 : gk_mma_kernel<GkNarrow, 1, true>, p, W, s);
-    return tc::launch<GkWide, true>(
-        woff ? ggk_mma_kernel<GkWide, 2, false>
-             : gk_mma_kernel<GkWide, 2, false>, p, W, s);
+        return passes == 1 ? gk_mma_tile<GkNarrow, 1, true, 1>(p, W, s)
+                           : gk_mma_tile<GkNarrow, 1, true, 3>(p, W, s);
+    return passes == 1 ? gk_mma_tile<GkWide, 2, false, 1>(p, W, s)
+                       : gk_mma_tile<GkWide, 2, false, 3>(p, W, s);
 }
 
 int gk_any(const float* xr, const float* xi, const float* wr,
@@ -372,11 +390,13 @@ int gk_any(const float* xr, const float* xi, const float* wr,
            const long long* yoff, const long long* woff,
            const long long* koff, long long O, int H, int K, int F,
            long long hstride, long long x_ws, long long w_ws,
-           long long y_ws, int W, int form, int vec, cudaStream_t s)
+           long long y_ws, int W, int form, int vec, int passes,
+           cudaStream_t s)
 {
     if (form == 1)
         return gk_mma(xr, xi, wr, wi, yr, yi, xoff, yoff, woff, koff, O, H,
-                      K, F, hstride, x_ws, w_ws, y_ws, W, vec != 0, s);
+                      K, F, hstride, x_ws, w_ws, y_ws, W, vec != 0, passes,
+                      s);
     if (form != 0)
         return (int)cudaErrorInvalidValue;
     return stream_any(xr, xi, wr, wi, yr, yi, xoff, yoff, woff, koff, O, H,
@@ -386,17 +406,18 @@ int gk_any(const float* xr, const float* xi, const float* wr,
 }  // namespace
 
 // form: 0 "stream", 1 "mma" (gatherk.GK_FORMS); vec: the X / Y offsets,
-// strides and pointers are 16-byte aligned (gatherk.gk_aligned)
+// strides and pointers are 16-byte aligned (gatherk.gk_aligned); passes:
+// the mma form's tensor-core passes, 3 or 1 (the stream form ignores it)
 extern "C" int gk_launch(const float* xr, const float* xi, const float* wr,
                          const float* wi, float* yr, float* yi,
                          const long long* xoff, const long long* yoff,
                          const long long* koff, long long O, int H, int K,
                          int F, long long hstride, long long x_ws,
                          long long w_ws, long long y_ws, int W, int form,
-                         int vec, void* stream)
+                         int vec, int passes, void* stream)
 {
     return gk_any(xr, xi, wr, wi, yr, yi, xoff, yoff, nullptr, koff, O, H,
-                  K, F, hstride, x_ws, w_ws, y_ws, W, form, vec,
+                  K, F, hstride, x_ws, w_ws, y_ws, W, form, vec, passes,
                   (cudaStream_t)stream);
 }
 
@@ -407,11 +428,18 @@ extern "C" int ggk_launch(const float* xr, const float* xi, const float* wr,
                           const long long* woff, const long long* koff,
                           long long O, int H, int K, int F, long long hstride,
                           long long x_ws, long long w_ws, long long y_ws,
-                          int W, int form, int vec, void* stream)
+                          int W, int form, int vec, int passes,
+                          void* stream)
 {
     if (woff == nullptr)
         return (int)cudaErrorInvalidValue;
     return gk_any(xr, xi, wr, wi, yr, yi, xoff, yoff, woff, koff, O, H, K,
-                  F, hstride, x_ws, w_ws, y_ws, W, form, vec,
+                  F, hstride, x_ws, w_ws, y_ws, W, form, vec, passes,
                   (cudaStream_t)stream);
+}
+
+// the launches that ran on the card, by slot (g_runs)
+extern "C" int gatherk_runs(unsigned long long* out)
+{
+    return (int)cudaMemcpyFromSymbol(out, g_runs, sizeof(g_runs));
 }

@@ -30,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "runs.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -39,6 +41,9 @@ constexpr int FT_MAX = 256;              // free-run values per tile
 constexpr size_t SMEM_TARGET = 48 * 1024;    // four blocks per SM
 constexpr size_t SMEM_MAX = 227 * 1024;
 constexpr size_t TABLE_STAGE_MAX = 16 * 1024;
+
+// launches that ran on the card (runs.cuh)
+__device__ unsigned long long g_runs[1];
 
 template <bool H_FAST, bool STAGED>
 __global__ void __launch_bounds__(THREADS)
@@ -53,6 +58,7 @@ lane_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
             long long x_fs, long long y_fs, long long y_hs,
             long long x_ws, long long w_ws, long long y_ws)
 {
+    runs::count(&g_runs[0]);
     extern __shared__ __align__(16) unsigned char smem[];
     const int FTP = FT + 1;                 // padded tile row (banks)
     const int HT = H * T;
@@ -227,4 +233,10 @@ extern "C" int lane_launch(const float* xr, const float* xi,
         rc = launch<false, false>(LANE_ARGS);
 #undef LANE_ARGS
     return rc;
+}
+
+// the launches that ran on the card (g_runs)
+extern "C" int lane_runs(unsigned long long* out)
+{
+    return (int)cudaMemcpyFromSymbol(out, g_runs, sizeof(g_runs));
 }

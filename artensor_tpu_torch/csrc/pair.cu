@@ -25,8 +25,10 @@
 // complex64 product).  Tiles of 128 x 128 outputs, 8 warps of 64 x 32, K
 // in chunks of 16 through a 4-stage cp.async ring; each k8 step's products
 // of a warp's row of 4 output tiles are formed at once (8 mma between
-// dependent ones), one block an SM at up to 255 registers.
+// dependent ones), one block an SM at up to 255 registers.  ``passes``
+// 1 runs the one-pass TF32 form (precision "default", tc_core.cuh).
 
+#include "runs.cuh"
 #include "tc_core.cuh"
 
 namespace {
@@ -34,19 +36,26 @@ namespace {
 // 128 x 128 tiles, 8 warps of 64 x 32, 4 stages of K 16
 using PairTile = tc::Tile<4, 4, 2, 4>;
 
-template <bool A_MK>
+// launches that ran on the card (runs.cuh): Pair, the complex matmul
+__device__ unsigned long long g_runs[2];
+
+template <bool A_MK, int PASSES>
 __global__ void __launch_bounds__(PairTile::THREADS, 1)
 pair_mma_kernel(tc::Operands p, int n_mtiles)
 {
-    tc::cgemm<PairTile, A_MK, false, true>(p, n_mtiles);
+    runs::count(&g_runs[A_MK ? 1 : 0]);
+    tc::cgemm<PairTile, A_MK, false, true, PASSES>(p, n_mtiles);
 }
 
-// (M, N) product at width W
+// (M, N) product at width W, in ``passes`` tensor-core passes
 template <bool A_MK>
-int launch(const tc::Operands& p, int W, void* stream)
+int launch(const tc::Operands& p, int W, int passes, void* stream)
 {
-    return tc::launch<PairTile, A_MK>(pair_mma_kernel<A_MK>, p, W,
-                                      (cudaStream_t)stream);
+    if (!tc::passes_ok(passes))
+        return (int)cudaErrorInvalidValue;
+    return tc::launch<PairTile, A_MK>(
+        passes == 1 ? pair_mma_kernel<A_MK, 1> : pair_mma_kernel<A_MK, 3>,
+        p, W, (cudaStream_t)stream);
 }
 
 tc::Operands operands(const float* ar, const float* ai, const float* br,
@@ -73,18 +82,24 @@ tc::Operands operands(const float* ar, const float* ai, const float* br,
 extern "C" int pair_launch(const float* xr, const float* xi, const float* vr,
                            const float* vi, float* yr, float* yi, int K,
                            int M, int N, long long x_ws, long long v_ws,
-                           long long y_ws, int W, void* stream)
+                           long long y_ws, int W, int passes, void* stream)
 {
     return launch<false>(operands(xr, xi, vr, vi, yr, yi, M, N, K, M, x_ws,
-                                  v_ws, y_ws), W, stream);
+                                  v_ws, y_ws), W, passes, stream);
 }
 
 // (B, M, K) . (B, K, N) -> (B, M, N); A = (ar, ai), B = (br, bi)
 extern "C" int cmm_launch(const float* ar, const float* ai, const float* br,
                           const float* bi, float* yr, float* yi, int B,
-                          int M, int K, int N, void* stream)
+                          int M, int K, int N, int passes, void* stream)
 {
     return launch<true>(operands(ar, ai, br, bi, yr, yi, M, N, K, K,
                                  (long long)M * K, (long long)K * N,
-                                 (long long)M * N), B, stream);
+                                 (long long)M * N), B, passes, stream);
+}
+
+// the launches that ran on the card, by slot (g_runs)
+extern "C" int pair_runs(unsigned long long* out)
+{
+    return (int)cudaMemcpyFromSymbol(out, g_runs, sizeof(g_runs));
 }

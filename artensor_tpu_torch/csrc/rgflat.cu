@@ -45,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "runs.cuh"
+
 #include "tc_core.cuh"
 
 namespace {
@@ -244,10 +246,14 @@ __device__ __forceinline__ void stage_rows(const Args& a, float* dr, float* di,
     tc::cp_commit();
 }
 
+// launches that ran on the card (runs.cuh)
+__device__ unsigned long long g_runs[1];
+
 template <int HC, int V, bool STAGED, bool WST>
 __global__ void __launch_bounds__(THREADS)
 rgflat_kernel(const Args a)
 {
+    runs::count(&g_runs[0]);
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
     const long long w = blockIdx.y;
@@ -384,4 +390,10 @@ extern "C" int rgflat_launch(const float* xr, const float* xi,
     if (V == 2)
         return launch_h<2>(a, W, s);
     return launch_h<1>(a, W, s);
+}
+
+// the launches that ran on the card (g_runs)
+extern "C" int rgflat_runs(unsigned long long* out)
+{
+    return (int)cudaMemcpyFromSymbol(out, g_runs, sizeof(g_runs));
 }

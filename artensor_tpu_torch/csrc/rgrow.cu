@@ -38,6 +38,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "runs.cuh"
+
 namespace {
 
 constexpr int THREADS = 128;
@@ -82,6 +84,9 @@ __device__ __forceinline__ void fold(float (&v)[N], bool up)
     }
 }
 
+// launches that ran on the card (runs.cuh)
+__device__ unsigned long long g_runs[1];
+
 template <int HC, int V>
 __global__ void __launch_bounds__(THREADS)
 rgrow_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
@@ -96,6 +101,7 @@ rgrow_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
              long long wrow, long long x_ws, long long w_ws, long long y_ws,
              int n_ft)
 {
+    runs::count(&g_runs[0]);
     constexpr int FT = (32 / HC < 16 * V) ? 32 / HC : 16 * V;
     constexpr int FG = FT / V;          // vector groups a thread owns
     constexpr int ACC = 2 * HC * FT;    // partial sums: [re|im][h][f]
@@ -268,4 +274,10 @@ extern "C" int rgrow_launch(const float* xr, const float* xi, const float* wr,
         return launch_h<2>(RG_ARGS);
     return launch_h<1>(RG_ARGS);
 #undef RG_ARGS
+}
+
+// the launches that ran on the card (g_runs)
+extern "C" int rgrow_runs(unsigned long long* out)
+{
+    return (int)cudaMemcpyFromSymbol(out, g_runs, sizeof(g_runs));
 }

@@ -12,15 +12,19 @@
 // ``aoff`` (GGK) A of outer index o starts at aoff[o]; then F is a
 // multiple of BN, so that an N tile lies in one outer index.
 //
-// 3xTF32: each operand is split x = hi + lo with hi = tf32(x) and
-// lo = tf32(x - hi); a real product sums hi.hi + hi.lo + lo.hi (the lo.lo
-// term, below 2^-22 of |a||b|, is dropped).  The relative error of a
-// product is about 2^-21, near float32's 2^-24: the JAX kernels'
-// Precision.HIGHEST products are multi-pass bf16 on the MXU at float32
-// accuracy, and this is the Hopper counterpart.  Single-pass TF32 (10
-// mantissa bits) is not used.  A complex product is four real ones, 12
-// mma.sync.m16n8k8 per 16 x 8 x 8 tile, re and im accumulators kept in
-// registers.  The sums inside the tensor cores do not round to nearest:
+// 3xTF32 (PASSES 3, precision "highest" and "high"): each operand is split
+// x = hi + lo with hi = tf32(x) and lo = tf32(x - hi); a real product sums
+// hi.hi + hi.lo + lo.hi (the lo.lo term, below 2^-22 of |a||b|, is
+// dropped).  The relative error of a product is about 2^-21, near
+// float32's 2^-24: the JAX kernels' Precision.HIGHEST products are
+// multi-pass bf16 on the MXU at float32 accuracy, and this is the Hopper
+// counterpart.  A complex product is four real ones, 12 mma.sync.m16n8k8
+// per 16 x 8 x 8 tile, re and im accumulators kept in registers.  The one-
+// pass form (PASSES 1, precision "default", ops/einsum.py) multiplies hi.hi
+// alone, hi the operand with its low 13 mantissa bits cleared (10 mantissa
+// bits kept), 4 mma per tile: the counterpart of the TPU's one bf16 pass,
+// held on the card against a plain version whose operands are rounded the
+// same way and multiplied in float32.  The sums inside the tensor cores do not round to nearest:
 // with all of K added into the mma accumulators the pair step at K 1024
 // came out 12x as far from float64 as cuBLAS's float32 product (H100).
 // So each k8 step's products go into zeroed tiles (at most 6 terms each),
@@ -55,11 +59,18 @@ __device__ __forceinline__ uint32_t to_tf32(float x)
     return r;
 }
 
-// x = hi + lo, both TF32
+// x = hi + lo, both TF32; with one pass hi = x with its low 13 mantissa
+// bits cleared (lo unused)
+template <int PASSES>
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo)
 {
-    hi = to_tf32(x);
-    lo = to_tf32(x - __uint_as_float(hi));
+    if (PASSES == 1) {
+        hi = __float_as_uint(x) & 0xffffe000u;
+        lo = 0u;
+    } else {
+        hi = to_tf32(x);
+        lo = to_tf32(x - __uint_as_float(hi));
+    }
 }
 
 __device__ __forceinline__ void mma(float* c, const uint32_t* a,
@@ -161,10 +172,12 @@ struct Shape {
 // own (gatherk.cu's gk_mma_kernel, pair.cu's pair_mma_kernel), so that a
 // profile tells them apart by name.  ROW: the products of a k8 step go
 // into tiles for a whole row of NT outputs at once (more independent mma,
-// more live registers) rather than one output at a time.
-template <class T, bool A_MK, bool GATHER, bool ROW>
+// more live registers) rather than one output at a time.  PASSES: 3
+// (3xTF32) or 1 (one TF32 pass).
+template <class T, bool A_MK, bool GATHER, bool ROW, int PASSES>
 __device__ __forceinline__ void cgemm(const Operands& p, int n_mtiles)
 {
+    static_assert(PASSES == 1 || PASSES == 3, "PASSES");
     using S = Shape<T, A_MK>;
     constexpr int MT = T::MT, NT = T::NT, WM = T::WM, BK = T::BK;
     constexpr int STAGES = T::STAGES;
@@ -287,8 +300,9 @@ __device__ __forceinline__ void cgemm(const Operands& p, int n_mtiles)
 #pragma unroll
                 for (int q = 0; q < 2; ++q) {
                     const int k = kk + t + 4 * q;
-                    split(sb[k * LDB + n], bhr[j][q], blr[j][q]);
-                    split(sb[B_PART + k * LDB + n], bhi[j][q], bli[j][q]);
+                    split<PASSES>(sb[k * LDB + n], bhr[j][q], blr[j][q]);
+                    split<PASSES>(sb[B_PART + k * LDB + n], bhi[j][q],
+                                  bli[j][q]);
                 }
             }
 #pragma unroll
@@ -300,8 +314,8 @@ __device__ __forceinline__ void cgemm(const Operands& p, int n_mtiles)
                     const int mm = m + 8 * (c & 1);
                     const int k = kk + t + 4 * (c >> 1);
                     const int a = A_MK ? mm * LDA + k : k * LDA + mm;
-                    split(sa[a], ahr[c], alr[c]);
-                    split(sa[A_PART + a], ahi[c], ali[c]);
+                    split<PASSES>(sa[a], ahr[c], alr[c]);
+                    split<PASSES>(sa[A_PART + a], ahi[c], ali[c]);
                 }
                 // each k8 step's products go into zeroed tiles (see the
                 // note at the top), then into the float32 accumulators
@@ -323,7 +337,8 @@ __device__ __forceinline__ void cgemm(const Operands& p, int n_mtiles)
                             ti[j][c] = 0.f;
                         }
 #pragma unroll
-                    for (int q = 0; q < 3; ++q) {   // lo.hi, hi.lo, hi.hi
+                    for (int q = 3 - PASSES; q < 3; ++q) {
+                        // lo.hi, hi.lo, hi.hi (one pass: hi.hi alone)
                         const uint32_t* xr = q == 0 ? alr : ahr;
                         const uint32_t* xi = q == 0 ? ali : ahi;
                         const uint32_t* xn = q == 0 ? nli : nhi;
@@ -357,14 +372,16 @@ __device__ __forceinline__ void cgemm(const Operands& p, int n_mtiles)
                     float ii[4] = {0.f, 0.f, 0.f, 0.f};
                     float ri[4] = {0.f, 0.f, 0.f, 0.f};
                     float ir[4] = {0.f, 0.f, 0.f, 0.f};
-                    mma(rr, alr, bhr[j]);
-                    mma(ii, ali, bhi[j]);
-                    mma(ri, alr, bhi[j]);
-                    mma(ir, ali, bhr[j]);
-                    mma(rr, ahr, blr[j]);
-                    mma(ii, ahi, bli[j]);
-                    mma(ri, ahr, bli[j]);
-                    mma(ir, ahi, blr[j]);
+                    if (PASSES == 3) {
+                        mma(rr, alr, bhr[j]);
+                        mma(ii, ali, bhi[j]);
+                        mma(ri, alr, bhi[j]);
+                        mma(ir, ali, bhr[j]);
+                        mma(rr, ahr, blr[j]);
+                        mma(ii, ahi, bli[j]);
+                        mma(ri, ahr, bli[j]);
+                        mma(ir, ahi, blr[j]);
+                    }
                     mma(rr, ahr, bhr[j]);
                     mma(ii, ahi, bhi[j]);
                     mma(ri, ahr, bhi[j]);
@@ -436,6 +453,13 @@ int launch(void (*kern)(Operands, int), const Operands& p, int W,
     dim3 grid((unsigned)nblk, (unsigned)W);
     kern<<<grid, T::THREADS, SMEM, stream>>>(p, (int)n_mtiles);
     return (int)cudaGetLastError();
+}
+
+// a pass count the C entry points take (their kernels are instantiated
+// for these)
+inline bool passes_ok(int passes)
+{
+    return passes == 1 || passes == 3;
 }
 
 inline bool aligned16(const void* a)

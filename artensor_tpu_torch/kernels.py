@@ -12,13 +12,14 @@ so an edited source or header rebuilds and an unchanged one loads at
 once.
 
 Nothing here runs at import: ``load()`` builds on its first call, from the
-wrapper that first launches a kernel.  A failed build raises.
+wrapper that first launches a kernel.  A failed build raises.  Every
+kernel counts the launches that ran on the card (``csrc/runs.cuh``);
+``device_runs()`` reads the counts.
 """
 
 import ctypes
 import hashlib
 import os
-import re
 import shutil
 import subprocess
 import time
@@ -44,9 +45,9 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "gatherk": {
         "gk_launch": [_P] * 9 + [_L, _I, _I, _I, _L, _L, _L, _L, _I, _I, _I,
-                                  _P],
+                                  _I, _P],
         "ggk_launch": [_P] * 10 + [_L, _I, _I, _I, _L, _L, _L, _L, _I, _I,
-                                    _I, _P],
+                                    _I, _I, _P],
     },
     "rgrow": {
         "rgrow_launch": [_P] * 13 + [_L, _I, _I, _I, _I, _I, _I, _L, _L, _L,
@@ -59,10 +60,23 @@ SIGNATURES = {
         "lane_launch": [_P] * 11 + [_L, _I, _I, _I] + [_L] * 7 + [_I, _P],
     },
     "pair": {
-        "pair_launch": [_P] * 6 + [_I, _I, _I, _L, _L, _L, _I, _P],
-        "cmm_launch": [_P] * 6 + [_I, _I, _I, _I, _P],
+        "pair_launch": [_P] * 6 + [_I, _I, _I, _L, _L, _L, _I, _I, _P],
+        "cmm_launch": [_P] * 6 + [_I, _I, _I, _I, _I, _P],
     },
 }
+# each source's launches that ran on the card, counted by its kernels
+# (csrc/runs.cuh), slot by slot: (kind, form); the pair kernel also runs
+# the complex matmul
+RUN_SLOTS = {
+    "gatherk": (("gk", "stream"), ("gk", "mma"), ("ggk", "stream"),
+                ("ggk", "mma")),
+    "rgrow": (("rgrow", None),),
+    "rgflat": (("rgflat", None),),
+    "lane": (("lane", None),),
+    "pair": (("pair", None), ("complex_mm", None)),
+}
+for _name in RUN_SLOTS:
+    SIGNATURES[_name][f"{_name}_runs"] = [_P]
 
 
 class Kernels:
@@ -160,27 +174,45 @@ def launch(name, fn, dev, *args):
 
     Returns the launches made, for the wrapper's count: 1, or 0 when the
     stream is being captured into a CUDA graph (the kernel is recorded,
-    and runs at each replay, where no wrapper is called; a profiler's
-    kernel events count those, ``kernel_family``)."""
+    and runs at each replay, where no wrapper is called; the kernels' own
+    counters count those, ``device_runs``)."""
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)
         check(fn(*args, ctypes.c_void_p(stream.cuda_stream)), name)
         return 0 if torch.cuda.is_current_stream_capturing() else 1
 
 
-# the device kernels of the wrappers, as a profiler names them: (wrapper
-# kind, form); Pair's kernel also serves the complex matmul
-_KERNEL_NAME = re.compile(
-    r"\b(ggk|gk|rgrow|rgflat|lane|pair)(?:_(stream|mma))?_kernel\b")
+def device_runs():
+    """The launches of each kernel that ran on the card so far, by
+    ``(kind, form)`` (``RUN_SLOTS``), as the kernels count them
+    (``csrc/runs.cuh``): a replay of a captured graph counts as a launch
+    does, a capture counts nothing.  Waits for the card's work."""
+    lib = load()
+    torch.cuda.synchronize()
+    out = {}
+    for name, slots in RUN_SLOTS.items():
+        buf = (ctypes.c_ulonglong * len(slots))()
+        check(getattr(lib, f"{name}_runs")(ctypes.cast(buf, ctypes.c_void_p)),
+              f"{name}_runs")
+        out.update(zip(slots, buf))
+    return out
 
 
-def kernel_family(name):
-    """``(kind, form)`` of a device kernel event's name from one of the
-    port's sources ("gk", "ggk", "rgrow", "rgflat", "lane", "pair"; the
-    form "stream" or "mma" for GK and GGK, else None), or None for any
-    other kernel."""
-    m = _KERNEL_NAME.search(name)
-    return None if m is None else (m.group(1), m.group(2))
+def tc_passes(precision):
+    """The tensor-core passes of the kernels' tensor-core forms (Pair, GK
+    and GGK "mma", the complex matmul) for a clamped kernel precision
+    (``runtime/lanes.kernel_precision``): 1 (one TF32 pass) for
+    'default', else 3 (3xTF32)."""
+    return 1 if precision is not None and precision.passes == 1 else 3
+
+
+def tf32_round(t):
+    """``t`` (float32) with the low 13 mantissa bits of every element
+    cleared: the operands the one-pass tensor-core form multiplies.  The
+    plain versions' TF32 form rounds their operands so and multiplies
+    them in float32."""
+    return (t.contiguous().view(torch.int32) & -(1 << 13)).view(
+        torch.float32)
 
 
 def check_operands(name, tensors, shapes):

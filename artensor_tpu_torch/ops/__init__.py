@@ -1,3 +1,5 @@
-from .field import SplitField
+from .einsum import PRECISIONS, pairwise_einsum
+from .field import ComplexField, FusedField, SplitField, make_field
 
-__all__ = ["SplitField"]
+__all__ = ["ComplexField", "FusedField", "PRECISIONS", "SplitField",
+           "make_field", "pairwise_einsum"]

@@ -1,58 +1,138 @@
-"""Split-complex field: complex tensors as (re, im) pairs of real tensors.
+"""Number fields: how a complex tensor is held on the card.
 
-Port of ``SplitField`` (``artensor_tpu/ops/field.py:31-173``).  A value is a
-tuple ``(re, im)`` of float tensors in the JAX package's flat physical shape
-``(d0, rest)`` (``runtime/lowering.py::physical_shape``).  The hand-written
-kernels take re and im as separate buffers, so keeping the pair (instead of
-a native complex tensor) lets every step hand its operands to a kernel
-without an interleave pass.
+Port of ``artensor_tpu/ops/field.py`` (``SplitField``, ``FusedField``,
+``ComplexField``, ``make_field``).  Three forms, each value in the JAX
+package's flat physical shape ``(d0, rest)``
+(``runtime/lowering.py::physical_shape``):
 
-Products accumulate in full float32: ``dot`` runs its products with
-``torch.backends.cuda.matmul.allow_tf32`` False, because the JAX package's
-dots run at HIGHEST precision, and gives the caller's setting back after
-them.  A value may carry a leading slice-width axis (see
-``runtime/executor.py``); methods that take a ``shape`` or ``axis`` are
-given the full shape including it.
+  split    a tuple ``(re, im)`` of real tensors (the default).  The
+           hand-written kernels take re and im as separate buffers, so
+           every kernel step gets its operands without an interleave
+           pass; the kernels run in this form only, at float32 storage
+           (``supports_lanes``).  A complex product is four real products
+           (``algo='naive'``) or three (``'karatsuba'``: t1 = ar.br, t2 =
+           ai.bi, t3 = (ar+ai).(br+bi), re = t1 - t2, im = t3 - t1 - t2).
+  complex  one native ``torch.complex64`` / ``complex128`` tensor; a
+           product is one complex ``torch.matmul`` (cuBLAS's complex
+           GEMM on the card).  No kernel runs, as in the JAX package.
+  fused    one real tensor with the re/im axis folded into the flat minor
+           dim (re, im adjacent); a step is ONE real product on the small
+           operand's expansion ``[wr, wi, -wi, wr]``
+           (``runtime/lowering.FusedPlan``).  No kernel runs.
+
+``precision`` (``ops/einsum.py``): 'default' lets cuBLAS round the
+operands of the dot fallback to TF32, 'high' and 'highest' keep float32;
+the kernels read it through ``runtime/lanes.kernel_precision``.
+``storage`` ('f32', 'bf16', 'f16'; split and fused only): the dtype that
+intermediates are stored in between steps.  Each step's real products
+are summed in the real dtype (float32 for complex64) and rounded to
+storage once, as the JAX package's ``preferred_element_type`` does; the
+slice accumulator (``sum0``, ``zeros``) stays in the real dtype.
+
+A value may carry a leading slice-width axis (see ``runtime/executor.py``);
+methods that take a ``shape`` or ``axis`` are given the full shape
+including it (the fused field's shapes are the c-free logical ones).
+Every field has ``buffers(x)`` (the tensors a value is made of), ``join``
+(a value from them), ``clone``, ``device`` and ``leading``, so that the
+executors handle any field's value alike.
 
 Index arrays that a step takes (``take``) are int64 tensors on the
 operand's device, made once per step and device before a run
 (``runtime/sparse.step_tables``): a run uploads nothing from the host, so
-a slice group can be captured as a CUDA graph.
-
-``FusedField`` and ``ComplexField`` are not ported yet.
+a slice group can be captured as a CUDA graph.  The fused field needs no
+tables of its own: it gathers re/im pairs through an ``(n, 2)`` view.
 """
 
 import numpy as np
 import torch
 
+from .einsum import as_precision, matmul_precision, pairwise_einsum
+
 _REAL = {np.dtype(np.complex64): torch.float32,
          np.dtype(np.complex128): torch.float64}
+_COMPLEX = {np.dtype(np.complex64): torch.complex64,
+            np.dtype(np.complex128): torch.complex128}
+_STORAGE = {"bf16": torch.bfloat16, "f16": torch.float16}
+_NP_REAL = {torch.float32: np.float32, torch.float64: np.float64}
 
 
-def _split_dot(a, b, dnums):
-    """``lax.dot_general`` on split pairs as permute/reshape + ``matmul``.
+def _real_dtype(dtype):
+    dtype = np.dtype(dtype)
+    if dtype not in _REAL:
+        raise ValueError(f"unsupported dtype {dtype}")
+    return _REAL[dtype]
 
-    Output axes: batch dims, then a's free dims, then b's free dims (in
-    their stored order), as XLA's dot_general produces them.  Each
-    operand component is permuted into (batch, rows, k) / (batch, k,
-    cols) form once (a copy unless the permutation is the identity), and
-    the four real products accumulate in place into the output
-    (``baddbmm_``).  The larger operand's components are permuted one at a
-    time, the second after the first's copy is dropped, so the step holds
-    one component copy of it (``metrics.dot_copy_elems``)."""
+
+def _storage_dtype(storage, rdtype):
+    if storage == "f32":
+        return rdtype
+    if storage not in _STORAGE:
+        raise ValueError(f"unknown storage {storage!r}: 'f32', 'bf16' or "
+                         "'f16'")
+    return _STORAGE[storage]
+
+
+def _matrix_forms(a, b, dnums):
+    """``(am, bm, shape)`` of ``lax.dot_general``'s product of tensors
+    shaped like ``a`` and ``b``: ``am`` / ``bm`` permute and reshape an
+    operand into (batch, rows, k) / (batch, k, cols) form (a copy unless
+    the permutation is the identity); ``shape``: the output's, batch
+    dims, then a's free dims, then b's free dims, in stored order, as
+    XLA's dot_general produces them."""
     (ca, cb), (ba, bb) = dnums
-    fa = [d for d in range(a[0].dim()) if d not in ca and d not in ba]
-    fb = [d for d in range(b[0].dim()) if d not in cb and d not in bb]
-    bsz = [a[0].shape[d] for d in ba]
-    fa_sz = [a[0].shape[d] for d in fa]
-    fb_sz = [b[0].shape[d] for d in fb]
+    fa = [d for d in range(a.dim()) if d not in ca and d not in ba]
+    fb = [d for d in range(b.dim()) if d not in cb and d not in bb]
+    bsz = [a.shape[d] for d in ba]
+    fa_sz = [a.shape[d] for d in fa]
+    fb_sz = [b.shape[d] for d in fb]
     nb = int(np.prod(bsz)) if bsz else 1
-    k = int(np.prod([a[0].shape[d] for d in ca])) if ca else 1
+    k = int(np.prod([a.shape[d] for d in ca])) if ca else 1
     m = int(np.prod(fa_sz)) if fa_sz else 1
     n = int(np.prod(fb_sz)) if fb_sz else 1
     am = lambda c: c.permute(*ba, *fa, *ca).reshape(nb, m, k)
     bm = lambda c: c.permute(*bb, *cb, *fb).reshape(nb, k, n)
-    if a[0].numel() >= b[0].numel():
+    return am, bm, (*bsz, *fa_sz, *fb_sz)
+
+
+def _upcast(form, rdtype):
+    """``form`` followed by a cast to ``rdtype`` where the operand is
+    stored narrower (reduced storage: products in the real dtype)."""
+    if rdtype is None:
+        return form
+    return lambda c: form(c) if c.dtype == rdtype else form(c).to(rdtype)
+
+
+def _dot(a, b, dnums, rdtype=None):
+    """``lax.dot_general`` of two tensors (real or complex) as one
+    ``torch.matmul`` on their matrix forms."""
+    am, bm, shape = _matrix_forms(a, b, dnums)
+    am, bm = _upcast(am, rdtype), _upcast(bm, rdtype)
+    return torch.matmul(am(a), bm(b)).reshape(shape)
+
+
+def _split_dot(a, b, dnums, algo="naive", rdtype=None, sdtype=None):
+    """``lax.dot_general`` on split pairs as permute/reshape + ``matmul``.
+
+    Output axes as ``_matrix_forms``.  Each operand component is permuted
+    into matrix form once.  ``naive``: the four real products accumulate
+    in place into the output (``baddbmm_``); the larger operand's
+    components are permuted one at a time, the second after the first's
+    copy is dropped, so the step holds one component copy of it
+    (``metrics.dot_copy_elems``).  ``karatsuba``: three products, the
+    operand sums formed in the stored dtype, as the JAX package forms
+    them.  ``rdtype``: the real dtype the products are summed in (where
+    the operands are stored narrower); ``sdtype``: the dtype the result is
+    stored in, rounded once."""
+    am, bm, shape = _matrix_forms(a[0], b[0], dnums)
+    am, bm = _upcast(am, rdtype), _upcast(bm, rdtype)
+    if algo == "karatsuba":
+        yr = torch.matmul(am(a[0]), bm(b[0]))
+        t2 = torch.matmul(am(a[1]), bm(b[1]))
+        yi = torch.matmul(am(a[0] + a[1]), bm(b[0] + b[1]))
+        yi.sub_(yr).sub_(t2)
+        yr.sub_(t2)
+        del t2
+    elif a[0].numel() >= b[0].numel():
         br, bi = bm(b[0]), bm(b[1])
         x = am(a[0])
         yr, yi = torch.matmul(x, br), torch.matmul(x, bi)
@@ -68,44 +148,124 @@ def _split_dot(a, b, dnums):
         x = bm(b[1])
         yr.baddbmm_(ai, x, alpha=-1.0)
         yi.baddbmm_(ar, x)
-    shape = (*bsz, *fa_sz, *fb_sz)
-    return yr.reshape(shape), yi.reshape(shape)
+    out = yr.reshape(shape), yi.reshape(shape)
+    if sdtype is not None and sdtype != yr.dtype:
+        out = tuple(c.to(sdtype) for c in out)
+    return out
 
 
-class SplitField:
+# -- structural ops on one tensor, shared by the fields ----------------------
+
+def _regroup1(c, dims, perm, final_shape):
+    """reshape(dims) -> permute(perm) -> reshape(final_shape)."""
+    c = c.reshape(dims)
+    if tuple(perm) != tuple(range(len(perm))):
+        c = c.permute(*perm)
+    return c.reshape(final_shape)
+
+
+def _index_logical1(c, dims, axis, idx, out_shape):
+    """Index ``idx`` of logical ``axis`` of ``c`` (logical ``dims``).  An
+    int ``idx`` gives ``out_shape``; a 1-D index tensor of length W takes
+    one index per slice instance and gives ``(W,) + out_shape``, from
+    ``c`` unbatched or already batched with ``(W,) + dims``."""
+    dims = tuple(dims)
+    if isinstance(idx, int):
+        return c.reshape(dims).select(axis, idx).reshape(out_shape)
+    w = idx.shape[0]
+    if c.numel() == int(np.prod(dims)):
+        v = c.reshape(dims).index_select(axis, idx).movedim(axis, 0)
+    else:
+        rows = torch.arange(w, device=c.device)
+        v = c.reshape((w,) + dims)[(rows,) + (slice(None),) * axis + (idx,)]
+    return v.reshape((w,) + tuple(out_shape))
+
+
+def _as_index(indices, device):
+    """The executor passes int64 tensors on the operand's device; numpy
+    indices are uploaded on every call, which a captured run cannot do."""
+    if not isinstance(indices, torch.Tensor):
+        indices = torch.as_tensor(np.asarray(indices), dtype=torch.long)
+    return indices.to(device)
+
+
+class _Field:
+    """What the executors ask of any field's value: the tensors it is
+    made of (``buffers``), a value from them (``join``), a copy, its
+    device and the size of its leading axis."""
+
+    def clone(self, x):
+        return self.join(tuple(c.clone() for c in self.buffers(x)))
+
+    def device(self, x):
+        return self.buffers(x)[0].device
+
+    def leading(self, x):
+        return self.buffers(x)[0].shape[0]
+
+
+class SplitField(_Field):
     """Complex tensors as (re, im) pairs of real torch tensors.
 
-    ``supports_lanes``: eligible steps run the hand-written kernels — the
-    f32 (complex64) path only, as in the JAX package (``field.py:51-52``).
-    """
+    ``supports_lanes``: eligible steps run the hand-written kernels --
+    float32 storage of complex64 only, as in the JAX package
+    (``field.py:51-52``)."""
 
-    def __init__(self, dtype=np.complex64):
+    mode = "split"
+
+    def __init__(self, dtype=np.complex64, precision="highest", algo="naive",
+                 storage="f32"):
         self.dtype = np.dtype(dtype)
-        if self.dtype not in _REAL:
-            raise ValueError(f"unsupported dtype {dtype}")
-        self.rdtype = _REAL[self.dtype]
-        self.supports_lanes = self.rdtype == torch.float32
+        self.rdtype = _real_dtype(self.dtype)
+        self.precision = as_precision(precision)
+        if algo not in ("naive", "karatsuba"):
+            raise ValueError(f"unknown algo {algo!r}: 'naive' or "
+                             "'karatsuba'")
+        self.algo = algo
+        self.storage = storage
+        self.sdtype = _storage_dtype(storage, self.rdtype)
+        self.supports_lanes = (storage == "f32"
+                               and self.rdtype == torch.float32)
+
+    def buffers(self, x):
+        return tuple(x)
+
+    def join(self, bufs):
+        return tuple(bufs)
 
     # -- staging ----------------------------------------------------------
     def wrap(self, arr, device="cuda"):
         arr = np.asarray(arr).astype(self.dtype)
-        rdt = np.float32 if self.rdtype == torch.float32 else np.float64
-        return (torch.from_numpy(np.ascontiguousarray(arr.real, rdt))
-                .to(device),
-                torch.from_numpy(np.ascontiguousarray(arr.imag, rdt))
-                .to(device))
+        rdt = _NP_REAL[self.rdtype]
+        return tuple(torch.from_numpy(np.ascontiguousarray(c, rdt))
+                     .to(device).to(self.sdtype)
+                     for c in (arr.real, arr.imag))
 
     def unwrap(self, x):
-        re, im = x
-        return re.cpu().numpy() + 1j * im.cpu().numpy()
+        re, im = (c.to(self.rdtype).cpu().numpy() for c in x)
+        return re + 1j * im
 
     # -- arithmetic -------------------------------------------------------
+    def einsum(self, a, b, ix_a, ix_b, iy):
+        """Label einsum on split pairs (naive or karatsuba)."""
+        es = lambda x, y: pairwise_einsum(
+            x.to(self.rdtype), y.to(self.rdtype), ix_a, ix_b, iy,
+            self.precision)
+        ar, ai = a
+        br, bi = b
+        if self.algo == "naive":
+            out = (es(ar, br) - es(ai, bi), es(ar, bi) + es(ai, br))
+        else:
+            t1, t2 = es(ar, br), es(ai, bi)
+            out = (t1 - t2, es(ar + ai, br + bi) - t1 - t2)
+        return tuple(c.to(self.sdtype) for c in out)
+
     def add(self, x, y):
         return x[0] + y[0], x[1] + y[1]
 
     def sum0(self, x):
-        """Sum over the leading axis."""
-        return tuple(c.sum(0) for c in x)
+        """Sum over the leading axis, in the real dtype."""
+        return tuple(c.sum(0, dtype=self.rdtype) for c in x)
 
     def zeros(self, shape, device="cuda"):
         return (torch.zeros(shape, dtype=self.rdtype, device=device),
@@ -115,71 +275,38 @@ class SplitField:
         return x[0] * s, x[1] * s
 
     def max_abs(self, x):
-        """max(|re|, |im|) over every element, as a device scalar: within
-        sqrt(2) of the largest complex modulus, enough for the rescaled
-        run's renormalisation (``runtime/rescaled.py``)."""
+        """max(|re|, |im|) over every element, as a device scalar of the
+        real dtype: within sqrt(2) of the largest complex modulus, enough
+        for the rescaled run's renormalisation (``runtime/rescaled.py``)."""
         inf = float("inf")      # a fused reduction: no |x| copy is made
         return torch.maximum(torch.linalg.vector_norm(x[0], inf),
-                             torch.linalg.vector_norm(x[1], inf))
+                             torch.linalg.vector_norm(x[1], inf)) \
+            .to(self.rdtype)
 
     def dot(self, a, b, dnums):
-        """General dot_general (multi-dim batch/contract) on split pairs:
-        the naive four real products (``_split_dot``)."""
-        # full-f32 products (PyTorch's default, pinned for the call: a
-        # caller that turned TF32 on would otherwise round these to ~3
-        # digits); the caller's setting is given back
-        flags = torch.backends.cuda.matmul
-        caller = flags.allow_tf32
-        flags.allow_tf32 = False
-        try:
-            return _split_dot(a, b, dnums)
-        finally:
-            flags.allow_tf32 = caller
+        """General dot_general (multi-dim batch/contract) on split pairs
+        (``_split_dot``), under the precision's TF32 setting (the
+        caller's is given back)."""
+        narrow = self.sdtype != self.rdtype
+        with matmul_precision(self.precision):
+            return _split_dot(a, b, dnums, self.algo,
+                              self.rdtype if narrow else None,
+                              self.sdtype if narrow else None)
 
     # -- structural ops ---------------------------------------------------
     def regroup(self, x, dims, perm, final_shape):
         """reshape(dims) -> permute(perm) -> reshape(final_shape)."""
-        identity = tuple(perm) == tuple(range(len(perm)))
-
-        def one(c):
-            c = c.reshape(dims)
-            if not identity:
-                c = c.permute(*perm)
-            return c.reshape(final_shape)
-
-        return tuple(one(c) for c in x)
+        return tuple(_regroup1(c, dims, perm, final_shape) for c in x)
 
     def index_logical(self, x, dims, axis, idx, out_shape):
-        """Select index ``idx`` of logical ``axis`` on flat-stored ``x``.
-
-        ``idx`` is an int (the JAX method's form) or a 1-D index tensor of
-        length W: then one index per slice instance is taken, and the
-        result carries a leading width axis ``(W,) + out_shape``.  ``x``
-        itself is unbatched with logical ``dims``, or already batched with
-        ``(W,) + dims`` (a later sliced bond on the same tensor)."""
-        if isinstance(idx, int):
-            return tuple(c.reshape(dims).select(axis, idx).reshape(out_shape)
-                         for c in x)
-        w = idx.shape[0]
-
-        def one(c):
-            if c.numel() == int(np.prod(dims)):
-                v = c.reshape(dims).index_select(axis, idx).movedim(axis, 0)
-            else:
-                rows = torch.arange(w, device=c.device)
-                sel = (rows,) + (slice(None),) * axis + (idx,)
-                v = c.reshape((w,) + tuple(dims))[sel]
-            return v.reshape((w,) + tuple(out_shape))
-
-        return tuple(one(c) for c in x)
+        """Select index ``idx`` of logical ``axis`` on flat-stored ``x``
+        (``_index_logical1``: an int, or one index per slice instance)."""
+        return tuple(_index_logical1(c, dims, axis, idx, out_shape)
+                     for c in x)
 
     def take(self, x, indices, axis=0):
-        """Select ``indices`` along ``axis``.  The executor passes int64
-        tensors on ``x``'s device; numpy indices are uploaded on every
-        call, which a captured run cannot do."""
-        if not isinstance(indices, torch.Tensor):
-            indices = torch.as_tensor(np.asarray(indices), dtype=torch.long)
-        indices = indices.to(x[0].device)
+        """Select ``indices`` along ``axis``."""
+        indices = _as_index(indices, x[0].device)
         return tuple(torch.index_select(c, axis, indices) for c in x)
 
     def reshape(self, x, shape):
@@ -192,3 +319,295 @@ class SplitField:
     def transpose(self, x, perm):
         return tuple(c.permute(*perm) for c in x)
 
+
+class ComplexField(_Field):
+    """Native complex tensors (``torch.complex64`` / ``complex128``): the
+    form the upstream artensor library runs (``torch.einsum`` on complex
+    tensors).  ``algo`` is taken and ignored, as in the JAX package."""
+
+    mode = "complex"
+    supports_lanes = False
+
+    def __init__(self, dtype=np.complex64, precision="highest", algo=None):
+        self.dtype = np.dtype(dtype)
+        self.rdtype = _real_dtype(self.dtype)
+        self.cdtype = _COMPLEX[self.dtype]
+        self.precision = as_precision(precision)
+        self.algo = algo
+
+    def buffers(self, x):
+        return (x,)
+
+    def join(self, bufs):
+        (x,) = bufs
+        return x
+
+    def wrap(self, arr, device="cuda"):
+        arr = np.ascontiguousarray(np.asarray(arr).astype(self.dtype))
+        return torch.from_numpy(arr).to(device)
+
+    def unwrap(self, x):
+        return x.cpu().numpy()
+
+    def einsum(self, a, b, ix_a, ix_b, iy):
+        return pairwise_einsum(a, b, ix_a, ix_b, iy, self.precision)
+
+    def add(self, x, y):
+        return x + y
+
+    def sum0(self, x):
+        return x.sum(0)
+
+    def zeros(self, shape, device="cuda"):
+        return torch.zeros(shape, dtype=self.cdtype, device=device)
+
+    def max_abs(self, x):
+        """The largest complex modulus, a real device scalar."""
+        return torch.linalg.vector_norm(x, float("inf"))
+
+    def scale(self, x, s):
+        return x * s
+
+    def dot(self, a, b, dnums):
+        """dot_general as one complex ``torch.matmul``, under the
+        precision's TF32 setting."""
+        with matmul_precision(self.precision):
+            return _dot(a, b, dnums)
+
+    def regroup(self, x, dims, perm, final_shape):
+        return _regroup1(x, dims, perm, final_shape)
+
+    def index_logical(self, x, dims, axis, idx, out_shape):
+        return _index_logical1(x, dims, axis, idx, out_shape)
+
+    def take(self, x, indices, axis=0):
+        return torch.index_select(x, axis, _as_index(indices, x.device))
+
+    def reshape(self, x, shape):
+        return x.reshape(shape)
+
+    def concat(self, parts, axis=0):
+        return torch.cat(list(parts), dim=axis)
+
+
+# real 2x2x2 representation of complex multiplication:
+# out_c = sum_{p,q} R[c,p,q] * A_p * B_q
+_R = np.zeros((2, 2, 2))
+_R[0, 0, 0] = 1.0   # re: ar*br
+_R[0, 1, 1] = -1.0  # re: -ai*bi
+_R[1, 0, 1] = 1.0   # im: ar*bi
+_R[1, 1, 0] = 1.0   # im: ai*br
+
+
+def _fold(shape):
+    """A c-free shape with the implicit trailing re/im axis folded into
+    its last dim (c fastest)."""
+    shape = tuple(int(s) for s in shape)
+    if not shape:
+        return (2,)
+    return shape[:-1] + (shape[-1] * 2,)
+
+
+class FusedField(_Field):
+    """Complex tensors as ONE real tensor with a trailing re/im axis (dim
+    2) folded into the flat minor dim (c varies fastest).
+
+    A contraction step runs as a SINGLE real product (``contract_step``):
+    the smaller operand W is expanded into W4[..., p, c] =
+    R[c, p, q] W[..., q] (the quad [wr, wi, -wi, wr] per element) and p
+    is contracted together with the bond dims (``runtime/lowering.
+    FusedPlan``), so the large operand is read once.  Steps where both
+    operands exceed ``lowering.FUSED_W_MAX_ELEMS`` have no fused plan and
+    run the split products on the two halves, as the JAX package plans
+    them.  All structural methods take the same c-free shapes as
+    ``SplitField``; a reorder is a permute of the ``dims + (2,)`` view.
+    """
+
+    mode = "fused"
+    supports_lanes = False
+
+    def __init__(self, dtype=np.complex64, precision="highest", algo="naive",
+                 storage="f32"):
+        self.dtype = np.dtype(dtype)
+        self.rdtype = _real_dtype(self.dtype)
+        self.precision = as_precision(precision)
+        self.algo = algo
+        self.storage = storage
+        self.sdtype = _storage_dtype(storage, self.rdtype)
+
+    def buffers(self, x):
+        return (x,)
+
+    def join(self, bufs):
+        (x,) = bufs
+        return x
+
+    def _store(self, x):
+        return x if x.dtype == self.sdtype else x.to(self.sdtype)
+
+    # -- staging ----------------------------------------------------------
+    def wrap(self, arr, device="cuda"):
+        arr = np.asarray(arr).astype(self.dtype)
+        stacked = np.stack([arr.real, arr.imag], axis=-1) \
+            .astype(_NP_REAL[self.rdtype]).reshape(_fold(arr.shape))
+        return torch.from_numpy(np.ascontiguousarray(stacked)).to(device) \
+            .to(self.sdtype)
+
+    def unwrap(self, x):
+        a = x.to(self.rdtype).cpu().numpy()
+        a = a.reshape(a.shape[:-1] + (a.shape[-1] // 2, 2))
+        return a[..., 0] + 1j * a[..., 1]
+
+    # -- the contraction step ---------------------------------------------
+    @staticmethod
+    def _pairs(x):
+        """``x`` viewed with its folded minor dim as (n, 2)."""
+        return x.reshape(x.shape[:-1] + (x.shape[-1] // 2, 2))
+
+    def _unfold_pair(self, x):
+        v = self._pairs(x)
+        return v[..., 0], v[..., 1]
+
+    @staticmethod
+    def _interleave(re, im):
+        return torch.stack([re, im], dim=-1).reshape(
+            re.shape[:-1] + (re.shape[-1] * 2,))
+
+    def _expand_w4(self, w):
+        """Folded W ``(..., 2L)`` -> folded W4 ``(..., 4L)`` in the real
+        dtype: per element the quad [wr, wi, -wi, wr] (labels (p, c), c
+        fastest)."""
+        v = self._pairs(w.to(self.rdtype))
+        wr, wi = v[..., 0], v[..., 1]
+        return torch.stack([wr, wi, -wi, wr], dim=-1).reshape(
+            w.shape[:-1] + (w.shape[-1] * 2,))
+
+    def contract_step(self, x, y, low, bx=False, by=False):
+        """One lowered step on folded tensors.  ``bx`` / ``by``: the
+        operand carries a leading slice-width axis, threaded through the
+        product as ``lowering.batched_dnums`` threads it through the
+        split dot; the result leads with it whenever an operand had
+        one."""
+        from ..runtime.lowering import apply_lowered, width_dnums
+
+        plan = low.fused
+        if plan is None:
+            # both operands above FUSED_W_MAX_ELEMS: the split products
+            # on the two halves, the result interleaved again
+            helper = SplitField(self.dtype, self.precision, self.algo,
+                                self.storage)
+            re, im = apply_lowered(helper, self._unfold_pair(x),
+                                   self._unfold_pair(y), low, bx, by)
+            return self._interleave(re, im)
+        d, w, bd, bw = (x, y, bx, by) if plan.w_is_j else (y, x, by, bx)
+        width = d.shape[0] if bd else (w.shape[0] if bw else None)
+        lead = () if width is None else (width,)
+        w4 = self._expand_w4(w.reshape(((width,) if bw else ()) + (-1,)))
+        dg = d.reshape(((width,) if bd else ()) + plan.shape_d)
+        wg = w4.to(d.dtype).reshape(((width,) if bw else ()) + plan.shape_w)
+        if plan.w4_lhs:
+            l, r, bl, br, shape_l = wg, dg, bw, bd, plan.shape_w
+        else:
+            l, r, bl, br, shape_l = dg, wg, bd, bw, plan.shape_d
+        dn, pos = width_dnums(plan.dnums, len(shape_l), bl, br)
+        narrow = self.sdtype != self.rdtype
+        with matmul_precision(self.precision):
+            out = _dot(l, r, dn, self.rdtype if narrow else None)
+        if pos:
+            out = out.movedim(pos, 0)
+        ro = plan.re_out
+        if ro is not None:
+            n = len(lead)
+            out = _regroup1(out, lead + ro.dims,
+                            tuple(range(n)) + tuple(p + n for p in ro.perm),
+                            lead + ro.final_shape)
+            return self._store(out)
+        return self._store(out.reshape(lead + plan.phys_y))
+
+    def einsum(self, a, b, ix_a, ix_b, iy):
+        """Label einsum on folded tensors: one product with R."""
+        lab = {}
+        for x in (*ix_a, *ix_b, *iy):
+            lab.setdefault(x, len(lab))
+        n = len(lab)
+        q, p, c = n, n + 1, n + 2
+        av = self._pairs(a.to(self.rdtype))
+        bv = self._pairs(b.to(self.rdtype))
+        r = torch.as_tensor(_R, dtype=self.rdtype, device=a.device)
+        with matmul_precision(self.precision):
+            out = torch.einsum(r, [c, p, q], av, [*(lab[x] for x in ix_a), p],
+                               bv, [*(lab[x] for x in ix_b), q],
+                               [*(lab[x] for x in iy), c])
+        return self._store(out.reshape(_fold(out.shape[:-1])))
+
+    # -- arithmetic / structure -------------------------------------------
+    def add(self, x, y):
+        return x + y
+
+    def sum0(self, x):
+        return x.sum(0, dtype=self.rdtype)
+
+    def zeros(self, shape, device="cuda"):
+        return torch.zeros(_fold(shape), dtype=self.rdtype, device=device)
+
+    def max_abs(self, x):
+        """max(|re|, |im|) over every element (a real device scalar)."""
+        return torch.linalg.vector_norm(x, float("inf")).to(self.rdtype)
+
+    def scale(self, x, s):
+        return x * s
+
+    def regroup(self, x, dims, perm, final_shape):
+        """c-free logical regroup; the trailing c axis rides along."""
+        dims = tuple(dims)
+        return _regroup1(x, dims + (2,), tuple(perm) + (len(dims),),
+                         _fold(final_shape))
+
+    def index_logical(self, x, dims, axis, idx, out_shape):
+        return _index_logical1(x, tuple(dims) + (2,), axis, idx,
+                               _fold(out_shape))
+
+    def take(self, x, indices, axis=0):
+        """Select ``indices`` along ``axis`` (c-free): an axis before the
+        folded one maps 1:1; on the folded axis whole (re, im) pairs are
+        taken through an (n, 2) view."""
+        indices = _as_index(indices, x.device)
+        if axis < x.dim() - 1:
+            return torch.index_select(x, axis, indices)
+        v = torch.index_select(self._pairs(x), axis, indices)
+        return v.reshape(v.shape[:-2] + (v.shape[-2] * 2,))
+
+    def reshape(self, x, shape):
+        return x.reshape(_fold(shape))
+
+    def concat(self, parts, axis=0):
+        return torch.cat(list(parts), dim=axis)
+
+
+def make_field(dtype=np.complex64, precision="highest", mode="split",
+               algo="naive", storage="f32"):
+    """'split' (default), 'complex' or 'fused' (see the module's note).
+
+    ``algo``: the split products -- 'naive' (4 real products, default)
+    or 'karatsuba' (3 products and extra elementwise passes); the fused
+    field uses it on the steps that fall back to split products, the
+    complex field ignores it.
+
+    ``storage``: 'f32' (default), 'bf16' or 'f16' -- intermediates stored
+    at reduced precision, each step's products still summed in float32;
+    split and fused modes only, and no kernel runs under it.  As the JAX
+    package records (``field.py:458-464``): on deep contractions the
+    per-step rounding is amplified by path cancellation, and bf16/f16
+    storage fails the n30 5%-relative-error gate; it is a mode to ask for
+    explicitly, not a default.
+    """
+    if mode == "split":
+        return SplitField(dtype, precision, algo, storage)
+    if mode == "fused":
+        return FusedField(dtype, precision, algo, storage)
+    if mode != "complex":
+        raise ValueError(f"unknown mode {mode!r}: 'split', 'complex' or "
+                         "'fused'")
+    if storage != "f32":
+        raise ValueError("reduced storage is a split and fused mode option")
+    return ComplexField(dtype, precision, algo)

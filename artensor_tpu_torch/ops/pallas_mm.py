@@ -20,17 +20,24 @@ import torch
 from .. import kernels
 
 
-def complex_batched_matmul_plain(a, b):
-    """Plain version: the four real products with ``torch.matmul``."""
+def complex_batched_matmul_plain(a, b, tf32=False):
+    """Plain version: the four real products with ``torch.matmul``.
+    ``tf32``: the operands rounded as the kernel's one-pass form rounds
+    them (``kernels.tf32_round``), the products still in float32."""
     ar, ai = a
     br, bi = b
+    if tf32:
+        ar, ai, br, bi = map(kernels.tf32_round, (ar, ai, br, bi))
     return (torch.matmul(ar, br) - torch.matmul(ai, bi),
             torch.matmul(ar, bi) + torch.matmul(ai, br))
 
 
-def complex_batched_matmul(a, b):
+def complex_batched_matmul(a, b, passes=3):
     """``(re, im)`` of the batched product of A = ``(ar, ai)`` (each
-    ``(B, M, K)`` float32) and B = ``(br, bi)`` (each ``(B, K, N)``)."""
+    ``(B, M, K)`` float32) and B = ``(br, bi)`` (each ``(B, K, N)``).
+    ``passes``: 3 (3xTF32) or 1 (one TF32 pass, precision 'default':
+    ``kernels.tc_passes``); the CPU's plain version multiplies in float32
+    at either."""
     ar, ai = a
     br, bi = b
     if ar.dim() != 3 or br.dim() != 3:
@@ -44,9 +51,12 @@ def complex_batched_matmul(a, b):
     yr = torch.empty((B, M, N), dtype=torch.float32, device=dev)
     yi = torch.empty_like(yr)
     n = kernels.launch("complex_mm", kernels.load().cmm_launch, dev,
-                       *map(kernels.ptr, (ar, ai, br, bi, yr, yi)), B, M, K, N)
+                       *map(kernels.ptr, (ar, ai, br, bi, yr, yi)), B, M, K, N,
+                       passes)
     complex_batched_matmul.launches += n
+    complex_batched_matmul.one_pass += n if passes == 1 else 0
     return yr, yi
 
 
 complex_batched_matmul.launches = 0
+complex_batched_matmul.one_pass = 0     # launches in one TF32 pass

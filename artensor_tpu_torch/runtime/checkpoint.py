@@ -7,8 +7,12 @@ the 2^k slice ids in chunks through the sliced runner
 group for every chunk), saves the partial accumulator and the next slice
 id after every chunk, resumes from the saved file on restart, and retries
 a chunk that failed.  The file holds the flat physical accumulator under
-the JAX package's keys (``acc_re``, ``acc_im``, ``next_slice``), so either
-package resumes the other's checkpoint.
+the JAX package's keys: ``acc_re`` and ``acc_im`` for a split field, one
+array ``acc`` for the complex field (complex) and the fused one (folded
+re/im), and ``next_slice``; so either package resumes the other's
+checkpoint in every mode.  A chunk need not be a multiple of the runner's
+width, nor start on one (a file written at another width): the runner
+runs its rest as one narrower group (``executor.group_widths``).
 """
 
 import logging
@@ -28,12 +32,12 @@ def run_sliced_checkpointed(run, tensors, num_sliced, output_shape, field,
     ``run``: the runner from ``executor.make_sliced_runner`` (it takes a
     ``range`` of slice ids and an ``init`` accumulator).  ``path``: the
     checkpoint file (.npz), removed on success.  ``chunk``: slice ids per
-    checkpoint interval (default an eighth of the slices, at least 1; a
-    multiple of the runner's width).  ``progress(done, total)`` is called
-    after each saved chunk.  Returns the flat physical accumulator on the
+    checkpoint interval (default an eighth of the slices, at least 1; any
+    size, the runner's width need not divide it).  ``progress(done,
+    total)`` is called after each saved chunk.  Returns the flat physical accumulator on the
     tensors' device.
     """
-    device = next(t[0].device for t in tensors if t is not None)
+    device = next(field.device(t) for t in tensors if t is not None)
     total = 2 ** num_sliced
     chunk = chunk or max(1, total // 8)
     start = 0
@@ -43,9 +47,7 @@ def run_sliced_checkpointed(run, tensors, num_sliced, output_shape, field,
     if path and os.path.exists(path):
         saved = np.load(path)
         start = int(saved["next_slice"])
-        acc = tuple(torch.from_numpy(np.ascontiguousarray(saved[k]))
-                    .to(device=device, dtype=field.rdtype)
-                    for k in ("acc_re", "acc_im"))
+        acc = _load_acc(saved, field, acc)
     while start < total:
         stop = min(start + chunk, total)
         attempt = 0
@@ -54,7 +56,8 @@ def run_sliced_checkpointed(run, tensors, num_sliced, output_shape, field,
                 acc_new = run(list(tensors), range(start, stop), init=acc)
                 # the copy to the host waits for the chunk: a failure
                 # surfaces here, not at the save
-                acc_host = tuple(c.cpu().numpy() for c in acc_new)
+                acc_host = tuple(c.cpu().numpy()
+                                 for c in field.buffers(acc_new))
                 break
             except (TypeError, ValueError):
                 raise       # a wrong call: retrying cannot help
@@ -76,14 +79,32 @@ def run_sliced_checkpointed(run, tensors, num_sliced, output_shape, field,
     return acc
 
 
+def _load_acc(saved, field, empty):
+    """The saved accumulator as ``field``'s value, on ``empty``'s device
+    and in its tensors' dtypes: ``acc_re`` / ``acc_im`` for a split
+    field, ``acc`` for the others."""
+    keys = ("acc_re", "acc_im") if "acc_im" in saved else ("acc",)
+    like = field.buffers(empty)
+    if len(keys) != len(like):
+        raise ValueError(f"the checkpoint holds {', '.join(keys)}: not a "
+                         f"{field.mode} field's accumulator")
+    return field.join(tuple(
+        torch.from_numpy(np.ascontiguousarray(saved[k]))
+        .to(device=c.device, dtype=c.dtype) for k, c in zip(keys, like)))
+
+
 def _atomic_save(path, acc_host, next_slice):
-    """Write the checkpoint beside ``path`` and move it into place."""
+    """Write the checkpoint beside ``path`` and move it into place: a
+    pair as ``acc_re`` / ``acc_im``, one array as ``acc``."""
     d = os.path.dirname(os.path.abspath(path)) or "."
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp.npz")
     os.close(fd)
     try:
-        np.savez(tmp, acc_re=acc_host[0], acc_im=acc_host[1],
-                 next_slice=next_slice)
+        if len(acc_host) == 2:
+            np.savez(tmp, acc_re=acc_host[0], acc_im=acc_host[1],
+                     next_slice=next_slice)
+        else:
+            np.savez(tmp, acc=acc_host[0], next_slice=next_slice)
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):

@@ -271,13 +271,16 @@ class CaptureOutOfMemory(Exception):
 
 class GroupGraphs:
     """A slice group's work captured as CUDA graphs, in order, sharing one
-    memory pool (``torch.cuda.graph_pool_handle``): the graphs are replayed
-    in the order they were captured, so memory that one frees is reused
-    by the next, as donation does between JAX's programs."""
+    memory pool (``torch.cuda.graph_pool_handle``, or ``pool``): the
+    graphs are replayed in the order they were captured, so memory that
+    one frees is reused by the next, as donation does between JAX's
+    programs.  The graphs of another width of the same run may share the
+    pool: only one group runs at a time, and no buffer of a group
+    outlives it."""
 
-    def __init__(self, device):
+    def __init__(self, device, pool=None):
         self.device = device
-        self.pool = torch.cuda.graph_pool_handle()
+        self.pool = torch.cuda.graph_pool_handle() if pool is None else pool
         self.graphs = []
 
     def capture(self, fn):
@@ -293,15 +296,14 @@ class GroupGraphs:
             g.replay()
 
 
-def _key(tensors, width):
-    """What a capture depends on: the staged buffers' addresses and the
-    width."""
-    return (width,) + tuple((t[0].data_ptr(), t[1].data_ptr())
-                            for t in tensors if t is not None)
+def _key(tensors, field):
+    """What a capture depends on: the staged buffers' addresses."""
+    return tuple(tuple(c.data_ptr() for c in field.buffers(t))
+                 for t in tensors if t is not None)
 
 
-def _device(tensors):
-    return next(t[0].device for t in tensors if t is not None)
+def _device(tensors, field):
+    return next(field.device(t) for t in tensors if t is not None)
 
 
 def slice_ids_tensor(slice_ids, n_slices, device):
@@ -323,44 +325,63 @@ def add_into(acc, part):
         a.add_(p)
 
 
+def group_widths(n, width):
+    """``[(w, groups)]``: how a run of ``n`` slice ids is walked at
+    ``width``: ``n // width`` groups of ``width``, then the rest, if any,
+    as one group of its own width (the largest that divides it).  A
+    checkpointed run resumes at any slice, so a chunk need not be a
+    multiple of the width."""
+    out = [(width, n // width)] if n >= width else []
+    if n % width:
+        out.append((n % width, 1))
+    return out
+
+
 class GroupRunner:
     """Runs a slice group's work for every group of a run and combines the
     groups' parts into one accumulator, for the sliced, the segmented and
-    the rescaled runs alike.
+    the rescaled runs alike, on the values of any ``field``.
 
     ``segments``: callables ``seg(tensors, table)``, run in order on one
     group; ``table`` starts as ``{"ids": ids}`` (the group's slice ids,
     None with nothing sliced), carries buffers from a segment to the next,
-    and the last segment leaves the group's part, a tuple of tensors,
-    under ``"part"``.  ``combine(acc, part)`` folds a part into the
-    accumulator in place; ``acc_spec``: the accumulator's components as
-    ``(shape, empty value)``, of ``dtype``.
+    and the last segment leaves the group's part, a tuple of tensors
+    (``field.buffers`` of a value, and any extra), under ``"part"``.
+    ``combine(acc, part)`` folds a part into the accumulator in place;
+    ``acc_spec``: the accumulator's tensors as ``(shape, empty value,
+    dtype)``.
 
-    On a CUDA device (unless ``eager``) the first call runs one eager
-    warm-up group on the capture stream (it makes every device table the
-    steps use, loads the kernels and the stream's cuBLAS workspace, and
-    is discarded), then captures each segment as a CUDA graph, all in one
-    pool (``GroupGraphs``), the last one folding the part into a static
-    accumulator; every group of this and later calls copies its ids into
-    the static id buffer and replays the graphs, as long as the staged
-    buffers (by ``data_ptr``) are the same, else it captures anew.  With
-    nothing sliced the run is one group whose part is the result (no
-    accumulator).  Results are copies, never the graphs' static buffers.
-    An out-of-memory error in the warm-up or a capture raises
-    ``CaptureOutOfMemory``; any other failure propagates; nothing falls
-    back to the eager run.  Elsewhere every group runs eagerly: the plain
-    version of the graph run.  ``stats``: captures, replays, warm-up
-    groups, capture seconds (warm-up included), and ``run_s``, the last
-    call's group loop (on the card to a synchronize)."""
+    The ``n`` slice ids of a call run as ``group_widths(n, width)``: groups
+    of the width, and a last group of the rest where the width does not
+    divide ``n``.  On a CUDA device (unless ``eager``) the first group of
+    each width used runs once eagerly on the capture stream as a warm-up
+    (it makes every device table the steps use, loads the kernels and the
+    stream's cuBLAS workspace, and is discarded), then each segment is
+    captured as a CUDA graph, one pool for every graph of the run
+    (``GroupGraphs``), the last one folding the part into the static
+    accumulator all widths share; every group of this and later calls
+    copies its ids into its width's static id buffer and replays that
+    width's graphs, as long as the staged buffers (by ``data_ptr``) are
+    the same, else it captures anew.  With nothing sliced the run is one
+    group whose part is the result (no accumulator).  Results are copies,
+    never the graphs' static buffers.  An out-of-memory error in the
+    warm-up or a capture raises ``CaptureOutOfMemory``; any other failure
+    propagates; nothing falls back to the eager run.  Elsewhere every
+    group runs eagerly: the plain version of the graph run.  ``stats``:
+    captures (one per width), replays, warm-up groups, capture seconds
+    (warm-up included), and ``run_s``, the last call's group loop (on the
+    card to a synchronize)."""
 
-    def __init__(self, segments, combine, acc_spec, dtype, width=1,
+    def __init__(self, field, segments, combine, acc_spec, width=1,
                  eager=False):
-        self.segments, self.combine = segments, combine
-        self.acc_spec, self.dtype = acc_spec, dtype
+        self.field, self.segments, self.combine = field, segments, combine
+        self.acc_spec = acc_spec
         self.width, self.eager = width, eager
         self.stats = dict(captures=0, replays=0, warmup_groups=0,
                           capture_s=0.0, run_s=0.0)
-        self._cap = {}
+        self._caps = {}         # width -> its captured graphs
+        self._cap_key = None
+        self._acc = self._pool = None
 
     def _group(self, tensors, ids):
         table = {"ids": ids}
@@ -368,43 +389,58 @@ class GroupRunner:
             seg(tensors, table)
         return table["part"]
 
+    def _empty(self, device):
+        return tuple(torch.full(shape, v, dtype=dt, device=device)
+                     for shape, v, dt in self.acc_spec)
+
     def __call__(self, tensors, ids=None, init=None, progress=None):
-        """``init`` (default the empty accumulator) combined with every
-        group's part over the slice ids ``ids`` (an int64 tensor on the
-        tensors' device, a multiple of the width; None: nothing sliced,
-        one group).  ``progress(done, total)`` after each group."""
-        device = _device(tensors)
-        W = self.width
+        """``init`` (tensors as ``acc_spec``; default the empty
+        accumulator) combined with every group's part over the slice ids
+        ``ids`` (an int64 tensor on the tensors' device; None: nothing
+        sliced, one group).  ``progress(done, total)`` after each
+        group."""
+        device = _device(tensors, self.field)
+        if ids is not None and len(ids) == 0:
+            raise ValueError("no slice ids to sum")
+        plan = [(None, 1)] if ids is None \
+            else group_widths(len(ids), self.width)
         n = 1 if ids is None else len(ids)
-        if n % W:
-            raise ValueError(f"slice_batch {W} must divide the {n} slices "
-                             "summed")
         if device.type == "cuda" and not self.eager:
-            if self._cap.get("key") != _key(tensors, W):
-                self._capture(tensors, ids, device)
-            return self._replay(ids, init, device, progress)
+            key = _key(tensors, self.field)
+            if key != self._cap_key:
+                torch.cuda.synchronize(device)
+                self._caps.clear()  # the old graphs and their pool go first
+                self._acc = self._pool = None
+                self._cap_key = key
+            for w, _ in plan:
+                if w not in self._caps:
+                    self._capture(tensors, ids, w, device)
+            return self._replay(plan, ids, init, device, progress)
         t0 = time.perf_counter()
         acc = None if init is None else tuple(c.clone() for c in init)
-        for g0 in range(0, n, W):
-            part = self._group(tensors, None if ids is None
-                               else ids[g0:g0 + W])
-            if acc is None:
-                acc = part
-            else:
-                self.combine(acc, part)
-            if progress is not None:
-                progress(min(g0 + W, n), n)
+        if acc is None and ids is not None:
+            acc = self._empty(device)
+        g0 = 0
+        for w, groups in plan:
+            for _ in range(groups):
+                part = self._group(tensors, None if ids is None
+                                   else ids[g0:g0 + w])
+                if acc is None:
+                    acc = part
+                else:
+                    self.combine(acc, part)
+                g0 += w or 1
+                if progress is not None:
+                    progress(g0, n)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         self.stats["run_s"] = time.perf_counter() - t0
         return acc
 
-    def _capture(self, tensors, ids, device):
-        cap = self._cap
+    def _capture(self, tensors, ids, w, device):
         torch.cuda.synchronize(device)
-        cap.clear()             # the old graphs and their pool go first
         t0 = time.perf_counter()
-        sel = None if ids is None else ids[:self.width].clone()
+        sel = None if ids is None else ids[:w].clone()
         try:
             on_capture_stream(lambda: self._group(tensors, sel), device)
         except Exception as e:
@@ -413,10 +449,11 @@ class GroupRunner:
             raise
         torch.cuda.synchronize(device)
         self.stats["warmup_groups"] += 1
-        acc = None if ids is None else tuple(
-            torch.full(shape, v, dtype=self.dtype, device=device)
-            for shape, v in self.acc_spec)
-        graphs = GroupGraphs(device)
+        if self._acc is None and ids is not None:
+            self._acc = self._empty(device)
+        acc = self._acc
+        graphs = GroupGraphs(device, self._pool)
+        self._pool = graphs.pool
         table = {}
         last = len(self.segments) - 1
         for si, seg in enumerate(self.segments):
@@ -440,13 +477,12 @@ class GroupRunner:
                 raise
         self.stats["captures"] += 1
         self.stats["capture_s"] += time.perf_counter() - t0
-        cap.update(graphs=graphs, ids=sel, acc=acc, out=table.get("out"),
-                   key=_key(tensors, self.width))
+        self._caps[w] = dict(graphs=graphs, ids=sel, out=table.get("out"))
 
-    def _replay(self, ids, init, device, progress):
-        cap, W = self._cap, self.width
+    def _replay(self, plan, ids, init, device, progress):
         t0 = time.perf_counter()
         if ids is None:
+            cap = self._caps[None]
             cap["graphs"].replay()
             self.stats["replays"] += 1
             acc = tuple(c.clone() for c in cap["out"])
@@ -454,19 +490,23 @@ class GroupRunner:
                 self.combine(acc, init)
             n = 1
         else:
-            acc, n = cap["acc"], len(ids)
+            acc, n = self._acc, len(ids)
             if init is None:
-                for c, (_, v) in zip(acc, self.acc_spec):
+                for c, (_, v, _dt) in zip(acc, self.acc_spec):
                     c.fill_(v)
             else:
                 for c, v in zip(acc, init):
                     c.copy_(v)
-            for g0 in range(0, n, W):
-                cap["ids"].copy_(ids[g0:g0 + W])
-                cap["graphs"].replay()
-                self.stats["replays"] += 1
-                if progress is not None:
-                    progress(min(g0 + W, n), n)
+            g0 = 0
+            for w, groups in plan:
+                cap = self._caps[w]
+                for _ in range(groups):
+                    cap["ids"].copy_(ids[g0:g0 + w])
+                    cap["graphs"].replay()
+                    self.stats["replays"] += 1
+                    g0 += w
+                    if progress is not None:
+                        progress(g0, n)
             acc = tuple(c.clone() for c in acc)
         torch.cuda.synchronize(device)
         self.stats["run_s"] = time.perf_counter() - t0
@@ -475,9 +515,10 @@ class GroupRunner:
         return acc
 
 
-def sum_spec(phys_out):
-    """A summed split-complex accumulator's ``acc_spec``."""
-    return [(phys_out, 0.0), (phys_out, 0.0)]
+def sum_spec(field, phys_out):
+    """A summed accumulator's ``acc_spec``: ``field.zeros``' tensors."""
+    return [(tuple(c.shape), 0.0, c.dtype)
+            for c in field.buffers(field.zeros(phys_out, "meta"))]
 
 
 def make_sliced_runner(execute, steps, slicing_axes, num_sliced,
@@ -489,8 +530,10 @@ def make_sliced_runner(execute, steps, slicing_axes, num_sliced,
     Drives the dense (``execute_dense``) and the sparse
     (``sparse.execute_sparse``) executors.  ``output_shape`` is LOGICAL;
     the result uses the flat physical form.  ``slice_batch`` slices run
-    per group as one width-``slice_batch`` pass; it must divide the
-    number of slices summed.  Peak memory grows with it.  ``slice_ids``
+    per group as one width-``slice_batch`` pass; it must divide the 2^k
+    slices, and a subset of them that it does not divide runs its rest
+    as one narrower group (``group_widths``).  Peak memory grows with
+    it.  ``slice_ids``
     (a range or a sequence of ints) sums a subset: the
     dense output-block walk passes the ids of one block, the
     checkpointed run a chunk.  ``init``: the accumulator to add to (flat
@@ -507,26 +550,29 @@ def make_sliced_runner(execute, steps, slicing_axes, num_sliced,
     if slice_batch < 1 or n_slices % slice_batch:
         raise ValueError(f"slice_batch {slice_batch} must divide the "
                          f"{n_slices} slices")
-    W = slice_batch
 
     def group(tensors, table):
         """One group's part, reduced over its width, flat physical."""
         if not num_sliced:
             out, _ = execute(tensors, steps, field)
-            table["part"] = field.reshape(out, phys_out)
+            table["part"] = field.buffers(field.reshape(out, phys_out))
             return
-        sliced, batched = slice_select(tensors, slicing_axes, table["ids"],
+        ids = table["ids"]
+        sliced, batched = slice_select(tensors, slicing_axes, ids,
                                        num_sliced, field)
         part, is_batched = execute(sliced, steps, field, batched)
-        table["part"] = reduce_group(field, part, is_batched, W, phys_out)
+        table["part"] = field.buffers(reduce_group(
+            field, part, is_batched, ids.shape[0], phys_out))
 
-    runner = GroupRunner([group], add_into, sum_spec(phys_out),
-                         field.rdtype, W, eager)
+    runner = GroupRunner(field, [group], add_into,
+                         sum_spec(field, phys_out), slice_batch, eager)
 
     def run(tensors, slice_ids=None, init=None):
-        ids = slice_ids_tensor(slice_ids, n_slices, _device(tensors)) \
+        ids = slice_ids_tensor(slice_ids, n_slices,
+                               _device(tensors, field)) \
             if num_sliced else None
-        return runner(tensors, ids, init)
+        return field.join(runner(
+            tensors, ids, None if init is None else field.buffers(init)))
 
     run.stats = runner.stats
     return run

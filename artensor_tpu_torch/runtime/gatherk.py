@@ -62,6 +62,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from .lanes import kernel_precision
 from .lowering import apply_reorder, physical_shape, plan_reorder
 
 MIN_X_ELEMS = 1 << 16    # below this the dot fallback's cost is irrelevant
@@ -779,10 +780,14 @@ PLAIN_GATHER_ELEMS = 1 << 24   # X elements the plain GK version gathers
 
 
 def _gk_plain(xr, xi, wr, wi, xoff, yoff, woff, koff, H, K, F, hstride,
-              y_elems, x_batched, w_batched, W):
+              y_elems, x_batched, w_batched, W, tf32=False):
     """Plain version of the GK / GGK kernels: the same index scheme as
     gatherk.cu, with gathers and a batched matmul, one slice instance and
-    at most ``PLAIN_GATHER_ELEMS`` gathered X elements at a time."""
+    at most ``PLAIN_GATHER_ELEMS`` gathered X elements at a time.
+    ``tf32``: the gathered operands rounded as the mma form's one-pass
+    TF32 form rounds them (``kernels.tf32_round``), the products still in
+    float32."""
+    rnd = kernels.tf32_round if tf32 else (lambda c: c)
     dev = xr.device
     ar = lambda n: torch.arange(n, device=dev)
     wk = ar(H)[:, None] * K + ar(K)[None, :]
@@ -801,38 +806,43 @@ def _gk_plain(xr, xi, wr, wi, xoff, yoff, woff, koff, H, K, F, hstride,
             yidx = yoff[o, None, None] + hstride * ar(H)[None, :, None] \
                 + ar(F)[None, None, :]
             widx = wk if woff is None else woff[o, None, None] + wk[None]
-            xs_r, xs_i = (c[xidx] for c in xs)         # (G, K, F)
-            ws_r, ws_i = (c[widx] for c in ws)         # (G|1, H, K)
+            xs_r, xs_i = (rnd(c[xidx]) for c in xs)    # (G, K, F)
+            ws_r, ws_i = (rnd(c[widx]) for c in ws)    # (G|1, H, K)
             ys[0][yidx] = torch.matmul(ws_r, xs_r) - torch.matmul(ws_i, xs_i)
             ys[1][yidx] = torch.matmul(ws_r, xs_i) + torch.matmul(ws_i, xs_r)
     return yr, yi
 
 
-def gk_plain(plan, xr, xi, wr, wi, x_batched, w_batched):
-    """Plain version of the GK kernel (same operands as ``gk_call``)."""
+def gk_plain(plan, xr, xi, wr, wi, x_batched, w_batched, tf32=False):
+    """Plain version of the GK kernel (same operands as ``gk_call``;
+    ``tf32``: its one-pass form's, ``_gk_plain``)."""
     W = kernels.slice_width(x_batched, w_batched, xr, wr)
     t = _device_tables(plan, xr.device, ("xoff", "yoff", "koff"))
     return _gk_plain(xr, xi, wr, wi, t["xoff"], t["yoff"], None, t["koff"],
                      plan.H, plan.K, plan.F, plan.hstride, plan.y_elems,
-                     x_batched, w_batched, W)
+                     x_batched, w_batched, W, tf32)
 
 
-def ggk_plain(plan, xr, xi, wr, wi, x_batched, w_batched):
-    """Plain version of the GGK kernel (same operands as ``ggk_call``)."""
+def ggk_plain(plan, xr, xi, wr, wi, x_batched, w_batched, tf32=False):
+    """Plain version of the GGK kernel (same operands as ``ggk_call``;
+    ``tf32``: its one-pass form's, ``_gk_plain``)."""
     row = plan.row
     W = kernels.slice_width(x_batched, w_batched, xr, wr)
     t = _device_tables(plan, xr.device, ("xoff", "yoff", "woff"))
     koff = _device_tables(row, xr.device, ("koff",))["koff"]
     return _gk_plain(xr, xi, wr, wi, t["xoff"], t["yoff"], t["woff"], koff,
                      row.H, row.K, row.F, row.hstride, plan.B * row.y_elems,
-                     x_batched, w_batched, W)
+                     x_batched, w_batched, W, tf32)
 
 
-def gk_call(plan, xr, xi, wr, wi, x_batched, w_batched):
+def gk_call(plan, xr, xi, wr, wi, x_batched, w_batched, passes=3):
     """The GK kernel's wrapper.  ``xr``/``xi``: X as ``(X,)`` or
     ``(W, X)``; ``wr``/``wi``: W pre-gathered to rows ``(H*K,)`` or
     ``(W, H*K)``.  Returns Y ``(Y,)`` or ``(W, Y)``.  The kernel runs in
-    the form ``gk_form`` names, counted in ``gk_call.forms``."""
+    the form ``gk_form`` names, counted in ``gk_call.forms``; ``passes``:
+    the mma form's tensor-core passes, 3 (3xTF32) or 1 (one TF32 pass,
+    counted in ``gk_call.one_pass``).  The CPU's plain version multiplies
+    in float32 at either."""
     W = kernels.slice_width(x_batched, w_batched, xr, wr)
     xl = (W,) if x_batched else ()
     wl = (W,) if w_batched else ()
@@ -855,23 +865,27 @@ def gk_call(plan, xr, xi, wr, wi, x_batched, w_batched):
         len(plan.xoff), plan.H, plan.K, plan.F, plan.hstride,
         plan.x_elems if x_batched else 0,
         plan.H * plan.K if w_batched else 0,
-        plan.y_elems if lead else 0, W, GK_FORMS.index(form), int(vec))
+        plan.y_elems if lead else 0, W, GK_FORMS.index(form), int(vec),
+        passes)
     gk_call.launches += n
     gk_call.forms[form] += n
+    gk_call.one_pass += n if form == "mma" and passes == 1 else 0
     return yr, yi
 
 
 gk_call.launches = 0
 gk_call.forms = dict.fromkeys(GK_FORMS, 0)   # launches by form
+gk_call.one_pass = 0                          # mma launches in one pass
 
 
-def ggk_call(plan, xr, xi, wr, wi, x_batched, w_batched):
+def ggk_call(plan, xr, xi, wr, wi, x_batched, w_batched, passes=3):
     """The GGK kernel's wrapper (GK row of an aligned step).  ``xr``:
     X-side rows ``(Bi*xrow,)`` or ``(W, Bi*xrow)``; ``wr``: W-side rows
     pre-gathered to ``(Bj*H*K,)`` or ``(W, Bj*H*K)``.  Returns Y
     ``(B*yrow,)`` or ``(W, B*yrow)``.  The GK kernel runs it in the form
     ``gk_form`` names for the step, counted in ``ggk_call.forms``, with
-    the W row of each outer index at ``woff``."""
+    the W row of each outer index at ``woff``; ``passes`` as
+    ``gk_call``'s (one-pass mma launches in ``ggk_call.one_pass``)."""
     row = plan.row
     W = kernels.slice_width(x_batched, w_batched, xr, wr)
     x_n = plan.bi_rows * row.x_elems
@@ -897,14 +911,16 @@ def ggk_call(plan, xr, xi, wr, wi, x_batched, w_batched):
                            t["xoff"], t["yoff"], t["woff"], koff)),
         len(plan.xoff), row.H, row.K, row.F, row.hstride,
         x_n if x_batched else 0, w_n if w_batched else 0,
-        y_n if lead else 0, W, GK_FORMS.index(form), int(vec))
+        y_n if lead else 0, W, GK_FORMS.index(form), int(vec), passes)
     ggk_call.launches += n
     ggk_call.forms[form] += n
+    ggk_call.one_pass += n if form == "mma" and passes == 1 else 0
     return yr, yi
 
 
 ggk_call.launches = 0
 ggk_call.forms = dict.fromkeys(GK_FORMS, 0)   # launches by form
+ggk_call.one_pass = 0                          # mma launches in one pass
 
 
 def rgrow_plain(plan, xr, xi, wr, wi, x_batched, w_batched):
@@ -1145,8 +1161,9 @@ def _flat(x, lead):
 
 
 def apply_gk_step(field, x, y, plan, bx=False, by=False):
-    """Execute one gather-K step on SplitField pairs.  ``bx``/``by``: the
-    operand carries a leading slice-width axis."""
+    """Execute one gather-K step on SplitField pairs, at the field's
+    precision (``lanes.kernel_precision``).  ``bx``/``by``: the operand
+    carries a leading slice-width axis."""
     xv, wv, bxv, bwv = (x, y, bx, by) if plan.w_is_j else (y, x, by, bx)
     xlead = (xv[0].shape[0],) if bxv else ()
     wlead = (wv[0].shape[0],) if bwv else ()
@@ -1154,13 +1171,16 @@ def apply_gk_step(field, x, y, plan, bx=False, by=False):
         xv = apply_reorder(field, xv, plan.pre, xlead)
     xr, xi = _flat(xv, xlead)
     wr, wi = _wk_rows(wv, plan, 1, wlead)
-    yr, yi = gk_call(plan, xr, xi, wr, wi, bxv, bwv)
+    yr, yi = gk_call(plan, xr, xi, wr, wi, bxv, bwv,
+                     kernels.tc_passes(kernel_precision(field)))
     lead = xlead or wlead
     return field.reshape((yr, yi), lead + physical_shape(plan.dims_y))
 
 
 def apply_ggk_step(field, x, y, plan, bx=False, by=False):
-    """Execute one aligned step via the GGK, RGRow or RGFlat kernel."""
+    """Execute one aligned step via the GGK, RGRow or RGFlat kernel (GGK
+    at the field's precision, ``lanes.kernel_precision``; RGRow and
+    RGFlat are FMA kernels, float32 at every precision)."""
     row = plan.row
     xv, wv, bxv, bwv = (x, y, bx, by) if row.w_is_j else (y, x, by, bx)
     xlead = (xv[0].shape[0],) if bxv else ()
@@ -1173,7 +1193,11 @@ def apply_ggk_step(field, x, y, plan, bx=False, by=False):
         wr, wi = _flat(wv, wlead)
     else:
         wr, wi = _wk_rows(wv, row, plan.bj_rows, wlead)
-    call = {RGRow: rgrow_call, RGFlat: rgflat_call}.get(type(row), ggk_call)
-    yr, yi = call(plan, xr, xi, wr, wi, bxv, bwv)
+    if isinstance(row, (RGRow, RGFlat)):
+        call = rgrow_call if isinstance(row, RGRow) else rgflat_call
+        yr, yi = call(plan, xr, xi, wr, wi, bxv, bwv)
+    else:
+        yr, yi = ggk_call(plan, xr, xi, wr, wi, bxv, bwv,
+                          kernels.tc_passes(kernel_precision(field)))
     lead = xlead or wlead
     return field.reshape((yr, yi), lead + physical_shape(plan.dims_y))

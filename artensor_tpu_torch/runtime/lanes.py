@@ -127,6 +127,20 @@ def _digits(idx_arr, dims):
     return out
 
 
+def kernel_precision(field):
+    """The field's precision as the kernels take it, clamped as the JAX
+    kernels clamp theirs (``lanes.py:86-96``): 'default' and 'highest'
+    pass through, anything else (a 'high' field) gives None, and the
+    kernels keep full precision.  On the H100 'default' selects the
+    one-pass TF32 form of the tensor-core kernels
+    (``kernels.tc_passes``); the FMA kernels keep float32 at every
+    precision."""
+    precision = getattr(field, "precision", None)
+    if precision is None or precision.name not in ("default", "highest"):
+        return None
+    return precision
+
+
 def _lane_splits(legs, dim_of):
     """Candidate lane sizes: (count, L) per run with product <= LANE_CAP."""
     out = []
@@ -845,10 +859,14 @@ def plan_pair_step(ix_i, ix_j, iy, dims_i, dims_j):
     return PairPlan(K, M, N, v_perm, dims_y, 8 * M * N * K, re_i, re_j)
 
 
-def pair_plain(plan, xr, xi, vr, vi, x_batched, v_batched):
+def pair_plain(plan, xr, xi, vr, vi, x_batched, v_batched, tf32=False):
     """Plain version of the pair kernel (same operands as ``pair_call``):
-    the four real products of X^T . V with ``torch.matmul``."""
+    the four real products of X^T . V with ``torch.matmul``.  ``tf32``:
+    the operands rounded as the kernel's one-pass form rounds them
+    (``kernels.tf32_round``), the products still in float32."""
     K, M, N = plan.K, plan.M, plan.N
+    if tf32:
+        xr, xi, vr, vi = map(kernels.tf32_round, (xr, xi, vr, vi))
     lead = (kernels.slice_width(x_batched, v_batched, xr, vr),) \
         if (x_batched or v_batched) else ()
     xt = lambda c: c.reshape(((c.shape[0],) if x_batched else ())
@@ -860,10 +878,13 @@ def pair_plain(plan, xr, xi, vr, vi, x_batched, v_batched):
             im.reshape(lead + (M * N,)).contiguous())
 
 
-def pair_call(plan, xr, xi, vr, vi, x_batched, v_batched):
+def pair_call(plan, xr, xi, vr, vi, x_batched, v_batched, passes=3):
     """The pair kernel's wrapper.  ``xr``/``xi``: X as ``(K*M,)`` or
     ``(W, K*M)`` in (K, M) row-major form; ``vr``/``vi``: V as ``(K*N,)``
-    or ``(W, K*N)``.  Returns Y ``(M*N,)`` or ``(W, M*N)``."""
+    or ``(W, K*N)``.  Returns Y ``(M*N,)`` or ``(W, M*N)``.  ``passes``:
+    3 (3xTF32) or 1 (one TF32 pass, ``kernels.tc_passes``; counted in
+    ``pair_call.one_pass``); the CPU's plain version multiplies in
+    float32 at either."""
     K, M, N = plan.K, plan.M, plan.N
     W = kernels.slice_width(x_batched, v_batched, xr, vr)
     xl = (W,) if x_batched else ()
@@ -879,18 +900,21 @@ def pair_call(plan, xr, xi, vr, vi, x_batched, v_batched):
         "pair", kernels.load().pair_launch, dev,
         *map(kernels.ptr, (xr, xi, vr, vi, yr, yi)), K, M, N,
         K * M if x_batched else 0, K * N if v_batched else 0,
-        M * N if lead else 0, W)
+        M * N if lead else 0, W, passes)
     pair_call.launches += n
+    pair_call.one_pass += n if passes == 1 else 0
     return yr, yi
 
 
 pair_call.launches = 0
+pair_call.one_pass = 0      # launches in one TF32 pass
 
 
 def apply_pair_step(field, x, y, plan, bx=False, by=False):
     """Execute a both-big pair step on SplitField pairs: the input reorders
-    and the ``v_perm`` row gather, then the kernel.  ``bx``/``by``: the
-    operand carries a leading slice-width axis."""
+    and the ``v_perm`` row gather, then the kernel at the field's
+    precision (``kernel_precision``).  ``bx``/``by``: the operand carries
+    a leading slice-width axis."""
     xlead = (x[0].shape[0],) if bx else ()
     ylead = (y[0].shape[0],) if by else ()
     if plan.re_i is not None:
@@ -906,6 +930,7 @@ def apply_pair_step(field, x, y, plan, bx=False, by=False):
         vs = field.take(vs, plan._dev[str(dev)], axis=len(ylead))
     xr, xi = (c.reshape(xlead + (-1,)).contiguous() for c in x)
     vr, vi = (c.reshape(ylead + (-1,)).contiguous() for c in vs)
-    yr, yi = pair_call(plan, xr, xi, vr, vi, bx, by)
+    yr, yi = pair_call(plan, xr, xi, vr, vi, bx, by,
+                       kernels.tc_passes(kernel_precision(field)))
     return field.reshape((yr, yi), (xlead or ylead)
                          + physical_shape(plan.dims_y))

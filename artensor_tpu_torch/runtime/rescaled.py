@@ -2,7 +2,7 @@
 
 Port of ``artensor_tpu/runtime/rescaled.py``.  Deep contractions drive
 amplitude magnitudes far below the float32 range; each step's output is
-divided by its largest magnitude (``SplitField.max_abs``) and the log10
+divided by its largest magnitude (the field's ``max_abs``) and the log10
 of that divisor accumulates in a factor.  Sliced partial sums carry their
 own factors and are combined in units of the larger one
 (``combine_rescaled``).  Results are ``(tensor, log10_factor)``: true value
@@ -17,7 +17,8 @@ eagerly.  Slices run one at a time (width 1), as in the JAX package.
 
 import torch
 
-from .executor import GroupRunner, _device, slice_ids_tensor, slice_select
+from .executor import (GroupRunner, _device, slice_ids_tensor, slice_select,
+                       sum_spec)
 from .lowering import physical_shape
 
 
@@ -35,7 +36,7 @@ def execute_rescaled(apply_step, tensors, steps, field, batched=()):
         norm = field.max_abs(out)
         safe = torch.where(norm > 0, norm, torch.ones_like(norm))
         inv = 1.0 / safe
-        for c in out:       # in place: the step's output is its own
+        for c in field.buffers(out):    # in place: the step's own output
             c.mul_(inv)
         f = torch.log10(safe)
         factor = f if factor is None else factor + f
@@ -46,7 +47,7 @@ def execute_rescaled(apply_step, tensors, steps, field, batched=()):
         last = s.i
     if factor is None:
         factor = torch.zeros((), dtype=field.rdtype,
-                             device=bufs[last][0].device)
+                             device=field.device(bufs[last]))
     return bufs[last], factor, last in bat
 
 
@@ -61,14 +62,15 @@ def combine_rescaled(a, b, field):
 
 
 def _combine_into(acc, part):
-    """``combine_rescaled`` in place on ``(re, im, log10_factor)``
-    triples: ``acc * 10**(fa - m) + part * 10**(fp - m)``, ``m`` the larger
-    factor, with no temporary of the output's size."""
-    m = torch.maximum(acc[2], part[2])
-    a, b = torch.pow(10.0, acc[2] - m), torch.pow(10.0, part[2] - m)
-    for c, v in zip(acc[:2], part[:2]):
+    """``combine_rescaled`` in place on ``(*buffers, log10_factor)``
+    tuples (the field's tensors, then the factor): ``acc * 10**(fa - m) +
+    part * 10**(fp - m)``, ``m`` the larger factor, with no temporary of
+    the output's size."""
+    m = torch.maximum(acc[-1], part[-1])
+    a, b = torch.pow(10.0, acc[-1] - m), torch.pow(10.0, part[-1] - m)
+    for c, v in zip(acc[:-1], part[:-1]):
         c.mul_(a).add_(v.mul_(b))
-    acc[2].copy_(m)
+    acc[-1].copy_(m)
 
 
 def make_rescaled_runner(apply_step, steps, slicing_axes, num_sliced,
@@ -90,17 +92,18 @@ def make_rescaled_runner(apply_step, steps, slicing_axes, num_sliced,
                                             table["ids"], num_sliced, field)
         t, f, _ = execute_rescaled(apply_step, tensors, steps, field,
                                    batched)
-        table["part"] = field.reshape(t, phys_out) + (f,)
+        table["part"] = field.buffers(field.reshape(t, phys_out)) + (f,)
 
-    runner = GroupRunner([one], _combine_into,
-                         [(phys_out, 0.0), (phys_out, 0.0), ((), -1e30)],
-                         field.rdtype)
+    runner = GroupRunner(field, [one], _combine_into,
+                         sum_spec(field, phys_out)
+                         + [((), -1e30, field.rdtype)])
 
     def run(tensors, slice_ids=None):
-        ids = slice_ids_tensor(slice_ids, n_slices, _device(tensors)) \
+        ids = slice_ids_tensor(slice_ids, n_slices,
+                               _device(tensors, field)) \
             if num_sliced else None
-        re, im, f = runner(tensors, ids)
-        return (re, im), f
+        out = runner(tensors, ids)
+        return field.join(out[:-1]), out[-1]
 
     run.stats = runner.stats
     return run

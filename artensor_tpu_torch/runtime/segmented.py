@@ -230,7 +230,7 @@ def run_segmented(tensors, steps, slicing_axes, num_sliced, output_shape,
     seconds and the replays.
     """
     log = logging.getLogger(__name__)
-    device = _device(tensors)
+    device = _device(tensors, field)
     total = 2 ** num_sliced if num_sliced else 1
     ids = slice_ids_tensor(slice_ids, total, device) if num_sliced else None
     n = len(ids) if num_sliced else 1
@@ -255,6 +255,8 @@ def run_segmented(tensors, steps, slicing_axes, num_sliced, output_shape,
             def seg(tensors, table):
                 if si == 0:     # the group's slices, from its ids
                     bat = ()
+                    table["w"] = 1 if table["ids"] is None \
+                        else table["ids"].shape[0]
                     if num_sliced:
                         tensors, bat = slice_select(
                             tensors, slicing_axes, table["ids"], num_sliced,
@@ -265,16 +267,18 @@ def run_segmented(tensors, steps, slicing_axes, num_sliced, output_shape,
                 if si == last:  # the group's part, reduced over its width
                     bufs, bat = table.pop("bufs"), table.pop("bat")
                     part = bufs.pop(final_id)
-                    table["part"] = reduce_group(
-                        field, part, final_id in bat, W, phys_out) \
+                    part = reduce_group(
+                        field, part, final_id in bat, table.pop("w"),
+                        phys_out) \
                         if num_sliced else field.reshape(part, phys_out)
+                    table["part"] = field.buffers(part)
             return seg
 
-        runner = GroupRunner([segment(si, fn) for si, fn in
-                              enumerate(run_once.segments)], add_into,
-                             sum_spec(phys_out), field.rdtype, W)
+        runner = GroupRunner(field, [segment(si, fn) for si, fn in
+                                     enumerate(run_once.segments)],
+                             add_into, sum_spec(field, phys_out), W)
         try:
-            acc = runner(tensors, ids, progress=progress)
+            acc = field.join(runner(tensors, ids, progress=progress))
         except CaptureOutOfMemory as e:
             raise SegmentCompileFailed(e.segment, e.cause) from e.cause
         st = runner.stats

@@ -747,13 +747,16 @@ def step_tables(s, device):
 def apply_sparse_step(field, x, y, s, bx=False, by=False):
     """One sparse step on flat-stored field tensors.  ``bx`` / ``by``: the
     operand carries a leading slice-width axis (so does the result, if
-    either does)."""
+    either does).  The step's kernel runs only where the field supports
+    the kernels (split, float32 storage of complex64); any other field
+    runs its lowered form (``s.lowered`` / ``s.lowered_chunks``), as the
+    JAX package does."""
     lead = bx or by
     kernels_ok = s.lane is not None and field.supports_lanes
     if s.gathers is not None:
         if kernels_ok:
             return apply_ggk_step(field, x, y, s.lane, bx, by)
-        gathers = step_tables(s, x[0].device)["gathers"]
+        gathers = step_tables(s, field.device(x))["gathers"]
         parts = [
             apply_lowered(field, field.take(x, gi, axis=int(bx)),
                           field.take(y, gj, axis=int(by)), low, bx, by)
@@ -770,10 +773,11 @@ def apply_sparse_step(field, x, y, s, bx=False, by=False):
     else:
         out = apply_lowered(field, x, y, s.lowered, bx, by)
     if s.reshape is not None:
-        w = (out[0].shape[0],) if lead else ()
+        w = (field.leading(out),) if lead else ()
         out = field.reshape(out, w + s.reshape)
     if s.post_select is not None:
-        out = field.take(out, step_tables(s, out[0].device)["post_select"],
+        out = field.take(out,
+                         step_tables(s, field.device(out))["post_select"],
                          axis=int(lead))
     return out
 
@@ -793,6 +797,19 @@ def execute_sparse(tensors, steps, field, batched=()):
             bat.add(s.i)
         last = s.i
     return bufs[last], last in bat
+
+
+def tensor_contraction_sparse(tensors, steps, field=None, device="cuda"):
+    """Contract numpy ``tensors`` by sparse ``steps`` on ``device``
+    (nothing sliced); returns the result as numpy, flat physical."""
+    from ..ops.field import make_field
+    from ..simulation import require_device
+
+    field = field or make_field()
+    dev = require_device(device)
+    staged = [field.wrap(t, dev) for t in tensors]
+    out, _ = execute_sparse(staged, steps, field)
+    return field.unwrap(out)
 
 
 def scheme_digest(steps):

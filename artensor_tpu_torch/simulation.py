@@ -13,7 +13,11 @@ artensor_tpu simulate --plan`` does, and compiles the JAX package's
 default scheme (gate-block fusion and producer-order negotiation on).
 ``prepare`` and ``contraction`` take the slice width the caller passes;
 ``runtime/metrics.dividing_slice_width`` gives the one the H100 model
-picks.  ``contraction`` has the JAX package's single-card modes, routed
+picks (for the split kernels: the width and the scheme do not depend on
+the field, as in the JAX package).  The entry points take the JAX
+package's field options (``ops/field.make_field``): ``precision``,
+``mode`` ('split', 'complex', 'fused') and ``algo``; the kernels run in
+split mode only.  ``contraction`` has the JAX package's single-card modes, routed
 in its order: scientific notation (``runtime/rescaled.py``),
 checkpoint/resume (``runtime/checkpoint.py``), the segmented executor
 for schemes above ``SEGMENT_AUTO_THRESHOLD`` device steps
@@ -22,7 +26,7 @@ and a ``profile_dir`` (``torch.profiler``).  On the card every mode runs
 as CUDA-graph replay (``runtime/executor.py``).  Not ported yet:
 ``prepare_output_sharded`` (it plans, and waits for the planner),
 ``contraction_output_sharded`` and the ``mesh`` of ``contraction`` (they
-wait for multi-device), and ``make_field``'s other modes.
+wait for multi-device).
 """
 
 import json
@@ -163,14 +167,15 @@ class TensorNetworkSimulation:
             perm = (0,) + tuple(p + 1 for p in perm)
         self.permute_dims = perm
 
-    def _staged(self, device, dtype=np.complex64):
+    def _staged(self, device, field=None):
         """``(field, run_steps, arrays, out_shape, execute, apply_step)``:
-        the static steps folded, the tensors staged on ``device``."""
+        the static steps folded, the tensors staged on ``device`` in
+        ``field``'s form (default: split complex64)."""
         from .ops.field import SplitField
         from .runtime import executor as ex
         from .runtime.sparse import apply_sparse_step, execute_sparse
 
-        field = SplitField(dtype)
+        field = field or SplitField()
         run_steps, host_arrays = ex.precompute_static_steps(
             self.steps, [self.tensors[i] for i in range(len(self.tensors))],
             self.slicing_axes)
@@ -186,11 +191,14 @@ class TensorNetworkSimulation:
         self.out_shape = out_shape
         return field, run_steps, arrays, out_shape, execute, apply_step
 
-    def prepare(self, slice_batch=1, device="cuda", eager=False):
-        """Fold the static steps, stage the tensors on ``device`` as
-        complex64 split pairs and build the sliced runner.  Returns a
-        callable that runs the whole sliced contraction and returns the flat
-        split-complex result on the device, its axes in
+    def prepare(self, slice_batch=1, device="cuda", eager=False,
+                dtype=np.complex64, precision="highest", mode="split",
+                algo="naive"):
+        """Fold the static steps, stage the tensors on ``device`` in the
+        field ``make_field(dtype, precision, mode, algo)`` (default:
+        complex64 split pairs) and build the sliced runner.  Returns a
+        callable that runs the whole sliced contraction and returns the
+        flat result on the device (``self.field``'s value), its axes in
         ``self.output_bonds`` order (after the amplitude axis in sparse
         mode); repeatable: the staged tensors are reused.  On the card its
         first call captures a slice group as a CUDA graph (the whole run,
@@ -199,9 +207,11 @@ class TensorNetworkSimulation:
         runner's captures, replays and capture seconds."""
         from .runtime import executor as ex
 
+        from .ops.field import make_field
+
         device = require_device(device)
-        field, run_steps, arrays, out_shape, execute, _ = \
-            self._staged(device)
+        field, run_steps, arrays, out_shape, execute, _ = self._staged(
+            device, make_field(dtype, precision, mode, algo))
         run = ex.make_sliced_runner(
             execute, run_steps, self.slicing_axes,
             len(self.slicing_bonds), out_shape, field,
@@ -210,7 +220,8 @@ class TensorNetworkSimulation:
         call.stats = run.stats
         return call
 
-    def contraction(self, dtype=np.complex64, scientific_notation=False,
+    def contraction(self, dtype=np.complex64, precision="highest",
+                    mode="split", algo="naive", scientific_notation=False,
                     checkpoint_path=None, report=None, slice_batch=1,
                     profile_dir=None, device="cuda"):
         """Execute the compiled plan; returns a numpy array: in dense mode
@@ -219,7 +230,11 @@ class TensorNetworkSimulation:
         ``self.bitstrings_sorted``.
 
         ``dtype``: complex64 (the kernels' type) or complex128 (the dot
-        fallback alone).  ``scientific_notation``: renormalise every
+        fallback alone).  ``precision`` ('highest', 'high', 'default'),
+        ``mode`` ('split', 'complex', 'fused') and ``algo`` ('naive',
+        'karatsuba'): the field, ``ops/field.make_field``; the kernels
+        run in split mode only, at one TF32 pass under 'default'
+        (``ops/einsum.py``).  ``scientific_notation``: renormalise every
         intermediate; returns ``(amplitudes, log10_factor)``, true values
         = amplitudes * 10**factor (slices one at a time).
         ``checkpoint_path``: save the partial slice sum after every chunk
@@ -236,12 +251,13 @@ class TensorNetworkSimulation:
         """
         import torch
 
+        from .ops.field import make_field
         from .runtime import executor as ex
         from .runtime import metrics as mt
 
         device = require_device(device)
         field, run_steps, arrays, out_shape, execute, apply_step = \
-            self._staged(device, dtype)
+            self._staged(device, make_field(dtype, precision, mode, algo))
         k = len(self.slicing_bonds)
         graphs = device.type == "cuda"
         factor = None
@@ -303,7 +319,8 @@ class TensorNetworkSimulation:
         stats["graphs"] = graphs
         self.run_stats = stats
         if report is not None:
-            report.predicted_flops = (2 ** k) * mt.scheme_flops(run_steps)
+            report.predicted_flops = (2 ** k) * mt.scheme_flops(
+                run_steps, algo if mode == "split" else "naive")
             report.wall_s = wall.elapsed
             report.compile_s = stats.get("capture_s", 0.0)
             report.num_slices = 2 ** k
@@ -350,12 +367,14 @@ class TensorNetworkSimulation:
                 "out of device memory (%s); retrying with slice_batch=%d",
                 msg, slice_batch)
             torch.cuda.empty_cache()
-        graphs = ex._device(arrays).type == "cuda"
+        graphs = ex._device(arrays, field).type == "cuda"
         return result, dict(run.stats, slice_batch=slice_batch,
                             executor="graph" if graphs else "eager")
 
-    def contraction_output_blocks(self, d_out, postprocess=None,
-                                  device="cuda", eager=False):
+    def contraction_output_blocks(self, d_out, dtype=np.complex64,
+                                  precision="highest", mode="split",
+                                  postprocess=None, device="cuda",
+                                  eager=False):
         """Generator over the 2^d_out disjoint output blocks, one at a
         time on ONE card (dense mode): the walk of a state too large for
         the card, or of one the host should never hold whole.
@@ -374,11 +393,11 @@ class TensorNetworkSimulation:
         block and replayed for all of them (``eager``: from the host, as
         on the CPU).  ``self.block_run_stats``: that runner's stats.
         """
-        from .ops.field import SplitField
+        from .ops.field import make_field
         from .runtime import executor as ex
 
         device = require_device(device)
-        field = SplitField()
+        field = make_field(dtype, precision, mode)
         steps, axes, chosen, output_bonds, k, restore = \
             _dense_shard_setup(self, d_out)
         try:

@@ -60,8 +60,9 @@ block walk's slice-invariant steps) is not made twice.  Phases, in order
    launches of that run, counted two ways and each held to the census:
    by the wrappers (the launches they make: the warm-up group's; a
    capture records the kernels, a replay calls no wrapper) and by
-   ``torch.profiler`` over the run (the kernels the card ran, named
-   as in ``csrc``: the warm-up group's and every replay's); then the same run
+   the kernels' own counters over the run (``kernels.device_runs``: the
+   kernels the card ran, the warm-up group's and every replay's); then
+   the same run
    eagerly and as graph replay on the same staged inputs: the max |d|
    between the two (held to the fixture's gate) and each one's error
    against the fixture, both warm walls (median of 3), the capture
@@ -91,7 +92,32 @@ block walk's slice-invariant steps) is not made twice.  Phases, in order
    10^f against the fixture; a checkpointed run of 10k/default
    (``runtime/checkpoint.py``) stopped on purpose after chunk 3 of 8,
    resumed through ``contraction(checkpoint_path=...)``, held to the
-   fixture, the file gone at the end.
+   fixture, the file gone at the end;
+7. the number-field modes (``ops/field.make_field``), after every main
+   run: on 1k/default, 1k-sc25/default and dense/default at the path's
+   width, split/naive/highest, then split/karatsuba, complex, fused and
+   split at 'high' (held to the fixture gate, a dense state's norm^2 to 1;
+   'high' equal to 'highest', max|d| 0), and split and complex at
+   'default' and split with bf16 and f16 storage (their errors against
+   the fixture printed, held only to finite values: bf16/f16 miss the
+   gate, as the JAX package records); a sparse path's float32 modes
+   through ``contraction()`` (its out-of-memory halving included), the
+   rest through ``make_field`` and the sliced runner; each with its warm
+   wall (median of 3, graph replay) beside split/naive's, its capture
+   seconds, peak and width, and its kernel launches: the census in split
+   float32 mode (one-pass launches exactly under 'default'), none in any
+   other; a complex and a fused block walk (``contraction_output_blocks(
+   D_OUT, mode=...)``), every block held to the default state's; the
+   segmented run in the fused mode (1k/default), scientific notation in
+   the complex mode (1k-sc25/default) and a complex checkpointed run
+   (10k/default) stopped at width 16 and resumed at width 32, whose last
+   chunk runs its rest at a narrower width.  Phase 3 also holds the
+   one-pass TF32 form (precision 'default') of the tensor-core kernels
+   against their plain TF32 forms (operands rounded as the kernel rounds
+   them, products in float32) at each path's largest GK and GGK "mma"
+   and Pair step, phase 4 the complex matmul's at its two shapes and a
+   synthetic GGK "mma" step's where no path has one; each with its time
+   beside the 3-pass time.
 
 Then the paths' and the modes' numbers, one JSON line with every
 kernel's numbers (for each kernel its largest step on the first path
@@ -169,6 +195,11 @@ SEGMENT_STEPS = 16            # steps a segment in the segmented phase
 SEGMENT_COST_WIDTH = 8        # the per-segment replay cost also at this
                               # width (more groups: more extra replays)
 CKPT_WIDTH = 16               # the checkpointed run's width (a chunk's)
+ONE_PASS_KINDS = ("gk", "ggk", "pair")   # kernels with a tensor-core form
+# the one-pass TF32 form (precision 'default') against the plain version's
+# TF32 form: the same products of the same TF32 operands, each exact in
+# float32, summed in another order -- the 3-pass form's tolerance
+ONE_PASS_RTOL, ONE_PASS_ATOL = KERNEL_RTOL, KERNEL_ATOL
 
 KERNELS = {   # name: (wrapper as module.attr, source, TPU kernel it replaces)
     "gk": ("runtime.gatherk.gk_call", "artensor_tpu_torch/csrc/gatherk.cu",
@@ -379,14 +410,16 @@ def max_modulus(ar, ai, br=None, bi=None, chunk=1 << 26):
     return out
 
 
-def run_kernel(kind, plan, bx, by, width, seed, f64=False):
-    """One kernel call against its plain version at slice width ``width``.
-    Returns a dict of measurements; with ``f64`` also both versions'
-    errors against the plain version run in float64."""
+def kernel_operands(kind, plan, bx, by, width, seed):
+    """A kernel step's random operands on the card at slice width
+    ``width`` (made from ``seed``) and what its checks need: a dict of
+    the wrapper, its plain version, the call's arguments, which operands
+    carry the width (``xs``, ``ws``) and the element counts (``x_n``,
+    ``w_n``, ``y_n``; ``x_need``, ``w_need``: the rows the step reads)."""
     import numpy as np
     import torch
 
-    from artensor_tpu_torch.runtime import gatherk, lanes, metrics
+    from artensor_tpu_torch.runtime import gatherk, lanes
 
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     rnd = lambda shape: torch.randn(shape, generator=gen, device=DEVICE)
@@ -419,44 +452,72 @@ def run_kernel(kind, plan, bx, by, width, seed, f64=False):
             w_need = len(np.unique(plan.gj)) * row.H * row.K
             call = getattr(gatherk, f"{kind}_call")
             plain = getattr(gatherk, f"{kind}_plain")
-    wx = width if xs else 1
-    ww = width if ws else 1
-    wy = width if (xs or ws) else 1
     xr, xi = rnd(((width,) if xs else ()) + (x_n,)), \
         rnd(((width,) if xs else ()) + (x_n,))
     wr, wi = rnd(((width,) if ws else ()) + (w_n,)), \
         rnd(((width,) if ws else ()) + (w_n,))
-    args = (plan, xr, xi, wr, wi, xs, ws)
-    kr, ki = call(*args)
+    return dict(call=call, plain=plain, args=(plan, xr, xi, wr, wi, xs, ws),
+                xs=xs, ws=ws, x_n=x_n, w_n=w_n, y_n=y_n, x_need=x_need,
+                w_need=w_need)
+
+
+def plain_chunks(plain, args, width, **kw):
+    """The plain version over a call's inputs, ``PLAIN_CHUNK`` slice
+    instances at a time (a whole width-128 call's temporaries would not
+    fit beside the kernel's output): ``(instances, result)`` pairs."""
+    plan, xr, xi, wr, wi, xs, ws = args
     lead = xs or ws
     chunk = PLAIN_CHUNK if lead else width
+    for c0 in range(0, width if lead else 1, chunk):
+        sl = slice(c0, c0 + chunk)
+        yield sl, plain(plan, xr[sl] if xs else xr, xi[sl] if xs else xi,
+                        wr[sl] if ws else wr, wi[sl] if ws else wi, xs, ws,
+                        **kw)
 
-    def plain_chunks():
-        """The plain version over the same inputs, ``chunk`` slice
-        instances at a time (a whole width-128 call's temporaries would
-        not fit beside the kernel's output)."""
-        for c0 in range(0, width if lead else 1, chunk):
-            sl = slice(c0, c0 + chunk)
-            yield sl, plain(plan, xr[sl] if xs else xr, xi[sl] if xs else xi,
-                            wr[sl] if ws else wr, wi[sl] if ws else wi,
-                            xs, ws)
 
+def plain_error(kr, ki, chunks, lead):
+    """``(max|kernel - plain|, max|plain|, the first chunk's plain
+    result)`` over ``plain_chunks``; ``lead``: the output carries the
+    width axis."""
     err = scale = 0.0
-    pr = pi = None
+    first = None
+    for sl, (cr, ci) in chunks:
+        kc = (kr[sl], ki[sl]) if lead else (kr, ki)
+        check(tuple(kc[0].shape) == tuple(cr.shape),
+              f"kernel shape {tuple(kc[0].shape)} != plain "
+              f"{tuple(cr.shape)}")
+        err = max(err, max_modulus(*kc, cr, ci))
+        scale = max(scale, max_modulus(cr, ci))
+        if first is None:
+            first = (cr, ci)
+        del cr, ci
+    return err, scale, first
+
+
+def run_kernel(kind, plan, bx, by, width, seed, f64=False):
+    """One kernel call against its plain version at slice width ``width``.
+    Returns a dict of measurements; with ``f64`` also both versions'
+    errors against the plain version run in float64."""
+    import numpy as np
+    import torch
+
+    from artensor_tpu_torch.runtime import gatherk, metrics
+
+    ops = kernel_operands(kind, plan, bx, by, width, seed)
+    call, plain, args = ops["call"], ops["plain"], ops["args"]
+    _, xr, xi, wr, wi, xs, ws = args
+    x_n, w_n, y_n = ops["x_n"], ops["w_n"], ops["y_n"]
+    x_need, w_need = ops["x_need"], ops["w_need"]
+    wx = width if xs else 1
+    ww = width if ws else 1
+    wy = width if (xs or ws) else 1
+    kr, ki = call(*args)
     # the float64 check takes double copies of a slice instance's operands
     # and output: only where they fit beside the step's buffers (not at
     # the dense path's 2^30-element steps)
     f64 = f64 and x_n + y_n <= F64_MAX_ELEMS
-    for sl, (cr, ci) in plain_chunks():
-        kc = (kr[sl], ki[sl]) if lead else (kr, ki)
-        check(tuple(kc[0].shape) == tuple(cr.shape),
-              f"{kind}: kernel shape {tuple(kc[0].shape)} != plain "
-              f"{tuple(cr.shape)}")
-        err = max(err, max_modulus(*kc, cr, ci))
-        scale = max(scale, max_modulus(cr, ci))
-        if pr is None:          # the first instances, for the float64 check
-            pr, pi = cr, ci
-        del cr, ci
+    err, scale, (pr, pi) = plain_error(
+        kr, ki, plain_chunks(plain, args, width), xs or ws)
     torch.cuda.synchronize()
     tol = KERNEL_RTOL * scale + KERNEL_ATOL
     check(np.isfinite(err) and err <= tol,
@@ -465,7 +526,8 @@ def run_kernel(kind, plan, bx, by, width, seed, f64=False):
     reps = 5 if plan.flops * wy > 1e12 or 8 * (x_n + y_n) > 1 << 32 \
         else 20
     ms = time_ms(lambda: call(*args), reps)
-    plain_ms = time_ms(lambda: [None for _ in plain_chunks()], 3)
+    plain_ms = time_ms(lambda: [None for _ in plain_chunks(plain, args,
+                                                           width)], 3)
     nbytes = 8 * (wx * x_need + ww * w_need + wy * y_n)
     flops = plan.flops * wy
     form = (gatherk.gk_form(plan, width, xs, ws) if kind in ("gk", "ggk")
@@ -522,6 +584,46 @@ def run_kernel(kind, plan, bx, by, width, seed, f64=False):
               f"version: {lib_err:.3e} > tol {tol:.3e}")
         out["library_ms"] = time_ms(lib, reps)
     del xr, xi, wr, wi, pr, pi, lib
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_one_pass(kind, plan, bx, by, width, seed, ms3):
+    """The kernel's one-pass TF32 form (``passes=1``: precision 'default')
+    on the inputs of its 3-pass check (the same ``seed``) against the
+    plain version's TF32 form (operands rounded as the kernel rounds
+    them, products in float32), its time beside the 3-pass time ``ms3``,
+    and what TF32 costs: its distance to the float32 plain version."""
+    import numpy as np
+    import torch
+
+    ops = kernel_operands(kind, plan, bx, by, width, seed)
+    call, plain, args = ops["call"], ops["plain"], ops["args"]
+    lead = ops["xs"] or ops["ws"]
+    before = call.one_pass
+    kr, ki = call(*args, passes=1)
+    torch.cuda.synchronize()
+    check(call.one_pass == before + 1,
+          f"{kind}: the one-pass launch was not counted as one")
+    err, scale, _ = plain_error(kr, ki, plain_chunks(plain, args, width,
+                                                     tf32=True), lead)
+    tol = ONE_PASS_RTOL * scale + ONE_PASS_ATOL
+    check(np.isfinite(err) and err <= tol,
+          f"{kind} one-pass form at width {width}: disagrees with the plain "
+          f"TF32 form: max|d| {err:.3e} > tol {tol:.3e}")
+    fp32_err, _, _ = plain_error(kr, ki, plain_chunks(plain, args, width),
+                                 lead)
+    del kr, ki
+    reps = 5 if plan.flops * width > 1e12 or ops["y_n"] > 1 << 28 else 20
+    ms = time_ms(lambda: call(*args, passes=1), reps)
+    out = dict(step=describe(kind, plan), width=width, one_pass_ms=ms,
+               three_pass_ms=ms3, one_pass_max_abs_err=err,
+               one_pass_tol=tol, tf32_vs_fp32_rel=fp32_err / scale)
+    print(f"  one-pass TF32 form ({out['step']}) width {width}: ms "
+          f"{ms:.4f} against the 3-pass {ms3:.4f} ({ms3 / ms:.2f}x); max|d| "
+          f"to the plain TF32 form {err:.3e} (tol {tol:.2e}); to the "
+          f"float32 plain {fp32_err / scale:.2e} of max|plain|", flush=True)
+    del ops, args
     torch.cuda.empty_cache()
     return out
 
@@ -825,6 +927,7 @@ def check_kernels(path):
         res = dict(steps=len(cases[kind]), ms_per_group=0.0, max_err=0.0,
                    design_bound_ms_per_group=0.0, fp32_bound_ms_per_group=0.0,
                    forms={})
+        at_w = {}       # step index -> its result at the path's width
         for i, width in [(i, W) for i in range(len(cases[kind]))] + (
                 [(largest, 1)] if W > 1 else []):
             plan, bx, by = cases[kind][i]
@@ -846,6 +949,7 @@ def check_kernels(path):
             res["max_err"] = max(res["max_err"], r["max_abs_err"])
             if width != W:
                 continue
+            at_w[i] = r
             res["ms_per_group"] += r["ms"]
             res["design_bound_ms_per_group"] += r["design_bound_ms"]
             res["fp32_bound_ms_per_group"] += r["bound_ms"]
@@ -854,6 +958,17 @@ def check_kernels(path):
                 res["largest"] = r
             if "costliest" not in res or r["ms"] > res["costliest"]["ms"]:
                 res["costliest"] = r
+        # the one-pass form at the largest step that runs a tensor-core
+        # form (GK and GGK "mma", every Pair step)
+        mma = [i for i, r in at_w.items() if r["form"] == "mma"]
+        if kind in ONE_PASS_KINDS and mma:
+            i = max(mma, key=lambda i: cases[kind][i][0].flops)
+            plan, bx, by = cases[kind][i]
+            key = ("one-pass",) + call_key(kind, plan, bx, by, W, False)
+            if key not in SEEN:
+                SEEN[key] = run_one_pass(kind, plan, bx, by, W, seed=n,
+                                         ms3=at_w[i]["ms"])
+            res["one_pass"] = SEEN[key]
         out[kind] = res
         if kind in ("gk", "ggk", "pair"):
             print(f"path {path['name']} {kind}: {res['steps']} steps "
@@ -926,10 +1041,71 @@ def check_complex_mm():
                  library_ms=time_ms(lib, reps), bytes=nbytes, flops=flops,
                  x_batched=True, w_batched=True)
         report("complex_mm", r)
+        # the one-pass form against the plain TF32 form
+        before = pallas_mm.complex_batched_matmul.one_pass
+        one = lambda: pallas_mm.complex_batched_matmul(a, b, passes=1)
+        kr, ki = one()
+        tr, ti = pallas_mm.complex_batched_matmul_plain(a, b, tf32=True)
+        torch.cuda.synchronize()
+        check(pallas_mm.complex_batched_matmul.one_pass == before + 1,
+              "complex_mm: the one-pass launch was not counted as one")
+        tref = torch.complex(tr, ti)
+        err1 = torch.abs(torch.complex(kr, ki) - tref).max().item()
+        tol1 = ONE_PASS_RTOL * torch.abs(tref).max().item() + ONE_PASS_ATOL
+        check(np.isfinite(err1) and err1 <= tol1,
+              f"complex_mm {step} one-pass form: max|d| {err1:.3e} to the "
+              f"plain TF32 form > tol {tol1:.3e}")
+        fp32 = torch.abs(torch.complex(kr, ki) - ref).max().item() / scale
+        r.update(one_pass=dict(
+            step=step, width=1, one_pass_ms=time_ms(one, reps),
+            three_pass_ms=r["ms"], one_pass_max_abs_err=err1,
+            one_pass_tol=tol1, tf32_vs_fp32_rel=fp32))
+        print(f"  one-pass TF32 form ({step}): ms "
+              f"{r['one_pass']['one_pass_ms']:.4f} against the 3-pass "
+              f"{r['ms']:.4f}; max|d| to the plain TF32 form {err1:.3e} (tol "
+              f"{tol1:.2e}); to the float32 plain {fp32:.2e} of max|plain|",
+              flush=True)
         out.append(r)
-        del a, b, kr, ki, pr, pi, ref, ac, bc
+        del a, b, kr, ki, pr, pi, ref, ac, bc, tr, ti, tref
         torch.cuda.empty_cache()
     return out
+
+
+# a GGK step of GK's mma form (K 32, H 32, F 512: bound by operations),
+# for the one-pass check where no path has one: (rx_i, rx_j, riy, rd_i,
+# rd_j, B, bi_rows, bj_rows)
+GGK_MMA_STEP = (("k0", "k1", "k2", "k3", "k4", "f"),
+                ("k0", "k1", "k2", "k3", "k4", "h0", "h1", "h2", "h3", "h4"),
+                ("h0", "h1", "h2", "h3", "h4", "f"), (2,) * 5 + (512,),
+                (2,) * 10, 2048, 256, 64)
+
+
+def check_ggk_one_pass():
+    """Phase 4c: GGK's mma form on ``GGK_MMA_STEP`` against its plain
+    version, and its one-pass TF32 form against the plain TF32 form."""
+    import numpy as np
+
+    from artensor_tpu_torch.runtime import gatherk
+
+    *case, B, bi_rows, bj_rows = GGK_MMA_STEP
+    rng = np.random.default_rng(7)
+    gi = np.sort(rng.integers(0, bi_rows, B))
+    gj = rng.integers(0, bj_rows, B)
+    old = gatherk.GGK_MIN_WORK
+    gatherk.GGK_MIN_WORK = 1
+    try:
+        plan = gatherk.plan_ggk_step(*case, gi, gj, bi_rows, bj_rows)
+    finally:
+        gatherk.GGK_MIN_WORK = old
+    check(plan is not None and isinstance(plan.row, gatherk.GKPlan)
+          and gatherk.gk_form(plan, 1, False, False) == "mma",
+          f"the synthetic GGK step does not plan in the mma form "
+          f"({gatherk.LAST_REJECT})")
+    r = run_kernel("ggk", plan, False, False, 1, seed=300)
+    report("ggk synthetic", r)
+    r["one_pass"] = run_one_pass("ggk", plan, False, False, 1, seed=300,
+                                 ms3=r["ms"])
+    return r
 
 
 def fresh_memory():
@@ -1072,14 +1248,14 @@ def graph_vs_eager(path, held=0):
 
 def main_run(path, wrappers, report=None):
     """The path through ``contraction()``, as a user calls it (graph
-    replay on the card), from a fresh allocator, under ``torch.profiler``
-    (``profiled``), with the kernel launch counts of that run
-    (``run_counts``).  Checks that it ran at the width asked for."""
+    replay on the card), from a fresh allocator, its kernels counted on
+    the card (``counted_on_card``), with the kernel launch counts of that
+    run (``run_counts``).  Checks that it ran at the width asked for."""
     sim, W, name = path["sim"], path["W"], path["name"]
     fresh_memory()
     reset_counts(wrappers)
     t0 = time.perf_counter()
-    amps, ran = profiled(lambda: sim.contraction(
+    amps, ran = counted_on_card(lambda: sim.contraction(
         slice_batch=W, device=DEVICE, report=report))
     first_s = time.perf_counter() - t0
     st = sim.run_stats
@@ -1089,33 +1265,29 @@ def main_run(path, wrappers, report=None):
     return amps, first_s, run_counts(path, wrappers, ran, st)
 
 
-def profiled(fn):
-    """``fn()`` under ``torch.profiler`` (host and device activity): its
-    result and the port's kernels that the card ran meanwhile, counted
-    from the kernel events' names (``kernels.kernel_family``): by kind,
-    and for GK and GGK by form.  The profiler records the kernels of a
-    graph replay as it does eager ones."""
+def counted_on_card(fn):
+    """``fn()`` and the port's kernels that the card ran meanwhile, as the
+    kernels count themselves (``kernels.device_runs``: each kernel's first
+    thread adds one to its slot, so a graph replay counts as a launch
+    does): by kind, and for GK and GGK by form.  Not a ``torch.profiler``
+    trace: on the H100 it lost a dense run's device events now and then,
+    GK kernels among them (PERF.md)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from artensor_tpu_torch.kernels import kernel_family
+    from artensor_tpu_torch.kernels import device_runs
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
+    before = device_runs()
+    out = fn()
+    torch.cuda.synchronize()
+    after = device_runs()
     counts = dict.fromkeys(KERNELS, 0)
     forms = {"gk": {}, "ggk": {}}
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    check(events, "the profiler recorded no device event")
-    for e in events:
-        fam = kernel_family(e.name)
-        if fam is not None:
-            kind, form = fam
-            counts[kind] += 1
-            if kind in forms:
-                forms[kind][form] = forms[kind].get(form, 0) + 1
+    for (kind, form), n in after.items():
+        n -= before[kind, form]
+        if kind in counts:
+            counts[kind] += n
+        if kind in forms and n:
+            forms[kind][form] = n
     return out, dict(counts=counts, forms=forms)
 
 
@@ -1124,7 +1296,7 @@ def run_counts(path, wrappers, ran, st):
     counts (``launches``, the launches they made: the warm-up group's and
     the steps run once eagerly; a capture records the kernels and a
     replay calls no wrapper), and the kernels that the card ran
-    (``device_launches``, from the profiler: the warm-up group's and
+    (``device_launches``, the kernels' own counts: the warm-up group's and
     every replay's).  Each is held to the census times the groups it
     covers."""
     launches, forms = check_counts(
@@ -1151,7 +1323,8 @@ def drive(path, wrappers):
     rep = ContractionReport()
     amps, first_s, counts = main_run(path, wrappers, rep)
     print(f"path {name}: first run {first_s:.3f} s (staging, warm-up, "
-          f"capture and the profiler included); {counts_line(counts)}",
+          f"capture and the counters' reads included); "
+          f"{counts_line(counts)}",
           flush=True)
     print(f"report {name}: {rep.summary()}", flush=True)
     check(amps.shape == (len(ref),), f"{name}: amplitude shape {amps.shape}")
@@ -1279,7 +1452,7 @@ def check_counts(path, counts, forms, groups, what):
 def counts_line(c):
     return (f"launches (warm-up group, by the wrappers) "
             f"{json.dumps(c['launches'])}, kernels run on the card "
-            f"(profiler; warm-up group and {c['replays']} replays) "
+            f"(their own counts; warm-up group and {c['replays']} replays) "
             f"{json.dumps(c['device_launches'])}; GK and GGK by form: "
             f"launches {json.dumps(c['forms'])}, run "
             f"{json.dumps(c['device_forms'])}")
@@ -1311,7 +1484,7 @@ def drive_dense(path, wrappers):
     reset_counts(wrappers)
     t0 = time.perf_counter()
     run = sim.prepare(slice_batch=1, device=DEVICE)
-    (re, im), ran = profiled(run)
+    (re, im), ran = counted_on_card(run)
     first_s = time.perf_counter() - t0
     st = dict(run.stats)
     del run
@@ -1319,7 +1492,8 @@ def drive_dense(path, wrappers):
           f"{name}: graph runner stats {st}")
     counts = run_counts(path, wrappers, ran, st)
     print(f"path {name}: first run {first_s:.3f} s (staging, warm-up, "
-          f"capture and the profiler included); {counts_line(counts)}",
+          f"capture and the counters' reads included); "
+          f"{counts_line(counts)}",
           flush=True)
     n_q = CIRCUIT["rows"] * CIRCUIT["cols"]
     check(re.numel() == 2 ** len(sim.output_bonds) == 2 ** n_q,
@@ -1365,10 +1539,11 @@ def drop_tables(paths):
                         obj._dev.clear()
 
 
-def block_walk(path, post, eager=False):
-    """One ``contraction_output_blocks(D_OUT)`` walk with ``post`` as its
-    postprocess (``eager``: every step from the host, else one graph
-    replayed a block); returns the results, the seconds from the
+def block_walk(path, post, eager=False, mode="split"):
+    """One ``contraction_output_blocks(D_OUT)`` walk in field ``mode``
+    with ``post`` as its postprocess (``eager``: every step from the
+    host, else one graph replayed a block); returns the results, the
+    seconds from the
     generator's start to its last block less the block scheme's compile,
     the compile's seconds (``scheme.LAST_COMPILE``: fusion and
     negotiation, the whole of the default form's compile) and the seconds
@@ -1379,7 +1554,7 @@ def block_walk(path, post, eager=False):
     t0 = time.perf_counter()
     stamps, res = [], []
     for bits, qubits, v in sim.contraction_output_blocks(
-            D_OUT, postprocess=post, device=DEVICE, eager=eager):
+            D_OUT, mode=mode, postprocess=post, device=DEVICE, eager=eager):
         stamps.append(time.perf_counter())
         res.append((bits, qubits, v))
     compile_s = scheme.LAST_COMPILE["fuse_s"] \
@@ -1434,7 +1609,7 @@ def drive_blocks(path, wrappers, state, state_bonds):
 
     fresh_memory()
     reset_counts(wrappers)
-    (res, walk_s, compile_s, _), ran = profiled(
+    (res, walk_s, compile_s, _), ran = counted_on_card(
         lambda: block_walk(path, check_block))
     st = dict(sim.block_run_stats)
     check(st["captures"] == 1 and st["replays"] == n,
@@ -1450,7 +1625,7 @@ def drive_blocks(path, wrappers, state, state_bonds):
         check(qubits == lead_q, f"{name}: block qubits {qubits}")
         got[np.nonzero(oid_of == oid)[0]] = v[:-2]
     print(f"path {name}: {n} blocks of 2^{L} in {walk_s:.3f} s after a "
-          f"{compile_s:.3f} s compile (first walk, under the profiler); "
+          f"{compile_s:.3f} s compile (first walk, counters read); "
           f"{counts_line(counts)};"
           f" max|block - whole state| {worst_d:.3e} (limit "
           f"{BLOCK_TOL} x rms {rms:.3e}); norm^2 {nrm:.9f}", flush=True)
@@ -1794,6 +1969,477 @@ def drive_checkpoint(path):
                 worst_over_bound=worst)
 
 
+# -- 7. the number-field modes ------------------------------------------------
+
+FIELD_PATHS = ("1k/default", "1k-sc25/default", "dense/default")
+BASE_MODE = ("split", "naive", "highest", "f32")   # (mode, algo, precision,
+FULL_MODES = (("split", "karatsuba", "highest", "f32"),   # storage)
+              ("complex", "naive", "highest", "f32"),
+              ("fused", "naive", "highest", "f32"),
+              ("split", "naive", "high", "f32"))
+READ_MODES = (("split", "naive", "default", "f32"),
+              ("complex", "naive", "default", "f32"),
+              ("split", "naive", "highest", "bf16"),
+              ("split", "naive", "highest", "f16"))
+ONE_PASS_WRAPPERS = (("runtime.gatherk.gk_call", "mma"),
+                     ("runtime.gatherk.ggk_call", "mma"),
+                     ("runtime.lanes.pair_call", None))
+
+
+def mode_name(m):
+    mode, algo, precision, storage = m
+    return f"{mode}/{algo}/{precision}" + ("" if storage == "f32"
+                                          else f"/{storage}")
+
+
+def as_pair(field, x):
+    """A field's value on the card as two real views (re, im)."""
+    bufs = field.buffers(x)
+    if len(bufs) == 2:
+        return bufs
+    (t,) = bufs
+    if t.is_complex():
+        return t.real, t.imag
+    v = t.reshape(t.shape[:-1] + (-1, 2))
+    return v[..., 0], v[..., 1]
+
+
+def gather_amps(field, x, idx):
+    """The amplitudes at flat indices ``idx`` of a state on the card, as
+    complex128 numpy, without a copy of the state."""
+    bufs = field.buffers(x)
+    if len(bufs) == 2:
+        re, im = (c.reshape(-1)[idx] for c in bufs)
+    elif bufs[0].is_complex():
+        v = bufs[0].reshape(-1)[idx]
+        re, im = v.real, v.imag
+    else:
+        v = bufs[0].reshape(-1, 2)[idx]
+        re, im = v[:, 0], v[:, 1]
+    return re.double().cpu().numpy() + 1j * im.double().cpu().numpy()
+
+
+def norm2_any(field, x, chunk=1 << 26):
+    """Sum of |amplitude|^2 of any field's state, in float64 on the
+    card, a chunk at a time."""
+    import torch
+
+    tot = torch.zeros((), dtype=torch.float64, device=DEVICE)
+    for c in field.buffers(x):
+        f = (torch.view_as_real(c) if c.is_complex() else c).reshape(-1)
+        for s in range(0, f.numel(), chunk):
+            tot += f[s:s + chunk].double().square().sum()
+    return tot.item()
+
+
+def field_amps(path, field, res):
+    """``(amplitudes, fixture values, bitstrings)`` of a run's flat result
+    in ``field``'s form: a sparse path's every amplitude, a dense state's
+    fixture amplitudes read on the card."""
+    import numpy as np
+    import torch
+
+    sim, ref = path["sim"], path["ref"]
+    if sim.pattern == "sparse":
+        bits = sim.bitstrings_sorted
+        amps = field.unwrap(res).reshape(sim.out_shape).transpose(
+            sim.permute_dims)
+    else:
+        bits = list(ref)
+        idx = torch.as_tensor(flat_index(bits, sim.output_bonds),
+                              device=DEVICE)
+        amps = gather_amps(field, res, idx)
+    return amps, np.array([ref[b] for b in bits]), bits
+
+
+def amp_errors(amps, r):
+    """A reading's errors against the fixture: max|d| / rms(ref), the
+    worst |d| / |ref|, the worst share of the gate; finite or not."""
+    import numpy as np
+
+    rms = float(np.sqrt(np.mean(np.abs(r) ** 2)))
+    err = np.abs(amps - r)
+    bound = AMP_RTOL * np.abs(r) + AMP_RMS_TOL * rms
+    return dict(finite=bool(np.isfinite(amps).all()),
+                max_abs_over_rms=float(err.max() / rms),
+                worst_rel=float((err / np.abs(r)).max()),
+                worst_over_bound=float((err / bound).max()))
+
+
+def reset_one_pass():
+    for spec, _ in ONE_PASS_WRAPPERS:
+        wrapper(spec).one_pass = 0
+
+
+def one_pass_counts():
+    return sum(wrapper(spec).one_pass for spec, _ in ONE_PASS_WRAPPERS)
+
+
+def mma_launches(wrappers):
+    """The wrappers' launches in a tensor-core form (GK and GGK "mma",
+    Pair): what runs in one pass under precision 'default'."""
+    return (wrappers["gk"].forms["mma"] + wrappers["ggk"].forms["mma"]
+            + wrappers["pair"].launches)
+
+
+def mode_counts(path, field, wrappers, st, precision):
+    """The kernels of a mode's first run, by the wrappers' counts (the
+    warm-up group's launches; the capture records the same calls, and a
+    replay runs what it recorded).  Split float32 mode: the census, as on
+    the main run, and one-pass launches exactly under 'default'.  Any
+    other mode: no launch at all."""
+    launched = {k: f.launches for k, f in wrappers.items()}
+    if field.supports_lanes:
+        check_counts(path, launched,
+                     {k: dict(wrappers[k].forms) for k in ("gk", "ggk")},
+                     st["warmup_groups"], "launches")
+        want = mma_launches(wrappers) if precision == "default" else 0
+        check(one_pass_counts() == want, f"{path['name']} "
+              f"{precision}: {one_pass_counts()} one-pass launches, "
+              f"expected {want}")
+    else:
+        check(not any(launched.values()) and one_pass_counts() == 0,
+              f"{path['name']}: a kernel launched outside split float32 "
+              f"mode: {launched}")
+    return launched
+
+
+def drive_fields(path, wrappers, held=None):
+    """Phase 7 on a path: the split/naive/highest run, then each mode of
+    ``FULL_MODES`` (held to the fixture gate; a dense state's norm^2 too;
+    split at 'high' equal to 'highest', max|d| 0) and of ``READ_MODES``
+    (errors printed, held only to finite values), at the path's width.
+    A sparse path runs each float32-storage mode through ``contraction()``
+    (its out-of-memory halving included: the width used is read from
+    ``run_stats``) and its warm walls through ``prepare()``; a dense path
+    and the reduced storage run ``make_field`` + the sliced runner on the
+    staged inputs.  The kernel launches of each first run
+    (``mode_counts``); the warm wall (median of 3, graph replay), the
+    capture seconds, the peak (less ``held``, the default state kept for
+    the block walk) and the width used."""
+    import numpy as np
+    import torch
+
+    from artensor_tpu_torch.ops.field import make_field
+    from artensor_tpu_torch.runtime import executor as ex
+
+    sim, W, name = path["sim"], path["W"], path["name"]
+    sparse = sim.pattern == "sparse"
+    held_b = nbytes(*held) if held is not None else 0
+    out, base, arrays = {}, None, None
+    for m in (BASE_MODE,) + FULL_MODES + READ_MODES:
+        mode, algo, precision, storage = m
+        label = f"{name} {mode_name(m)}"
+        field = make_field(np.complex64, precision, mode, algo, storage)
+        fresh_memory()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(wrappers)
+        reset_one_pass()
+        t0 = time.perf_counter()
+        if sparse and storage == "f32":
+            amps = sim.contraction(precision=precision, mode=mode,
+                                   algo=algo, slice_batch=W, device=DEVICE)
+            st = dict(sim.run_stats)
+            width, res = st["slice_batch"], None
+        else:
+            _, run_steps, arrays, out_shape, execute, _ = sim._staged(
+                torch.device(DEVICE), field)
+            run = ex.make_sliced_runner(
+                execute, run_steps, sim.slicing_axes,
+                len(sim.slicing_bonds), out_shape, field, slice_batch=W)
+            res = run(arrays)
+            torch.cuda.synchronize()
+            st, width = dict(run.stats), W
+            amps = None
+        first_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - held_b
+        launched = mode_counts(path, field, wrappers, st, precision)
+        if res is not None:
+            amps, r, bits = field_amps(path, field, res)
+        else:
+            r = np.array([path["ref"][b] for b in sim.bitstrings_sorted])
+            bits = sim.bitstrings_sorted
+        errs = amp_errors(amps, r)
+        row = dict(width=width, halved=width != W, first_s=first_s,
+                   capture_s=st["capture_s"], captures=st["captures"],
+                   launches=launched, **errs)
+        if not sparse:
+            row["norm2"] = norm2_any(field, res)
+        # warm walls, graph replay
+        torch.cuda.reset_peak_memory_stats()
+        if res is None:
+            run = sim.prepare(slice_batch=width, device=DEVICE,
+                              precision=precision, mode=mode, algo=algo)
+            run()
+            kept = 0
+            walls = timed_runs(run)
+        else:
+            kept = nbytes(*field.buffers(res))
+            walls = timed_runs(lambda: run(arrays))
+        del run
+        peak = max(peak, torch.cuda.max_memory_allocated() - held_b - kept)
+        row.update(warm_s=statistics.median(walls), walls=walls,
+                   peak_gib=peak / 2 ** 30)
+        if m == BASE_MODE:
+            base = dict(amps=amps, warm_s=row["warm_s"])
+            if held is not None:
+                d, _ = state_gate(as_pair(field, res), held)
+                row["vs_default_state_max_abs"] = d
+        row["split_naive_warm_s"] = base["warm_s"]
+        if m == ("split", "naive", "high", "f32"):
+            d = float(np.abs(amps - base["amps"]).max())
+            if held is not None:
+                d = max(d, state_gate(as_pair(field, res), held)[0])
+            row["vs_highest_max_abs"] = d
+            check(d == 0.0, f"{label}: differs from 'highest' by {d:.3e}")
+        check(errs["finite"], f"{label}: non-finite amplitudes")
+        if m == BASE_MODE or m in FULL_MODES:
+            amp_check(label, amps, r, bits)
+            if not sparse:
+                check(abs(row["norm2"] - 1) <= NORM_TOL,
+                      f"{label}: norm^2 {row['norm2']} off 1")
+        print(f"fields {label}: width {width}{' (halved)' if width != W else ''}"
+              f", warm wall {row['warm_s']:.4f} s of "
+              f"{['%.4f' % w for w in walls]} (split/naive "
+              f"{base['warm_s']:.4f} s), first call {first_s:.3f} s "
+              f"(capture {st['capture_s']:.3f} s, {st['captures']} "
+              f"captures), peak {row['peak_gib']:.3f} GiB; max|d|/rms "
+              f"{errs['max_abs_over_rms']:.3e}, worst |d|/|ref| "
+              f"{errs['worst_rel']:.3e}, worst |d|/bound "
+              f"{errs['worst_over_bound']:.3e}"
+              f"{'' if sparse else ', norm^2 %.9f' % row['norm2']}; "
+              f"launches {json.dumps(launched)}, one-pass "
+              f"{one_pass_counts()}",
+              flush=True)
+        out[mode_name(m)] = row
+        res = amps = arrays = None   # nothing of a mode outlives its row
+    return out
+
+
+def drive_mode_walk(path, mode, state, state_bonds):
+    """One ``contraction_output_blocks(D_OUT, mode=mode)`` walk: every
+    block against the same block of the default state on the card
+    (within ``BLOCK_TOL`` x its rms), no kernel step run as a kernel, the
+    walk's seconds (the block scheme's compile apart) and a block's."""
+    import numpy as np
+    import torch
+
+    sim, name = path["sim"], path["name"]
+    n_q = len(state_bonds)
+    L = n_q - D_OUT
+    full = [c.reshape(-1) for c in state]
+    pos = {_qubit(b): a for a, b in enumerate(state_bonds)}
+    lead_q = sorted(pos)[:D_OUT]
+    rms = (norm2(*state) / 2 ** n_q) ** 0.5
+    tab = {}
+
+    def against(field, oid, raw):
+        if "local" not in tab:
+            ar = torch.arange(2 ** L, device=DEVICE)
+            tab["local"] = sum(((ar >> (L - 1 - p)) & 1)
+                               << (n_q - 1 - pos[_qubit(b)])
+                               for p, b in enumerate(sim.block_output_bonds))
+        idx = tab["local"] + sum(int(c) << (n_q - 1 - pos[q]) for q, c in
+                                 zip(lead_q, np.binary_repr(oid, D_OUT)))
+        r, i = (c.reshape(-1) for c in as_pair(field, raw))
+        z = field.zeros((1,), DEVICE)
+        field.buffers(z)[0].reshape(-1)[0] = torch.hypot(
+            r - full[0][idx], i - full[1][idx]).max()
+        return z
+
+    kernel_calls = {k: wrapper(v[0]).launches for k, v in KERNELS.items()}
+    fresh_memory()
+    torch.cuda.reset_peak_memory_stats()
+    res, walk_s, compile_s, rest_s = block_walk(path, against, mode=mode)
+    peak = torch.cuda.max_memory_allocated() - nbytes(*state)
+    st = dict(sim.block_run_stats)
+    n = 2 ** D_OUT
+    check(len(res) == n and all(q == lead_q for _, q, _ in res),
+          f"{name} {mode} walk: blocks {[b for b, _, _ in res]}")
+    worst = max(float(v.reshape(-1)[0].real) for _, _, v in res)
+    check(all(wrapper(v[0]).launches == kernel_calls[k]
+              for k, v in KERNELS.items()),
+          f"{name} {mode} walk: a kernel wrapper launched")
+    out = dict(walk_s=walk_s, compile_s=compile_s,
+               s_per_block=rest_s / (n - 1), captures=st["captures"],
+               replays=st["replays"], capture_s=st["capture_s"],
+               max_block_diff=worst, rms=rms, peak_gib=peak / 2 ** 30)
+    print(f"fields {name} {mode} walk: {n} blocks in {walk_s:.3f} s after "
+          f"a {compile_s:.3f} s compile ({out['s_per_block'] * 1e3:.3f} ms "
+          f"a block after the first; capture {st['capture_s']:.3f} s); "
+          f"max|block - default state| {worst:.3e} (limit {BLOCK_TOL} x "
+          f"rms {rms:.3e}); peak {out['peak_gib']:.3f} GiB", flush=True)
+    check(worst <= BLOCK_TOL * rms, f"{name} {mode} walk: a block differs "
+          f"from the default state by {worst:.3e}")
+    return out
+
+
+def no_kernel_launched(before, what):
+    launched = {k: wrapper(v[0]).launches - before[k]
+                for k, v in KERNELS.items()}
+    check(not any(launched.values()), f"{what}: kernels launched "
+          f"{launched} outside split float32 mode")
+
+
+def kernel_launches():
+    return {k: wrapper(v[0]).launches for k, v in KERNELS.items()}
+
+
+def drive_segmented_fused(path):
+    """The segmented executor in the fused mode on the path's width
+    (``SEGMENT_STEPS`` steps a segment): the result against the fixture,
+    no kernel launched, the wall of a run (capture included) and of its
+    replays."""
+    import numpy as np
+    import torch
+
+    from artensor_tpu_torch.ops.field import make_field
+    from artensor_tpu_torch.runtime import segmented
+
+    sim, name, W = path["sim"], path["name"], path["W"]
+    field = make_field(np.complex64, "highest", "fused")
+    _, run_steps, arrays, out_shape, _, step = sim._staged(
+        torch.device(DEVICE), field)
+    before = kernel_launches()
+    fresh_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = segmented.run_segmented(arrays, run_steps, sim.slicing_axes,
+                                  len(sim.slicing_bonds), out_shape, field,
+                                  step, segment_steps=SEGMENT_STEPS,
+                                  slice_batch=W)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run = dict(segmented.LAST_RUN)
+    peak = torch.cuda.max_memory_allocated()
+    no_kernel_launched(before, f"{name} segmented fused")
+    check(run["graphs"] and run["segments"] > 1,
+          f"{name} segmented fused: ran {run}")
+    amps, r, bits = field_amps(path, field, res)
+    worst = amp_check(f"{name} segmented fused", amps, r, bits)
+    print(f"fields segmented fused {name}: width {run['width']} (asked "
+          f"{W}), {run['segments']} segments, {run['replays']} replays in "
+          f"{run['replay_s']:.4f} s, capture {run['capture_s']:.3f} s, "
+          f"first run {wall:.3f} s, peak {peak / 2 ** 30:.3f} GiB",
+          flush=True)
+    return dict(width=run["width"], segments=run["segments"],
+                replay_s=run["replay_s"], capture_s=run["capture_s"],
+                wall_s=wall, peak_gib=peak / 2 ** 30,
+                worst_over_bound=worst)
+
+
+def drive_rescaled_complex(path):
+    """Scientific notation in the complex mode through
+    ``contraction(scientific_notation=True, mode='complex')``: t * 10**f
+    against the fixture, no kernel launched, the wall."""
+    import numpy as np
+
+    sim, name, ref = path["sim"], path["name"], path["ref"]
+    before = kernel_launches()
+    fresh_memory()
+    t0 = time.perf_counter()
+    t, f = sim.contraction(scientific_notation=True, mode="complex",
+                           device=DEVICE)
+    wall = time.perf_counter() - t0
+    st = dict(sim.run_stats)
+    no_kernel_launched(before, f"{name} rescaled complex")
+    check(st["executor"] == "rescaled" and st["graphs"],
+          f"{name} rescaled complex: ran {st}")
+    r = np.array([ref[b] for b in sim.bitstrings_sorted])
+    worst = amp_check(f"{name} rescaled complex", t * 10.0 ** f, r,
+                      sim.bitstrings_sorted)
+    print(f"fields rescaled complex {name}: {wall:.3f} s at width 1 "
+          f"({st['replays']} replays, capture {st['capture_s']:.3f} s), "
+          f"log10 factor {f:.6f}", flush=True)
+    return dict(wall_s=wall, factor=f, replays=st["replays"],
+                capture_s=st["capture_s"], worst_over_bound=worst)
+
+
+CKPT_MODE_WIDTHS = (16, 32)   # written at the first, resumed at the second
+
+
+def drive_checkpoint_complex(path):
+    """Checkpoint/resume in the complex mode: a run at width 16 stopped
+    after chunk 3 of 8 (slice 3 * 2^k / 8), resumed through
+    ``contraction(checkpoint_path=..., slice_batch=32, mode='complex')``:
+    chunks of 32 from there, the last of them the rest of the run at a
+    width that 32 does not divide (one capture for each width used), held
+    to the fixture; the file (``acc``: a complex array) is gone at the
+    end."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from artensor_tpu_torch.ops.field import make_field
+    from artensor_tpu_torch.runtime import executor as ex
+    from artensor_tpu_torch.runtime.checkpoint import run_sliced_checkpointed
+
+    sim, name, ref = path["sim"], path["name"], path["ref"]
+    k = len(sim.slicing_bonds)
+    chunk = 2 ** k // 8
+    w1, w2 = CKPT_MODE_WIDTHS
+    left = 2 ** k - 3 * chunk
+    check(left % w2 != 0, f"{name}: {left} slices left; the resume must "
+          f"leave a rest at width {w2}")
+    field = make_field(np.complex64, "highest", "complex")
+    before = kernel_launches()
+    fresh_memory()
+    with tempfile.TemporaryDirectory() as d:
+        ck = os.path.join(d, "acc.npz")
+        _, run_steps, arrays, out_shape, execute, _ = sim._staged(
+            torch.device(DEVICE), field)
+        run = ex.make_sliced_runner(execute, run_steps, sim.slicing_axes, k,
+                                    out_shape, field, slice_batch=w1)
+
+        def stop(done, total):
+            if done == 3 * chunk:
+                raise Interrupted
+
+        try:
+            run_sliced_checkpointed(run, arrays, k, out_shape, field, ck,
+                                    chunk=chunk, progress=stop)
+        except Interrupted:
+            pass
+        saved = np.load(ck)
+        check(sorted(saved.files) == ["acc", "next_slice"]
+              and int(saved["next_slice"]) == 3 * chunk
+              and np.iscomplexobj(saved["acc"]),
+              f"{name} checkpoint complex: file {saved.files}")
+        del run, arrays, saved
+        t0 = time.perf_counter()
+        amps = sim.contraction(mode="complex", checkpoint_path=ck,
+                               slice_batch=w2, device=DEVICE)
+        resume_s = time.perf_counter() - t0
+        st = dict(sim.run_stats)
+        check(not os.path.exists(ck), f"{name} checkpoint complex: file "
+              "left")
+    no_kernel_launched(before, f"{name} checkpoint complex")
+    # the resumed chunks (contraction's chunk: max(width, 2^k / 8)) and
+    # the group widths each one runs at
+    widths, groups, start = set(), 0, 3 * chunk
+    while start < 2 ** k:
+        n = min(max(w2, chunk), 2 ** k - start)
+        for w, g in ex.group_widths(n, w2):
+            widths.add(w)
+            groups += g
+        start += n
+    check(st["executor"] == "checkpointed" and st["graphs"]
+          and st["captures"] == len(widths) and st["replays"] == groups,
+          f"{name} checkpoint complex: resumed run {st}, expected captures "
+          f"at widths {sorted(widths)} and {groups} replays")
+    r = np.array([ref[b] for b in sim.bitstrings_sorted])
+    worst = amp_check(f"{name} checkpoint complex", amps, r,
+                      sim.bitstrings_sorted)
+    print(f"fields checkpoint complex {name}: stopped at slice {3 * chunk} "
+          f"(width {w1}), resumed at width {w2} in {resume_s:.3f} s "
+          f"({st['replays']} replays, {st['captures']} captures: widths "
+          f"{sorted(widths)})", flush=True)
+    return dict(resume_s=resume_s, replays=st["replays"],
+                captures=st["captures"], widths=sorted(widths),
+                worst_over_bound=worst)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--slice-batch", type=int, default=32,
@@ -1845,10 +2491,17 @@ def main():
     # -- 4. lane forms the paths lack, the complex matmul (on no path) --------
     forms = check_lane_forms()
     cmm = check_complex_mm()
+    one_pass = {k: next((checked[n][k]["one_pass"] for n in labels
+                         if "one_pass" in checked[n].get(k, {})), None)
+                for k in ONE_PASS_KINDS}
+    if one_pass["ggk"] is None:     # no path runs a GGK step on mma
+        one_pass["ggk"] = check_ggk_one_pass()["one_pass"]
+    one_pass["complex_mm"] = cmm[-1]["one_pass"]
 
     # -- 5. the paths end to end ----------------------------------------------
     wrappers = {k: wrapper(v[0]) for k, v in {**KERNELS, **OFF_PATH}.items()}
-    runs, modes, state = {}, {}, None
+    runs, modes, fields, state = {}, {}, {}, None
+    field_paths, dense_default = [], None
     for p in paths:
         drop_tables(paths)
         if p["workload"] == "dense":
@@ -1858,22 +2511,48 @@ def main():
                 # -- 6. the other execution modes on the dense state -------
                 modes["segmented dense/default"] = drive_segmented(p, st)
                 modes["rescaled dense/default"] = drive_rescaled(p, st)
+                dense_default = p
             del st
+            if p is dense_default:      # phase 7 runs after the walk
+                p["off_sim"] = None
+                continue
         elif p["workload"] == "dense-blocks":
             runs[p["name"]] = drive_blocks(p, wrappers, state, state_bonds)
-            state = None
+            # -- 7. the field modes, after every main run (and its trace):
+            # the dense state in each mode, the mode walks, then the
+            # sparse paths ---------------------------------------------
+            fields[dense_default["name"]] = drive_fields(
+                dense_default, wrappers, held=state)
+            for mode in ("complex", "fused"):
+                fields[f"{p['name']} {mode}"] = drive_mode_walk(
+                    p, mode, state, state_bonds)
+            state = dense_default["sim"] = None
+            for q in field_paths:
+                fields[q["name"]] = drive_fields(q, wrappers)
+                q["sim"] = None
         else:
             runs[p["name"]] = drive(p, wrappers)
             # -- 6. the other execution modes on the sparse paths ----------
             if p["name"] == "1k/default":
                 modes["segmented 1k/default"] = drive_segmented(p)
+                fields["segmented fused 1k/default"] = \
+                    drive_segmented_fused(p)
             elif p["name"] == "1k-sc25/default":
                 modes["rescaled 1k-sc25/default"] = drive_rescaled(p)
+                fields["rescaled complex 1k-sc25/default"] = \
+                    drive_rescaled_complex(p)
             elif p["name"] == "10k/default":
                 modes["checkpoint 10k/default"] = drive_checkpoint(p)
+                fields["checkpoint complex 10k/default"] = \
+                    drive_checkpoint_complex(p)
+            if p["name"] in FIELD_PATHS:   # phase 7 runs after the walk
+                field_paths.append(p)
+                p["off_sim"] = None
+                continue
         p["sim"] = p["off_sim"] = None
     print(f"paths: {json.dumps(runs)}", flush=True)
     print(f"modes: {json.dumps(modes)}", flush=True)
+    print(f"fields: {json.dumps(fields)}", flush=True)
 
     line = []
     keys = ("step", "form", "ms", "bound_ms", "bound_by", "bound_3xtf32_ms",
@@ -1920,6 +2599,8 @@ def main():
                                  for n, r in forms.items()}
         if kind in ("rgrow", "rgflat"):
             line[-1].update({k: big[k] for k in GLUE_KEYS})
+        if kind in ONE_PASS_KINDS:
+            line[-1]["one_pass"] = one_pass[kind]
     (_, source, replaces), big = OFF_PATH["complex_mm"], cmm[-1]
     line.append({
         "name": "complex_mm", "route": "cuda", "source": source,
@@ -1927,6 +2608,7 @@ def main():
         "launches": sum(runs[n]["launches"]["complex_mm"] for n in labels),
         "device_launches": None,    # its kernel is Pair's: counted there
         **{k: big[k] for k in keys}, "path": None,
+        "one_pass": one_pass["complex_mm"],
         "shapes": [{k: r[k] for k in keys} for r in cmm]})
     print(json.dumps({"kernels": line}))
     print(card)

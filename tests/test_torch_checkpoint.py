@@ -1,7 +1,8 @@
 """The port's checkpoint/resume (``runtime/checkpoint.py``) against the JAX
 package's: a run interrupted after a chunk and resumed equals the
 uninterrupted run and JAX's, a checkpoint that either package writes is
-resumed by the other, a failed chunk is retried, and
+resumed by the other (in every field mode, at slice widths that do not
+divide what is left of the run), a failed chunk is retried, and
 ``contraction(checkpoint_path=...)`` matches JAX's."""
 
 import os
@@ -45,9 +46,18 @@ def cases():
     >= 3-leg output, the case of tests/test_aux.py:272), a JAX plan at
     sc_target 3 (one sliced bond).  ``sparse``: random_circuit(4, 3, 8,
     seed=3), three bitstrings (tests/test_aux.py:372), a JAX plan at
-    sc_target 8 (at least three sliced bonds).  Each with both packages'
-    off-form simulations and the exact values."""
+    sc_target 8 (at least three sliced bonds).  ``dense4``:
+    random_circuit(2, 3, 10, seed=3), the whole 2^6 state, a JAX plan at
+    sc_target 4 (at least two sliced bonds: widths 1, 2 and 4 divide its
+    slices).  Each with both packages' off-form simulations and the exact
+    values."""
     out = {}
+    n, layers = random_circuit(2, 3, 10, seed=3)
+    plan, sliced = _jax_plan(n, layers, "normal", 4)
+    assert len(sliced) >= 2
+    js, ps = off_form_sims(n, layers, [], plan)
+    out["dense4"] = dict(js=js, ps=ps, plan=plan, n=n, layers=layers,
+                         bits=[], state=JaxCircuit((n, layers)).state_vec())
     n, layers = random_circuit(2, 3, 6, seed=3)
     plan, sliced = _jax_plan(n, layers, "normal", 3)
     assert len(sliced) >= 1
@@ -67,25 +77,27 @@ def cases():
     return out
 
 
-def _port_run(ps, slice_batch=1):
+def _port_run(ps, slice_batch=1, mode="split"):
     """The port's sliced runner over its staged tensors:
     ``(run, arrays, k, out_shape, field)``."""
+    from artensor_tpu_torch.ops.field import make_field
+
     field, run_steps, arrays, out_shape, execute, _ = ps._staged(
-        torch.device("cpu"))
+        torch.device("cpu"), make_field(np.complex64, "highest", mode))
     k = len(ps.slicing_bonds)
     run = pex.make_sliced_runner(execute, run_steps, ps.slicing_axes, k,
                                  out_shape, field, slice_batch=slice_batch)
     return run, arrays, k, out_shape, field
 
 
-def _jax_run(js):
+def _jax_run(js, mode="split"):
     """The JAX package's jitted sliced runner over its staged tensors."""
     import jax
 
     from artensor_tpu.runtime import executor as jex
     from artensor_tpu.runtime.sparse import execute_sparse
 
-    field = jax_make_field(np.complex64, "highest", "split")
+    field = jax_make_field(np.complex64, "highest", mode)
     run_steps, host = jex.precompute_static_steps(
         js.steps, [js.tensors[i] for i in range(len(js.tensors))],
         js.slicing_axes)
@@ -230,3 +242,119 @@ def test_contraction_checkpoint_path_matches_jax(cases, tmp_path):
     scale = max(abs(v) for v in want.values())
     for b, a in zip(ps.bitstrings_sorted, got):
         assert abs(a - want[b]) <= TOL * scale, b
+
+
+# a JAX run is one jit compile; each is made once for the module
+_JAX_FULL = {}
+
+
+def _jax_full(w, case, mode):
+    """JAX's uninterrupted run of ``case`` in ``mode``, in ``_state``'s
+    order."""
+    if (case, mode) not in _JAX_FULL:
+        jrun, staged, _, jshape, jfield = _jax_run(w["js"], mode)
+        _JAX_FULL[case, mode] = _state(w["js"], jfield, jrun(staged),
+                                       jshape)
+    return _JAX_FULL[case, mode]
+
+
+@pytest.mark.parametrize("width", [1, 2, 4])
+@pytest.mark.parametrize("mode", ["split", "complex", "fused"])
+@pytest.mark.parametrize("case", ["dense4", "sparse"])
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_resume_at_any_width(cases, tmp_path, writer, case, mode, width):
+    """A checkpoint written by either package in ``mode`` after a first
+    chunk that leaves ``next_slice`` off the width's grid (JAX: chunk 1,
+    next slice 1; the port at width 1: chunk 3, next slice 3) resumes in
+    the port at ``width`` with chunks of ``width`` slices, whose last
+    one runs its rest as a narrower group, to JAX's uninterrupted run
+    and the exact values; the file names ``acc_re`` / ``acc_im`` for a
+    split field and ``acc`` otherwise.  On a tree where the runner
+    required its width to divide every chunk, the resumes that leave a
+    rest (width 2 after next slice 3, width 4 after either) raised
+    ``ValueError`` with the file left behind."""
+    from artensor_tpu.runtime.checkpoint import \
+        run_sliced_checkpointed as jax_checkpointed
+
+    w = cases[case]
+    path = str(tmp_path / "acc.npz")
+
+    def boom(done, total):
+        raise Interrupt
+
+    if writer == "jax":
+        jrun, staged, k, jshape, jfield = _jax_run(w["js"], mode)
+        with pytest.raises(Interrupt):
+            jax_checkpointed(jrun, staged, k, jshape, jfield, path, chunk=1,
+                             progress=boom)
+        first = 1
+    else:
+        run1, arrays1, k, shape1, field1 = _port_run(w["ps"], 1, mode)
+        with pytest.raises(Interrupt):
+            run_sliced_checkpointed(run1, arrays1, k, shape1, field1, path,
+                                    chunk=3, progress=boom)
+        first = 3
+    saved = np.load(path)
+    assert int(saved["next_slice"]) == first
+    assert sorted(saved.files) == sorted(
+        ["acc_re", "acc_im", "next_slice"] if mode == "split"
+        else ["acc", "next_slice"])
+    run, arrays, k, out_shape, field = _port_run(w["ps"], width, mode)
+    acc = run_sliced_checkpointed(run, arrays, k, out_shape, field, path,
+                                  chunk=width)
+    assert not os.path.exists(path)
+    got = _state(w["ps"], field, acc, out_shape)
+    want = _jax_full(w, case, mode)
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() <= TOL * scale
+    assert np.abs(got - _exact(w)).max() <= TOL * scale
+
+
+def test_contraction_resumes_a_jax_file_at_width_4(cases, tmp_path):
+    """The fault as found: JAX's checkpointed run stopped after its first
+    chunk (16 slices in chunks of 2: next slice 2), resumed by the port's
+    ``contraction(checkpoint_path=..., slice_batch=4)`` (chunks of 4
+    from slice 2: the last is 2 slices).  The parent tree raised
+    ``slice_batch 4 must divide the 2 slices summed`` after three chunks;
+    now the run ends with JAX's amplitudes and the file gone."""
+    from artensor_tpu.runtime.checkpoint import \
+        run_sliced_checkpointed as jax_checkpointed
+
+    w = cases["sparse"]
+    path = str(tmp_path / "acc.npz")
+    jrun, staged, k, jshape, jfield = _jax_run(w["js"])
+
+    def boom(done, total):
+        raise Interrupt
+
+    with pytest.raises(Interrupt):
+        jax_checkpointed(jrun, staged, k, jshape, jfield, path,
+                         progress=boom)
+    assert int(np.load(path)["next_slice"]) == 2 ** k // 8 == 2
+    got = w["ps"].contraction(checkpoint_path=path, slice_batch=4,
+                              device="cpu")
+    assert not os.path.exists(path)
+    assert w["ps"].run_stats["executor"] == "checkpointed"
+    order = np.argsort(w["ps"].bitstrings_sorted)
+    want = _jax_full(w, "sparse", "split")
+    assert np.abs(got[order] - want).max() <= TOL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("n,width,want", [
+    (16, 4, [(4, 4)]), (14, 4, [(4, 3), (2, 1)]), (3, 4, [(3, 1)]),
+    (1, 1, [(1, 1)]), (7, 2, [(2, 3), (1, 1)])])
+def test_group_widths(n, width, want):
+    """A run of ``n`` slice ids at ``width``: full groups, then the rest
+    as one group of its own width."""
+    assert pex.group_widths(n, width) == want
+
+
+def test_a_width_that_does_not_divide_the_slices_still_raises(cases):
+    """A wrong call still raises: the width must divide the 2^k slices
+    (the dense case has two), and a run of no slice ids is refused."""
+    w = cases["dense"]
+    with pytest.raises(ValueError, match="must divide"):
+        _port_run(w["ps"], 4)
+    run, arrays, *_ = _port_run(w["ps"], 1)
+    with pytest.raises(ValueError, match="no slice ids"):
+        run(arrays, range(1, 1))

@@ -725,21 +725,18 @@ def _tensors(args):
 
 
 def _device_kernels(fn):
-    """``fn()`` under ``torch.profiler``: the port's kernels the card ran,
-    counted by (kind, form) (``kernels.kernel_family``)."""
+    """``fn()``: the port's kernels the card ran meanwhile, by (kind,
+    form), as the kernels count themselves (``kernels.device_runs``: a
+    graph replay counts as a launch does, a capture counts nothing)."""
     from collections import Counter
 
-    from torch.profiler import ProfilerActivity, profile
+    from artensor_tpu_torch.kernels import device_runs
 
-    from artensor_tpu_torch.kernels import kernel_family
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return Counter(kernel_family(e.name) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and kernel_family(e.name) is not None)
+    before = device_runs()
+    fn()
+    after = device_runs()
+    return Counter({k: n - before[k] for k, n in after.items()
+                    if n != before[k]})
 
 
 def _ran(counts, kind):
@@ -750,7 +747,7 @@ def _ran(counts, kind):
 def test_graph_replay_equals_eager(cuda, monkeypatch, family):
     """Each kernel family captured in a CUDA graph: the capture launches
     nothing and the wrapper counts nothing, a replay runs the kernel once
-    on the card (a profiler's kernel events; it calls no wrapper) and
+    on the card (the kernels' own counters; it calls no wrapper) and
     gives the eager call's result, and after new values are copied into
     the same inputs a replay gives the eager call's result on them."""
     from artensor_tpu_torch.runtime.executor import GroupGraphs
@@ -764,7 +761,7 @@ def test_graph_replay_equals_eager(cuda, monkeypatch, family):
     out = {}
     graphs.capture(lambda: out.update(y=call(*args)))
     assert call.launches == before
-    kind = "pair" if family == "complex_mm" else family   # Pair's kernel
+    kind = family
     gen = torch.Generator(device="cuda").manual_seed(9)
     for _ in range(2):
         assert _ran(_device_kernels(graphs.replay), kind) == 1
@@ -908,7 +905,8 @@ def test_block_walk_under_graphs_equals_state(cuda, monkeypatch):
 
 
 def test_contraction_runs_kernels_at_every_replay(cuda, monkeypatch):
-    """``contraction()`` on the card from scratch, under ``torch.profiler``
+    """``contraction()`` on the card from scratch, its kernels counted on
+    the card (``kernels.device_runs``)
     (its warm-up group, capture and replays): the card runs every kernel
     step once a group, the warm-up group and each replay, while the
     wrappers count the warm-up group's launches only."""
@@ -936,3 +934,158 @@ def test_contraction_runs_kernels_at_every_replay(cuda, monkeypatch):
     for kind, f in wrappers.items():
         assert f.launches - before[kind] == census[kind], kind
         assert _ran(ran, kind) == census[kind] * (1 + st["replays"]), kind
+
+
+# -- the one-pass TF32 form and the field modes ------------------------------
+#
+# The one-pass form of a tensor-core kernel multiplies TF32 operands (low
+# 13 mantissa bits cleared) once; its plain version rounds the operands
+# the same way (``kernels.tf32_round``) and multiplies them in float32.
+# The products are exact in float32 on both sides, so they differ only by
+# the order of the float32 sums: ``_check``'s tolerance (2e-4 of the
+# largest |value| + 1e-5), as for the 3-pass form against float32.
+
+def _one_pass_cases(monkeypatch):
+    """(name, wrapper, plain, args): GK and GGK in their mma form, Pair
+    and the complex matmul, each at a ragged shape."""
+    monkeypatch.setattr(gatherk, "MIN_X_ELEMS", 1)
+    monkeypatch.setattr(gatherk, "GGK_MIN_WORK", 1)
+    monkeypatch.setattr(gatherk, "gk_form", lambda *a, **k: "mma")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = []
+    gk = gatherk.plan_gk_step(*GK_FORM_SHAPES["h40_k32"])
+    out.append(("gk", gatherk.gk_call, gatherk.gk_plain,
+                (gk, *[_rand((4, gk.x_elems), gen) for _ in "ri"],
+                 *[_rand((gk.H * gk.K,), gen) for _ in "ri"], True, False)))
+    *case, B, bi, bj, _ = GGK_PATH_STEPS["1k_k16_h16_f512"]
+    ggk = _gathered(tuple(case), B, bi, bj)
+    row = ggk.row
+    out.append(("ggk", gatherk.ggk_call, gatherk.ggk_plain,
+                (ggk, *[_rand((2, ggk.bi_rows * row.x_elems), gen)
+                        for _ in "ri"],
+                 *[_rand((ggk.bj_rows * row.H * row.K,), gen)
+                   for _ in "ri"], True, False)))
+    K, M, N = 100, 130, 136
+    pair = lanes.plan_pair_step(("k", "m"), ("k", "n"), ("m", "n"), (K, M),
+                                (K, N))
+    out.append(("pair", lanes.pair_call, lanes.pair_plain,
+                (pair, *[_rand((2, K * M), gen) for _ in "ri"],
+                 *[_rand((K * N,), gen) for _ in "ri"], True, False)))
+    B, M, K, N = 3, 100, 37, 70
+    a = tuple(_rand((B, M, K), gen) for _ in "ri")
+    b = tuple(_rand((B, K, N), gen) for _ in "ri")
+    out.append(("complex_mm", pallas_mm.complex_batched_matmul,
+                pallas_mm.complex_batched_matmul_plain, (a, b)))
+    return out
+
+
+@pytest.mark.parametrize("which", ["gk", "ggk", "pair", "complex_mm"])
+def test_one_pass_form_matches_tf32_plain(cuda, monkeypatch, which):
+    """Each tensor-core kernel's one-pass form against its plain TF32
+    form (counted as a one-pass launch), and further from a float64
+    product than the 3-pass form: it is the single TF32 pass."""
+    (_, call, plain, args), = [c for c in _one_pass_cases(monkeypatch)
+                               if c[0] == which]
+    before = call.one_pass
+    kr, ki = call(*args, passes=1)
+    pr, pi = plain(*args, tf32=True)
+    torch.cuda.synchronize()
+    assert call.one_pass == before + 1
+    err = torch.abs(torch.complex(kr - pr, ki - pi)).max().item()
+    scale = torch.abs(torch.complex(pr, pi)).max().item()
+    assert err <= 2e-4 * scale + 1e-5, (err, scale)
+    r3, i3 = call(*args)
+    assert call.one_pass == before + 1
+    f64 = [t.double() if isinstance(t, torch.Tensor) and t.is_floating_point()
+           else t for t in args]
+    if which == "complex_mm":
+        f64 = (tuple(t.double() for t in args[0]),
+               tuple(t.double() for t in args[1]))
+        er, ei = pallas_mm.complex_batched_matmul_plain(*f64)
+    else:
+        er, ei = plain(*f64)
+    e1 = torch.abs(torch.complex(kr.double() - er, ki.double() - ei)).max()
+    e3 = torch.abs(torch.complex(r3.double() - er, i3.double() - ei)).max()
+    assert e1 > 4 * e3, (e1.item(), e3.item())
+
+
+@pytest.mark.parametrize("mode,algo,precision", [
+    ("split", "naive", "default"), ("split", "naive", "high"),
+    ("split", "karatsuba", "highest"), ("complex", "naive", "highest"),
+    ("complex", "naive", "default"), ("fused", "naive", "highest")])
+def test_field_modes_under_graph_replay(cuda, monkeypatch, mode, algo,
+                                        precision):
+    """``contraction(mode, algo, precision)`` on the card as graph replay:
+    the amplitudes against the state vector (2e-5 of the largest at
+    float32 products, 2e-3 where 'default' rounds the dot fallback's and
+    the tensor-core kernels' operands to TF32), graph against eager max
+    |d| 0; kernel steps launch their kernels in split mode only (the
+    one-pass form under 'default' alone), and no port kernel runs on the
+    card in the other modes."""
+    sim, circ = _small_sim(monkeypatch)
+    wrappers = (gatherk.gk_call, gatherk.ggk_call, gatherk.rgrow_call,
+                gatherk.rgflat_call, lanes.lane_call, lanes.pair_call)
+    before = [f.launches for f in wrappers]
+    one = [gatherk.gk_call.one_pass, gatherk.ggk_call.one_pass,
+           lanes.pair_call.one_pass]
+    ran = _device_kernels(lambda: sim.contraction(
+        mode=mode, algo=algo, precision=precision, slice_batch=2,
+        device="cuda"))
+    amps = sim.contraction(mode=mode, algo=algo, precision=precision,
+                           slice_batch=2, device="cuda")
+    assert sim.run_stats["executor"] == "graph"
+    full = circ.state_vec().reshape(-1)
+    want = np.array([full[int(b, 2)] for b in sim.bitstrings_sorted])
+    tol = 2e-3 if precision == "default" else 2e-5
+    assert np.abs(amps - want).max() <= tol * np.abs(want).max()
+    launched = sum(f.launches - b for f, b in zip(wrappers, before))
+    if mode == "split":
+        assert launched > 0 and sum(ran.values()) > 0
+    else:
+        assert launched == 0 and sum(ran.values()) == 0
+    one_now = [gatherk.gk_call.one_pass, gatherk.ggk_call.one_pass,
+               lanes.pair_call.one_pass]
+    if precision != "default":
+        assert one_now == one
+
+
+def test_checkpoint_resumes_at_any_width_under_graphs(cuda, monkeypatch,
+                                                      tmp_path):
+    """A checkpoint written at width 1 after 3 of the 8 slices resumes
+    under graph replay at widths 2 and 4 (chunks of the width from slice
+    3: the last chunk runs its rest as a narrower group), one capture per
+    width used, none per chunk, to the state vector."""
+    from artensor_tpu_torch.runtime import executor as ex
+    from artensor_tpu_torch.runtime.checkpoint import run_sliced_checkpointed
+
+    sim, circ = _small_sim(monkeypatch)
+    field, run_steps, arrays, out_shape, execute, _ = sim._staged(
+        torch.device("cuda"))
+    k = len(sim.slicing_bonds)
+    assert 2 ** k == 8
+    full = circ.state_vec().reshape(-1)
+    want = np.array([full[int(b, 2)] for b in sim.bitstrings_sorted])
+
+    class Stop(Exception):
+        pass
+
+    def stop(done, total):
+        raise Stop
+
+    for width in (2, 4):
+        path = str(tmp_path / f"acc{width}.npz")
+        run1 = ex.make_sliced_runner(execute, run_steps, sim.slicing_axes,
+                                     k, out_shape, field)
+        with pytest.raises(Stop):
+            run_sliced_checkpointed(run1, arrays, k, out_shape, field, path,
+                                    chunk=3, progress=stop)
+        run = ex.make_sliced_runner(execute, run_steps, sim.slicing_axes, k,
+                                    out_shape, field, slice_batch=width)
+        acc = run_sliced_checkpointed(run, arrays, k, out_shape, field, path,
+                                      chunk=width)
+        widths = {w for w, _ in ex.group_widths(5 % width or width, width)}
+        widths |= {width}
+        assert run.stats["captures"] == len(widths)
+        assert run.stats["replays"] == 5 // width + (5 % width > 0)
+        got = field.unwrap(acc).reshape(-1)
+        assert np.abs(got - want).max() <= 2e-5 * np.abs(want).max()

@@ -42,7 +42,9 @@ def test_import_loads_no_jax():
 
 @pytest.mark.parametrize("module", ["runtime.executor", "runtime.segmented",
                                     "runtime.rescaled", "runtime.checkpoint",
-                                    "runtime.metrics", "simulation"])
+                                    "runtime.metrics", "simulation",
+                                    "ops.einsum", "ops.field",
+                                    "runtime.lowering"])
 def test_execution_modules_load_no_jax(module):
     """Each module of the execution modes, imported alone in a fresh
     process, loads neither JAX nor the JAX package."""
