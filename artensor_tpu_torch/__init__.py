@@ -1,7 +1,9 @@
 """artensor_tpu_torch: the PyTorch + CUDA port of ``artensor_tpu``.
 
-Two paths run on one NVIDIA H100: the sparse big-batch amplitudes
-(circuit -> ``simplify('sparse')`` -> a committed plan -> the sparse
+A host-side planner (greedy start, simulated annealing with dynamic bond
+slicing; the search in C++ where g++ builds it, ``native/``) plans a
+network; two paths run the plan on one NVIDIA H100: the sparse big-batch
+amplitudes (circuit -> ``simplify('sparse')`` -> a plan -> the sparse
 scheme compiler -> the sliced executor) and the dense full amplitude
 (``simplify('normal')`` -> ``contraction_scheme`` -> the same sliced
 runner over the dense executor, whole or an output block at a time),
@@ -17,18 +19,26 @@ takes its plain PyTorch version.  This package imports nothing of JAX or of
 from .circuits import TensorNetworkCircuit, random_circuit
 from .network import AbstractTensorNetwork, NumericalTensorNetwork
 from .ops.field import ComplexField, FusedField, SplitField, make_field
-from .plan_io import load_plan, plan_from_dict
-from .planner import ContractionTree
+from .plan_io import load_plan, plan_from_dict, plan_to_dict, save_plan
+from .planner import (ContractionTree, GreedyOrderFinder, find_order,
+                      simulate_annealing)
 from .runtime.executor import tensor_contraction
 from .runtime.scheme import contraction_scheme
 from .runtime.sparse import contraction_scheme_sparse
-from .simulation import TensorNetworkSimulation
+from .simulation import (PlannerConfig, TensorNetworkSimulation,
+                         quantum_circuit_simulation,
+                         tensor_network_contraction)
+from .utils import (einsum_eq_convert, log2sumexp2, log10sumexp2,
+                    tensordot2einsum)
 
 __all__ = [
     "TensorNetworkCircuit", "random_circuit", "AbstractTensorNetwork",
     "NumericalTensorNetwork", "SplitField", "ComplexField", "FusedField",
-    "make_field", "load_plan",
-    "plan_from_dict", "ContractionTree", "contraction_scheme",
-    "contraction_scheme_sparse", "tensor_contraction",
-    "TensorNetworkSimulation",
+    "make_field", "load_plan", "save_plan", "plan_to_dict",
+    "plan_from_dict", "ContractionTree", "GreedyOrderFinder", "find_order",
+    "simulate_annealing", "contraction_scheme",
+    "contraction_scheme_sparse", "tensor_contraction", "PlannerConfig",
+    "TensorNetworkSimulation", "tensor_network_contraction",
+    "quantum_circuit_simulation", "einsum_eq_convert", "tensordot2einsum",
+    "log2sumexp2", "log10sumexp2",
 ]

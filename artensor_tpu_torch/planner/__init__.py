@@ -1,7 +1,16 @@
-"""Plan-loading half of the planner: cost caches and the contraction tree
-(pure Python).  The greedy and annealing search is not ported yet."""
+"""Host-side contraction planner (pure Python, with a native C++ search in
+``native/``): given the hypergraph of a tensor network, find a pairwise
+contraction order minimising time / space / memory complexity, slicing
+bonds to fit a log2 memory budget (``sc_target``).  Port of
+``artensor_tpu/planner``."""
 
-from .cost import leaf_cost, merge_cost
-from .tree import ContractionTree
+from .cost import leaf_cost, merge_cost, score
+from .greedy import GreedyOrderFinder
+from .tree import ContractionTree, clone_network
+from .annealing import find_order, sa_trial, simulate_annealing
 
-__all__ = ["leaf_cost", "merge_cost", "ContractionTree"]
+__all__ = [
+    "score", "merge_cost", "leaf_cost",
+    "GreedyOrderFinder", "ContractionTree", "clone_network",
+    "find_order", "simulate_annealing", "sa_trial",
+]

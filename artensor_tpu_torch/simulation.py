@@ -1,5 +1,5 @@
-"""Orchestration: circuit -> simplified network -> loaded plan -> compiled
-scheme -> sliced execution on the card.
+"""Orchestration: circuit -> simplified network -> plan -> compiled scheme
+-> sliced execution on the card.
 
 Port of ``artensor_tpu/simulation.py``: ``TensorNetworkSimulation`` in its
 two modes, fixed at construction by the bitstrings (``check_bitstrings``):
@@ -7,10 +7,17 @@ the sparse big-batch amplitudes (``simplify('sparse')``,
 ``runtime/sparse.py``) and the dense full amplitude ("normal":
 ``simplify('normal')``, ``runtime/scheme.py``), which returns the whole
 ``(2,)*n`` state in qubit order; and the dense single-card output-block
-walk ``contraction_output_blocks``.  The planner search is not ported
-yet: a simulation loads a committed plan (``load_plan``), as ``python -m
-artensor_tpu simulate --plan`` does, and compiles the JAX package's
-default scheme (gate-block fusion and producer-order negotiation on).
+walk ``contraction_output_blocks``.  A simulation plans on the host
+(``prepare_contraction`` under a ``PlannerConfig``: ``planner.find_order``,
+the native search where it builds) or loads a saved plan (``load_plan``),
+and compiles the JAX package's default scheme (gate-block fusion and
+producer-order negotiation on); ``update_scheme`` recompiles for a new
+batch without re-planning.  ``prepare_output_sharded`` plans the dense
+state with ``d_out`` output legs removed first, so that the block walk's
+memory budget applies to each block; without it the walk slices the legs
+post hoc on the tree planned for the whole state.  The one-shots
+``tensor_network_contraction`` and ``quantum_circuit_simulation`` plan,
+compile and run in one call.
 ``prepare`` and ``contraction`` take the slice width the caller passes;
 ``runtime/metrics.dividing_slice_width`` gives the one the H100 model
 picks (for the split kernels: the width and the scheme do not depend on
@@ -24,7 +31,6 @@ for schemes above ``SEGMENT_AUTO_THRESHOLD`` device steps
 (``runtime/segmented.py``), else the whole-group run; with a ``report``
 and a ``profile_dir`` (``torch.profiler``).  On the card every mode runs
 as CUDA-graph replay (``runtime/executor.py``).  Not ported yet:
-``prepare_output_sharded`` (it plans, and waits for the planner),
 ``contraction_output_sharded`` and the ``mesh`` of ``contraction`` (they
 wait for multi-device).
 """
@@ -32,6 +38,8 @@ wait for multi-device).
 import json
 import logging
 import os
+import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -39,10 +47,41 @@ import torch
 from .circuits import TensorNetworkCircuit
 from .network import NumericalTensorNetwork
 from .plan_io import plan_from_dict
+from .planner import find_order
 
 # schemes above this many device steps run segmented (one CUDA graph per
 # ``segment_steps`` steps, runtime/segmented.py), as in the JAX package
 SEGMENT_AUTO_THRESHOLD = 256
+
+
+@dataclass
+class PlannerConfig:
+    """The planner's knobs in one place (``find_order``'s keywords)."""
+
+    sc_target: float = 30.0
+    trials: int = 6
+    iters: int = 20
+    betas: tuple = tuple(np.linspace(3.0, 21.0, 61))
+    slicing_repeat: int = 4
+    start_seed: int = 0
+    alpha: float = 32.0
+    parallel: bool = True
+
+    def find_order_kwargs(self):
+        return dict(sc_target=self.sc_target, trials=self.trials,
+                    iters=self.iters, betas=list(self.betas),
+                    slicing_repeat=self.slicing_repeat,
+                    start_seed=self.start_seed, alpha=self.alpha,
+                    parallel=self.parallel)
+
+
+def _config(config, overrides):
+    if config is None:
+        return PlannerConfig(**overrides)
+    if overrides:
+        raise TypeError("pass either a PlannerConfig or keyword overrides, "
+                        "not both")
+    return config
 
 
 def check_bitstrings(bitstrings):
@@ -116,6 +155,41 @@ class TensorNetworkSimulation:
         return cls(dict(ntn.tensors), tensor_bonds2, ntn.bond_dims,
                    final_qubit_ids, bitstrings, pattern, max_bitstrings)
 
+    def prepare_contraction(self, config=None, **overrides):
+        """Plan this network (``planner.find_order`` under ``config``, a
+        ``PlannerConfig``, or its fields as keywords) and compile the
+        scheme; sparse mode compiles at the config's ``sc_target``.
+        ``plan_seconds`` and ``compile_seconds``: the host time of each."""
+        config = _config(config, overrides)
+        self.config = config
+        t0 = time.perf_counter()
+        self.order, slicing_bonds, self.ctree = find_order(
+            self.tensor_bonds, self.bond_dims, self.final_qubits,
+            max_bitstrings=self.max_bitstrings,
+            **config.find_order_kwargs())
+        self.plan_seconds = time.perf_counter() - t0
+        self.slicing_bonds = list(slicing_bonds)
+        self.sc_target = float(config.sc_target)
+        self._shard_plan = None
+        self._compile_scheme()
+        return self
+
+    def update_scheme(self, sc_target=None, bitstrings=None):
+        """Recompile the scheme (for a new bitstring batch, or another
+        ``sc_target``) without re-planning."""
+        if bitstrings is not None:
+            pattern, _ = check_bitstrings(bitstrings)
+            if pattern != self.pattern:
+                raise ValueError("sparse or dense mode is fixed at "
+                                 "construction")
+            self.bitstrings = list(bitstrings)
+        if sc_target is not None:
+            self.sc_target = float(sc_target)
+            if getattr(self, "config", None) is not None:
+                self.config.sc_target = sc_target
+        self._compile_scheme()
+        return self
+
     def load_plan(self, plan, sc_target=None):
         """Load a plan (path or dict saved by ``plan_io.save_plan`` of
         either package) for this network and compile the scheme.
@@ -130,24 +204,28 @@ class TensorNetworkSimulation:
             raise ValueError("the plan names no sc_target: pass one")
         self.order, self.slicing_bonds, self.ctree = plan_from_dict(plan)
         self.sc_target = None if sc_target is None else float(sc_target)
+        self._shard_plan = None
         self._compile_scheme()
         return self
 
     def _compile_scheme(self):
+        """Compile the default scheme of the plan; ``compile_seconds``."""
+        t0 = time.perf_counter()
         if self.pattern == "normal":
             from .runtime.scheme import contraction_scheme
 
             self._set_scheme(*contraction_scheme(self.ctree))
-            return
-        from .runtime.sparse import contraction_scheme_sparse
+        else:
+            from .runtime.sparse import contraction_scheme_sparse
 
-        # schemes that will run segmented take kernels on up to 10000
-        # steps, as in the JAX package
-        n_order = len(self.ctree.to_order_dfs())
-        lane_max = 10_000 if n_order > SEGMENT_AUTO_THRESHOLD else None
-        self._set_scheme(*contraction_scheme_sparse(
-            self.ctree, self.bitstrings, sc_target=self.sc_target,
-            lane_max_steps=lane_max))
+            # schemes that will run segmented take kernels on up to 10000
+            # steps, as in the JAX package
+            n_order = len(self.ctree.to_order_dfs())
+            lane_max = 10_000 if n_order > SEGMENT_AUTO_THRESHOLD else None
+            self._set_scheme(*contraction_scheme_sparse(
+                self.ctree, self.bitstrings, sc_target=self.sc_target,
+                lane_max_steps=lane_max))
+        self.compile_seconds = time.perf_counter() - t0
 
     def _set_scheme(self, steps, output_bonds, bitstrings_sorted=None):
         """Take a compiled scheme (``contraction_scheme_sparse``'s result,
@@ -371,13 +449,59 @@ class TensorNetworkSimulation:
         return result, dict(run.stats, slice_batch=slice_batch,
                             executor="graph" if graphs else "eager")
 
+    def prepare_output_sharded(self, d_out, config=None, **overrides):
+        """Plan the dense state with ``d_out`` output legs (the lowest in
+        qubit order) removed first, so that ``config.sc_target`` bounds
+        each 2^(n - d_out) block, and compile the block scheme;
+        ``contraction_output_blocks(d_out)`` then walks these planned
+        blocks, each the sum of the plan's 2^k slices.  Without it the
+        walk slices the legs post hoc on the tree planned for the whole
+        state, which cannot push sc below the whole output.  Sets
+        ``ctree``, ``order`` and ``slicing_bonds`` to the block plan's,
+        and ``plan_seconds`` and ``compile_seconds``."""
+        from .runtime import executor as ex
+        from .runtime.scheme import contraction_scheme
+
+        if self.pattern != "normal":
+            raise ValueError("output blocks are a dense-mode feature")
+        config = _config(config, overrides)
+        self.config = config
+        bt = get_bond_tensors(self.tensor_bonds)
+        open_bonds = sorted((b for b, ts in bt.items() if len(ts) == 1),
+                            key=_bond_sort_key)
+        if len(open_bonds) < d_out:
+            raise ValueError(f"{len(open_bonds)} open legs, fewer than the "
+                             f"{d_out} requested")
+        chosen = open_bonds[:d_out]
+        chosen_set = set(chosen)
+        tb = {t: [b for b in bs if b not in chosen_set]
+              for t, bs in self.tensor_bonds.items()}
+        bd = {b: d for b, d in self.bond_dims.items() if b not in chosen_set}
+        t0 = time.perf_counter()
+        order, sliced, ctree = find_order(
+            tb, bd, self.final_qubits, max_bitstrings=self.max_bitstrings,
+            **config.find_order_kwargs())
+        t1 = time.perf_counter()
+        steps, output_bonds = contraction_scheme(ctree)
+        self.plan_seconds = t1 - t0
+        self.compile_seconds = time.perf_counter() - t1
+        axes = ex.build_slicing_axes(self.tensor_bonds, chosen + sliced)
+        self.ctree, self.order = ctree, order
+        self.slicing_bonds = list(sliced)
+        self._shard_plan = {"d_out": d_out, "chosen": chosen, "steps": steps,
+                            "output_bonds": output_bonds, "axes": axes,
+                            "k_sum": len(sliced)}
+        return self
+
     def contraction_output_blocks(self, d_out, dtype=np.complex64,
                                   precision="highest", mode="split",
                                   postprocess=None, device="cuda",
                                   eager=False):
         """Generator over the 2^d_out disjoint output blocks, one at a
         time on ONE card (dense mode): the walk of a state too large for
-        the card, or of one the host should never hold whole.
+        the card, or of one the host should never hold whole.  After
+        ``prepare_output_sharded(d_out)`` it walks that plan's blocks;
+        otherwise it slices the legs post hoc (``_dense_shard_setup``).
 
         Yields ``(fixed_bits, qubits, block)``: the chosen output qubits
         (the ``d_out`` lowest in qubit order), their fixed bit assignment
@@ -431,18 +555,26 @@ class TensorNetworkSimulation:
 
 def _dense_shard_setup(sim, d_out):
     """``(steps, axes, chosen, output_bonds, k_sum, restore)`` of an
-    output-blocked dense contraction: the ``d_out`` lowest open legs in
-    qubit order are sliced post hoc on the planned tree and the scheme is
-    recompiled (in the form ``load_plan`` compiles); ``restore`` puts the
-    legs back, each at its place in its tensor's bond list.  The planner
-    cannot push sc below the full output this way (``prepare_output_
-    sharded``, which plans with the legs pre-sliced, waits for the
-    planner)."""
+    output-blocked dense contraction.  After ``prepare_output_sharded``
+    for the same ``d_out``: that plan's block scheme (``restore`` does
+    nothing).  Otherwise the ``d_out`` lowest open legs in qubit order are
+    sliced post hoc on the planned tree and the scheme is recompiled (in
+    the form ``load_plan`` compiles); ``restore`` puts the legs back, each
+    at its place in its tensor's bond list.  The planner cannot push sc
+    below the full output that way."""
     from .runtime import executor as ex
     from .runtime.scheme import contraction_scheme
 
     if sim.pattern != "normal":
         raise ValueError("output blocks are a dense-mode feature")
+    plan = getattr(sim, "_shard_plan", None)
+    if plan is not None:
+        if plan["d_out"] != d_out:
+            raise ValueError(f"the planned blocks are for d_out="
+                             f"{plan['d_out']}, not {d_out}: plan again or "
+                             "load a whole-state plan")
+        return (plan["steps"], plan["axes"], plan["chosen"],
+                plan["output_bonds"], plan["k_sum"], lambda: None)
     tn = sim.ctree.tn
     open_bonds = sorted((b for b, ts in tn.bond_tensors.items()
                          if len(ts) == 1), key=_bond_sort_key)
@@ -473,3 +605,52 @@ def _dense_shard_perm(chosen, output_bonds):
     keys = [_bond_sort_key(b) for b in chosen] + \
         [_bond_sort_key(b) for b in output_bonds]
     return tuple(sorted(range(len(keys)), key=keys.__getitem__))
+
+
+def tensor_network_contraction(tensors, tensor_bonds, bond_dims, final_qubits,
+                               bitstrings=(), sc_target=31, trial_num=8,
+                               alpha=0.0, dtype=np.complex64, device="cuda",
+                               **kwargs):
+    """One-shot: simplify, plan, compile and contract a numerical network
+    on ``device`` (the card unless the caller asks for the CPU).
+
+    Returns (amplitudes, bitstrings): bitstrings is the sorted order the
+    sparse amplitudes come back in ([] in dense mode).  ``kwargs``: any
+    ``PlannerConfig`` field (``iters`` defaults to 50), and
+    ``contraction``'s ``precision`` and ``mode``.
+    """
+    device = require_device(device)
+    if kwargs.get("mesh") is not None:
+        raise NotImplementedError("a device mesh is not ported yet")
+    pattern, max_bitstrings = check_bitstrings(bitstrings)
+    ntn = NumericalTensorNetwork(tensors, tensor_bonds, bond_dims,
+                                 final_qubits)
+    tensor_bonds2, final_qubit_ids = ntn.simplify(pattern)
+    sim = TensorNetworkSimulation(
+        dict(ntn.tensors), tensor_bonds2, ntn.bond_dims, final_qubit_ids,
+        bitstrings, pattern, max_bitstrings)
+    cfg_kwargs = {"sc_target": sc_target, "trials": trial_num, "iters": 50,
+                  "alpha": alpha}
+    cfg_kwargs.update({k: v for k, v in kwargs.items()
+                       if k in PlannerConfig.__dataclass_fields__})
+    sim.prepare_contraction(PlannerConfig(**cfg_kwargs))
+    result = sim.contraction(
+        dtype=dtype, precision=kwargs.get("precision", "highest"),
+        mode=kwargs.get("mode", "split"), device=device)
+    out_bits = sim.bitstrings_sorted if pattern == "sparse" else []
+    return result, out_bits
+
+
+def quantum_circuit_simulation(circuit_filename, bitstrings=(), sc_target=31,
+                               trial_num=8, alpha=0.0, dtype=np.complex64,
+                               **kwargs):
+    """One-shot from a qsim circuit file, a ``TensorNetworkCircuit`` or an
+    ``(n, layers)`` pair (``tensor_network_contraction``'s keywords,
+    ``device`` among them)."""
+    circ = (circuit_filename
+            if isinstance(circuit_filename, TensorNetworkCircuit)
+            else TensorNetworkCircuit(circuit_filename))
+    tensors, tensor_bonds, bond_dims, final_qubits = circ.to_numerical_tn()
+    return tensor_network_contraction(
+        tensors, tensor_bonds, bond_dims, final_qubits, bitstrings,
+        sc_target, trial_num, alpha, dtype, **kwargs)

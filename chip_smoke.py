@@ -117,12 +117,33 @@ block walk's slice-invariant steps) is not made twice.  Phases, in order
    them, products in float32) at each path's largest GK and GGK "mma"
    and Pair step, phase 4 the complex matmul's at its two shapes and a
    synthetic GGK "mma" step's where no path has one; each with its time
-   beside the 3-pass time.
+   beside the 3-pass time;
+8. the planned paths: the port's planner on the card's host (the native
+   C++ search built from ``artensor_tpu_torch/native``, its build
+   seconds; the run fails if it does not build: never the Python search
+   unnoticed).  "dense-planned" (8b, after the post-hoc walk, held to the
+   same default state): ``prepare_output_sharded(*PLANNED_WALK)`` under
+   ``PlannerConfig``'s defaults, its planner and compile seconds, sliced
+   bonds and complexity; its kernel steps as phase 3 checks a path's;
+   ``contraction_output_blocks`` over the planned blocks (each the sum of
+   its 2^k slices, one graph replayed a slice), every block within
+   ``BLOCK_TOL`` x rms of the whole state, the fixtures' 11000 amplitudes
+   and norm^2 from the blocks, its launches against the census, the warm
+   walk (median of 3) and its seconds a block, and its peak (less the
+   state held) held to the model and below the post-hoc walk's.
+   "1k-planned" (8a, last): ``quantum_circuit_simulation(circuit, the 1k
+   bitstrings, sc_target=PLANNED_SC)`` as a user calls it (planned,
+   compiled and run at width 1 on the card), every amplitude against the
+   1k fixture keyed by the bitstrings it returns, its planner seconds,
+   sliced bonds, complexity and whether the plan is the committed sc24
+   file, its compile and first-call seconds and its launches; then its
+   simulation as phase 3 and 5 drive a path, at the model's width.
 
 Then the paths' and the modes' numbers, one JSON line with every
 kernel's numbers (for each kernel its largest step on the first path
 that runs it, under ``costliest`` that path's slowest step of the kind,
-and under ``paths`` every path's ("<workload>/<form>") launches, kernels
+and under ``paths`` every path's ("<workload>/<form>", the planned ones
+included) launches, kernels
 run on the card (``device_launches``), replays and steps; ``launches``
 and ``device_launches`` summed over the paths; the complex matmul's
 larger shape, 0 launches), the card line, and last ``{"ok": true,
@@ -170,6 +191,15 @@ DENSE_FIXTURES = (os.path.join(DATA, "rcs_n30_m14_s0_amps1000.txt"),
                   os.path.join(DATA, "rcs_n30_m14_s0_amps10000.txt"))
 D_OUT = 6                     # the block walk's sliced output legs: 64
                               # blocks of 2^24 amplitudes
+PLANNED_SC = 24               # the planned 1k path: the port plans the 1k
+                              # fixture's batch at this sc_target through
+                              # quantum_circuit_simulation (its defaults
+                              # otherwise: trial_num 8, iters 50, alpha 0)
+PLANNED_WALK = (4, 28)        # the planned walk: prepare_output_sharded(
+                              # d_out, sc_target) under PlannerConfig's
+                              # defaults, 16 blocks of 2^26 amplitudes
+PLAN_HASH_SEED = "0"          # PYTHONHASHSEED the script runs under
+T0 = None                     # the run's start (after the re-execution)
 NORM_TOL = 1e-4               # |norm^2 - 1| of a dense state (float64 sum)
 BLOCK_TOL = 1e-5              # block vs whole state: max|d| <= tol*rms
 CIRCUIT = dict(rows=5, cols=6, cycles=14, seed=0)   # random_circuit args
@@ -753,27 +783,40 @@ def compile_block_path(dense):
     ``D_OUT`` open legs sliced post hoc and the default form recompiled,
     as ``contraction_output_blocks`` does (the legs are restored at
     once); a slice instance of it is one block."""
-    from collections import Counter
-    from types import SimpleNamespace
-
-    from artensor_tpu_torch.runtime import gatherk, metrics, scheme
-    from artensor_tpu_torch.runtime.executor import (precompute_static_steps,
-                                                     split_invariant_steps)
-    from artensor_tpu_torch.runtime.sparse import kernel_kind
+    from artensor_tpu_torch.runtime import scheme
     from artensor_tpu_torch.simulation import _dense_shard_setup
 
     sim = dense["sim"]
     t0 = time.perf_counter()
-    steps, axes, chosen, _, k, restore = _dense_shard_setup(sim, D_OUT)
+    steps, axes, chosen, output_bonds, k, restore = \
+        _dense_shard_setup(sim, D_OUT)
     restore()
+    check(k == 0, f"the dense plan slices {k} bonds: a block has 2^{k} "
+          "slices")
+    return block_path(sim, "dense-blocks", "default", steps, axes, chosen,
+                      k, D_OUT, dense["ref"], time.perf_counter() - t0,
+                      dict(scheme.LAST_COMPILE), 2 ** len(output_bonds))
+
+
+def block_path(sim, name, form, steps, axes, chosen, k, d_out, ref,
+               compile_s, stats, out_elems, planned=False):
+    """A block walk's state (``path_state`` at width 1: a slice instance
+    of the block scheme ``steps`` is one slice of one block; 2^k slices a
+    block), with the steps the walk runs once (slice-invariant:
+    ``census_once``) apart from those it runs a slice (``census``)."""
+    from collections import Counter
+    from types import SimpleNamespace
+
+    from artensor_tpu_torch.runtime import gatherk, metrics
+    from artensor_tpu_torch.runtime.executor import (precompute_static_steps,
+                                                     split_invariant_steps)
+    from artensor_tpu_torch.runtime.sparse import kernel_kind
+
     view = SimpleNamespace(steps=steps, slicing_axes=axes,
                            slicing_bonds=chosen + list(sim.slicing_bonds),
                            tensors=sim.tensors)
-    check(k == 0, f"the dense plan slices {k} bonds: a block has 2^{k} "
-          "slices")
-    out = path_state("dense-blocks", "default", view, dense["ref"], 1,
-                     time.perf_counter() - t0, dict(scheme.LAST_COMPILE))
-    # the walk runs the slice-invariant steps once, the rest per block
+    out = path_state(name, form, view, ref, 1, compile_s, stats, out_elems)
+    # the walk runs the slice-invariant steps once, the rest per slice
     run_steps, _ = precompute_static_steps(
         steps, [sim.tensors[i] for i in range(len(sim.tensors))], axes)
     once, rest = split_invariant_steps(run_steps, axes)
@@ -790,24 +833,28 @@ def compile_block_path(dense):
         return {"gk": c, "ggk": Counter()}
 
     est_once = metrics.scheme_wall_estimate(once, 0, slicing_axes=axes)[0]
-    est_rest = metrics.scheme_wall_estimate(rest, D_OUT, slicing_axes=axes,
-                                            width=1)[0]
-    out.update(name="dense-blocks", sim=sim, census=census(rest),
+    est_rest = metrics.scheme_wall_estimate(rest, d_out + k,
+                                            slicing_axes=axes, width=1)[0]
+    out.update(name=name, sim=sim, d_out=d_out, k=k, planned=planned,
+               census=census(rest),
                census_once=census(once), forms=gk_forms(rest),
                forms_once=gk_forms(once), est_s=est_once + est_rest,
-               est_block_s=est_rest / 2 ** D_OUT)
-    print(f"scheme dense-blocks: {len(once)} steps run once "
+               est_block_s=est_rest / 2 ** d_out)
+    print(f"scheme {name}: {len(once)} steps run once "
           f"{json.dumps(dict(sorted(out['census_once'].items())))}, "
-          f"{len(rest)} per block "
-          f"{json.dumps(dict(sorted(out['census'].items())))}; wall "
-          f"estimate of the walk {est_once + est_rest:.4f} s ({est_once:.4f}"
-          f" s once, {est_rest / 2 ** D_OUT * 1e3:.3f} ms a block)",
-          flush=True)
+          f"{len(rest)} per slice "
+          f"{json.dumps(dict(sorted(out['census'].items())))}, 2^{k} "
+          f"slices a block; wall estimate of the walk "
+          f"{est_once + est_rest:.4f} s ({est_once:.4f} s once, "
+          f"{est_rest / 2 ** d_out * 1e3:.3f} ms a block)", flush=True)
     return out
 
 
-def path_state(name, form, sim, ref, W, compile_s, stats):
-    """One path's state; ``W`` None: the width the wall estimate picks."""
+def path_state(name, form, sim, ref, W, compile_s, stats, out_elems=None):
+    """One path's state; ``W`` None: the width the wall estimate picks.
+    Its modeled peak is ``metrics.scheme_device_peak_bytes`` plus, when a
+    bond is sliced, the sliced runner's static accumulator: a split pair
+    of the output's ``out_elems`` (default: the simulation's output)."""
     from collections import Counter
 
     import numpy as np
@@ -829,8 +876,11 @@ def path_state(name, form, sim, ref, W, compile_s, stats):
     census = Counter(kernel_kind(s) or "dot" for s in run_steps)
     est_s, est_w, _ = metrics.scheme_wall_estimate(
         run_steps, k, slicing_axes=sim.slicing_axes, width=W)
-    model_peak = metrics.scheme_device_peak_bytes(run_steps, W,
-                                                  sim.slicing_axes)
+    if out_elems is None:
+        out_elems = 2 ** len(sim.output_bonds) * (
+            len(sim.bitstrings_sorted) if sim.pattern == "sparse" else 1)
+    model_peak = metrics.scheme_device_peak_bytes(
+        run_steps, W, sim.slicing_axes) + (8 * out_elems if k else 0)
     # the staged operands, on the card for the whole run: the peak model
     # counts a sliced leaf's width copies, not the staged tensor itself
     staged = sum(8 * int(np.prod(np.shape(a))) for a in host)
@@ -1540,49 +1590,52 @@ def drop_tables(paths):
 
 
 def block_walk(path, post, eager=False, mode="split"):
-    """One ``contraction_output_blocks(D_OUT)`` walk in field ``mode``
+    """One ``contraction_output_blocks(d_out)`` walk in field ``mode``
     with ``post`` as its postprocess (``eager``: every step from the
-    host, else one graph replayed a block); returns the results, the
+    host, else one graph replayed a slice); returns the results, the
     seconds from the
-    generator's start to its last block less the block scheme's compile,
-    the compile's seconds (``scheme.LAST_COMPILE``: fusion and
-    negotiation, the whole of the default form's compile) and the seconds
-    of the blocks after the first."""
+    generator's start to its last block less the block scheme's compile
+    (the post-hoc walk recompiles it each walk, a planned walk never), the
+    compile's seconds (``scheme.LAST_COMPILE``: fusion and negotiation,
+    the whole of the default form's compile) and the seconds of the
+    blocks after the first."""
     from artensor_tpu_torch.runtime import scheme
 
     sim = path["sim"]
     t0 = time.perf_counter()
     stamps, res = [], []
     for bits, qubits, v in sim.contraction_output_blocks(
-            D_OUT, mode=mode, postprocess=post, device=DEVICE, eager=eager):
+            path["d_out"], mode=mode, postprocess=post, device=DEVICE,
+            eager=eager):
         stamps.append(time.perf_counter())
         res.append((bits, qubits, v))
-    compile_s = scheme.LAST_COMPILE["fuse_s"] \
-        + scheme.LAST_COMPILE["negotiate_s"]
+    compile_s = 0.0 if path["planned"] else \
+        scheme.LAST_COMPILE["fuse_s"] + scheme.LAST_COMPILE["negotiate_s"]
     return (res, stamps[-1] - t0 - compile_s, compile_s,
             stamps[-1] - stamps[0])
 
 
-def drive_blocks(path, wrappers, state, state_bonds):
-    """The block walk end to end: every block on the card against the
+def drive_blocks(path, wrappers, state, state_bonds, eager_check=True):
+    """A block walk end to end: every block on the card against the
     same block of the whole state ``state`` (axes ``state_bonds``), read
     through an index built on the card; the fixture amplitudes and the
     norm^2 from the blocks; the launch counts of that walk; the warm
-    walk (median of 3 after one warm-up; each walk recompiles the block
-    scheme, timed apart) and its seconds a block; the walk's peak memory
-    (less the whole state held here) against the model."""
+    walk (median of 3 after one warm-up; the post-hoc walk recompiles the
+    block scheme each walk, timed apart) and its seconds a block; the
+    walk's peak memory (less the whole state held here) against the
+    model; ``eager_check``: then graph against eager, block by block."""
     import numpy as np
     import torch
 
     name, ref = path["name"], path["ref"]
-    sim = path["sim"]
+    sim, d_out, k = path["sim"], path["d_out"], path["k"]
     n_q = len(state_bonds)
-    n, L = 2 ** D_OUT, n_q - D_OUT
+    n, L = 2 ** d_out, n_q - d_out
     full = [c.reshape(-1) for c in state]
     pos = {_qubit(b): a for a, b in enumerate(state_bonds)}
     rms = (norm2(*state) / 2 ** n_q) ** 0.5
     bits = list(ref)
-    lead_q = sorted(pos)[:D_OUT]
+    lead_q = sorted(pos)[:d_out]
     oid_of = np.array([int("".join(b[q] for q in lead_q), 2) for b in bits])
     tab = {}
 
@@ -1596,7 +1649,7 @@ def drive_blocks(path, wrappers, state, state_bonds):
             tab["fix"] = torch.as_tensor(flat_index(bits, lb),
                                          device=DEVICE)
         sel = np.nonzero(oid_of == oid)[0]
-        bb = np.binary_repr(oid, D_OUT)
+        bb = np.binary_repr(oid, d_out)
         idx = tab["local"] + sum(int(c) << (n_q - 1 - pos[q])
                                  for q, c in zip(lead_q, bb))
         r, i = (c.reshape(-1) for c in raw)
@@ -1612,11 +1665,11 @@ def drive_blocks(path, wrappers, state, state_bonds):
     (res, walk_s, compile_s, _), ran = counted_on_card(
         lambda: block_walk(path, check_block))
     st = dict(sim.block_run_stats)
-    check(st["captures"] == 1 and st["replays"] == n,
+    check(st["captures"] == 1 and st["replays"] == n * 2 ** k,
           f"{name}: block graph stats {st}")
     counts = run_counts(path, wrappers, ran, st)
     check(len(res) == n and [r[0] for r in res] ==
-          [np.binary_repr(o, D_OUT) for o in range(n)],
+          [np.binary_repr(o, d_out) for o in range(n)],
           f"{name}: blocks {[r[0] for r in res]}")
     worst_d = max(float(v[-2].real) for _, _, v in res)
     nrm = sum(float(v[-1].real) for _, _, v in res)
@@ -1660,8 +1713,29 @@ def drive_blocks(path, wrappers, state, state_bonds):
           f" modeled {path['model_peak'] / 2 ** 30:.3f} GiB (+ staged "
           f"operands {path['staged'] / 2 ** 30:.3f} GiB), reserved "
           f"{reserved / 2 ** 30:.3f} GiB", flush=True)
-    # graph against eager: the graph walk's blocks kept on the card, then
-    # an eager walk held to them block by block; two more eager walks
+    graph = dict(graph_s=warm, graph_walls=walks, capture_s=st["capture_s"],
+                 peak_gib=peak / 2 ** 30, reserved_gib=reserved / 2 ** 30)
+    if eager_check:
+        graph.update(eager_walks(path, touch, warm, per_block, st))
+    check_peak(path, peak)
+    return dict(**counts, first_s=compile_s + walk_s,
+                warm_s=warm, walls=walks, s_per_block=per_block,
+                est_block_s=path["est_block_s"], scheme_compile_s=compiles,
+                peak_gib=peak / 2 ** 30,
+                compile_s=path["compile_s"],
+                compile_stats=path["compile_stats"], slice_batch=1,
+                slices=n * 2 ** k, blocks=n, census=dict(path["census"]),
+                est_s=path["est_s"],
+                model_peak_gib=path["model_peak"] / 2 ** 30,
+                staged_gib=path["staged"] / 2 ** 30, norm2=nrm,
+                max_block_diff=worst_d, worst_over_bound=worst, graph=graph)
+
+
+def eager_walks(path, touch, warm, per_block, st):
+    """Graph against eager on a block walk: the graph walk's blocks kept
+    on the card, then an eager walk held to them block by block; two more
+    eager walks.  Returns their numbers."""
+    name, n = path["name"], 2 ** path["d_out"]
     kept = {}
 
     def keep(field, oid, raw):
@@ -1676,38 +1750,26 @@ def drive_blocks(path, wrappers, state, state_bonds):
         cmp["d"], cmp["share"] = max(cmp["d"], d), max(cmp["share"], share)
         return touch(field, oid, raw)
 
-    eager_walks, eager_blocks = [], []
+    walls, blocks = [], []
     for post in (against, touch, touch):
         _, a, _, b = block_walk(path, post, eager=True)
-        eager_walks.append(a)
-        eager_blocks.append(b / (n - 1))
+        walls.append(a)
+        blocks.append(b / (n - 1))
     check(not kept, f"{name}: {len(kept)} blocks not compared")
     print(f"graph {name}: graph walk {warm:.4f} s ({per_block * 1e3:.3f} ms "
-          f"a block), eager walk {statistics.median(eager_walks):.4f} s of "
-          f"{['%.4f' % w for w in eager_walks]} "
-          f"({statistics.median(eager_blocks) * 1e3:.3f} ms a block); "
+          f"a block), eager walk {statistics.median(walls):.4f} s of "
+          f"{['%.4f' % w for w in walls]} "
+          f"({statistics.median(blocks) * 1e3:.3f} ms a block); "
           f"capture (first block's warm-up included) {st['capture_s']:.3f}"
           f" s; max|graph - eager| over the blocks {cmp['d']:.3e} "
           f"({cmp['share']:.3e} of the gate)", flush=True)
     check(cmp["share"] <= 1.0, f"{name}: graph and eager walks differ "
           "beyond the gate")
-    check_peak(path, peak)
-    graph = dict(graph_s=warm, eager_s=statistics.median(eager_walks),
-                 eager_walls=eager_walks, graph_walls=walks,
-                 eager_s_per_block=statistics.median(eager_blocks),
-                 capture_s=st["capture_s"], graph_vs_eager_max_abs=cmp["d"],
-                 graph_vs_eager_gate_share=cmp["share"],
-                 peak_gib=peak / 2 ** 30, reserved_gib=reserved / 2 ** 30)
-    return dict(**counts, first_s=compile_s + walk_s,
-                warm_s=warm, walls=walks, s_per_block=per_block,
-                est_block_s=path["est_block_s"], scheme_compile_s=compiles,
-                peak_gib=peak / 2 ** 30,
-                compile_s=path["compile_s"],
-                compile_stats=path["compile_stats"], slice_batch=1,
-                slices=n, census=dict(path["census"]), est_s=path["est_s"],
-                model_peak_gib=path["model_peak"] / 2 ** 30,
-                staged_gib=path["staged"] / 2 ** 30, norm2=nrm,
-                max_block_diff=worst_d, worst_over_bound=worst, graph=graph)
+    return dict(eager_s=statistics.median(walls),
+                eager_walls=walls,
+                eager_s_per_block=statistics.median(blocks),
+                graph_vs_eager_max_abs=cmp["d"],
+                graph_vs_eager_gate_share=cmp["share"])
 
 
 def staged(sim):
@@ -2440,12 +2502,177 @@ def drive_checkpoint_complex(path):
                 worst_over_bound=worst)
 
 
+# -- 8. the planned paths -------------------------------------------------------
+
+def native_build():
+    """The native planner search, built from the checkout's source (never
+    the Python search in its place); returns its build seconds."""
+    from artensor_tpu_torch import native
+
+    t0 = time.perf_counter()
+    ok = native.native_available()
+    check(ok, f"the native planner search did not build: "
+          f"{native.build_error()}")
+    print(f"planner: native search built in {native.BUILD_SECONDS:.2f} s "
+          f"(0: a cached build; loaded in {time.perf_counter() - t0:.2f} s)",
+          flush=True)
+    return native.BUILD_SECONDS
+
+
+def plan_summary(sim, committed=None):
+    """The plan's sliced bonds, complexity and total work (log10 of the
+    per-slice multiply-adds x 2^slices), and whether it is ``committed``
+    (a plan file) bond for bond."""
+    import math
+
+    from artensor_tpu_torch.plan_io import plan_to_dict
+
+    tc, sc, mc = sim.ctree.complexity()
+    out = dict(plan_s=sim.plan_seconds, compile_s=sim.compile_seconds,
+               sliced=list(sim.slicing_bonds), tc=tc, sc=sc, mc=mc,
+               total_log10=tc + len(sim.slicing_bonds) * math.log10(2))
+    if committed is not None:
+        with open(committed) as f:
+            ref = json.load(f)
+        d = plan_to_dict(sim.ctree)
+        out["equals_committed"] = all(d[k] == ref[k] for k in (
+            "order", "slicing_bonds", "tensor_bonds"))
+    return out
+
+
+def drive_planned(wrappers):
+    """8a: the 1k batch planned by the port, as a user calls it
+    (``quantum_circuit_simulation(circuit, bits, sc_target=PLANNED_SC)``:
+    plan, default scheme compile, run at width 1 on the card), every
+    amplitude against the fixture keyed by the returned bitstrings, its
+    kernels counted on the card; then that simulation at the model's width
+    as phase 3 and 5 drive a path (each kernel step against its plain
+    version; through ``contraction()``: launches against the census, the
+    warm wall, capture, peak against the model).  Returns the path's state
+    and its run."""
+    import numpy as np
+
+    from artensor_tpu_torch import (TensorNetworkCircuit,
+                                    TensorNetworkSimulation,
+                                    quantum_circuit_simulation,
+                                    random_circuit)
+    from artensor_tpu_torch.runtime import sparse
+
+    build_s = native_build()
+    ref = load_fixture(PATHS["1k"][1])
+    kept = []
+    real = TensorNetworkSimulation.prepare_contraction
+
+    def keep(self, *a, **k):     # the one-shot's simulation, for its numbers
+        kept.append(self)
+        return real(self, *a, **k)
+
+    fresh_memory()
+    reset_counts(wrappers)
+    TensorNetworkSimulation.prepare_contraction = keep
+    try:
+        t0 = time.perf_counter()
+        (amps, bits), ran = counted_on_card(
+            lambda: quantum_circuit_simulation(
+                TensorNetworkCircuit(random_circuit(**CIRCUIT)), list(ref),
+                sc_target=PLANNED_SC))
+        one_shot_s = time.perf_counter() - t0
+    finally:
+        TensorNetworkSimulation.prepare_contraction = real
+    (sim,) = kept
+    plan = plan_summary(sim, PATHS["1k"][0])
+    stats = dict(sparse.LAST_COMPILE)
+    st = sim.run_stats
+    check(st["executor"] == "graph" and st["slice_batch"] == 1,
+          f"1k-planned: the one-shot ran as {st['executor']} at width "
+          f"{st['slice_batch']}")
+    first_s = one_shot_s - plan["plan_s"] - plan["compile_s"]
+    print(f"path 1k-planned: quantum_circuit_simulation in "
+          f"{one_shot_s:.3f} s: planner {plan['plan_s']:.3f} s, "
+          f"{len(plan['sliced'])} sliced bonds {plan['sliced']}, "
+          f"complexity tc {plan['tc']:.6f} sc {plan['sc']:.1f} mc "
+          f"{plan['mc']:.6f} (total log10 {plan['total_log10']:.6f}); "
+          f"equal to the committed sc24 plan: {plan['equals_committed']}; "
+          f"scheme compile {plan['compile_s']:.3f} s (fusion "
+          f"{stats['fuse_s']:.2f} s, negotiation {stats['negotiate_s']:.2f}"
+          f" s); first call (staging, warm-up, capture, {2 ** len(plan['sliced'])}"
+          f" replays at width 1) {first_s:.3f} s", flush=True)
+    worst = amp_check("1k-planned", np.asarray(amps),
+                      np.array([ref[b] for b in bits]), list(bits))
+    one = path_state("1k-planned", "one-shot", sim, ref, 1,
+                     plan["compile_s"], stats)
+    counts = run_counts(one, wrappers, ran, st)
+    print(f"path 1k-planned one-shot: {counts_line(counts)}", flush=True)
+    path = path_state("1k-planned", "planned", sim, ref, None,
+                      plan["compile_s"], stats)
+    path["name"] = "1k-planned"
+    return path, dict(one_shot_s=one_shot_s, one_shot_first_s=first_s,
+                      native_build_s=build_s, worst_over_bound=worst,
+                      one_shot_counts=counts, census=dict(one["census"]),
+                      **plan)
+
+
+def plan_walk(dense_ref):
+    """8b, the plan: ``prepare_output_sharded(*PLANNED_WALK)`` under
+    ``PlannerConfig``'s defaults on the dense network; returns the walk's
+    path state (``block_path``)."""
+    from artensor_tpu_torch import TensorNetworkSimulation, random_circuit
+    from artensor_tpu_torch.runtime import scheme
+    from artensor_tpu_torch.simulation import _dense_shard_setup
+
+    native_build()
+    d_out, sc = PLANNED_WALK
+    sim = TensorNetworkSimulation.from_circuit(random_circuit(**CIRCUIT))
+    sim.prepare_output_sharded(d_out, sc_target=sc)
+    stats = dict(scheme.LAST_COMPILE)
+    plan = plan_summary(sim)
+    steps, axes, chosen, output_bonds, k, _ = _dense_shard_setup(sim, d_out)
+    print(f"planner dense-planned: prepare_output_sharded({d_out}, "
+          f"sc_target={sc}): planner {plan['plan_s']:.3f} s, {k} sliced "
+          f"bonds {plan['sliced']} a block, complexity tc {plan['tc']:.6f} "
+          f"sc {plan['sc']:.1f} mc {plan['mc']:.6f}; the walk's total log10"
+          f" {plan['total_log10'] + d_out * 0.30102999566398120:.6f}; "
+          f"block scheme compile {plan['compile_s']:.3f} s", flush=True)
+    path = block_path(sim, "dense-planned", f"d{d_out}-sc{sc}", steps, axes,
+                      chosen, k, d_out, dense_ref, plan["compile_s"], stats,
+                      2 ** len(output_bonds), planned=True)
+    path["plan"] = plan
+    return path
+
+
+def drive_planned_walk(path, wrappers, state, state_bonds, post_hoc):
+    """8b, the walk: ``drive_blocks`` on the planned blocks (no eager
+    walks), its peak below the post-hoc walk's (``post_hoc``: that walk's
+    run) and held to the model."""
+    out = drive_blocks(path, wrappers, state, state_bonds,
+                       eager_check=False)
+    print(f"path dense-planned: peak {out['peak_gib']:.3f} GiB (the whole "
+          f"state held apart) against the post-hoc walk's "
+          f"{post_hoc['peak_gib']:.3f} GiB; warm walk {out['warm_s']:.4f} s"
+          f", {out['s_per_block'] * 1e3:.3f} ms a block of 2^{path['k']} "
+          f"slices, against the post-hoc walk's {post_hoc['warm_s']:.4f} s"
+          f" ({post_hoc['s_per_block'] * 1e3:.3f} ms a block)", flush=True)
+    check(out["peak_gib"] < post_hoc["peak_gib"],
+          f"dense-planned: the planned walk's peak {out['peak_gib']:.3f} GiB"
+          f" is not below the post-hoc walk's {post_hoc['peak_gib']:.3f}")
+    out.update(path["plan"], d_out=path["d_out"])
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--slice-batch", type=int, default=32,
                     help="slices per group of the sliced runner")
     args = ap.parse_args()
+    if os.environ.get("PYTHONHASHSEED") != PLAN_HASH_SEED:
+        # the planner's plans depend on the string hash seed: every run
+        # plans under the same one
+        os.execve(sys.executable, [sys.executable, os.path.abspath(__file__),
+                                   *sys.argv[1:]],
+                  dict(os.environ, PYTHONHASHSEED=PLAN_HASH_SEED))
 
+    global T0
+    T0 = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2501,7 +2728,7 @@ def main():
     # -- 5. the paths end to end ----------------------------------------------
     wrappers = {k: wrapper(v[0]) for k, v in {**KERNELS, **OFF_PATH}.items()}
     runs, modes, fields, state = {}, {}, {}, None
-    field_paths, dense_default = [], None
+    field_paths, dense_default, planned = [], None, []
     for p in paths:
         drop_tables(paths)
         if p["workload"] == "dense":
@@ -2518,6 +2745,15 @@ def main():
                 continue
         elif p["workload"] == "dense-blocks":
             runs[p["name"]] = drive_blocks(p, wrappers, state, state_bonds)
+            # -- 8b. the planned walk, held to the same state -------------
+            walk = plan_walk(p["ref"])
+            checked[walk["name"]] = check_kernels(walk)
+            drop_tables(paths + [walk])
+            runs[walk["name"]] = drive_planned_walk(
+                walk, wrappers, state, state_bonds, runs[p["name"]])
+            walk["sim"] = None
+            drop_tables([walk])
+            planned.append(walk)
             # -- 7. the field modes, after every main run (and its trace):
             # the dense state in each mode, the mode walks, then the
             # sparse paths ---------------------------------------------
@@ -2550,9 +2786,19 @@ def main():
                 p["off_sim"] = None
                 continue
         p["sim"] = p["off_sim"] = None
+    # -- 8a. the planned 1k path (the planned walk ran after dense-blocks) --
+    path, one_shot = drive_planned(wrappers)
+    checked[path["name"]] = check_kernels(path)
+    drop_tables(paths + planned + [path])
+    runs[path["name"]] = dict(drive(path, wrappers), one_shot=one_shot)
+    path["sim"] = None
+    planned.append(path)
+    labels += [p["name"] for p in planned]
     print(f"paths: {json.dumps(runs)}", flush=True)
     print(f"modes: {json.dumps(modes)}", flush=True)
     print(f"fields: {json.dumps(fields)}", flush=True)
+    print(f"chip_smoke: {time.perf_counter() - T0:.1f} s from the start",
+          flush=True)
 
     line = []
     keys = ("step", "form", "ms", "bound_ms", "bound_by", "bound_3xtf32_ms",

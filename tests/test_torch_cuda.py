@@ -1089,3 +1089,77 @@ def test_checkpoint_resumes_at_any_width_under_graphs(cuda, monkeypatch,
         assert run.stats["replays"] == 5 // width + (5 % width > 0)
         got = field.unwrap(acc).reshape(-1)
         assert np.abs(got - want).max() <= 2e-5 * np.abs(want).max()
+
+
+# -- the planner's entry points on the card ---------------------------------------
+
+QSIM_N12 = os.path.join(os.path.dirname(__file__), "data",
+                        "circuit_n12_rcs.qsim")
+
+
+def test_native_planner_builds_on_the_card_host():
+    """The C++ search builds from the repository's source on the card's
+    host, and plans."""
+    from artensor_tpu_torch.native import build_error, native_available
+    from artensor_tpu_torch.planner import find_order
+
+    assert native_available(), build_error()
+    tb = {0: ["a", "b"], 1: ["a", "c"], 2: ["b", "c", "d"], 3: ["d"]}
+    order, _, _ = find_order(tb, {b: 2.0 for b in "abcd"}, sc_target=30,
+                             trials=2, iters=3, engine="native")
+    assert len(order) == 3
+
+
+@pytest.mark.parametrize("mode", ["sparse", "dense"])
+def test_planned_one_shot_on_card_equals_cpu(cuda, monkeypatch, mode):
+    """``quantum_circuit_simulation`` plans the n12 file and runs it on the
+    card (size gates lowered: its kernels run) to the CPU run's
+    amplitudes and the state vector."""
+    from artensor_tpu_torch import TensorNetworkCircuit, \
+        quantum_circuit_simulation
+    from artensor_tpu_torch.runtime import lanes as planes
+
+    monkeypatch.setattr(gatherk, "MIN_X_ELEMS", 1 << 8)
+    monkeypatch.setattr(planes, "MIN_X_ELEMS", 1 << 6)
+    state = TensorNetworkCircuit(QSIM_N12).state_vec().reshape(-1)
+    picks = np.random.default_rng(7).choice(4096, 64, replace=False)
+    bits = [np.binary_repr(int(p), 12) for p in picks] \
+        if mode == "sparse" else ()
+    kw = dict(sc_target=10, trial_num=2, iters=6)
+    before = gatherk.gk_call.launches
+    got, got_bits = quantum_circuit_simulation(QSIM_N12, bits, **kw)
+    assert gatherk.gk_call.launches > before
+    want, want_bits = quantum_circuit_simulation(QSIM_N12, bits,
+                                                 device="cpu", **kw)
+    assert list(got_bits) == list(want_bits)
+    scale = np.abs(state).max()
+    assert np.abs(got - want).max() <= 2e-5 * scale
+    if mode == "sparse":
+        exact = np.array([state[int(b, 2)] for b in got_bits])
+    else:
+        exact = state.reshape(got.shape)
+    assert np.abs(got - exact).max() <= 2e-5 * scale
+
+
+def test_planned_block_walk_on_card(cuda):
+    """``prepare_output_sharded(3, sc_target=3)`` (3 sliced bonds a block)
+    walked on the card, one graph replayed a slice: every block is the
+    state vector's."""
+    from artensor_tpu_torch import (TensorNetworkCircuit,
+                                    TensorNetworkSimulation, random_circuit)
+
+    n, layers = random_circuit(2, 3, 6, seed=33)
+    state = TensorNetworkCircuit((n, layers)).state_vec()
+    sim = TensorNetworkSimulation.from_circuit((n, layers))
+    sim.prepare_output_sharded(3, sc_target=3, trials=2, iters=5,
+                               betas=tuple(np.linspace(3, 21, 10)),
+                               slicing_repeat=1, parallel=False)
+    k = len(sim.slicing_bonds)
+    assert k > 0
+    blocks = list(sim.contraction_output_blocks(3, device="cuda"))
+    assert len(blocks) == 8
+    for bits, _, block in blocks:
+        want = state[tuple(int(c) for c in bits)]
+        assert np.abs(block - want).max() <= 2e-5 * np.abs(state).max()
+    st = sim.block_run_stats
+    assert st["captures"] == 1 and st["replays"] == 8 * 2 ** k

@@ -44,7 +44,8 @@ def test_import_loads_no_jax():
                                     "runtime.rescaled", "runtime.checkpoint",
                                     "runtime.metrics", "simulation",
                                     "ops.einsum", "ops.field",
-                                    "runtime.lowering"])
+                                    "runtime.lowering", "planner.annealing",
+                                    "native", "plan_io"])
 def test_execution_modules_load_no_jax(module):
     """Each module of the execution modes, imported alone in a fresh
     process, loads neither JAX nor the JAX package."""
