@@ -1,12 +1,12 @@
 """Circuit front end: qsim text format -> tensor network.
 
 Port of ``artensor_tpu/circuits/circuit.py`` (a numpy copy of
-``parse_qsim`` and ``TensorNetworkCircuit`` with ``to_numerical_tn`` and the
-``state_vec`` oracle).  A circuit is held as ``(n, layers)`` where each layer
-is a list of ``(gate_name, qubits, params)``.  Bond labels are wire
-coordinates ``'{step}-{qubit}'`` (step = how many gates have touched the
-qubit so far), identical to the JAX package's, so plans saved by either
-package load in the other.
+``parse_qsim`` and ``TensorNetworkCircuit`` with ``to_numerical_tn``, the
+one-shot einsum and MPS exports and the ``state_vec`` oracle).  A circuit
+is held as ``(n, layers)`` where each layer is a list of ``(gate_name,
+qubits, params)``.  Bond labels are wire coordinates ``'{step}-{qubit}'``
+(step = how many gates have touched the qubit so far), identical to the
+JAX package's, so plans saved by either package load in the other.
 """
 
 import numpy as np
@@ -136,7 +136,28 @@ class TensorNetworkCircuit:
         tensor_bonds, bond_dims, final_qubits = self.to_abstract_tn()
         return tensors, tensor_bonds, bond_dims, final_qubits
 
-    # -- oracle (testing) -------------------------------------------------
+    def to_einsum(self, as_string=False):
+        """One giant einsum for the whole circuit.
+
+        Default: (tensors, operand index lists, output index list), integer
+        sublists with no label cap.  ``as_string=True`` returns (tensors,
+        eq) with a letter equation, only possible for <= 52 distinct
+        bonds.
+        """
+        labels = {}
+        for bs in self.bonds:
+            for b in bs:
+                labels.setdefault(b, len(labels))
+        operands = [[labels[b] for b in bs] for bs in self.bonds]
+        out_bonds = [f"{self._wire[q]}-{q}" for q in range(self.n)] \
+            if self.final_state is None else []
+        if as_string:
+            from ..utils import einsum_eq_convert
+
+            return self.arrays, einsum_eq_convert(self.bonds, out_bonds)
+        return self.arrays, operands, [labels[b] for b in out_bonds]
+
+    # -- oracles (testing) ------------------------------------------------
 
     def state_vec(self):
         """Exact Schrödinger evolution; O(2^n) memory — testing oracle only."""
@@ -162,3 +183,30 @@ class TensorNetworkCircuit:
             idx = tuple(int(c) for c in self.final_state)
             return psi[idx]
         return psi
+
+    def to_mps(self):
+        """Exact MPS of the final state via per-gate SVD splitting (oracle;
+        nearest-neighbour two-qubit gates only)."""
+        mps = [_basis_vec(bit).reshape(1, 2, 1) for bit in self.init_state]
+        for layer in self.layers:
+            for name, qubits, params in layer:
+                builder, nq = QSIM_GATES[name]
+                g = builder(*params)
+                if (nq or len(qubits)) == 1:
+                    q = qubits[0]
+                    mps[q] = np.einsum("abc,db->adc", mps[q], g)
+                else:
+                    q1, q2 = qubits
+                    if abs(q1 - q2) != 1:
+                        raise ValueError("to_mps needs nearest-neighbour "
+                                         f"gates, got qubits {qubits}")
+                    u, s, vh = np.linalg.svd(
+                        g.transpose(0, 2, 1, 3).reshape(4, 4))
+                    rs = np.sqrt(s).astype(np.complex128)
+                    m1 = (u * rs).reshape(2, 2, -1)
+                    m2 = (rs[:, None] * vh).reshape(-1, 2, 2)
+                    mps[q1] = np.einsum("abc,bde->adec", mps[q1], m1).reshape(
+                        mps[q1].shape[0], 2, -1)
+                    mps[q2] = np.einsum("abc,ebd->eadc", mps[q2], m2).reshape(
+                        -1, 2, mps[q2].shape[2])
+        return mps

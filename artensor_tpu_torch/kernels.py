@@ -7,9 +7,9 @@ and the build runs at first use inside every fresh checkout.  The
 compilers are started together, one per source.  ``pair.cu`` and
 ``gatherk.cu`` both include ``tc_core.cuh``, the tensor-core product they
 share.  Libraries are cached in ``_build/`` next to this file
-(git-ignored), named by a hash of the source, the headers and the flags,
-so an edited source or header rebuilds and an unchanged one loads at
-once.
+(git-ignored), or where ``ARTENSOR_TPU_CACHE`` points (``cache.py``),
+named by a hash of the source, the headers and the flags, so an edited
+source or header rebuilds and an unchanged one loads at once.
 
 Nothing here runs at import: ``load()`` builds on its first call, from the
 wrapper that first launches a kernel.  A failed build raises.  Every
@@ -28,7 +28,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent / "_build"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parent / "_build"
+BUILD_DIR = DEFAULT_BUILD_DIR     # cache.enable_compile_cache may move it
 SOURCES = ("gatherk", "rgrow", "rgflat", "lane", "pair")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -147,6 +148,9 @@ def load():
     """Build (first call only) and load the kernels."""
     global _LOADED
     if _LOADED is None:
+        from .cache import enable_compile_cache
+
+        enable_compile_cache()
         seconds, reports = build()
         libs = {name: ctypes.CDLL(str(_target(name))) for name in SOURCES}
         _LOADED = Kernels(libs, seconds, reports)

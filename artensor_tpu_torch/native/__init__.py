@@ -4,10 +4,10 @@ Port of ``artensor_tpu/native/__init__.py``.  ``sa_kernel.cpp`` runs the
 simulated-annealing search on flat arrays with all trials on C++ threads
 (host code, not a device kernel).  It is built with g++ and the JAX
 package's flags on first use into ``artensor_tpu_torch/_build/``
-(git-ignored), named by a hash of the source, the flags and the host CPU,
-so that the port's build and the JAX package's are the same code on one
-host and give the same plans, and a build is never loaded on another
-host.  The library is written through a temporary file and
+(git-ignored; or where ``ARTENSOR_TPU_CACHE`` points, ``cache.py``), named
+by a hash of the source, the flags and the host CPU, so that the port's
+build and the JAX package's are the same code on one host and give the
+same plans, and a build is never loaded on another host.  The library is written through a temporary file and
 ``os.replace``, so processes building at once (pytest-xdist workers) never
 load a half-written file.  When no toolchain is available the caller falls
 back to the pure-Python search (``find_order(engine="auto")``) or raises
@@ -95,6 +95,9 @@ def load_kernel():
     global _LIB, _LIB_ERR
     if _LIB is not None or _LIB_ERR is not None:
         return _LIB
+    from ..cache import enable_compile_cache
+
+    enable_compile_cache()
     try:
         lib = ctypes.CDLL(_build())
     except Exception as e:  # noqa: BLE001 — no toolchain / platform

@@ -5,7 +5,8 @@ Port of ``artensor_tpu/runtime/metrics.py``.  The device-neutral half keeps
 the JAX logic and gives the JAX numbers on equal schemes: ``step_flops``,
 ``scheme_flops``, ``step_traffic_bytes``, ``slice_dynamic_ids``, the peak
 timeline (``scheme_peak_live_bytes``, ``scheme_peak_bytes_at_width``),
-``step_overhead_bytes`` and ``reorder_census``.
+``step_overhead_bytes`` and ``reorder_census``.  ``scheme_roofline_seconds``
+(the floor ``bench`` divides by) is rebuilt on the H100's rates.
 
 The time model is rebuilt for one H100 (``kernels.H100_*``).  A kernel
 step is charged the bound of the design its CUDA kernel runs
@@ -81,6 +82,54 @@ def step_traffic_bytes(low, bytes_per_elem=4.0, split_components=2):
         extra = _prod(low.re_out.dims) * bytes_per_elem * split_components
         total += extra * (2 if getattr(low.re_out, "mode", "transpose")
                           == "transpose" else 4)
+    return total
+
+
+def scheme_roofline_seconds(steps, muladds_per_s=None, bytes_per_s=None,
+                            complex_algo="naive"):
+    """A per-slice floor of the card's time for the lowered scheme: each
+    step costs max(flops / rate, bytes / 3.35 TB/s) plus
+    ``planner.cost.STEP_OVERHEAD_S`` (0.0: the port charges no per-step
+    floor; the fitted width-1 overhead is host time that graph replay
+    removes).  ``muladds_per_s`` (the JAX name; real flops a second):
+    default the 3xTF32 rate ``kernels.H100_TF32_FLOP_PER_S / 3``, scaled
+    by min(1, K / ``MMA_K_STEP``) for a product contracting K values;
+    ``bytes_per_s`` default ``kernels.H100_HBM_BYTES_PER_S``.
+
+    A dot fallback step counts each lowered product's minimum traffic
+    (``step_traffic_bytes``).  A kernel step (GK, GGK, RGRow, RGFlat, Lane,
+    Pair) counts the smaller of that and its kernel's own bytes
+    (``plan_bytes``, as ``plan_design_bound`` does): GK reads X's rows
+    once, not the gathered view that its lowered product names, so the
+    lowered traffic would put the floor above what the kernel moves.
+    Blind to the host and to the copies around a product
+    (``step_overhead_bytes``), so it stays below the measured wall: the
+    ratio of the two is what ``python -m artensor_tpu_torch bench`` calls
+    ``roofline_achieved``."""
+    from ..planner.cost import MMA_K_STEP, STEP_OVERHEAD_S
+
+    flops_rate = muladds_per_s or kernels.H100_TF32_FLOP_PER_S / 3.0
+    byte_rate = bytes_per_s or kernels.H100_HBM_BYTES_PER_S
+
+    def compute_s(low):
+        (cx, _cy), _ = low.dnums
+        k = _prod(low.shape_l[d] for d in cx)
+        rate = flops_rate * min(1.0, k / MMA_K_STEP)
+        return step_flops(low, complex_algo) / rate
+
+    total = 0.0
+    for s in steps:
+        lows = _lows(s)
+        if getattr(s, "lane", None) is not None:
+            nbytes = min(sum(step_traffic_bytes(low) for low in lows),
+                         plan_bytes(s.lane)[1])
+            total += max(sum(compute_s(low) for low in lows),
+                         nbytes / byte_rate) + STEP_OVERHEAD_S
+            continue
+        for low in lows:
+            total += max(compute_s(low),
+                         step_traffic_bytes(low) / byte_rate) \
+                + STEP_OVERHEAD_S
     return total
 
 
@@ -351,41 +400,52 @@ def _copy_s(elems):
     return 2 * 8.0 * elems / kernels.H100_HBM_BYTES_PER_S
 
 
-def plan_design_bound(p):
-    """``(family, kernel seconds, copy seconds)`` of a kernel plan for one
-    slice instance (both operands per instance): the bound of the design
-    its kernel runs, and the copies its step makes around it."""
-    from .gatherk import (GGKPlan, GKPlan, RGRow, _used_rows,
-                          gk_bytes, gk_flops, gk_form)
+def plan_bytes(p):
+    """``(family, bytes)`` of a kernel plan's call for one slice instance
+    (both operands per instance): what its kernel must move, each operand
+    read once and the output written once (a GK step reads X's rows once,
+    not the gathered view; a gathered step reads only the rows its
+    targets name)."""
+    from .gatherk import GGKPlan, GKPlan, RGRow, _used_rows, gk_bytes
     from .lanes import LanePlan, PairPlan
 
     if isinstance(p, GKPlan) or (isinstance(p, GGKPlan) and isinstance(
             p.row, GKPlan)):
-        fam = "gk" if isinstance(p, GKPlan) else "ggk"
-        form = gk_form(p, 1, True, True)
-        b = bounds(gk_bytes(p, 1, True, True), gk_flops(p, 1, True, True),
-                   form)
-        copy = _copy_s(_prod(p.pre.dims)) if p.pre is not None else 0.0
-        return fam, 1e-3 * b["design_bound_ms"], copy
+        return ("gk" if isinstance(p, GKPlan) else "ggk",
+                gk_bytes(p, 1, True, True))
     if isinstance(p, GGKPlan):
         row = p.row
-        fam = "rgrow" if isinstance(row, RGRow) else "rgflat"
         nx, nw = _used_rows(p)
-        nbytes = 8 * (nx * row.F * row.K + nw * row.H * row.K
-                      + p.B * row.F * row.H)
-        return fam, nbytes / kernels.H100_HBM_BYTES_PER_S, 0.0
+        return ("rgrow" if isinstance(row, RGRow) else "rgflat",
+                8 * (nx * row.F * row.K + nw * row.H * row.K
+                     + p.B * row.F * row.H))
     if isinstance(p, LanePlan):
-        nbytes = 8 * (p.x_elems + p.w_elems + p.y_elems)
-        return "lane", nbytes / kernels.H100_HBM_BYTES_PER_S, 0.0
+        return "lane", 8 * (p.x_elems + p.w_elems + p.y_elems)
     if isinstance(p, PairPlan):
-        nbytes = 8 * (p.K * p.M + p.K * p.N + p.M * p.N)
+        return "pair", 8 * (p.K * p.M + p.K * p.N + p.M * p.N)
+    raise TypeError(f"unknown kernel plan {type(p).__name__}")
+
+
+def plan_design_bound(p):
+    """``(family, kernel seconds, copy seconds)`` of a kernel plan for one
+    slice instance (both operands per instance): the bound of the design
+    its kernel runs, and the copies its step makes around it."""
+    from .gatherk import gk_flops, gk_form
+
+    fam, nbytes = plan_bytes(p)
+    if fam in ("gk", "ggk"):
+        form = gk_form(p, 1, True, True)
+        b = bounds(nbytes, gk_flops(p, 1, True, True), form)
+        copy = _copy_s(_prod(p.pre.dims)) if p.pre is not None else 0.0
+        return fam, 1e-3 * b["design_bound_ms"], copy
+    if fam == "pair":
         b = bounds(nbytes, p.flops, "mma")
         copy = sum(_copy_s(_prod(r.dims)) for r in (p.re_i, p.re_j)
                    if r is not None)
         if p.v_perm is not None:
             copy += _copy_s(p.K * p.N)
-        return "pair", 1e-3 * b["design_bound_ms"], copy
-    raise TypeError(f"unknown kernel plan {type(p).__name__}")
+        return fam, 1e-3 * b["design_bound_ms"], copy
+    return fam, nbytes / kernels.H100_HBM_BYTES_PER_S, 0.0
 
 
 def plan_seconds(p, calibration=None):

@@ -137,9 +137,24 @@ block walk's slice-invariant steps) is not made twice.  Phases, in order
    1k fixture keyed by the bitstrings it returns, its planner seconds,
    sliced bonds, complexity and whether the plan is the committed sc24
    file, its compile and first-call seconds and its launches; then its
-   simulation as phase 3 and 5 drive a path, at the model's width.
+   simulation as phase 3 and 5 drive a path, at the model's width;
+9. the command line on the 1k batch (``drive_cli``): the n30 circuit
+   written as a qsim file and the 1k bitstrings as an ``@file``;
+   ``python -m artensor_tpu_torch simulate <qsim> --bitstrings @<file>
+   --plan <1k plan>`` as a subprocess (every printed amplitude against the
+   fixture, its wall and its report line), the same command in this
+   process (its scheme's digest equal to 1k/default's, its kernels
+   counted on the card and held to the census at width 1), ``bench`` at
+   ``CLI_BENCH_WIDTH`` (its JSON; the wall within ``CLI_BENCH_TOL`` of
+   1k/default's phase-5 warm wall, ``roofline_achieved`` at most 1),
+   ``verify`` on ``tests/data/circuit_n12_rcs.qsim`` (exit 0, fidelity
+   estimate above 0.999), ``info`` and ``plan`` on the qsim file, and the
+   scheme cache (``runtime/scheme_cache.py``) cold then warm on the 1k
+   default scheme (the warm steps equal to the cold ones, a run from them
+   held to the fixture).  Phase 5 also holds every sparse path's floor
+   (``metrics.scheme_roofline_seconds`` x its slices) below its warm wall.
 
-Then the paths' and the modes' numbers, one JSON line with every
+Then the paths' and the modes' numbers, the CLI's, one JSON line with every
 kernel's numbers (for each kernel its largest step on the first path
 that runs it, under ``costliest`` that path's slowest step of the kind,
 and under ``paths`` every path's ("<workload>/<form>", the planned ones
@@ -861,7 +876,7 @@ def path_state(name, form, sim, ref, W, compile_s, stats, out_elems=None):
 
     from artensor_tpu_torch.runtime import gatherk, metrics
     from artensor_tpu_torch.runtime.executor import precompute_static_steps
-    from artensor_tpu_torch.runtime.sparse import kernel_kind
+    from artensor_tpu_torch.runtime.sparse import kernel_kind, scheme_digest
 
     label = f"{name}/{form}"
     n_slices = 2 ** len(sim.slicing_bonds)
@@ -898,6 +913,11 @@ def path_state(name, form, sim, ref, W, compile_s, stats, out_elems=None):
           f"{staged / 2 ** 30:.3f} GiB", flush=True)
     cases = kernel_cases(run_steps, operand_batching(run_steps,
                                                      sim.slicing_axes))
+    # the floor under the run (``bench``'s roofline_s) and the scheme's
+    # digest (sparse: phase 9 holds the CLI's scheme to it)
+    roof_s = n_slices * metrics.scheme_roofline_seconds(run_steps)
+    digest = scheme_digest(sim.steps) \
+        if getattr(sim, "pattern", None) == "sparse" else None
     forms = {}   # GK and GGK steps by the form gatherk.gk_form picks
     for kind in ("gk", "ggk"):
         forms[kind] = Counter()
@@ -907,7 +927,8 @@ def path_state(name, form, sim, ref, W, compile_s, stats, out_elems=None):
     return dict(name=label, workload=name, form=form, sim=sim, ref=ref, W=W,
                 compile_s=compile_s, compile_stats=stats, n_slices=n_slices,
                 census=census, cases=cases, forms=forms, est_s=est_s,
-                model_peak=model_peak, staged=staged)
+                model_peak=model_peak, staged=staged, roof_s=roof_s,
+                digest=digest)
 
 
 def report(label, r):
@@ -1391,7 +1412,14 @@ def drive(path, wrappers):
                est_s=path["est_s"],
                model_peak_gib=path["model_peak"] / 2 ** 30,
                staged_gib=path["staged"] / 2 ** 30, worst_over_bound=worst,
-               report=rep.summary(), graph=cmp)
+               report=rep.summary(), graph=cmp, roofline_s=path["roof_s"],
+               roofline_achieved=path["roof_s"] / cmp["graph_s"])
+    print(f"path {name}: roofline (metrics.scheme_roofline_seconds x "
+          f"{path['n_slices']} slices) {path['roof_s']:.4f} s, "
+          f"{out['roofline_achieved']:.3f} of the warm wall", flush=True)
+    check(0 < out["roofline_achieved"] <= 1,
+          f"{name}: roofline {path['roof_s']:.4f} s is not below the warm "
+          f"wall {cmp['graph_s']:.4f} s")
     if path["form"] == "default":
         off_walls, _ = warm_walls(path["off_sim"], W)
         out["off_warm_s_same_width"] = statistics.median(off_walls)
@@ -2659,6 +2687,239 @@ def drive_planned_walk(path, wrappers, state, state_bonds, post_hoc):
     return out
 
 
+CLI_VERIFY_QSIM = os.path.join(ROOT, "tests", "data", "circuit_n12_rcs.qsim")
+CLI_BENCH_WIDTH = 64          # bench's --slice-batch: 1k/default's width
+CLI_BENCH_TOL = 0.15          # bench's wall against phase 5's warm wall
+
+
+def write_qsim(path, n, layers):
+    """``(n, layers)`` as a qsim file (as tests/test_aux.py writes one)."""
+    lines = [str(n)]
+    for li, layer in enumerate(layers):
+        for name, qubits, params in layer:
+            lines.append(" ".join(
+                [str(li), name, *map(str, qubits), *map(str, params)]))
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def cli_main(argv):
+    """``python -m artensor_tpu_torch`` in this process (``main(argv)``):
+    its standard output and error.  An exit other than 0 fails the run."""
+    import contextlib
+    import io
+
+    from artensor_tpu_torch.__main__ import main as cli
+
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            cli(argv)
+    except SystemExit as e:
+        raise SmokeFailure(f"python -m artensor_tpu_torch {argv[0]} exited "
+                           f"{e.code}: {err.getvalue()[-2000:]}") from e
+    return out.getvalue(), err.getvalue()
+
+
+def cli_amps(text):
+    """The amplitudes ``simulate`` prints, by bitstring."""
+    got = {}
+    for ln in text.strip().splitlines():
+        bs, re, im = ln.split()
+        got[bs] = complex(float(re), float(im))
+    return got
+
+
+def drive_cli(wrappers, dflt, dflt_run):
+    """9: the command line on the 1k batch (``dflt``: the 1k/default path,
+    ``dflt_run``: its phase-5 run).  ``simulate --plan`` as a subprocess,
+    the user's path (every amplitude against the fixture, its wall and its
+    report line), then in this process (its kernels counted on the card
+    and held to the census of its scheme, which must be 1k/default's);
+    ``bench`` at ``CLI_BENCH_WIDTH`` against phase 5's warm wall and its
+    roofline below the wall; ``verify`` on ``CLI_VERIFY_QSIM`` (exit 0,
+    fidelity estimate above 0.999); ``info`` and ``plan`` (the native
+    search) on the qsim file; the scheme cache cold then warm on the 1k
+    default scheme, the warm steps equal to the cold ones and a run from
+    them held to the fixture.  Returns the phase's numbers."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from artensor_tpu_torch import TensorNetworkSimulation, random_circuit
+    from artensor_tpu_torch.plan_io import plan_from_dict
+    from artensor_tpu_torch.runtime import scheme_cache
+    from artensor_tpu_torch.runtime.sparse import scheme_digest
+
+    t_phase = time.perf_counter()
+    plan = PATHS["1k"][0]
+    ref = load_fixture(PATHS["1k"][1])
+    keys = sorted(ref)
+    want = np.array([ref[b] for b in keys])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    out = {}
+    try:
+        qsim = os.path.join(tmp, "rcs_n30_m14_s0.qsim")
+        write_qsim(qsim, *random_circuit(**CIRCUIT))
+        bits = os.path.join(tmp, "bitstrings_1k.txt")
+        with open(bits, "w") as f:
+            f.write("\n".join(ref) + "\n")
+        sim_args = ["simulate", qsim, "--bitstrings", "@" + bits, "--plan",
+                    plan]
+
+        # 9a. the user's path: a process of its own
+        fresh_memory()
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "artensor_tpu_torch",
+                            *sim_args], cwd=ROOT, capture_output=True,
+                           text=True, timeout=900)
+        out["subprocess_s"] = time.perf_counter() - t0
+        check(r.returncode == 0, f"cli simulate exited {r.returncode}: "
+              f"{r.stderr[-3000:]}")
+        got = cli_amps(r.stdout)
+        check(sorted(got) == keys, f"cli simulate printed {len(got)} "
+              "amplitudes, not the 1000 asked for")
+        out["subprocess_worst_over_bound"] = amp_check(
+            "cli-subprocess", np.array([got[b] for b in keys]), want, keys)
+        out["subprocess_report"] = [ln for ln in r.stderr.splitlines()
+                                    if ln.startswith("# ")][-1]
+        print(f"cli simulate (subprocess): {out['subprocess_s']:.3f} s from "
+              f"launch to exit; stderr: {out['subprocess_report']}",
+              flush=True)
+
+        # 9b. the same command in this process, its kernels counted
+        kept = []
+        real = TensorNetworkSimulation.contraction
+
+        def keep(self, *a, **k):     # the CLI's simulation, for its numbers
+            kept.append(self)
+            return real(self, *a, **k)
+
+        fresh_memory()
+        reset_counts(wrappers)
+        TensorNetworkSimulation.contraction = keep
+        try:
+            t0 = time.perf_counter()
+            (text, err), ran = counted_on_card(lambda: cli_main(sim_args))
+            out["in_process_s"] = time.perf_counter() - t0
+        finally:
+            TensorNetworkSimulation.contraction = real
+        (sim,) = kept
+        check(scheme_digest(sim.steps) == dflt["digest"],
+              "cli simulate compiled another scheme than load_plan's "
+              "default (1k/default)")
+        got = cli_amps(text)
+        check(sorted(got) == keys, "cli simulate (in process): amplitudes")
+        out["in_process_worst_over_bound"] = amp_check(
+            "cli-in-process", np.array([got[b] for b in keys]), want, keys)
+        cli = path_state("1k", "cli", sim, ref, 1, sim.compile_seconds, {})
+        st = sim.run_stats
+        check(st["executor"] == "graph" and st["slice_batch"] == 1,
+              f"cli simulate ran as {st['executor']} at width "
+              f"{st['slice_batch']}")
+        counts = run_counts(cli, wrappers, ran, st)
+        missing = [k for k in ("gk", "ggk", "rgrow", "pair")
+                   if not counts["device_launches"][k]]
+        check(not missing, f"cli simulate ran no {missing} kernel")
+        out.update(counts, compile_s=sim.compile_seconds,
+                   census=dict(cli["census"]), stderr=err.strip())
+        out["run_s"] = out["in_process_s"] - sim.compile_seconds
+        print(f"cli simulate (in process): {out['in_process_s']:.3f} s "
+              f"(default compile {sim.compile_seconds:.3f} s, the rest "
+              f"{out['run_s']:.3f} s: staging, warm-up, capture, "
+              f"{st['replays']} replays at width 1); "
+              f"{counts_line(counts)}", flush=True)
+
+        # 9c. bench at the default path's width
+        fresh_memory()
+        text, _ = cli_main(["bench", qsim, "--plan", plan, "--bitstrings",
+                            "@" + bits, "--slice-batch",
+                            str(CLI_BENCH_WIDTH)])
+        bench = json.loads(text.strip().splitlines()[-1])
+        out["bench"] = bench
+        ratio = bench["wall_s"] / dflt_run["warm_s"]
+        print(f"cli bench: {json.dumps(bench)}; wall {ratio:.3f}x "
+              f"1k/default's warm wall {dflt_run['warm_s']:.4f} s "
+              f"(phase 5)", flush=True)
+        check(abs(ratio - 1) <= CLI_BENCH_TOL,
+              f"cli bench: wall {bench['wall_s']:.4f} s is not within "
+              f"{CLI_BENCH_TOL:.0%} of 1k/default's {dflt_run['warm_s']:.4f}")
+        check(0 < bench["roofline_achieved"] <= 1,
+              f"cli bench: roofline_achieved {bench['roofline_achieved']}")
+
+        # 9d. verify against the MPS oracle (exact at the default chi)
+        t0 = time.perf_counter()
+        text, err = cli_main(["verify", CLI_VERIFY_QSIM, "--serial"])
+        stats = json.loads(err.strip().splitlines()[-1])
+        out["verify"] = dict(stats, seconds=time.perf_counter() - t0)
+        print(f"cli verify {os.path.basename(CLI_VERIFY_QSIM)}: "
+              f"{json.dumps(out['verify'])}", flush=True)
+        check(stats["mps_fidelity_estimate"] > 0.999
+              and stats["max_abs_diff"] <= stats["threshold"],
+              f"cli verify: {stats}")
+
+        # 9e. info and plan (the native search, under the script's seed)
+        info = json.loads(cli_main(["info", qsim])[0])
+        check(info["qubits"] == CIRCUIT["rows"] * CIRCUIT["cols"],
+              f"cli info: {info}")
+        t0 = time.perf_counter()
+        planned = json.loads(cli_main(
+            ["plan", qsim, "--out", os.path.join(tmp, "plan.json")])[0])
+        plan_s = time.perf_counter() - t0
+        info_plan = json.loads(cli_main(
+            ["info", os.path.join(tmp, "plan.json")])[0])
+        check(info_plan["sc"] == planned["sc"] <= 30, f"cli plan: {planned}")
+        out.update(info=info, plan=dict(planned, seconds=plan_s,
+                                        info=info_plan))
+        print(f"cli info: {json.dumps(info)}; cli plan in {plan_s:.3f} s: "
+              f"{json.dumps(planned)}; info {json.dumps(info_plan)}",
+              flush=True)
+
+        # 9f. the scheme cache, cold then warm, on the 1k default scheme
+        os.environ[scheme_cache.ENV] = os.path.join(tmp, "schemes")
+        with open(plan) as f:
+            pd = json.load(f)
+        csim = TensorNetworkSimulation.from_circuit(random_circuit(**CIRCUIT),
+                                                    list(ref))
+        csim.order, csim.slicing_bonds, csim.ctree = plan_from_dict(pd)
+        sc = float(pd["meta"]["sc_target"])
+        t0 = time.perf_counter()
+        cold = scheme_cache.cached_scheme_sparse(plan, csim.ctree,
+                                                 csim.bitstrings, sc)
+        cold_s = time.perf_counter() - t0
+        check(len(os.listdir(os.path.join(tmp, "schemes"))) == 1,
+              "scheme cache: the cold call wrote no file")
+        t0 = time.perf_counter()
+        warm = scheme_cache.cached_scheme_sparse(plan, csim.ctree,
+                                                 csim.bitstrings, sc)
+        warm_s = time.perf_counter() - t0
+        check(scheme_digest(cold[0]) == scheme_digest(warm[0])
+              == dflt["digest"] and cold[1:] == warm[1:]
+              and all(pickle.dumps(a) == pickle.dumps(b)
+                      for a, b in zip(cold[0], warm[0])),
+              "scheme cache: the warm steps differ from the cold ones")
+        csim._set_scheme(*warm)
+        fresh_memory()
+        amps = csim.contraction(slice_batch=dflt["W"], device=DEVICE)
+        out["cache"] = dict(
+            cold_s=cold_s, warm_s=warm_s,
+            worst_over_bound=amp_check(
+                "cli-cache", amps,
+                np.array([ref[b] for b in csim.bitstrings_sorted]),
+                csim.bitstrings_sorted))
+        print(f"scheme cache 1k/default: cold {cold_s:.3f} s (compile and "
+              f"write), warm {warm_s:.4f} s (load); the warm scheme's run at "
+              f"width {dflt['W']} within the fixture gate", flush=True)
+    finally:
+        os.environ.pop(scheme_cache.ENV, None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"cli: phase 9 in {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--slice-batch", type=int, default=32,
@@ -2794,7 +3055,11 @@ def main():
     path["sim"] = None
     planned.append(path)
     labels += [p["name"] for p in planned]
+    # -- 9. the command line on the 1k batch --------------------------------
+    dflt = next(p for p in paths if p["name"] == "1k/default")
+    cli = drive_cli(wrappers, dflt, runs[dflt["name"]])
     print(f"paths: {json.dumps(runs)}", flush=True)
+    print(f"cli: {json.dumps(cli)}", flush=True)
     print(f"modes: {json.dumps(modes)}", flush=True)
     print(f"fields: {json.dumps(fields)}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - T0:.1f} s from the start",
@@ -2810,9 +3075,13 @@ def main():
         line.append({
             "name": kind, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": sum(runs[n]["launches"][kind] for n in labels),
+            "launches": sum(runs[n]["launches"][kind] for n in labels)
+            + cli["launches"][kind],
             "device_launches": sum(runs[n]["device_launches"][kind]
-                                   for n in labels),
+                                   for n in labels)
+            + cli["device_launches"][kind],
+            "cli_launches": cli["launches"][kind],
+            "cli_device_launches": cli["device_launches"][kind],
             "max_abs_err": big["max_abs_err"], "ms": big["ms"],
             "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
             "bound_by": big["bound_by"], "library_ms": big["library_ms"],

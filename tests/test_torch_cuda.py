@@ -1163,3 +1163,64 @@ def test_planned_block_walk_on_card(cuda):
         assert np.abs(block - want).max() <= 2e-5 * np.abs(state).max()
     st = sim.block_run_stats
     assert st["captures"] == 1 and st["replays"] == 8 * 2 ** k
+
+
+def _small_qsim(path, seed=2):
+    """random_circuit(2, 3, 4, seed) written as a qsim file; its state."""
+    from artensor_tpu_torch import TensorNetworkCircuit, random_circuit
+
+    n, layers = random_circuit(2, 3, 4, seed=seed)
+    lines = [str(n)]
+    for li, layer in enumerate(layers):
+        for name, qubits, params in layer:
+            lines.append(" ".join(
+                [str(li), name, *map(str, qubits), *map(str, params)]))
+    path.write_text("\n".join(lines) + "\n")
+    return n, TensorNetworkCircuit((n, layers)).state_vec().reshape(-1)
+
+
+def _cli(argv, capsys):
+    from artensor_tpu_torch.__main__ import main
+
+    main(argv)
+    return capsys.readouterr()
+
+
+def test_cli_on_card_equals_state_vec(cuda, tmp_path, capsys):
+    """``simulate`` (planned, and from a saved sliced plan), ``bench`` and
+    ``verify`` on the card by default: amplitudes equal to ``state_vec``,
+    the bench's roofline at most its wall, verify exit 0."""
+    qsim = tmp_path / "small.qsim"
+    n, psi = _small_qsim(qsim)
+    bits = ["000000", "111111", "010101", "101010"]
+    plan = ["--trials", "1", "--iters", "3", "--serial"]
+    out = _cli(["simulate", str(qsim), "--bitstrings", ",".join(bits),
+                *plan], capsys)
+    assert "graph at width 1" in out.err
+    saved = tmp_path / "plan.json"
+    _cli(["plan", str(qsim), "--out", str(saved), "--sc-target", "3",
+          "--bitstrings", ",".join(bits), *plan], capsys)
+    for argv in (["simulate", str(qsim), "--bitstrings", ",".join(bits)]
+                 + plan, ["simulate", str(qsim), "--bitstrings",
+                          ",".join(bits), "--plan", str(saved)]):
+        got = {}
+        for ln in _cli(argv, capsys).out.strip().splitlines():
+            bs, re, im = ln.split()
+            got[bs] = complex(float(re), float(im))
+        assert sorted(got) == sorted(bits)
+        for bs, amp in got.items():
+            assert abs(amp - psi[int(bs, 2)]) < 1e-6
+    dense = _cli(["simulate", str(qsim), "--head", "64", *plan], capsys)
+    amps = [complex(float(ln.split()[1]), float(ln.split()[2]))
+            for ln in dense.out.strip().splitlines()]
+    np.testing.assert_allclose(amps, psi, rtol=0, atol=1e-6)
+    import json
+
+    b = json.loads(_cli(["bench", str(qsim), "--plan", str(saved),
+                         "--bitstrings", ",".join(bits), "--slice-batch",
+                         "2"], capsys).out)
+    assert b["slices"] >= 2 and 0 < b["roofline_achieved"] <= 1
+    err = _cli(["verify", str(qsim), "--serial"], capsys).err
+    stats = json.loads(err.strip().splitlines()[-1])
+    assert stats["mps_fidelity_estimate"] > 0.999
+    assert stats["max_abs_diff"] <= stats["threshold"]

@@ -45,17 +45,23 @@ def test_import_loads_no_jax():
                                     "runtime.metrics", "simulation",
                                     "ops.einsum", "ops.field",
                                     "runtime.lowering", "planner.annealing",
-                                    "native", "plan_io"])
+                                    "native", "plan_io", "utils.mps",
+                                    "utils.xeb", "circuits.cirq_compat",
+                                    "runtime.scheme_cache", "cache",
+                                    "__main__"])
 def test_execution_modules_load_no_jax(module):
-    """Each module of the execution modes, imported alone in a fresh
-    process, loads neither JAX nor the JAX package."""
+    """Each module of the execution modes and the front ends, imported
+    alone in a fresh process, loads neither JAX nor the JAX package, and
+    runs nothing (the CLI's ``__main__`` parses no argument: the probe's
+    are ones it would refuse)."""
     probe = (f"import importlib, sys\n"
              f"importlib.import_module('artensor_tpu_torch.{module}')\n"
              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'artensor_tpu'))\n"
              "print('BAD', bad)\n"
              "sys.exit(1 if bad else 0)\n")
-    r = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+    r = subprocess.run([sys.executable, "-c", probe, "--no-such-flag"],
+                       cwd=ROOT,
                        capture_output=True, text=True, timeout=300,
                        env=_clean_env())
     assert r.returncode == 0, r.stdout + r.stderr
