@@ -12,7 +12,10 @@ gather-K, RGRow, RGFlat, lane and pair steps; the number field is the
 JAX package's choice (``make_field``: split pairs, native complex or
 fused, at three precisions), the kernels running in split mode.  Entry points run on the
 card unless the caller passes ``device='cpu'``, where every kernel wrapper
-takes its plain PyTorch version.  Around them, as in the JAX package: the
+takes its plain PyTorch version, or over a device mesh (``parallel/``:
+``make_mesh``, the slices or a dense state's output blocks partitioned
+over its replicas, batch groups dispatched over devices, and
+``parallel.distributed`` across processes on ``torch.distributed``).  Around them, as in the JAX package: the
 cirq file loader (``load_cirq_circuit``, ``from_cirq``), the truncated-MPS
 oracle (``mps_simulate``), the XEB estimators, the scheme and build
 caches (``runtime/scheme_cache.py``, ``cache.py``) and the command line,
@@ -24,6 +27,8 @@ from .circuits import (TensorNetworkCircuit, from_cirq, load_cirq_circuit,
                        parse_qsim, random_circuit)
 from .network import AbstractTensorNetwork, NumericalTensorNetwork
 from .ops.field import ComplexField, FusedField, SplitField, make_field
+from .parallel import (Mesh, dispatch_batches, make_mesh, run_output_sharded,
+                       run_sliced_contraction)
 from .plan_io import load_plan, plan_from_dict, plan_to_dict, save_plan
 from .planner import (ContractionTree, GreedyOrderFinder, find_order,
                       simulate_annealing)
@@ -44,7 +49,8 @@ __all__ = [
     "TensorNetworkCircuit", "random_circuit", "parse_qsim",
     "load_cirq_circuit", "from_cirq", "AbstractTensorNetwork",
     "NumericalTensorNetwork", "SplitField", "ComplexField", "FusedField",
-    "make_field", "load_plan", "save_plan", "plan_to_dict",
+    "make_field", "Mesh", "make_mesh", "run_sliced_contraction",
+    "run_output_sharded", "dispatch_batches", "load_plan", "save_plan", "plan_to_dict",
     "plan_from_dict", "ContractionTree", "GreedyOrderFinder", "find_order",
     "simulate_annealing", "contraction_scheme",
     "contraction_scheme_sparse", "tensor_contraction",

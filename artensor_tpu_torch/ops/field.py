@@ -189,10 +189,20 @@ def _as_index(indices, device):
     return indices.to(device)
 
 
+def _index1(c, idx, axis):
+    """Index ``idx`` (an int or a one-element tensor) of ``axis``, the
+    axis dropped: ``lax.dynamic_index_in_dim(..., keepdims=False)``."""
+    if isinstance(idx, torch.Tensor):
+        return c.index_select(axis, idx.reshape(1).to(c.device)) \
+            .squeeze(axis)
+    return c.select(axis, int(idx))
+
+
 class _Field:
     """What the executors ask of any field's value: the tensors it is
     made of (``buffers``), a value from them (``join``), a copy, its
-    device and the size of its leading axis."""
+    device and the size of its leading axis; and the multi-device
+    collectives (``psum``, ``pvary``)."""
 
     def clone(self, x):
         return self.join(tuple(c.clone() for c in self.buffers(x)))
@@ -202,6 +212,25 @@ class _Field:
 
     def leading(self, x):
         return self.buffers(x)[0].shape[0]
+
+    def psum(self, x, group=None):
+        """``x`` summed over the processes of the ``torch.distributed``
+        process ``group``: each stored tensor all-reduced in place (a
+        complex one through its real view), ``x`` returned.  With no
+        group, or a group of one process, ``x`` as it is."""
+        import torch.distributed as dist
+
+        if group is None or dist.get_world_size(group) == 1:
+            return x
+        for c in self.buffers(x):
+            dist.all_reduce(torch.view_as_real(c) if c.is_complex() else c,
+                            op=dist.ReduceOp.SUM, group=group)
+        return x
+
+    def pvary(self, x, axis_name=None):
+        """``x``: JAX's ``pvary`` marks a value as varying over a
+        ``shard_map`` axis, a type annotation with no counterpart here."""
+        return x
 
 
 class SplitField(_Field):
@@ -283,6 +312,10 @@ class SplitField(_Field):
                              torch.linalg.vector_norm(x[1], inf)) \
             .to(self.rdtype)
 
+    def matmul(self, a, b):
+        """Batched matmul of (B, M, K) and (B, K, N) operands."""
+        return self.dot(a, b, (((2,), (1,)), ((0,), (0,))))
+
     def dot(self, a, b, dnums):
         """General dot_general (multi-dim batch/contract) on split pairs
         (``_split_dot``), under the precision's TF32 setting (the
@@ -303,6 +336,10 @@ class SplitField(_Field):
         (``_index_logical1``: an int, or one index per slice instance)."""
         return tuple(_index_logical1(c, dims, axis, idx, out_shape)
                      for c in x)
+
+    def index(self, x, idx, axis):
+        """Index ``idx`` of stored ``axis``, the axis dropped."""
+        return tuple(_index1(c, idx, axis) for c in x)
 
     def take(self, x, indices, axis=0):
         """Select ``indices`` along ``axis``."""
@@ -368,6 +405,10 @@ class ComplexField(_Field):
     def scale(self, x, s):
         return x * s
 
+    def matmul(self, a, b):
+        """Batched matmul of (B, M, K) and (B, K, N) operands."""
+        return self.dot(a, b, (((2,), (1,)), ((0,), (0,))))
+
     def dot(self, a, b, dnums):
         """dot_general as one complex ``torch.matmul``, under the
         precision's TF32 setting."""
@@ -380,6 +421,9 @@ class ComplexField(_Field):
     def index_logical(self, x, dims, axis, idx, out_shape):
         return _index_logical1(x, dims, axis, idx, out_shape)
 
+    def index(self, x, idx, axis):
+        return _index1(x, idx, axis)
+
     def take(self, x, indices, axis=0):
         return torch.index_select(x, axis, _as_index(indices, x.device))
 
@@ -388,6 +432,9 @@ class ComplexField(_Field):
 
     def concat(self, parts, axis=0):
         return torch.cat(list(parts), dim=axis)
+
+    def transpose(self, x, perm):
+        return x.permute(*perm)
 
 
 # real 2x2x2 representation of complex multiplication:
@@ -566,6 +613,11 @@ class FusedField(_Field):
     def index_logical(self, x, dims, axis, idx, out_shape):
         return _index_logical1(x, tuple(dims) + (2,), axis, idx,
                                _fold(out_shape))
+
+    def index(self, x, idx, axis):
+        """Index ``idx`` of stored ``axis`` (the folded minor axis holds
+        the (re, im) pairs), the axis dropped."""
+        return _index1(x, idx, axis)
 
     def take(self, x, indices, axis=0):
         """Select ``indices`` along ``axis`` (c-free): an axis before the

@@ -400,21 +400,9 @@ class GroupRunner:
         sliced, one group).  ``progress(done, total)`` after each
         group."""
         device = _device(tensors, self.field)
-        if ids is not None and len(ids) == 0:
-            raise ValueError("no slice ids to sum")
-        plan = [(None, 1)] if ids is None \
-            else group_widths(len(ids), self.width)
+        plan = self.capture(tensors, ids)
         n = 1 if ids is None else len(ids)
         if device.type == "cuda" and not self.eager:
-            key = _key(tensors, self.field)
-            if key != self._cap_key:
-                torch.cuda.synchronize(device)
-                self._caps.clear()  # the old graphs and their pool go first
-                self._acc = self._pool = None
-                self._cap_key = key
-            for w, _ in plan:
-                if w not in self._caps:
-                    self._capture(tensors, ids, w, device)
             return self._replay(plan, ids, init, device, progress)
         t0 = time.perf_counter()
         acc = None if init is None else tuple(c.clone() for c in init)
@@ -436,6 +424,31 @@ class GroupRunner:
             torch.cuda.synchronize(device)
         self.stats["run_s"] = time.perf_counter() - t0
         return acc
+
+    def capture(self, tensors, ids=None):
+        """Make, without running the call, the graphs that a call over
+        ``ids`` replays (on a CUDA device, unless ``eager``; elsewhere
+        nothing): each width of its groups that is not captured yet for
+        these staged buffers.  The multi-device runs capture every
+        replica first, one after another, then replay them in threads:
+        a capture fails if another thread works on the card meanwhile.
+        Returns the call's groups, ``[(width, groups)]``."""
+        device = _device(tensors, self.field)
+        if ids is not None and len(ids) == 0:
+            raise ValueError("no slice ids to sum")
+        plan = [(None, 1)] if ids is None \
+            else group_widths(len(ids), self.width)
+        if device.type == "cuda" and not self.eager:
+            key = _key(tensors, self.field)
+            if key != self._cap_key:
+                torch.cuda.synchronize(device)
+                self._caps.clear()  # the old graphs and their pool go first
+                self._acc = self._pool = None
+                self._cap_key = key
+            for w, _ in plan:
+                if w not in self._caps:
+                    self._capture(tensors, ids, w, device)
+        return plan
 
     def _capture(self, tensors, ids, w, device):
         torch.cuda.synchronize(device)
@@ -543,7 +556,9 @@ def make_sliced_runner(execute, steps, slicing_axes, num_sliced,
     the accumulation) is one CUDA graph, replayed for every group
     (``GroupRunner``); with nothing sliced the whole execution is one
     graph.  ``eager`` (or a CPU device): every step runs from the host.
-    ``fn.stats``: the ``GroupRunner``'s.
+    ``fn.stats``: the ``GroupRunner``'s.  ``fn.capture(tensors,
+    slice_ids=None)``: the graphs a call over those ids replays, made
+    without running it (``GroupRunner.capture``).
     """
     phys_out = physical_shape(output_shape)
     n_slices = 2 ** num_sliced
@@ -567,13 +582,18 @@ def make_sliced_runner(execute, steps, slicing_axes, num_sliced,
     runner = GroupRunner(field, [group], add_into,
                          sum_spec(field, phys_out), slice_batch, eager)
 
-    def run(tensors, slice_ids=None, init=None):
-        ids = slice_ids_tensor(slice_ids, n_slices,
-                               _device(tensors, field)) \
+    def ids_of(tensors, slice_ids):
+        return slice_ids_tensor(slice_ids, n_slices,
+                                _device(tensors, field)) \
             if num_sliced else None
-        return field.join(runner(
-            tensors, ids, None if init is None else field.buffers(init)))
 
+    def run(tensors, slice_ids=None, init=None):
+        return field.join(runner(
+            tensors, ids_of(tensors, slice_ids),
+            None if init is None else field.buffers(init)))
+
+    run.capture = lambda tensors, slice_ids=None: runner.capture(
+        tensors, ids_of(tensors, slice_ids))
     run.stats = runner.stats
     return run
 

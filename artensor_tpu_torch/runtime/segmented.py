@@ -22,8 +22,9 @@ across it, against ``planner/cost.HBM_BUDGET_BYTES``; this takes the place
 of XLA's ``memory_analysis()``.  At width > 1, an audit over budget or a
 ``torch.cuda.OutOfMemoryError`` while a segment is captured halves the
 width and starts again, as does a device out-of-memory error during the
-run (the backstop).  Any other error propagates.  Not ported yet:
-``run_segmented_sharded`` (it waits for multi-device).
+run (the backstop).  Any other error propagates.
+``run_segmented_sharded`` partitions the slice ids over a mesh's
+replicas, one ``run_segmented`` each.
 """
 
 import logging
@@ -39,12 +40,12 @@ from .sparse import apply_sparse_step
 
 __all__ = ["SegmentAuditExceeded", "SegmentCompileFailed", "LAST_RUN",
            "apply_dense_step", "apply_sparse_step", "make_segmented_executor",
-           "run_segmented", "segment_peak_bytes"]
+           "run_segmented", "run_segmented_sharded", "segment_peak_bytes"]
 
 # the last run_segmented call: its width, segments, whether it ran as
-# graphs, its group replays, the seconds of its captures (warm-up group
-# included) and of its group loop (``replay_s``: on the card the graph
-# replays, to a synchronize)
+# graphs, its group replays and warm-up groups, the seconds of its
+# captures (warm-up group included) and of its group loop (``replay_s``:
+# on the card the graph replays, to a synchronize)
 LAST_RUN = {}
 
 
@@ -286,6 +287,7 @@ def run_segmented(tensors, steps, slicing_axes, num_sliced, output_shape,
         LAST_RUN.update(width=W, segments=last + 1,
                         graphs=device.type == "cuda",
                         capture_s=st["capture_s"], replays=st["replays"],
+                        warmup_groups=st["warmup_groups"],
                         replay_s=st["run_s"])
         return acc
 
@@ -312,3 +314,45 @@ def run_segmented(tensors, steps, slicing_axes, num_sliced, output_shape,
             log.warning("segmented slice batch ran out of device memory "
                         "(%s); retrying with slice_batch=%d",
                         str(e).splitlines()[0][:120], W)
+
+
+def run_segmented_sharded(tensors, steps, slicing_axes, num_sliced,
+                          output_shape, field, apply_step, devices,
+                          segment_steps=64, slice_batch=1):
+    """Segmented execution with the slice ids partitioned over ``devices``
+    (a mesh's replicas; a device may repeat): replica ``d`` of ``n`` runs
+    ``run_segmented`` over ``range(d*total//n, (d+1)*total//n)`` on its
+    copy of the staged tensors (one per distinct device), and the
+    partials are added on ``devices[0]`` in replica order; a replica with
+    no ids is skipped.  The replicas run in turn, as JAX's dispatch loop
+    does (there the queues fill asynchronously): each one captures its
+    segments, which cannot overlap other work on the card, and may halve
+    its width.  ``LAST_RUN``: ``replicas``, each one's ``run_segmented``
+    record with its device and slices, and their capture seconds and
+    replays summed."""
+    from ..parallel import _as_device, _on, _placer
+
+    devices = [_as_device(d) for d in devices]
+    total = 2 ** num_sliced if num_sliced else 1
+    n = len(devices)
+    place = _placer(tensors, field)
+    acc, replicas = None, []
+    for d, dev in enumerate(devices):
+        ids = range(d * total // n, (d + 1) * total // n)
+        if not len(ids):
+            continue
+        with _on(dev):
+            part = run_segmented(
+                place(dev), steps, slicing_axes, num_sliced, output_shape,
+                field, apply_step, segment_steps, slice_batch=slice_batch,
+                slice_ids=ids)
+        replicas.append(dict(LAST_RUN, device=str(dev), slices=len(ids),
+                             first_slice=ids.start))
+        part = field.join(tuple(c.to(devices[0])
+                                for c in field.buffers(part)))
+        acc = part if acc is None else field.add(acc, part)
+    LAST_RUN.clear()
+    LAST_RUN.update(replicas=replicas,
+                    capture_s=sum(r["capture_s"] for r in replicas),
+                    replays=sum(r["replays"] for r in replicas))
+    return acc

@@ -30,9 +30,14 @@ checkpoint/resume (``runtime/checkpoint.py``), the segmented executor
 for schemes above ``SEGMENT_AUTO_THRESHOLD`` device steps
 (``runtime/segmented.py``), else the whole-group run; with a ``report``
 and a ``profile_dir`` (``torch.profiler``).  On the card every mode runs
-as CUDA-graph replay (``runtime/executor.py``).  Not ported yet:
-``contraction_output_sharded`` and the ``mesh`` of ``contraction`` (they
-wait for multi-device).
+as CUDA-graph replay (``runtime/executor.py``).  Over a device mesh
+(``parallel.make_mesh``, or ``parallel.distributed.global_mesh`` across
+processes) ``contraction(mesh=...)`` partitions the slices over the
+mesh's replicas (``parallel.run_sliced_contraction``, or above
+``SEGMENT_AUTO_THRESHOLD`` steps ``segmented.run_segmented_sharded``),
+and ``contraction_output_sharded`` computes a dense state's output blocks
+on the replicas (``parallel.run_output_sharded``); the one-shots take a
+``mesh`` too.
 """
 
 import json
@@ -121,6 +126,18 @@ def require_device(device):
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run the plain versions on the CPU")
     return device
+
+
+def run_device(device, mesh):
+    """The device a run stages its tensors on: ``device``
+    (``require_device``), or with a ``mesh`` its first replica's.  A mesh
+    names its devices: a ``device`` other than the default beside it
+    raises."""
+    if mesh is None:
+        return require_device(device)
+    if torch.device(device) != torch.device("cuda"):
+        raise ValueError("a mesh names its devices: pass no device with it")
+    return mesh.devices[0]
 
 
 class TensorNetworkSimulation:
@@ -282,7 +299,9 @@ class TensorNetworkSimulation:
         first call captures a slice group as a CUDA graph (the whole run,
         with nothing sliced) and every call replays it; ``eager``: every
         step runs from the host, as on the CPU.  ``callable.stats``: the
-        runner's captures, replays and capture seconds."""
+        runner's captures, replays and capture seconds;
+        ``callable.capture()`` makes its graphs without running it (as
+        ``parallel.dispatch_batches`` needs of a group's run)."""
         from .runtime import executor as ex
 
         from .ops.field import make_field
@@ -296,12 +315,13 @@ class TensorNetworkSimulation:
             slice_batch=slice_batch, eager=eager)
         call = lambda: run(arrays)
         call.stats = run.stats
+        call.capture = lambda: run.capture(arrays)
         return call
 
     def contraction(self, dtype=np.complex64, precision="highest",
                     mode="split", algo="naive", scientific_notation=False,
                     checkpoint_path=None, report=None, slice_batch=1,
-                    profile_dir=None, device="cuda"):
+                    profile_dir=None, device="cuda", mesh=None):
         """Execute the compiled plan; returns a numpy array: in dense mode
         the ``(2,)*n`` state in qubit order, in sparse mode the amplitudes
         ``(len(bitstrings_sorted),)`` in the order of
@@ -315,9 +335,16 @@ class TensorNetworkSimulation:
         (``ops/einsum.py``).  ``scientific_notation``: renormalise every
         intermediate; returns ``(amplitudes, log10_factor)``, true values
         = amplitudes * 10**factor (slices one at a time).
-        ``checkpoint_path``: save the partial slice sum after every chunk
-        of slices (an eighth, at least ``slice_batch``) and resume from
-        the file; it is removed on success.  Above
+        ``mesh`` (``parallel.Mesh``; with it no ``device``): the slices
+        partitioned over the mesh's replicas at width ``slice_batch``
+        each (``parallel.run_sliced_contraction``; above
+        ``SEGMENT_AUTO_THRESHOLD`` device steps
+        ``segmented.run_segmented_sharded``), the result on its first
+        replica's device; scientific notation runs before it, on that
+        device, and it wins over ``checkpoint_path``, as in the JAX
+        package.  ``checkpoint_path``: save the partial slice sum after
+        every chunk of slices (an eighth, at least ``slice_batch``) and
+        resume from the file; it is removed on success.  Above
         ``SEGMENT_AUTO_THRESHOLD`` device steps the run is segmented.
         Otherwise the whole-group run, whose width halves on a
         ``torch.cuda.OutOfMemoryError`` (logged).  ``report``: a
@@ -325,7 +352,8 @@ class TensorNetworkSimulation:
         ``profile_dir``: a ``torch.profiler`` trace of the execution,
         written there as ``trace.json``.  ``self.run_stats`` holds the
         executor, the width it used, and its captures, replays and
-        capture seconds.
+        capture seconds (over a mesh, summed over its replicas, each
+        replica's under ``replicas``).
         """
         import torch
 
@@ -333,7 +361,7 @@ class TensorNetworkSimulation:
         from .runtime import executor as ex
         from .runtime import metrics as mt
 
-        device = require_device(device)
+        device = run_device(device, mesh)
         field, run_steps, arrays, out_shape, execute, apply_step = \
             self._staged(device, make_field(dtype, precision, mode, algo))
         k = len(self.slicing_bonds)
@@ -358,6 +386,37 @@ class TensorNetworkSimulation:
                     result, factor = run(arrays)
                     stats = dict(run.stats, executor="rescaled",
                                  slice_batch=1)
+                elif mesh is not None and \
+                        len(run_steps) > SEGMENT_AUTO_THRESHOLD:
+                    from .runtime import segmented
+
+                    if mesh.group is not None:
+                        raise ValueError("the segmented mesh run is one "
+                                         "process's: a mesh across "
+                                         "processes runs whole groups")
+                    result = segmented.run_segmented_sharded(
+                        arrays, run_steps, self.slicing_axes, k, out_shape,
+                        field, apply_step, list(mesh.devices),
+                        slice_batch=slice_batch)
+                    reps = segmented.LAST_RUN["replicas"]
+                    stats = dict(executor="segmented-sharded",
+                                 replicas=reps,
+                                 slice_batch=max(r["width"] for r in reps),
+                                 segments=reps[0]["segments"],
+                                 capture_s=segmented.LAST_RUN["capture_s"],
+                                 replays=segmented.LAST_RUN["replays"])
+                elif mesh is not None:
+                    from . import parallel
+
+                    result = parallel.run_sliced_contraction(
+                        arrays, run_steps, self.slicing_axes, k, out_shape,
+                        mesh, field=field, execute=execute,
+                        slice_batch=slice_batch)
+                    reps = parallel.LAST_RUN["replicas"]
+                    stats = dict(executor="mesh", replicas=reps,
+                                 slice_batch=slice_batch,
+                                 **{key: sum(r[key] for r in reps) for key in
+                                    ("captures", "replays", "capture_s")})
                 elif checkpoint_path is not None:
                     from .runtime.checkpoint import run_sliced_checkpointed
 
@@ -493,6 +552,48 @@ class TensorNetworkSimulation:
                             "k_sum": len(sliced)}
         return self
 
+    def contraction_output_sharded(self, mesh, d_out=None,
+                                   dtype=np.complex64, precision="highest",
+                                   mode="split"):
+        """The dense state with its output sharded over ``mesh``'s
+        replicas: each computes its 2^(n - d_out) amplitudes a block, the
+        2^d_out blocks (``d_out`` default ``max(1, ceil(log2 n))``; n
+        must divide 2^d_out) split evenly among them
+        (``parallel.run_output_sharded``), so that no card holds the
+        whole state; the blocks are gathered on the host.  After
+        ``prepare_output_sharded(d_out)`` the planned blocks, otherwise
+        the legs sliced post hoc (``_dense_shard_setup``); the steps that
+        no sliced leg reaches run once, on the first replica's device,
+        before the blocks (``executor.fold_invariant_steps``).  Returns
+        the whole ``(2,)*n`` state in qubit order (a numpy view)."""
+        from .ops.field import make_field
+        from .parallel import run_output_sharded
+        from .runtime import executor as ex
+
+        if d_out is None:
+            d_out = max(1, int(np.ceil(np.log2(len(mesh.devices)))))
+        field = make_field(dtype, precision, mode)
+        steps, axes, chosen, output_bonds, k_sum, restore = \
+            _dense_shard_setup(self, d_out)
+        try:
+            steps, host_arrays = ex.precompute_static_steps(
+                steps, [self.tensors[i] for i in range(len(self.tensors))],
+                axes)
+            staged = ex.stage_tensors(field, host_arrays, mesh.devices[0])
+            steps, staged = ex.fold_invariant_steps(staged, steps, axes,
+                                                    field)
+            local_shape = (2,) * len(output_bonds)
+            parts = run_output_sharded(staged, steps, axes, d_out, k_sum,
+                                       local_shape, mesh, field=field)
+            del staged
+            out = np.concatenate([field.unwrap(p).reshape(-1)
+                                  for p in parts])
+            del parts
+            return out.reshape((2,) * d_out + local_shape).transpose(
+                _dense_shard_perm(chosen, output_bonds))
+        finally:
+            restore()
+
     def contraction_output_blocks(self, d_out, dtype=np.complex64,
                                   precision="highest", mode="split",
                                   postprocess=None, device="cuda",
@@ -617,11 +718,11 @@ def tensor_network_contraction(tensors, tensor_bonds, bond_dims, final_qubits,
     Returns (amplitudes, bitstrings): bitstrings is the sorted order the
     sparse amplitudes come back in ([] in dense mode).  ``kwargs``: any
     ``PlannerConfig`` field (``iters`` defaults to 50), and
-    ``contraction``'s ``precision`` and ``mode``.
+    ``contraction``'s ``precision``, ``mode`` and ``mesh`` (the slices
+    over a mesh's replicas; with it no ``device``).
     """
-    device = require_device(device)
-    if kwargs.get("mesh") is not None:
-        raise NotImplementedError("a device mesh is not ported yet")
+    mesh = kwargs.get("mesh")
+    run_device(device, mesh)
     pattern, max_bitstrings = check_bitstrings(bitstrings)
     ntn = NumericalTensorNetwork(tensors, tensor_bonds, bond_dims,
                                  final_qubits)
@@ -636,7 +737,7 @@ def tensor_network_contraction(tensors, tensor_bonds, bond_dims, final_qubits,
     sim.prepare_contraction(PlannerConfig(**cfg_kwargs))
     result = sim.contraction(
         dtype=dtype, precision=kwargs.get("precision", "highest"),
-        mode=kwargs.get("mode", "split"), device=device)
+        mode=kwargs.get("mode", "split"), device=device, mesh=mesh)
     out_bits = sim.bitstrings_sorted if pattern == "sparse" else []
     return result, out_bits
 

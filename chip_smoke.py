@@ -152,13 +152,40 @@ block walk's slice-invariant steps) is not made twice.  Phases, in order
    scheme cache (``runtime/scheme_cache.py``) cold then warm on the 1k
    default scheme (the warm steps equal to the cold ones, a run from them
    held to the fixture).  Phase 5 also holds every sparse path's floor
-   (``metrics.scheme_roofline_seconds`` x its slices) below its warm wall.
+   (``metrics.scheme_roofline_seconds`` x its slices) below its warm wall;
+10. multi-device (``drive_multi``, after phase 9, on simulations kept
+   from phases 5 and 8): (a) 1k/default through ``contraction(mesh=...)``
+   over ``MESH_DEVICES`` (two replicas on the one card, the stand-in for
+   two cards) at ``MESH_WIDTH`` a replica ("1k/mesh2"), then over
+   ``make_mesh()`` (every card: one here, "1k/make_mesh"), every amplitude
+   against the fixture, the launches of the first call held to the
+   census times the replicas' groups, the warm wall (the replicas'
+   replays to the sum, median of 3 after one) beside one card's at the
+   same width, and the card's peak; (b) ``run_segmented_sharded`` over
+   the two replicas at ``SEGMENT_STEPS`` steps a segment; (c)
+   ``dispatch_batches`` of 1k/default and 10k/default (each at half its
+   model width) over the two replicas, both built before either runs,
+   each against its fixture, with each run alone beside them; (d) the
+   dense state through ``contraction_output_sharded`` over the two
+   replicas, planned (phase 8b's simulation, 16 blocks of 2^26) and post
+   hoc (dense/default, 4 blocks of 2^28): its launches, wall and the
+   card's peak, then held on the card block by block to phase 5's
+   default state (kept on the host) within ``BLOCK_TOL`` x rms, its
+   norm^2 within ``NORM_TOL`` and the 11000 fixture amplitudes; (e)
+   ``torch.distributed`` on the 1k batch, each rank a process of its own
+   (this script with ``--dist-worker``, the 1k default scheme loaded
+   from phase 9's scheme cache): two ranks with gloo, both on the card,
+   through ``run_sliced_distributed`` at ``MESH_WIDTH``, then one rank
+   with NCCL (its sum all-reduced twice more through NCCL, each timed:
+   the first makes the communicator); every rank's amplitudes equal and
+   held to the fixture, each rank's launches to the census, the walls
+   and all-reduce seconds printed.
 
-Then the paths' and the modes' numbers, the CLI's, one JSON line with every
-kernel's numbers (for each kernel its largest step on the first path
-that runs it, under ``costliest`` that path's slowest step of the kind,
-and under ``paths`` every path's ("<workload>/<form>", the planned ones
-included) launches, kernels
+Then the paths' and the modes' numbers, the CLI's, phase 10's, one JSON
+line with every kernel's numbers (for each kernel its largest step on the
+first path that runs it, under ``costliest`` that path's slowest step of
+the kind, and under ``paths`` every path's ("<workload>/<form>", the
+planned ones and phase 10's runs included) launches, kernels
 run on the card (``device_launches``), replays and steps; ``launches``
 and ``device_launches`` summed over the paths; the complex matmul's
 larger shape, 0 launches), the card line, and last ``{"ok": true,
@@ -186,9 +213,11 @@ transpose; each timed alone).
 import argparse
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2730,17 +2759,18 @@ def cli_amps(text):
     return got
 
 
-def drive_cli(wrappers, dflt, dflt_run):
+def drive_cli(wrappers, dflt, dflt_run, schemes):
     """9: the command line on the 1k batch (``dflt``: the 1k/default path,
-    ``dflt_run``: its phase-5 run).  ``simulate --plan`` as a subprocess,
-    the user's path (every amplitude against the fixture, its wall and its
-    report line), then in this process (its kernels counted on the card
-    and held to the census of its scheme, which must be 1k/default's);
-    ``bench`` at ``CLI_BENCH_WIDTH`` against phase 5's warm wall and its
-    roofline below the wall; ``verify`` on ``CLI_VERIFY_QSIM`` (exit 0,
-    fidelity estimate above 0.999); ``info`` and ``plan`` (the native
-    search) on the qsim file; the scheme cache cold then warm on the 1k
-    default scheme, the warm steps equal to the cold ones and a run from
+    ``dflt_run``: its phase-5 run; ``schemes``: an empty directory for the
+    scheme cache, which phase 10's processes read).  ``simulate --plan`` as
+    a subprocess, the user's path (every amplitude against the fixture, its
+    wall and its report line), then in this process (its kernels counted on
+    the card and held to the census of its scheme, which must be
+    1k/default's); ``bench`` at ``CLI_BENCH_WIDTH`` against phase 5's warm
+    wall and its roofline below the wall; ``verify`` on ``CLI_VERIFY_QSIM``
+    (exit 0, fidelity estimate above 0.999); ``info`` and ``plan`` (the
+    native search) on the qsim file; the scheme cache cold then warm on the
+    1k default scheme, the warm steps equal to the cold ones and a run from
     them held to the fixture.  Returns the phase's numbers."""
     import pickle
     import shutil
@@ -2878,7 +2908,7 @@ def drive_cli(wrappers, dflt, dflt_run):
               flush=True)
 
         # 9f. the scheme cache, cold then warm, on the 1k default scheme
-        os.environ[scheme_cache.ENV] = os.path.join(tmp, "schemes")
+        os.environ[scheme_cache.ENV] = schemes
         with open(plan) as f:
             pd = json.load(f)
         csim = TensorNetworkSimulation.from_circuit(random_circuit(**CIRCUIT),
@@ -2889,7 +2919,7 @@ def drive_cli(wrappers, dflt, dflt_run):
         cold = scheme_cache.cached_scheme_sparse(plan, csim.ctree,
                                                  csim.bitstrings, sc)
         cold_s = time.perf_counter() - t0
-        check(len(os.listdir(os.path.join(tmp, "schemes"))) == 1,
+        check(len(os.listdir(schemes)) == 1,
               "scheme cache: the cold call wrote no file")
         t0 = time.perf_counter()
         warm = scheme_cache.cached_scheme_sparse(plan, csim.ctree,
@@ -2919,11 +2949,587 @@ def drive_cli(wrappers, dflt, dflt_run):
     print(f"cli: phase 9 in {out['phase_s']:.1f} s", flush=True)
     return out
 
+MESH_DEVICES = ("cuda:0", "cuda:0")   # phase 10's mesh: two replicas on
+                              # the one card, the stand-in for two cards
+MESH_PATHS = ("1k/default", "10k/default")   # the sparse paths phase 10
+                              # drives again
+MESH_WIDTH = 32               # each replica's slice width there: half of
+                              # 1k/default's 64 (two pools share the card)
+DIST_TIMEOUT = 300            # seconds, each torch.distributed process
+DIST_PROCS = (("1k/dist2", 2, "gloo"),    # (label, processes, backend):
+              ("1k/nccl1", 1, "nccl"))    # NCCL refuses two ranks on one card
+DIST_RUNS = 3                 # runs a process makes (the first captures)
+
+
+def mesh_counts(path, wrappers, ran, replicas):
+    """A mesh run's launches (``run_counts``): the replicas share the
+    card's counters, so each kernel is held to its census times the
+    replicas' warm-up groups (the wrappers) and their warm-up groups and
+    replays (the card), summed."""
+    return run_counts(path, wrappers, ran, dict(
+        warmup_groups=sum(r["warmup_groups"] for r in replicas),
+        replays=sum(r["replays"] for r in replicas)))
+
+
+def drive_mesh(path, wrappers, mesh, label, single_s):
+    """10a: a sparse path (``path``: its state at ``MESH_WIDTH``) through
+    ``contraction(mesh=...)`` from a fresh allocator, its kernels counted
+    on the card and held to the census times the replicas' groups, every
+    amplitude against the fixture, the card's peak over the call (every
+    replica's pool); then the warm wall: the replicas' replays to the sum
+    on the first device (``parallel.LAST_RUN["run_s"]``; every call
+    captures anew, as JAX's mesh run compiles anew), median of 3 after
+    one, beside ``single_s``, the single-card warm wall at that width."""
+    import numpy as np
+    import torch
+
+    from artensor_tpu_torch import parallel
+
+    sim, ref, W = path["sim"], path["ref"], path["W"]
+    fresh_memory()
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    amps, ran = counted_on_card(lambda: sim.contraction(mesh=mesh,
+                                                        slice_batch=W))
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    st = sim.run_stats
+    reps = st["replicas"]
+    check(st["executor"] == "mesh" and st["graphs"]
+          and [r["device"] for r in reps] == [str(d) for d in mesh.devices]
+          and all(r["slice_batch"] == W and r["captures"] == 1
+                  for r in reps), f"{label}: ran {json.dumps(st)}")
+    counts = mesh_counts(path, wrappers, ran, reps)
+    worst = amp_check(label, amps, np.array([ref[b] for b in
+                                             sim.bitstrings_sorted]),
+                      sim.bitstrings_sorted)
+    field, run_steps, arrays, out_shape, execute, _ = sim._staged(
+        mesh.devices[0])
+    walls, prepares = [], []
+    for _ in range(4):
+        res = None      # a run's result is not held over the next
+        res = parallel.run_sliced_contraction(
+            arrays, run_steps, sim.slicing_axes, len(sim.slicing_bonds),
+            out_shape, mesh, field=field, execute=execute, slice_batch=W)
+        walls.append(parallel.LAST_RUN["run_s"])
+        prepares.append(parallel.LAST_RUN["prepare_s"])
+    share = fixture_share(path, res)
+    check(share <= 1.0, f"{label}: a warm run misses the fixture")
+    del res, arrays
+    warm = statistics.median(walls[1:])
+    out = dict(**counts, first_s=first_s, warm_s=warm, walls=walls[1:],
+               prepare_s=prepares[1:], single_card_warm_s=single_s,
+               ratio_to_single=warm / single_s, peak_gib=peak / 2 ** 30,
+               reserved_gib=reserved / 2 ** 30, replicas=reps,
+               slice_batch=W, fixture_share=share, worst_over_bound=worst,
+               census=dict(path["census"]))
+    print(f"mesh {label}: {len(reps)} replicas on "
+          f"{[str(d) for d in mesh.devices]} at width {W} each; first call "
+          f"{first_s:.3f} s (staging, captures, replays); warm wall (the "
+          f"replays to the sum) {warm:.4f} s of "
+          f"{['%.4f' % w for w in walls[1:]]}, against one card's "
+          f"{single_s:.4f} s at width {W} ({warm / single_s:.3f}x); "
+          f"captures {['%.3f' % p for p in prepares[1:]]} s a call; card "
+          f"peak {peak / 2 ** 30:.3f} GiB allocated (the captures run in "
+          f"turn; a replay allocates nothing), "
+          f"{reserved / 2 ** 30:.3f} GiB reserved (every replica's pool) "
+          f"over the first call; {counts_line(counts)}", flush=True)
+    return out
+
+
+def drive_segmented_mesh(path, wrappers, mesh, label):
+    """10b: ``segmented.run_segmented_sharded`` on the path's staged
+    inputs over the mesh at ``SEGMENT_STEPS`` steps a segment and the
+    path's width: each replica's width and segments, launches held to the
+    census, the sum against the fixture, wall and card peak."""
+    import torch
+
+    from artensor_tpu_torch.runtime import segmented
+
+    sim, W = path["sim"], path["W"]
+    field, run_steps, arrays, out_shape, _, step = sim._staged(
+        mesh.devices[0])
+    fresh_memory()
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, ran = counted_on_card(lambda: segmented.run_segmented_sharded(
+        arrays, run_steps, sim.slicing_axes, len(sim.slicing_bonds),
+        out_shape, field, step, list(mesh.devices),
+        segment_steps=SEGMENT_STEPS, slice_batch=W))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    reps = segmented.LAST_RUN["replicas"]
+    n_seg = -(-len(run_steps) // SEGMENT_STEPS)
+    check(len(reps) == len(mesh.devices)
+          and all(r["width"] == W and r["segments"] == n_seg and r["graphs"]
+                  for r in reps), f"{label}: ran {json.dumps(reps)}")
+    counts = mesh_counts(path, wrappers, ran, reps)
+    share = fixture_share(path, res)
+    check(share <= 1.0, f"{label}: misses the fixture")
+    del res, arrays
+    print(f"segmented {label}: {len(reps)} replicas, {n_seg} segments of "
+          f"{SEGMENT_STEPS} steps at width {W}, {wall:.3f} s (captures "
+          f"{sum(r['capture_s'] for r in reps):.3f} s, replays "
+          f"{[round(r['replay_s'], 4) for r in reps]} s); worst |d|/bound "
+          f"{share:.3e}; card peak {peak / 2 ** 30:.3f} GiB allocated, "
+          f"{reserved / 2 ** 30:.3f} GiB reserved; "
+          f"{counts_line(counts)}", flush=True)
+    return dict(**counts, wall_s=wall, peak_gib=peak / 2 ** 30,
+                reserved_gib=reserved / 2 ** 30, replicas=reps,
+                segments=n_seg, slice_batch=W, fixture_share=share,
+                census=dict(path["census"]))
+
+
+def drive_dispatch(paths, wrappers, devices, label):
+    """10c: ``parallel.dispatch_batches`` of the paths' runners
+    (``prepare`` at each path's width, captured when built), group ``g``
+    on ``devices[g % n]``: both built before either runs, the runs
+    together; every kernel held to the census of both summed, each result
+    against its fixture; then each run again alone, in turn."""
+    import torch
+
+    from artensor_tpu_torch import parallel
+
+    calls = []
+
+    def make_runner(path):
+        def runner(dev):
+            call = path["sim"].prepare(slice_batch=path["W"], device=dev)
+            call.capture()
+            calls.append(call)
+            return call
+        return runner
+
+    fresh_memory()
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, ran = counted_on_card(lambda: parallel.dispatch_batches(
+        make_runner, paths, list(devices)))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    last = dict(parallel.LAST_RUN)
+    launches, device = {}, {}
+    for kind in KERNELS:
+        launches[kind] = wrappers[kind].launches
+        device[kind] = ran["counts"][kind]
+        want_w = sum(p["census"].get(kind, 0) * c.stats["warmup_groups"]
+                     for p, c in zip(paths, calls))
+        want_d = sum(p["census"].get(kind, 0) * (c.stats["warmup_groups"]
+                                                 + c.stats["replays"])
+                     for p, c in zip(paths, calls))
+        check(launches[kind] == want_w and device[kind] == want_d,
+              f"{label} {kind}: {launches[kind]} launches, {device[kind]} "
+              f"run on the card; expected {want_w}, {want_d}")
+    shares = [fixture_share(p, r) for p, r in zip(paths, res)]
+    check(max(shares) <= 1.0, f"{label}: a group misses its fixture")
+    del res
+    alone = [statistics.median(timed_runs(c)) for c in calls]
+    out = dict(launches=launches, device_launches=device,
+               replays=sum(c.stats["replays"] for c in calls),
+               wall_s=wall, build_s=last["prepare_s"], run_s=last["run_s"],
+               alone_warm_s=alone, peak_gib=peak / 2 ** 30,
+               reserved_gib=reserved / 2 ** 30,
+               groups=[dict(path=p["name"],
+                            device=str(devices[g % len(devices)]),
+                            slice_batch=p["W"], fixture_share=s,
+                            run_s=c.stats["run_s"])
+                       for g, (p, c, s) in enumerate(zip(paths, calls,
+                                                         shares))])
+    print(f"dispatch {label}: {[p['name'] for p in paths]} on "
+          f"{[str(devices[g % len(devices)]) for g in range(len(paths))]}: "
+          f"built (staging, captures) in {last['prepare_s']:.3f} s, both "
+          f"run together in {last['run_s']:.4f} s (each group's own loop "
+          f"{[round(c.stats['run_s'], 4) for c in calls]} s), each alone "
+          f"warm {[round(a, 4) for a in alone]} s; worst |d|/bound "
+          f"{[round(s, 4) for s in shares]}; card peak "
+          f"{peak / 2 ** 30:.3f} GiB allocated, "
+          f"{reserved / 2 ** 30:.3f} GiB reserved; launches "
+          f"{json.dumps(launches)}, run "
+          f"on the card {json.dumps(device)}", flush=True)
+    del calls
+    return out
+
+
+def post_hoc_block_path(dense, d_out):
+    """The dense default path's block scheme at ``d_out`` legs sliced
+    post hoc (``block_path``: its census per slice and once), as
+    ``contraction_output_sharded`` compiles it (the legs restored at
+    once)."""
+    from artensor_tpu_torch.runtime import scheme
+    from artensor_tpu_torch.simulation import _dense_shard_setup
+
+    sim = dense["sim"]
+    t0 = time.perf_counter()
+    steps, axes, chosen, output_bonds, k, restore = \
+        _dense_shard_setup(sim, d_out)
+    restore()
+    return block_path(sim, "dense", f"sharded-d{d_out}", steps, axes, chosen,
+                      k, d_out, dense["ref"], time.perf_counter() - t0,
+                      dict(scheme.LAST_COMPILE), 2 ** len(output_bonds))
+
+
+def drive_sharded(path, wrappers, mesh, label):
+    """10d, the run: ``contraction_output_sharded(mesh, d_out)`` on the
+    path's simulation (``path``: its block path) from a fresh allocator,
+    its kernels counted on the card and held to the census (the steps run
+    once, on the first replica's device, and each replica's warm-up
+    groups and replays), each replica's blocks, the wall split into the
+    replicas' preparation and runs and the host's gather, the card's
+    peak (every replica's).  Returns the numbers and the state."""
+    import torch
+
+    from artensor_tpu_torch import parallel
+
+    d_out, n = path["d_out"], len(mesh.devices)
+    fresh_memory()
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, ran = counted_on_card(lambda: path["sim"].contraction_output_sharded(
+        mesh, d_out=d_out))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    last = dict(parallel.LAST_RUN)
+    reps = last["replicas"]
+    check(len(reps) == n and all(r["blocks"] == 2 ** d_out // n
+                                 and r["captures"] == 1 for r in reps),
+          f"{label}: ran {json.dumps(last)}")
+    counts = mesh_counts(path, wrappers, ran, reps)
+    print(f"sharded {label}: {2 ** d_out} blocks of 2^{res.ndim - d_out} "
+          f"({2 ** path['k']} slices a block) over {n} replicas in "
+          f"{wall:.3f} s: replicas prepared (placement, captures) in "
+          f"{last['prepare_s']:.3f} s, run in {last['run_s']:.3f} s, the "
+          f"rest (block scheme, staging, the steps run once, the host's "
+          f"gather) {wall - last['prepare_s'] - last['run_s']:.3f} s; card "
+          f"peak {peak / 2 ** 30:.3f} GiB allocated, "
+          f"{reserved / 2 ** 30:.3f} GiB reserved ({n} replicas); "
+          f"{counts_line(counts)}", flush=True)
+    return dict(**counts, wall_s=wall, prepare_s=last["prepare_s"],
+                run_s=last["run_s"], peak_gib=peak / 2 ** 30,
+                reserved_gib=reserved / 2 ** 30, replicas=reps,
+                d_out=d_out, blocks=2 ** d_out,
+                census=dict(path["census"])), res
+
+
+def sharded_state_check(label, res, ref, state_bonds, rms, fixture, d_out):
+    """10d, the check: the gathered state ``res`` (qubit order, on the
+    host) at the fixture's amplitudes, and block by block on the card
+    against the whole state ``ref`` (flat split pair on the card, its
+    axes ``state_bonds``) within ``BLOCK_TOL`` x rms, with its norm^2 in
+    float64.  A block of the ``d_out`` leading qubits is one span of the
+    gathered buffer: it is uploaded flat as stored and read against
+    ``ref`` through an index built on the card (flat, as a reduction on
+    the card takes at most 25 dimensions)."""
+    import numpy as np
+    import torch
+
+    n = res.ndim
+    check(res.shape == (2,) * len(state_bonds), f"{label}: state "
+          f"{res.shape}")
+    bits = list(fixture)
+    digits = np.array([[int(c) for c in b] for b in bits])
+    worst = amp_check(label, res[tuple(digits.T)].astype(np.complex128),
+                      np.array([fixture[b] for b in bits]), bits)
+    pos = {_qubit(b): a for a, b in enumerate(state_bonds)}
+    d_max = nrm = 0.0
+    for b in np.ndindex(*(2,) * d_out):
+        v = torch.from_numpy(res[b])
+        L = v.dim()
+        order = sorted(range(L), key=lambda a: -v.stride(a))
+        c = v.permute(*order)
+        check(c.is_contiguous(), f"{label}: block {b} is not one span")
+        g = c.reshape(-1).to(DEVICE)
+        # stored axis i is qubit d_out + order[i]; its bit in ref's index
+        ar = torch.arange(2 ** L, device=DEVICE)
+        idx = torch.full_like(ar, sum(int(x) << (n - 1 - pos[q])
+                                      for q, x in enumerate(b)))
+        for i, a in enumerate(order):
+            idx += ((ar >> (L - 1 - i)) & 1) << (n - 1 - pos[d_out + a])
+        del ar
+        d = torch.hypot(g.real - ref[0][idx], g.imag - ref[1][idx])
+        d_max = max(d_max, d.max().item())
+        nrm += torch.view_as_real(g).double().square().sum().item()
+        del v, c, g, idx, d
+    print(f"sharded {label}: {2 ** d_out} blocks of 2^{n - d_out} against "
+          f"the default state: max|d| {d_max:.3e} (limit {BLOCK_TOL} x rms "
+          f"{rms:.3e}); norm^2 {nrm:.9f}", flush=True)
+    check(d_max <= BLOCK_TOL * rms, f"{label}: differs from the default "
+          f"state by {d_max:.3e}")
+    check(abs(nrm - 1) <= NORM_TOL, f"{label}: norm^2 {nrm} off 1")
+    return dict(max_block_diff=d_max, norm2=nrm, worst_over_bound=worst)
+
+
+def dist_worker(prefix, backend, W):
+    """One process of phase 10e (``--dist-worker PREFIX``), rank
+    ``ARTENSOR_PROC_ID`` of ``ARTENSOR_NUM_PROCS``: joins the group over
+    ``ARTENSOR_COORDINATOR`` with ``backend`` (``initialize``; a group of
+    one is joined directly, which ``initialize`` leaves alone), loads the
+    1k default scheme from the scheme cache, stages on its device
+    (``global_mesh``) and runs ``run_sliced_distributed`` at width ``W``
+    ``DIST_RUNS`` times, its kernels counted on the card; a group of one
+    then all-reduces the sum twice more through the backend.  Writes
+    ``PREFIX.<rank>.npy`` (the amplitudes) and ``PREFIX.<rank>.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    from artensor_tpu_torch import (TensorNetworkSimulation, kernels,
+                                    parallel, random_circuit)
+    from artensor_tpu_torch.parallel import distributed
+    from artensor_tpu_torch.plan_io import plan_from_dict
+    from artensor_tpu_torch.runtime import scheme_cache
+
+    t_start = time.perf_counter()
+    kernels.load()
+    rank = int(os.environ["ARTENSOR_PROC_ID"])
+    size = int(os.environ["ARTENSOR_NUM_PROCS"])
+    t0 = time.perf_counter()
+    if size > 1:
+        check(distributed.initialize(backend=backend), "initialize did "
+              "not join a group")
+    else:
+        tdist.init_process_group(
+            backend, init_method=f"tcp://{os.environ['ARTENSOR_COORDINATOR']}",
+            rank=0, world_size=1)
+    init_s = time.perf_counter() - t0
+    try:
+        mesh = distributed.global_mesh()
+        check(mesh.size == size and mesh.rank == rank
+              and mesh.group is not None, f"global mesh {mesh}")
+        plan, ref = PATHS["1k"][0], load_fixture(PATHS["1k"][1])
+        sim = TensorNetworkSimulation.from_circuit(random_circuit(**CIRCUIT),
+                                                   list(ref))
+        with open(plan) as f:
+            pd = json.load(f)
+        sim.order, sim.slicing_bonds, sim.ctree = plan_from_dict(pd)
+        sim.sc_target = float(pd["meta"]["sc_target"])
+        t0 = time.perf_counter()
+        sim._set_scheme(*scheme_cache.cached_scheme_sparse(
+            plan, sim.ctree, sim.bitstrings, sim.sc_target))
+        load_s = time.perf_counter() - t0
+        field, run_steps, arrays, out_shape, execute, _ = sim._staged(
+            mesh.devices[0])
+        wrappers = {k: wrapper(v[0]) for k, v in KERNELS.items()}
+        runs = []
+        for i in range(DIST_RUNS):
+            reset_counts(wrappers)
+            t0 = time.perf_counter()
+            res, ran = counted_on_card(
+                lambda: distributed.run_sliced_distributed(
+                    arrays, run_steps, sim.slicing_axes,
+                    len(sim.slicing_bonds), out_shape, mesh, field=field,
+                    execute=execute, slice_batch=W))
+            last = dict(parallel.LAST_RUN)
+            runs.append(dict(
+                wall_s=time.perf_counter() - t0, prepare_s=last["prepare_s"],
+                run_s=last["run_s"], psum_s=last["psum_s"],
+                replicas=last["replicas"],
+                launches={k: f.launches for k, f in wrappers.items()},
+                forms={k: dict(wrappers[k].forms) for k in ("gk", "ggk")},
+                device_launches=ran["counts"], device_forms=ran["forms"]))
+        allreduce_s = None
+        if size == 1:   # psum leaves a group of one alone: the backend's
+            # own all-reduce, twice (the first makes the communicator)
+            bufs = field.buffers(res)
+            before = [c.clone() for c in bufs]
+            allreduce_s = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for c in bufs:
+                    tdist.all_reduce(c, group=mesh.group)
+                torch.cuda.synchronize()
+                allreduce_s.append(time.perf_counter() - t0)
+            check(all(torch.equal(a, b) for a, b in zip(before, bufs)),
+                  "a one-process all-reduce changed the sum")
+        amps = field.unwrap(res).reshape(out_shape).transpose(
+            sim.permute_dims)
+        np.save(f"{prefix}.{rank}.npy", amps)
+        with open(f"{prefix}.{rank}.json", "w") as f:
+            json.dump(dict(rank=rank, size=size, backend=backend,
+                           device=str(mesh.devices[0]), init_s=init_s,
+                           scheme_load_s=load_s, runs=runs,
+                           allreduce_s=allreduce_s,
+                           bits=sim.bitstrings_sorted,
+                           process_s=time.perf_counter() - t_start), f)
+    finally:
+        tdist.destroy_process_group()
+    return 0
+
+
+def drive_distributed(path, wrappers, schemes):
+    """10e: ``torch.distributed`` on the 1k batch (``path``: its state at
+    ``MESH_WIDTH``), each process a ``dist_worker``: two ranks joined with
+    gloo, both on the card (NCCL refuses two ranks on one device), then
+    one rank with NCCL; ``schemes``: the scheme cache phase 9 filled.
+    Each rank's amplitudes equal the others' and the fixture; each rank's
+    first run's launches are held to the census times its replicas'
+    groups.  Returns each run's numbers by label."""
+    import shutil
+    import socket
+    import tempfile
+
+    import numpy as np
+
+    from artensor_tpu_torch.runtime import scheme_cache
+
+    ref, W = path["ref"], path["W"]
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        for label, n_procs, backend in DIST_PROCS:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            prefix = os.path.join(tmp, label.replace("/", "-"))
+            env = dict(os.environ, ARTENSOR_COORDINATOR=f"127.0.0.1:{port}",
+                       ARTENSOR_NUM_PROCS=str(n_procs),
+                       **{scheme_cache.ENV: schemes})
+            cmd = [sys.executable, os.path.abspath(__file__), "--dist-worker",
+                   prefix, "--dist-backend", backend, "--slice-batch",
+                   str(W)]
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                cmd, env=dict(env, ARTENSOR_PROC_ID=str(r)),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for r in range(n_procs)]
+            try:
+                logs = [p.communicate(timeout=DIST_TIMEOUT)[0]
+                        for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            wall = time.perf_counter() - t0
+            for r, (p, log) in enumerate(zip(procs, logs)):
+                check(p.returncode == 0, f"{label}: rank {r} exited "
+                      f"{p.returncode}:\n{log[-3000:]}")
+            ranks = []
+            for r in range(n_procs):
+                with open(f"{prefix}.{r}.json") as f:
+                    ranks.append(json.load(f))
+            amps = [np.load(f"{prefix}.{r}.npy") for r in range(n_procs)]
+            check(all(np.array_equal(a, amps[0]) for a in amps),
+                  f"{label}: the ranks' sums differ")
+            bits = ranks[0]["bits"]
+            worst = amp_check(label, amps[0],
+                              np.array([ref[b] for b in bits]), bits)
+            launches = dict.fromkeys(KERNELS, 0)
+            device = dict.fromkeys(KERNELS, 0)
+            for rk in ranks:
+                first, reps = rk["runs"][0], rk["runs"][0]["replicas"]
+                warm = sum(r["warmup_groups"] for r in reps)
+                groups = warm + sum(r["replays"] for r in reps)
+                check_counts(path, first["launches"], first["forms"], warm,
+                             f"launches (rank {rk['rank']})")
+                check_counts(path, first["device_launches"],
+                             first["device_forms"], groups,
+                             f"kernels run on the card (rank {rk['rank']})")
+                for k in KERNELS:
+                    launches[k] += first["launches"][k]
+                    device[k] += first["device_launches"][k]
+            summary = [dict(rank=rk["rank"], device=rk["device"],
+                            init_s=rk["init_s"],
+                            scheme_load_s=rk["scheme_load_s"],
+                            process_s=rk["process_s"],
+                            slices=[r["slices"] for r in
+                                    rk["runs"][0]["replicas"]],
+                            walls=[r["wall_s"] for r in rk["runs"]],
+                            run_s=[r["run_s"] for r in rk["runs"]],
+                            prepare_s=[r["prepare_s"] for r in rk["runs"]],
+                            psum_s=[r["psum_s"] for r in rk["runs"]],
+                            allreduce_s=rk["allreduce_s"]) for rk in ranks]
+            out[label] = dict(
+                launches=launches, device_launches=device,
+                replays=sum(r["replays"] for rk in ranks
+                            for r in rk["runs"][0]["replicas"]),
+                backend=backend, processes=n_procs, wall_s=wall,
+                worst_over_bound=worst, ranks=summary, slice_batch=W,
+                census=dict(path["census"]))
+            print(f"distributed {label}: {n_procs} processes ({backend}) in "
+                  f"{wall:.3f} s from launch to exit; {json.dumps(summary)}",
+                  flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def drive_multi(kept, wrappers, state_host, state_bonds, schemes):
+    """Phase 10: the multi-device layer on the card (``kept``: the paths
+    whose simulations it reuses; ``state_host``: phase 5's default dense
+    state, on the host; ``schemes``: phase 9's scheme cache).  Returns
+    its runs by label and the phase's seconds."""
+    import torch
+
+    from artensor_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(devices=MESH_DEVICES)
+    tag = f"mesh{len(mesh.devices)}"
+    runs = {}
+    k1, k10 = kept["1k/default"], kept["10k/default"]
+    p1 = path_state("1k", tag, k1["sim"], k1["ref"], MESH_WIDTH,
+                    k1["compile_s"], k1["compile_stats"])
+    p10 = path_state("10k", tag, k10["sim"], k10["ref"], 2 * MESH_WIDTH,
+                     k10["compile_s"], k10["compile_stats"])
+    # -- 10a. the slice mesh, beside one card at the same width --------------
+    single = statistics.median(warm_walls(p1["sim"], MESH_WIDTH)[0])
+    runs[p1["name"]] = drive_mesh(p1, wrappers, mesh, p1["name"], single)
+    cards = make_mesh()
+    runs["1k/make_mesh"] = drive_mesh(p1, wrappers, cards, "1k/make_mesh",
+                                      single)
+    # -- 10b. segmented over the mesh ---------------------------------------
+    runs[f"1k/segmented-{tag}"] = drive_segmented_mesh(
+        p1, wrappers, mesh, f"1k/segmented-{tag}")
+    # -- 10c. batch groups dispatched over the mesh's devices ----------------
+    runs[f"1k+10k/dispatch-{tag}"] = drive_dispatch(
+        [p1, p10], wrappers, mesh.devices, f"1k+10k/dispatch-{tag}")
+    p10["sim"] = k10["sim"] = None
+    # -- 10d. the dense state with its output sharded ------------------------
+    walk, dense = kept["dense-planned"], kept["dense/default"]
+    paths = [walk, post_hoc_block_path(dense, 2)]
+    states = {}
+    for path in paths:
+        drop_tables(paths)
+        label = f"{path['name'].split('/')[0]}/sharded{len(mesh.devices)}"
+        runs[label], states[label] = drive_sharded(path, wrappers, mesh,
+                                                   label)
+        path["sim"] = None
+    drop_tables(paths)
+    fresh_memory()
+    ref = tuple(c.to(DEVICE).reshape(-1) for c in state_host)
+    rms = (norm2(*ref) / ref[0].numel()) ** 0.5
+    for (label, res), path in zip(states.items(), paths):
+        runs[label].update(sharded_state_check(
+            label, res, ref, state_bonds, rms, dense["ref"], path["d_out"]))
+    del ref, states
+    fresh_memory()
+    # -- 10e. torch.distributed, one process a rank --------------------------
+    runs.update(drive_distributed(p1, wrappers, schemes))
+    p1["sim"] = k1["sim"] = None
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"multi: phase 10 in {phase_s:.1f} s", flush=True)
+    return runs, phase_s
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--slice-batch", type=int, default=32,
                     help="slices per group of the sliced runner")
+    ap.add_argument("--dist-worker", metavar="PREFIX",
+                    help="run as one process of phase 10e (the parent "
+                    "starts these), writing PREFIX.<rank>.npy and .json")
+    ap.add_argument("--dist-backend", default="nccl",
+                    help="the torch.distributed backend of a --dist-worker")
     args = ap.parse_args()
     if os.environ.get("PYTHONHASHSEED") != PLAN_HASH_SEED:
         # the planner's plans depend on the string hash seed: every run
@@ -2944,6 +3550,9 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.dist_worker:
+        return dist_worker(args.dist_worker, args.dist_backend,
+                           args.slice_batch)
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; {torch.cuda.get_device_name(0)} x "
@@ -2990,6 +3599,7 @@ def main():
     wrappers = {k: wrapper(v[0]) for k, v in {**KERNELS, **OFF_PATH}.items()}
     runs, modes, fields, state = {}, {}, {}, None
     field_paths, dense_default, planned = [], None, []
+    kept = {}   # the paths whose simulations phase 10 drives again
     for p in paths:
         drop_tables(paths)
         if p["workload"] == "dense":
@@ -3012,6 +3622,7 @@ def main():
             drop_tables(paths + [walk])
             runs[walk["name"]] = drive_planned_walk(
                 walk, wrappers, state, state_bonds, runs[p["name"]])
+            kept[walk["name"]] = dict(walk)
             walk["sim"] = None
             drop_tables([walk])
             planned.append(walk)
@@ -3023,9 +3634,14 @@ def main():
             for mode in ("complex", "fused"):
                 fields[f"{p['name']} {mode}"] = drive_mode_walk(
                     p, mode, state, state_bonds)
+            # phase 10 holds its sharded states to this one, on the host
+            state_host = tuple(c.cpu() for c in state)
+            kept[dense_default["name"]] = dict(dense_default)
             state = dense_default["sim"] = None
             for q in field_paths:
                 fields[q["name"]] = drive_fields(q, wrappers)
+                if q["name"] in MESH_PATHS:
+                    kept[q["name"]] = dict(q)
                 q["sim"] = None
         else:
             runs[p["name"]] = drive(p, wrappers)
@@ -3046,6 +3662,8 @@ def main():
                 field_paths.append(p)
                 p["off_sim"] = None
                 continue
+            if p["name"] in MESH_PATHS:
+                kept[p["name"]] = dict(p, off_sim=None)
         p["sim"] = p["off_sim"] = None
     # -- 8a. the planned 1k path (the planned walk ran after dense-blocks) --
     path, one_shot = drive_planned(wrappers)
@@ -3057,11 +3675,20 @@ def main():
     labels += [p["name"] for p in planned]
     # -- 9. the command line on the 1k batch --------------------------------
     dflt = next(p for p in paths if p["name"] == "1k/default")
-    cli = drive_cli(wrappers, dflt, runs[dflt["name"]])
+    schemes = tempfile.mkdtemp(prefix="chip_smoke_schemes_")
+    try:
+        cli = drive_cli(wrappers, dflt, runs[dflt["name"]], schemes)
+        # -- 10. multi-device: the mesh, the sharded runs, the processes --
+        multi, multi_s = drive_multi(kept, wrappers, state_host,
+                                     state_bonds, schemes)
+    finally:
+        shutil.rmtree(schemes, ignore_errors=True)
+    del kept, state_host
     print(f"paths: {json.dumps(runs)}", flush=True)
     print(f"cli: {json.dumps(cli)}", flush=True)
     print(f"modes: {json.dumps(modes)}", flush=True)
     print(f"fields: {json.dumps(fields)}", flush=True)
+    print(f"multi: {json.dumps(dict(multi, phase_s=multi_s))}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - T0:.1f} s from the start",
           flush=True)
 
@@ -3076,10 +3703,12 @@ def main():
             "name": kind, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": sum(runs[n]["launches"][kind] for n in labels)
-            + cli["launches"][kind],
+            + cli["launches"][kind]
+            + sum(r["launches"][kind] for r in multi.values()),
             "device_launches": sum(runs[n]["device_launches"][kind]
                                    for n in labels)
-            + cli["device_launches"][kind],
+            + cli["device_launches"][kind]
+            + sum(r["device_launches"][kind] for r in multi.values()),
             "cli_launches": cli["launches"][kind],
             "cli_device_launches": cli["device_launches"][kind],
             "max_abs_err": big["max_abs_err"], "ms": big["ms"],
@@ -3109,6 +3738,11 @@ def main():
                              + GLUE_KEYS
                              if k in checked[n][kind]["largest"]}}
                       for n in labels if kind in checked[n]}})
+        line[-1]["paths"].update(
+            {n: {"launches": r["launches"][kind],
+                 "device_launches": r["device_launches"][kind],
+                 "replays": r["replays"]}
+             for n, r in multi.items() if r["device_launches"][kind]})
         if kind == "lane":
             line[-1]["forms"] = {n: {k: r[k] for k in keys}
                                  for n, r in forms.items()}

@@ -1224,3 +1224,104 @@ def test_cli_on_card_equals_state_vec(cuda, tmp_path, capsys):
     stats = json.loads(err.strip().splitlines()[-1])
     assert stats["mps_fidelity_estimate"] > 0.999
     assert stats["max_abs_diff"] <= stats["threshold"]
+
+
+@pytest.mark.parametrize("devices", [("cuda:0", "cuda:0"),
+                                     ("cuda:0", "cuda:1")],
+                         ids=["one-card-twice", "two-cards"])
+def test_mesh_on_the_card_equals_the_cpu(cuda, monkeypatch, devices):
+    """A mesh of two replicas on the card (one card named twice, the
+    stand-in for two; or two cards, which needs them): ``contraction(
+    mesh=...)`` with each replica's graphs captured, then replayed in a
+    thread of its own, the segmented run over the mesh, and the dense
+    state through ``contraction_output_sharded``, each equal to the CPU's
+    run."""
+    from artensor_tpu_torch import parallel, simulation
+
+    if torch.cuda.device_count() < len(set(devices)):
+        pytest.skip(f"needs {len(set(devices))} CUDA cards; this machine "
+                    f"has {torch.cuda.device_count()}")
+    mesh = parallel.make_mesh(devices=devices)
+    sim, _ = _small_sim(monkeypatch)
+    want = sim.contraction(device="cpu")
+    scale = np.abs(want).max()
+    got = sim.contraction(mesh=mesh, slice_batch=2)
+    st = sim.run_stats
+    assert st["executor"] == "mesh" and st["graphs"]
+    assert [r["device"] for r in st["replicas"]] == list(devices)
+    assert all(r["captures"] == 1 and r["replays"] >= 1
+               for r in st["replicas"])
+    assert np.abs(got - want).max() <= 2e-5 * scale
+    monkeypatch.setattr(simulation, "SEGMENT_AUTO_THRESHOLD", 2)
+    got = sim.contraction(mesh=mesh, slice_batch=2)
+    assert sim.run_stats["executor"] == "segmented-sharded"
+    assert np.abs(got - want).max() <= 2e-5 * scale
+    dense, circ = _small_sim(monkeypatch, bits=False)
+    state = dense.contraction_output_sharded(mesh, d_out=2)
+    assert [r["device"] for r in parallel.LAST_RUN["replicas"]] == \
+        list(devices)
+    exact = circ.state_vec()
+    assert np.abs(state - exact).max() <= 2e-5 * np.abs(exact).max()
+
+
+GLOO_WORKER = """
+import os, sys
+import numpy as np
+sys.path.insert(0, {repo!r})
+from artensor_tpu_torch import (TensorNetworkCircuit,
+                                TensorNetworkSimulation, random_circuit)
+from artensor_tpu_torch.parallel import distributed as dist
+from artensor_tpu_torch.runtime import gatherk, lanes, sparse
+
+gatherk.MIN_X_ELEMS = gatherk.GGK_MIN_WORK = 1 << 8
+lanes.MIN_X_ELEMS = sparse.RETAIL_MIN_ELEMS = 1 << 6
+assert dist.initialize(backend="gloo")
+mesh = dist.global_mesh()
+rng = np.random.default_rng(4)
+bits = [np.binary_repr(b, 15)
+        for b in rng.choice(2 ** 15, 128, replace=False)]
+sim = TensorNetworkSimulation.from_circuit(
+    TensorNetworkCircuit(random_circuit(3, 5, 8, seed=13)), bits)
+sim.load_plan({plan!r})
+amps = sim.contraction(mesh=mesh, slice_batch=2)
+assert sim.run_stats["graphs"], sim.run_stats
+np.save(os.environ["OUT"] + "." + os.environ["ARTENSOR_PROC_ID"] + ".npy",
+        amps)
+"""
+
+
+def test_gloo_two_ranks_on_one_card(cuda, monkeypatch, tmp_path):
+    """Two processes joined with gloo (NCCL refuses two ranks on one
+    device), each on ``cuda:{rank % count}``, sum their shares of the
+    small sparse run on the card through ``contraction(mesh=
+    global_mesh())``; every rank's amplitudes equal the CPU run."""
+    import socket
+    import subprocess
+    import sys
+
+    sim, _ = _small_sim(monkeypatch)
+    want = sim.contraction(device="cpu")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = GLOO_WORKER.format(repo=repo, plan=RGF_PLAN)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, ARTENSOR_COORDINATOR=f"127.0.0.1:{port}",
+                 ARTENSOR_NUM_PROCS="2", ARTENSOR_PROC_ID=str(r),
+                 OUT=str(tmp_path / "amps")))
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    for r in range(2):
+        got = np.load(tmp_path / f"amps.{r}.npy")
+        assert np.abs(got - want).max() <= 2e-5 * np.abs(want).max()

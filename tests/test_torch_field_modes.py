@@ -147,6 +147,40 @@ def test_dot_matches_jax(mode, algo):
     np.testing.assert_allclose(got, want, **TOL)
 
 
+def _outside_cases():
+    """(mode, algo, method): ``index`` on every field, ``matmul`` and
+    ``transpose`` where the JAX field has them (its fused field has
+    neither)."""
+    out = []
+    for mode, algo in FIELDS:
+        out += [(mode, algo, "index"), (mode, algo, "index_tensor")]
+        if mode != "fused":
+            out += [(mode, algo, "matmul"), (mode, algo, "transpose")]
+    return out
+
+
+@pytest.mark.parametrize("mode,algo,method", _outside_cases())
+def test_index_matmul_transpose_match_jax(mode, algo, method):
+    """The field methods outside the executors' use, against JAX's:
+    ``index`` (an int, or a one-element index tensor in the port, on the
+    stored shape: the fused field's folded one), the batched ``matmul``
+    and ``transpose``."""
+    jf, pf = _fields(mode, algo)
+    c, m1, m2 = _rand((2, 3, 4), 6), _rand((3, 2, 5), 7), _rand((3, 5, 4), 8)
+    if method.startswith("index"):
+        idx = 2 if method == "index" else torch.tensor([2])
+        want = _np(jf, jf.index(jf.wrap(c), 2, 1))
+        got = _np(pf, pf.index(pf.wrap(c, "cpu"), idx, 1))
+    elif method == "matmul":
+        want = _np(jf, jf.matmul(jf.wrap(m1), jf.wrap(m2)))
+        got = _np(pf, pf.matmul(pf.wrap(m1, "cpu"), pf.wrap(m2, "cpu")))
+    else:
+        want = _np(jf, jf.transpose(jf.wrap(c), (2, 0, 1)))
+        got = _np(pf, pf.transpose(pf.wrap(c, "cpu"), (2, 0, 1)))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, **TOL)
+
+
 def test_fields_of_make_field():
     """``make_field``'s modes, defaults and refusals; ``supports_lanes``
     only for split float32 storage of complex64 (``field.py:51-52``)."""

@@ -48,7 +48,8 @@ def test_import_loads_no_jax():
                                     "native", "plan_io", "utils.mps",
                                     "utils.xeb", "circuits.cirq_compat",
                                     "runtime.scheme_cache", "cache",
-                                    "__main__"])
+                                    "__main__", "parallel",
+                                    "parallel.distributed"])
 def test_execution_modules_load_no_jax(module):
     """Each module of the execution modes and the front ends, imported
     alone in a fresh process, loads neither JAX nor the JAX package, and
