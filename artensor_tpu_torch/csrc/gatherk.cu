@@ -37,19 +37,24 @@
 //   loads are independent and in flight together.  The H chunks of one f
 //   range are adjacent in block order, so the second reads X from L2.
 //   Offsets that are not 16-byte aligned take the 4-byte variant.
-// * "mma", for the other steps (K, H = 32..512): the product on the
-//   tensor cores at float32 accuracy (3xTF32, tc_core.cuh), W as the
-//   (H x K) operand and the X rows of all outer indices as one flat
-//   (K x G*F) operand staged by cp.async, so that short f runs (F 64)
-//   still fill 128-wide tiles.  GGK reads the (H x K) operand of the
-//   block's outer index at woff[o], so its f run must be a multiple of the
-//   128-wide N tile (a tile never spans two outer indices).  Bound by
-//   operations at the 3xTF32 rate or, for most such steps, by bytes.
-//   ``passes`` 1 runs its one-pass TF32 form (precision "default",
-//   tc_core.cuh); the stream form keeps float32 FMAs at every precision.
+// * "mma", for the other steps (K, H = 16..512): the product on the
+//   tensor cores at float32 accuracy (3xTF32), the X rows of all outer
+//   indices one flat operand of G*F rows, so that short f runs (F 64)
+//   still fill whole tiles.  GK runs it on wgmma (wgmma_core.cuh,
+//   gk_wgmma_kernel: X in the A role, M = G*F, W's (H, K) rows as the
+//   K-major B operand, N = H in tiles of 64, or 32 for H <= 32; 16-byte
+//   copies where the offsets and buffers allow, else 4-byte).  GGK runs
+//   it on mma.sync (tc_core.cuh, ggk_mma_kernel: W the (H x K) operand, X
+//   the (K x G*F) one): it reads the (H x K) operand of the block's outer
+//   index at woff[o], so its f run must be a multiple of the 128-wide N
+//   tile (a tile never spans two outer indices).  Bound by operations at
+//   the 3xTF32 rate or, for most such steps, by bytes.  ``passes`` 1 runs
+//   the one-pass TF32 form (precision "default"); the stream form keeps
+//   float32 FMAs at every precision.
 
 #include "runs.cuh"
 #include "tc_core.cuh"
+#include "wgmma_core.cuh"
 
 namespace {
 
@@ -318,8 +323,9 @@ int stream_any(const float* xr, const float* xi, const float* wr,
 #undef ST_ARGS
 }
 
-// -- GK "mma" form ------------------------------------------------------------
+// -- GK and GGK "mma" forms --------------------------------------------------
 //
+// GGK's, on mma.sync:
 // H <= 32: 32 x 128 tiles, 4 warps of 32 x 32, a row of outputs at a time.
 // Else 64 x 128 tiles, 8 warps of 32 x 32, one output at a time within 128
 // registers, so that two blocks share an SM: K is only 32..128, a block's
@@ -331,30 +337,65 @@ int stream_any(const float* xr, const float* xi, const float* wr,
 using GkNarrow = tc::Tile<2, 4, 1, 4>;
 using GkWide = tc::Tile<2, 4, 2, 4>;
 
-template <class T, int MIN_BLOCKS, bool ROW, int PASSES>
-__global__ void __launch_bounds__(T::THREADS, MIN_BLOCKS)
-gk_mma_kernel(tc::Operands p, int n_mtiles)
-{
-    runs::count(&g_runs[1]);
-    tc::cgemm<T, true, true, ROW, PASSES>(p, n_mtiles);
-}
-
-// the same for GGK (p.aoff set), under its own name for the profile
+// GGK (p.aoff set)
 template <class T, int MIN_BLOCKS, bool ROW, int PASSES>
 __global__ void __launch_bounds__(T::THREADS, MIN_BLOCKS)
 ggk_mma_kernel(tc::Operands p, int n_mtiles)
 {
-    runs::count(&g_runs[1]);
+    runs::count(&g_runs[3]);
     tc::cgemm<T, true, true, ROW, PASSES>(p, n_mtiles);
+}
+
+// GK's mma form on wgmma (wgmma_core.cuh)
+template <int BN, int PASSES, bool VEC>
+__global__ void __launch_bounds__(384, 1)   // wgmma_core.cuh: wg::gemm
+gk_wgmma_kernel(wg::Operands p)
+{
+    runs::count(&g_runs[1]);
+    wg::gemm<true, BN, PASSES, VEC>(p);
+}
+
+template <bool VEC>
+int gk_wgmma_vec(const wg::Operands& p, int W, int passes, cudaStream_t s)
+{
+    if (p.N <= 32)
+        return passes == 1
+            ? wg::launch<true, 32, 1, VEC>(gk_wgmma_kernel<32, 1, VEC>, p, W,
+                                           s)
+            : wg::launch<true, 32, 3, VEC>(gk_wgmma_kernel<32, 3, VEC>, p, W,
+                                           s);
+    return passes == 1
+        ? wg::launch<true, 64, 1, VEC>(gk_wgmma_kernel<64, 1, VEC>, p, W, s)
+        : wg::launch<true, 64, 3, VEC>(gk_wgmma_kernel<64, 3, VEC>, p, W, s);
+}
+
+int gk_wgmma(const float* xr, const float* xi, const float* wr,
+             const float* wi, float* yr, float* yi, const long long* xoff,
+             const long long* yoff, const long long* koff, long long O,
+             int H, int K, int F, long long hstride, long long x_ws,
+             long long w_ws, long long y_ws, int W, bool vec, int passes,
+             cudaStream_t s)
+{
+    if (O * F > 0x7fffffffLL || !tc::passes_ok(passes))
+        return (int)cudaErrorInvalidValue;
+    wg::Operands p{};
+    p.xr = xr; p.xi = xi; p.vr = wr; p.vi = wi; p.yr = yr; p.yi = yi;
+    p.M = (int)(O * F); p.N = H; p.K = K;
+    p.x_ws = x_ws; p.v_ws = w_ws; p.y_ws = y_ws; p.ldy = hstride;
+    p.koff = koff; p.xoff = xoff; p.yoff = yoff; p.F = F;
+    // W's (H, K) rows: 16-byte copies apart from X's (vec)
+    p.vec_v = tc::aligned16(wr) && tc::aligned16(wi) && K % 4 == 0 &&
+              w_ws % 4 == 0;
+    return vec ? gk_wgmma_vec<true>(p, W, passes, s)
+               : gk_wgmma_vec<false>(p, W, passes, s);
 }
 
 // the GK or GGK kernel of tile T in ``PASSES`` passes
 template <class T, int MIN_BLOCKS, bool ROW, int PASSES>
 int gk_mma_tile(const tc::Operands& p, int W, cudaStream_t s)
 {
-    return tc::launch<T, true>(
-        p.aoff ? ggk_mma_kernel<T, MIN_BLOCKS, ROW, PASSES>
-               : gk_mma_kernel<T, MIN_BLOCKS, ROW, PASSES>, p, W, s);
+    return tc::launch<T, true>(ggk_mma_kernel<T, MIN_BLOCKS, ROW, PASSES>, p,
+                               W, s);
 }
 
 int gk_mma(const float* xr, const float* xi, const float* wr,
@@ -393,6 +434,11 @@ int gk_any(const float* xr, const float* xi, const float* wr,
            long long y_ws, int W, int form, int vec, int passes,
            cudaStream_t s)
 {
+    // GK's mma form on wgmma, GGK's on mma.sync
+    if (form == 1 && !woff)
+        return gk_wgmma(xr, xi, wr, wi, yr, yi, xoff, yoff, koff, O, H, K,
+                        F, hstride, x_ws, w_ws, y_ws, W, vec != 0, passes,
+                        s);
     if (form == 1)
         return gk_mma(xr, xi, wr, wi, yr, yi, xoff, yoff, woff, koff, O, H,
                       K, F, hstride, x_ws, w_ws, y_ws, W, vec != 0, passes,
@@ -405,9 +451,10 @@ int gk_any(const float* xr, const float* xi, const float* wr,
 
 }  // namespace
 
-// form: 0 "stream", 1 "mma" (gatherk.GK_FORMS); vec: the X / Y offsets,
-// strides and pointers are 16-byte aligned (gatherk.gk_aligned); passes:
-// the mma form's tensor-core passes, 3 or 1 (the stream form ignores it)
+// form: 0 "stream", 1 "mma" (on wgmma; gatherk.GK_FORMS); vec: the X / Y
+// offsets, strides and pointers are 16-byte aligned (gatherk.gk_aligned);
+// passes: the mma form's tensor-core passes, 3 or 1 (the stream form
+// ignores it)
 extern "C" int gk_launch(const float* xr, const float* xi, const float* wr,
                          const float* wi, float* yr, float* yi,
                          const long long* xoff, const long long* yoff,
@@ -422,6 +469,7 @@ extern "C" int gk_launch(const float* xr, const float* xi, const float* wr,
 }
 
 // GGK: as gk_launch, with W's (H, K) row of outer index o at woff[o]
+// (its mma form on mma.sync)
 extern "C" int ggk_launch(const float* xr, const float* xi, const float* wr,
                           const float* wi, float* yr, float* yi,
                           const long long* xoff, const long long* yoff,

@@ -19,43 +19,55 @@
 // thousands a step does 8*M*N*K flop on 8*(M*K + K*N + M*N) bytes, far
 // above the card's balance.  The JAX kernels multiply at Precision.HIGHEST
 // (float32 accuracy from multi-pass bf16 on the MXU); here the product
-// runs on the tensor cores as 3xTF32 (tc_core.cuh): 3 x 8*M*N*K flop at
-// 495 TFLOP/s TF32, a bound 2.5x below the 67 TFLOP/s float32 FMA rate
-// that capped the earlier register-tiled FMA kernel (and cuBLAS's
-// complex64 product).  Tiles of 128 x 128 outputs, 8 warps of 64 x 32, K
-// in chunks of 16 through a 4-stage cp.async ring; each k8 step's products
-// of a warp's row of 4 output tiles are formed at once (8 mma between
-// dependent ones), one block an SM at up to 255 registers.  ``passes``
-// 1 runs the one-pass TF32 form (precision "default", tc_core.cuh).
+// runs on the tensor cores as 3xTF32: 3 x 8*M*N*K flop at 495 TFLOP/s
+// TF32, a bound 2.5x below the 67 TFLOP/s float32 FMA rate that capped
+// the earlier register-tiled FMA kernel (and cuBLAS's complex64 product).
+// Pair runs on wgmma (wgmma_core.cuh, pair_wgmma_kernel: 128 x 64 tiles,
+// a producer and two consumer warpgroups, a cp.async ring of 16-byte
+// copies where M, N and the buffers allow, else 4-byte, a persistent
+// grid); the complex matmul on
+// mma.sync (tc_core.cuh, cmm_kernel: 128 x 128 tiles, 8 warps of 64 x 32,
+// K in chunks of 16 through a 4-stage cp.async ring, each k8 step's
+// products of a warp's row of 4 output tiles formed at once, one block an
+// SM at up to 255 registers).  ``passes`` 1 runs the one-pass TF32 form
+// (precision "default").
 
 #include "runs.cuh"
 #include "tc_core.cuh"
+#include "wgmma_core.cuh"
 
 namespace {
 
 // 128 x 128 tiles, 8 warps of 64 x 32, 4 stages of K 16
-using PairTile = tc::Tile<4, 4, 2, 4>;
+using CmmTile = tc::Tile<4, 4, 2, 4>;
 
 // launches that ran on the card (runs.cuh): Pair, the complex matmul
 __device__ unsigned long long g_runs[2];
 
-template <bool A_MK, int PASSES>
-__global__ void __launch_bounds__(PairTile::THREADS, 1)
-pair_mma_kernel(tc::Operands p, int n_mtiles)
+template <int PASSES>
+__global__ void __launch_bounds__(CmmTile::THREADS, 1)
+cmm_kernel(tc::Operands p, int n_mtiles)
 {
-    runs::count(&g_runs[A_MK ? 1 : 0]);
-    tc::cgemm<PairTile, A_MK, false, true, PASSES>(p, n_mtiles);
+    runs::count(&g_runs[1]);
+    tc::cgemm<CmmTile, true, false, true, PASSES>(p, n_mtiles);
 }
 
-// (M, N) product at width W, in ``passes`` tensor-core passes
-template <bool A_MK>
-int launch(const tc::Operands& p, int W, int passes, void* stream)
+template <int PASSES, bool VEC>
+__global__ void __launch_bounds__(384, 1)   // wgmma_core.cuh: wg::gemm
+pair_wgmma_kernel(wg::Operands p)
 {
-    if (!tc::passes_ok(passes))
-        return (int)cudaErrorInvalidValue;
-    return tc::launch<PairTile, A_MK>(
-        passes == 1 ? pair_mma_kernel<A_MK, 1> : pair_mma_kernel<A_MK, 3>,
-        p, W, (cudaStream_t)stream);
+    runs::count(&g_runs[0]);
+    wg::gemm<false, 64, PASSES, VEC>(p);
+}
+
+// Pair on wgmma: X (K, M), V (K, N) rows; 16-byte copies (VEC) where M,
+// N, the width strides and the buffers lie on 16 bytes
+template <bool VEC>
+int pair_wgmma(const wg::Operands& p, int W, int passes, cudaStream_t s)
+{
+    return passes == 1
+        ? wg::launch<false, 64, 1, VEC>(pair_wgmma_kernel<1, VEC>, p, W, s)
+        : wg::launch<false, 64, 3, VEC>(pair_wgmma_kernel<3, VEC>, p, W, s);
 }
 
 tc::Operands operands(const float* ar, const float* ai, const float* br,
@@ -84,8 +96,21 @@ extern "C" int pair_launch(const float* xr, const float* xi, const float* vr,
                            int M, int N, long long x_ws, long long v_ws,
                            long long y_ws, int W, int passes, void* stream)
 {
-    return launch<false>(operands(xr, xi, vr, vi, yr, yi, M, N, K, M, x_ws,
-                                  v_ws, y_ws), W, passes, stream);
+    if (!tc::passes_ok(passes))
+        return (int)cudaErrorInvalidValue;
+    wg::Operands p{};
+    p.xr = xr; p.xi = xi; p.vr = vr; p.vi = vi; p.yr = yr; p.yi = yi;
+    p.M = M; p.N = N; p.K = K;
+    p.x_ws = x_ws; p.v_ws = v_ws; p.y_ws = y_ws;
+    p.ldy = N; p.F = 1;
+    const bool vec = M % 4 == 0 && N % 4 == 0 && x_ws % 4 == 0 &&
+                     v_ws % 4 == 0 && y_ws % 4 == 0 && tc::aligned16(xr) &&
+                     tc::aligned16(xi) && tc::aligned16(vr) &&
+                     tc::aligned16(vi) && tc::aligned16(yr) &&
+                     tc::aligned16(yi);
+    p.vec_v = vec;
+    return vec ? pair_wgmma<true>(p, W, passes, (cudaStream_t)stream)
+               : pair_wgmma<false>(p, W, passes, (cudaStream_t)stream);
 }
 
 // (B, M, K) . (B, K, N) -> (B, M, N); A = (ar, ai), B = (br, bi)
@@ -93,9 +118,14 @@ extern "C" int cmm_launch(const float* ar, const float* ai, const float* br,
                           const float* bi, float* yr, float* yi, int B,
                           int M, int K, int N, int passes, void* stream)
 {
-    return launch<true>(operands(ar, ai, br, bi, yr, yi, M, N, K, K,
-                                 (long long)M * K, (long long)K * N,
-                                 (long long)M * N), B, passes, stream);
+    if (!tc::passes_ok(passes))
+        return (int)cudaErrorInvalidValue;
+    const tc::Operands p = operands(ar, ai, br, bi, yr, yi, M, N, K, K,
+                                    (long long)M * K, (long long)K * N,
+                                    (long long)M * N);
+    return tc::launch<CmmTile, true>(
+        passes == 1 ? cmm_kernel<1> : cmm_kernel<3>, p, B,
+        (cudaStream_t)stream);
 }
 
 // the launches that ran on the card, by slot (g_runs)

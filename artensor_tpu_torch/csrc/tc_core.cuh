@@ -1,6 +1,6 @@
-// Split-complex product on the tensor cores at float32 accuracy (3xTF32),
-// shared by the pair kernel (pair.cu) and the GK kernel's "mma" form
-// (gatherk.cu).
+// Split-complex product on the tensor cores at float32 accuracy (3xTF32)
+// with mma.sync: GGK's "mma" form (gatherk.cu) and the complex matmul
+// (pair.cu); Pair and GK's "mma" form run wgmma_core.cuh.
 //
 // Computes, per slice instance w (grid axis y),
 //   Y[m, n] = sum_k A[m, k] . B[k, n]        (complex, split re/im planes)
@@ -42,8 +42,8 @@
 // distinct banks.  Operands are split as the fragments are read.  Ragged
 // M, N and K are zero-filled on load and masked on store.  Block order
 // runs the M tiles of one N tile next to each other (they share B in L2).
-// wgmma takes TF32 operands only K-major, and these are K-slow: it would
-// need a transposing stage, later work.
+// wgmma takes TF32 operands only K-major, and these are K-slow:
+// wgmma_core.cuh adds the transposing stage.
 
 #pragma once
 

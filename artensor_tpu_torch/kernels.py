@@ -5,11 +5,13 @@ library with a plain C interface, bound with ``ctypes``: a file that
 includes PyTorch's headers takes minutes to compile, a plain one seconds,
 and the build runs at first use inside every fresh checkout.  The
 compilers are started together, one per source.  ``pair.cu`` and
-``gatherk.cu`` both include ``tc_core.cuh``, the tensor-core product they
-share.  Libraries are cached in ``_build/`` next to this file
-(git-ignored), or where ``ARTENSOR_TPU_CACHE`` points (``cache.py``),
-named by a hash of the source, the headers and the flags, so an edited
-source or header rebuilds and an unchanged one loads at once.
+``gatherk.cu`` both include ``wgmma_core.cuh`` (the tensor-core product of
+Pair and GK's mma form, on wgmma) and ``tc_core.cuh`` (the mma.sync
+product of GGK's mma form and the complex matmul).  Libraries are cached
+in ``_build/`` next to this file (git-ignored), or where
+``ARTENSOR_TPU_CACHE`` points (``cache.py``), named by a hash of the
+source, the headers and the flags, so an edited source or header rebuilds
+and an unchanged one loads at once.
 
 Nothing here runs at import: ``load()`` builds on its first call, from the
 wrapper that first launches a kernel.  A failed build raises.  Every
@@ -20,6 +22,7 @@ kernel counts the launches that ran on the card (``csrc/runs.cuh``);
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -78,6 +81,15 @@ RUN_SLOTS = {
 }
 for _name in RUN_SLOTS:
     SIGNATURES[_name][f"{_name}_runs"] = [_P]
+
+
+def wgmma_promote():
+    """The k8 slices the wgmma core's 3xTF32 form sums inside the tensor
+    cores before it adds them into float32 (``PROMOTE_3XTF32`` in
+    ``csrc/wgmma_core.cuh``)."""
+    m = re.search(r"constexpr int PROMOTE_3XTF32 = (\d+);",
+                  (CSRC / "wgmma_core.cuh").read_text())
+    return int(m.group(1))
 
 
 class Kernels:

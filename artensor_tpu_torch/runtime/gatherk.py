@@ -649,7 +649,8 @@ def plan_ggk_step(rx_i, rx_j, riy, rdims_i, rdims_j, gi, gj,
 # The GK kernel (csrc/gatherk.cu) runs a GK or GGK step in one of two
 # forms, chosen here from the step's shape: "stream" (float32 FMAs, one
 # thread per 4 f values) for steps whose bytes bound them at the FMA rate,
-# "mma" (3xTF32 on the tensor cores) for the others.
+# "mma" (3xTF32 on the tensor cores: GK's on wgmma, csrc/wgmma_core.cuh;
+# GGK's on mma.sync, csrc/tc_core.cuh) for the others.
 
 GK_FORMS = ("stream", "mma")  # gk_launch's form codes, in order
 STREAM_W_CAP = 4096           # max complex W values (H chunk x K) the GK

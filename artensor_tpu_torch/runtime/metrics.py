@@ -379,18 +379,22 @@ def reorder_census(steps):
 # -- bounds of the card's kernels --------------------------------------------
 
 def bounds(nbytes, flops, form):
-    """The bounds of a call, in ms: FP32 FMA (``bound_ms``, and which of
-    bytes and operations sets it), 3xTF32 on the tensor cores, and that of
-    the design ``form`` runs (``design_bound_ms``: "stream" bytes, "mma"
-    3xTF32, any other form FP32 FMA), at the card's peak rates
-    (``kernels.H100_*``)."""
+    """The bounds of a call, in ms, at the card's peak rates
+    (``kernels.H100_*``).  ``bound_ms``: the larger of its bytes over the
+    memory rate and its operations over the peak rate of the units that
+    do them -- the tensor cores at 3 TF32 products a float32-class one
+    (3xTF32) for the "mma" form, float32 FMA for every other -- and which
+    of the two sets it (``bound_by``); ``bound_fp32_ms`` and
+    ``bound_3xtf32_ms``: the same at either rate; ``design_bound_ms``: that
+    of the design the form runs ("stream": bytes alone)."""
     t_bytes = nbytes / kernels.H100_HBM_BYTES_PER_S
-    t_ops = flops / kernels.H100_FP32_FLOP_PER_S
+    t_fp32 = flops / kernels.H100_FP32_FLOP_PER_S
     t_tc = 3 * flops / kernels.H100_TF32_FLOP_PER_S
-    design = {"stream": t_bytes, "mma": max(t_bytes, t_tc)}.get(
-        form, max(t_bytes, t_ops))
+    t_ops = t_tc if form == "mma" else t_fp32
+    design = t_bytes if form == "stream" else max(t_bytes, t_ops)
     return dict(bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_fp32_ms=1e3 * max(t_bytes, t_fp32),
                 bound_3xtf32_ms=1e3 * max(t_bytes, t_tc),
                 design_bound_ms=1e3 * design)
 

@@ -191,24 +191,30 @@ and ``device_launches`` summed over the paths; the complex matmul's
 larger shape, 0 launches), the card line, and last ``{"ok": true,
 "device": {...}}``.
 The bound of a kernel call (``runtime/metrics.bounds``, which the wall
-estimate shares) is the larger of its bytes (each input read once, each
-output written once) over 3.35 TB/s and its flops over 67 TFLOP/s, the
-H100 SXM's float32 rate outside the tensor cores;
-``bound_3xtf32_ms`` puts 3 x its flops over the 495 TFLOP/s TF32 tensor
-core rate instead.  Each step is also held to the bound of the design it
-runs (``form``): bytes for the "stream" form of GK and GGK, 3xTF32 for
-the tensor-core kernels ("mma": their other form, Pair, the complex
-matmul), FP32 FMA for the rest ("fma").  Per path the GK and GGK steps'
-summed time is printed against their summed bounds, and at the largest
-GK, GGK, RGRow, RGFlat and Pair step of each path the kernel's and the plain
-version's errors against a float64 product of the same inputs, over two
-slice instances (the kernel's may be at most ``F64_ERR_RATIO`` times the
-plain version's, which runs in full float32 on cuBLAS).  Each RGRow and
-RGFlat step is also run as the executor runs it (``apply_ggk_step``: the
-kernel and any copy around it), beside the copies its stored-order reads
-absorb (RGRow: the X reorder and the W transpose; RGFlat: the W
-transpose; each timed alone).
-"""
+estimate shares; the JSON line's ``bound_ms``) is the larger of its bytes
+(each input read once, each output written once) over 3.35 TB/s and its
+operations over the peak rate of the units that do them: for the
+tensor-core kernels ("mma": GK's and GGK's other form, Pair, the complex
+matmul) 3 x their flops over the 495 TFLOP/s TF32 tensor-core rate
+(3xTF32), for the rest their flops over 67 TFLOP/s, the H100 SXM's float32
+rate outside the tensor cores (``bound_fp32_ms`` and ``bound_3xtf32_ms``
+give either rate for every kernel).  Each step is also held to the bound
+of the design it runs (``form``): bytes for the "stream" form of GK and
+GGK, 3xTF32 for "mma", FP32 FMA for the rest ("fma").  Each tensor-core
+step also names its core (``core``): "wgmma" (``csrc/wgmma_core.cuh``:
+Pair and GK's mma form) or "mma.sync" (``csrc/tc_core.cuh``: GGK's mma
+form, the complex matmul).  Per path the GK and GGK steps' summed time is
+printed against their summed bounds, and so is the summed time of the
+Pair and GK mma steps (the two kernels on the wgmma core), and at the
+largest GK, GGK, RGRow, RGFlat and Pair step of each path the kernel's and
+the plain version's errors against a float64 product of the same inputs,
+over two slice instances (the kernel's may be at most ``F64_ERR_RATIO``
+times the plain version's, which runs in full float32 on cuBLAS; a wgmma
+step's line also gives the core's promotion interval,
+``kernels.wgmma_promote()``).  Each RGRow and RGFlat step is also run as
+the executor runs it (``apply_ggk_step``: the kernel and any copy around
+it), beside the copies its stored-order reads absorb (RGRow: the X
+reorder and the W transpose; RGFlat: the W transpose; each timed alone)."""
 
 import argparse
 import json
@@ -270,6 +276,10 @@ SEGMENT_COST_WIDTH = 8        # the per-segment replay cost also at this
                               # width (more groups: more extra replays)
 CKPT_WIDTH = 16               # the checkpointed run's width (a chunk's)
 ONE_PASS_KINDS = ("gk", "ggk", "pair")   # kernels with a tensor-core form
+FORM_KINDS = ("gk", "ggk")   # kernels whose launches are counted by form
+# the tensor-core product each (kind, form) runs on
+CORES = {("gk", "mma"): "wgmma", ("pair", "mma"): "wgmma",
+         ("ggk", "mma"): "mma.sync"}
 # the one-pass TF32 form (precision 'default') against the plain version's
 # TF32 form: the same products of the same TF32 operands, each exact in
 # float32, summed in another order -- the 3-pass form's tolerance
@@ -568,6 +578,23 @@ def plain_error(kr, ki, chunks, lead):
     return err, scale, first
 
 
+def launch_forms(cases, width):
+    """A scheme's GK and GGK steps by the form each launches in (the
+    wrappers' and the kernels' own counts: ``gatherk.gk_form``); ``cases``
+    as ``kernel_cases`` gives them."""
+    from collections import Counter
+
+    from artensor_tpu_torch.runtime import gatherk
+
+    forms = {}
+    for kind in FORM_KINDS:
+        forms[kind] = Counter()
+        for plan, bx, by in cases.get(kind, []):
+            xs, ws = (bx, by) if plan.w_is_j else (by, bx)
+            forms[kind][gatherk.gk_form(plan, width, xs, ws)] += 1
+    return forms
+
+
 def run_kernel(kind, plan, bx, by, width, seed, f64=False):
     """One kernel call against its plain version at slice width ``width``.
     Returns a dict of measurements; with ``f64`` also both versions'
@@ -610,6 +637,7 @@ def run_kernel(kind, plan, bx, by, width, seed, f64=False):
         check(nbytes == gatherk.gk_bytes(plan, width, xs, ws),
               f"{kind}: byte count differs from gatherk.gk_bytes")
     out = dict(width=width, step=describe(kind, plan), form=form,
+               core=CORES.get((kind, form)),
                max_abs_err=err, max_rel_err=err / scale, tol=tol, ms=ms,
                plain_ms=plain_ms, **metrics.bounds(nbytes, flops, form),
                library_ms=None, bytes=nbytes, flops=flops,
@@ -851,7 +879,7 @@ def block_path(sim, name, form, steps, axes, chosen, k, d_out, ref,
     from collections import Counter
     from types import SimpleNamespace
 
-    from artensor_tpu_torch.runtime import gatherk, metrics
+    from artensor_tpu_torch.runtime import metrics
     from artensor_tpu_torch.runtime.executor import (precompute_static_steps,
                                                      split_invariant_steps)
     from artensor_tpu_torch.runtime.sparse import kernel_kind
@@ -868,13 +896,7 @@ def block_path(sim, name, form, steps, axes, chosen, k, d_out, ref,
     bat = dict(zip(map(id, run_steps), operand_batching(run_steps, axes)))
 
     def gk_forms(st):
-        c = Counter()
-        for s in st:
-            if kernel_kind(s) == "gk":
-                bx, by = bat[id(s)]
-                xs, ws = (bx, by) if s.lane.w_is_j else (by, bx)
-                c[gatherk.gk_form(s.lane, 1, xs, ws)] += 1
-        return {"gk": c, "ggk": Counter()}
+        return launch_forms(kernel_cases(st, [bat[id(s)] for s in st]), 1)
 
     est_once = metrics.scheme_wall_estimate(once, 0, slicing_axes=axes)[0]
     est_rest = metrics.scheme_wall_estimate(rest, d_out + k,
@@ -903,7 +925,7 @@ def path_state(name, form, sim, ref, W, compile_s, stats, out_elems=None):
 
     import numpy as np
 
-    from artensor_tpu_torch.runtime import gatherk, metrics
+    from artensor_tpu_torch.runtime import metrics
     from artensor_tpu_torch.runtime.executor import precompute_static_steps
     from artensor_tpu_torch.runtime.sparse import kernel_kind, scheme_digest
 
@@ -947,12 +969,7 @@ def path_state(name, form, sim, ref, W, compile_s, stats, out_elems=None):
     roof_s = n_slices * metrics.scheme_roofline_seconds(run_steps)
     digest = scheme_digest(sim.steps) \
         if getattr(sim, "pattern", None) == "sparse" else None
-    forms = {}   # GK and GGK steps by the form gatherk.gk_form picks
-    for kind in ("gk", "ggk"):
-        forms[kind] = Counter()
-        for plan, bx, by in cases.get(kind, []):
-            xs, ws = (bx, by) if plan.w_is_j else (by, bx)
-            forms[kind][gatherk.gk_form(plan, W, xs, ws)] += 1
+    forms = launch_forms(cases, W)   # GK and GGK steps by form
     return dict(name=label, workload=name, form=form, sim=sim, ref=ref, W=W,
                 compile_s=compile_s, compile_stats=stats, n_slices=n_slices,
                 census=census, cases=cases, forms=forms, est_s=est_s,
@@ -964,8 +981,10 @@ def report(label, r):
     print(f"kernel {label} ({r['step']}) width {r['width']}, checked in "
           f"{r.get('check_s', 0.0):.2f} s: "
           f"max_abs_err {r['max_abs_err']:.3e} (rel {r['max_rel_err']:.2e}, "
-          f"tol {r['tol']:.2e}) form {r['form']} ms {r['ms']:.4f} bound_ms "
-          f"{r['bound_ms']:.4f} ({r['bound_by']}) bound_3xtf32_ms "
+          f"tol {r['tol']:.2e}) form {r['form']} core {r['core']} ms "
+          f"{r['ms']:.4f} bound_ms "
+          f"{r['bound_ms']:.4f} ({r['bound_by']}) bound_fp32_ms "
+          f"{r['bound_fp32_ms']:.4f} bound_3xtf32_ms "
           f"{r['bound_3xtf32_ms']:.4f} design_bound_ms "
           f"{r['design_bound_ms']:.4f} plain_ms {r['plain_ms']:.4f} "
           f"library_ms {r['library_ms']} bytes {r['bytes']} flops "
@@ -979,9 +998,15 @@ def report(label, r):
               f"{r['w_transpose_ms']:.4f} ms", flush=True)
     if "f64_rel_err" in r:
         ratio = r["f64_rel_err"] / max(r["plain_f64_rel_err"], 1e-30)
+        from artensor_tpu_torch import kernels
+
+        promote = (f"; wgmma promotion interval "
+                   f"{kernels.wgmma_promote()} k8 slices"
+                   if r["core"] == "wgmma" else "")
         print(f"  float64 check ({r['step']}): max|d|/max|ref| kernel "
               f"{r['f64_rel_err']:.3e}, plain {r['plain_f64_rel_err']:.3e}"
-              f" (ratio {ratio:.2f}, limit {F64_ERR_RATIO})", flush=True)
+              f" (ratio {ratio:.2f}, limit {F64_ERR_RATIO}; core "
+              f"{r['core']}{promote})", flush=True)
         check(r["f64_rel_err"] <= F64_ERR_RATIO * r["plain_f64_rel_err"],
               f"{r['step']}: kernel error against float64 "
               f"{r['f64_rel_err']:.3e} above {F64_ERR_RATIO}x the plain "
@@ -1026,7 +1051,7 @@ def check_kernels(path):
                       key=lambda i: cases[kind][i][0].flops)
         res = dict(steps=len(cases[kind]), ms_per_group=0.0, max_err=0.0,
                    design_bound_ms_per_group=0.0, fp32_bound_ms_per_group=0.0,
-                   forms={})
+                   forms={}, cores={})
         at_w = {}       # step index -> its result at the path's width
         for i, width in [(i, W) for i in range(len(cases[kind]))] + (
                 [(largest, 1)] if W > 1 else []):
@@ -1052,8 +1077,14 @@ def check_kernels(path):
             at_w[i] = r
             res["ms_per_group"] += r["ms"]
             res["design_bound_ms_per_group"] += r["design_bound_ms"]
-            res["fp32_bound_ms_per_group"] += r["bound_ms"]
+            res["fp32_bound_ms_per_group"] += r["bound_fp32_ms"]
             res["forms"][r["form"]] = res["forms"].get(r["form"], 0) + 1
+            if r["core"] is not None:
+                c = res["cores"].setdefault(r["core"], dict(
+                    steps=0, ms_per_group=0.0, design_bound_ms_per_group=0.0))
+                c["steps"] += 1
+                c["ms_per_group"] += r["ms"]
+                c["design_bound_ms_per_group"] += r["design_bound_ms"]
             if i == largest:
                 res["largest"] = r
             if "costliest" not in res or r["ms"] > res["costliest"]["ms"]:
@@ -1076,8 +1107,19 @@ def check_kernels(path):
                   f" ms a slice group against summed design bounds "
                   f"{res['design_bound_ms_per_group']:.4f} ms (ratio "
                   f"{res['ms_per_group'] / res['design_bound_ms_per_group']:.2f})"
-                  f" and FP32 bounds {res['fp32_bound_ms_per_group']:.4f} ms",
-                  flush=True)
+                  f" and FP32 bounds {res['fp32_bound_ms_per_group']:.4f} ms;"
+                  f" by core {json.dumps(res['cores'])}", flush=True)
+    # the two kernels the wgmma core took over: Pair and GK's mma form
+    tc = [c for kind in ("gk", "pair") if kind in out
+          for c in out[kind]["cores"].values()]
+    if tc:
+        ms = sum(c["ms_per_group"] for c in tc)
+        bound = sum(c["design_bound_ms_per_group"] for c in tc)
+        out["tc_sum"] = dict(ms_per_group=ms, design_bound_ms_per_group=bound)
+        print(f"path {path['name']} Pair + GK mma: "
+              f"{sum(c['steps'] for c in tc)} steps, kernel {ms:.4f} ms a "
+              f"slice group against summed design bounds {bound:.4f} ms "
+              f"(ratio {ms / bound:.2f})", flush=True)
     return out
 
 
@@ -1134,7 +1176,8 @@ def check_complex_mm():
         flops = 8 * B * M * N * K
         reps = 5 if flops > 1e12 else 20
         nbytes = 8 * (B * M * K + B * K * N + B * M * N)
-        r = dict(width=1, step=step, form="mma", max_abs_err=err,
+        r = dict(width=1, step=step, form="mma", core="mma.sync",
+                 max_abs_err=err,
                  max_rel_err=err / scale, tol=tol, ms=time_ms(call, reps),
                  plain_ms=time_ms(plain, 3),
                  **metrics.bounds(nbytes, flops, "mma"),
@@ -1381,7 +1424,7 @@ def counted_on_card(fn):
     torch.cuda.synchronize()
     after = device_runs()
     counts = dict.fromkeys(KERNELS, 0)
-    forms = {"gk": {}, "ggk": {}}
+    forms = {k: {} for k in FORM_KINDS}
     for (kind, form), n in after.items():
         n -= before[kind, form]
         if kind in counts:
@@ -1401,7 +1444,7 @@ def run_counts(path, wrappers, ran, st):
     covers."""
     launches, forms = check_counts(
         path, {k: f.launches for k, f in wrappers.items()},
-        {k: dict(wrappers[k].forms) for k in ("gk", "ggk")},
+        {k: dict(wrappers[k].forms) for k in FORM_KINDS},
         st["warmup_groups"], "launches")
     device, device_forms = check_counts(
         path, ran["counts"], ran["forms"],
@@ -1531,7 +1574,7 @@ def amp_check(name, got, ref_vals, bits):
 def reset_counts(wrappers):
     for f in wrappers.values():
         f.launches = 0
-    for kind in ("gk", "ggk"):
+    for kind in FORM_KINDS:
         for form in getattr(wrappers.get(kind), "forms", ()):
             wrappers[kind].forms[form] = 0
 
@@ -1552,7 +1595,7 @@ def check_counts(path, counts, forms, groups, what):
             want = path["forms"][kind].get(form, 0) * groups + \
                 path.get("forms_once", {}).get(kind, {}).get(form, 0)
             check(n == want, f"{name} {kind}: {n} {what} of the {form} "
-                  f"form, expected {want} (gatherk.gk_form of its steps)")
+                  f"form, expected {want} (launch_forms of its steps)")
     return counts, forms
 
 
@@ -2210,7 +2253,7 @@ def mode_counts(path, field, wrappers, st, precision):
     launched = {k: f.launches for k, f in wrappers.items()}
     if field.supports_lanes:
         check_counts(path, launched,
-                     {k: dict(wrappers[k].forms) for k in ("gk", "ggk")},
+                     {k: dict(wrappers[k].forms) for k in FORM_KINDS},
                      st["warmup_groups"], "launches")
         want = mma_launches(wrappers) if precision == "default" else 0
         check(one_pass_counts() == want, f"{path['name']} "
@@ -3332,7 +3375,7 @@ def dist_worker(prefix, backend, W):
                 run_s=last["run_s"], psum_s=last["psum_s"],
                 replicas=last["replicas"],
                 launches={k: f.launches for k, f in wrappers.items()},
-                forms={k: dict(wrappers[k].forms) for k in ("gk", "ggk")},
+                forms={k: dict(wrappers[k].forms) for k in FORM_KINDS},
                 device_launches=ran["counts"], device_forms=ran["forms"]))
         allreduce_s = None
         if size == 1:   # psum leaves a group of one alone: the backend's
@@ -3693,8 +3736,9 @@ def main():
           flush=True)
 
     line = []
-    keys = ("step", "form", "ms", "bound_ms", "bound_by", "bound_3xtf32_ms",
-            "design_bound_ms", "plain_ms", "library_ms", "max_abs_err")
+    keys = ("step", "form", "core", "ms", "bound_ms", "bound_by",
+            "bound_fp32_ms", "bound_3xtf32_ms", "design_bound_ms",
+            "plain_ms", "library_ms", "max_abs_err")
     for kind, (_, source, replaces) in KERNELS.items():
         first = next(n for n in labels if kind in checked[n])
         res = checked[first][kind]
@@ -3714,7 +3758,9 @@ def main():
             "max_abs_err": big["max_abs_err"], "ms": big["ms"],
             "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
             "bound_by": big["bound_by"], "library_ms": big["library_ms"],
-            "form": big["form"], "bound_3xtf32_ms": big["bound_3xtf32_ms"],
+            "form": big["form"], "core": big["core"],
+            "bound_fp32_ms": big["bound_fp32_ms"],
+            "bound_3xtf32_ms": big["bound_3xtf32_ms"],
             "path": first, "step": big["step"], "steps": res["steps"],
             "kernel_ms_per_group": res["ms_per_group"],
             "costliest": {k: res["costliest"][k] for k in keys},
@@ -3728,6 +3774,7 @@ def main():
                           "design_bound_ms_per_group":
                               checked[n][kind]["design_bound_ms_per_group"],
                           "forms": checked[n][kind]["forms"],
+                          "cores": checked[n][kind]["cores"],
                           "max_abs_err": checked[n][kind]["max_err"],
                           "largest": {k: checked[n][kind]["largest"][k]
                                       for k in keys},

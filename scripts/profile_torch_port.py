@@ -2,7 +2,11 @@
 
 Runs the n30 m14 sliced contraction of a committed plan (one of the
 workloads of ``chip_smoke.py``, by ``--workload``: the sparse ``1k``,
-``10k`` or ``1k-sc25``, or ``dense``, the whole 2^30-amplitude state; its
+``10k`` or ``1k-sc25``, or ``dense``, the whole 2^30-amplitude state; or
+``1k-planned``, the 1k batch planned by the port as
+``quantum_circuit_simulation(..., sc_target=24)`` plans it, under
+``PYTHONHASHSEED=0`` as ``chip_smoke.py`` runs it: the script re-executes
+itself so; its
 scheme in ``--form``: "default", what ``load_plan`` compiles, or "off",
 ``contraction_scheme_sparse(..., fuse=False, negotiate=False)`` or
 ``scheme.contraction_scheme(..., fuse=False, negotiate=False)``) at
@@ -31,8 +35,12 @@ on, off, off, on, and checks that both give the same amplitudes;
 Usage, from the repo root on a machine with a CUDA card::
 
     python3 scripts/profile_torch_port.py [--slice-batch W] \
-        [--workload 1k|10k|1k-sc25|dense] [--form off|default] \
-        [--ab-rgflat | --no-rgflat] [--eager]
+        [--workload 1k|10k|1k-sc25|dense|1k-planned] [--form off|default] \
+        [--ab-rgflat | --no-rgflat] [--eager] [--root DIR]
+
+``--root`` imports ``artensor_tpu_torch`` from another checkout (for
+example the parent commit unpacked by ``git archive`` into a git-ignored
+directory), to profile it with this script's families.
 """
 
 import argparse
@@ -52,14 +60,20 @@ WORKLOADS = {   # name: (plan, amplitude fixture)
     "1k-sc25": ("rcs_n30_m14_s0_sparse_sc25.json",
                 "rcs_n30_m14_s0_amps1000.txt"),
     "dense": ("rcs_n30_m14_s0_dense_sc30.json", None),
+    "1k-planned": (None, "rcs_n30_m14_s0_amps1000.txt"),
 }
+PLANNED_SC = 24          # chip_smoke.PLANNED_SC
+PLAN_HASH_SEED = "0"     # chip_smoke.PLAN_HASH_SEED
 
 FAMILIES = (   # (family, substrings of the kernel name), first match wins
     ("gatherk.cu (GGK stream)", ("ggk_stream_kernel",)),
     ("gatherk.cu (GGK mma)", ("ggk_mma_kernel",)),
     ("gatherk.cu (GK stream)", ("gk_stream_kernel",)),
-    ("gatherk.cu (GK mma)", ("gk_mma_kernel",)),
-    ("pair.cu (Pair, complex matmul)", ("pair_mma_kernel",)),
+    # GK's mma form and Pair: on wgmma, or (an older checkout's, --root)
+    # on mma.sync
+    ("gatherk.cu (GK mma)", ("gk_wgmma_kernel", "gk_mma_kernel")),
+    ("pair.cu (Pair)", ("pair_wgmma_kernel", "pair_mma_kernel<false")),
+    ("pair.cu (complex matmul)", ("cmm_kernel", "pair_mma_kernel<true")),
     ("rgrow.cu (RGRow)", ("rgrow_kernel",)),
     ("rgflat.cu (RGFlat)", ("rgflat_kernel",)),
     ("lane.cu (Lane)", ("lane_kernel",)),
@@ -112,6 +126,8 @@ def workload(name, form="default"):
     if fixture:
         with open(os.path.join(DATA, fixture)) as f:
             bits = [ln.split()[0] for ln in f if ln.strip()]
+    if plan is None:
+        return planned(bits, form)
     sim = TensorNetworkSimulation.from_circuit(
         random_circuit(5, 6, 14, seed=0), bits)
     if form == "default":
@@ -126,6 +142,31 @@ def workload(name, form="default"):
     sim.sc_target = float(pd["meta"]["sc_target"])
     sim._set_scheme(*contraction_scheme_sparse(
         sim.ctree, bits, sim.sc_target, fuse=False, negotiate=False))
+    return sim
+
+
+def planned(bits, form):
+    """The 1k batch planned and compiled as ``quantum_circuit_simulation``
+    does (``tensor_network_contraction``: simplify, ``PlannerConfig`` with
+    ``trials`` 8, ``iters`` 50, ``alpha`` 0 at ``PLANNED_SC``), without
+    its run."""
+    from artensor_tpu_torch import (PlannerConfig, TensorNetworkCircuit,
+                                    TensorNetworkSimulation, random_circuit)
+    from artensor_tpu_torch.simulation import (NumericalTensorNetwork,
+                                               check_bitstrings)
+
+    if form != "default":
+        raise SystemExit("1k-planned: only the default form")
+    circ = TensorNetworkCircuit(random_circuit(5, 6, 14, seed=0))
+    tensors, tensor_bonds, bond_dims, final_qubits = circ.to_numerical_tn()
+    pattern, max_bitstrings = check_bitstrings(bits)
+    ntn = NumericalTensorNetwork(tensors, tensor_bonds, bond_dims,
+                                 final_qubits)
+    bonds, final_ids = ntn.simplify(pattern)
+    sim = TensorNetworkSimulation(dict(ntn.tensors), bonds, ntn.bond_dims,
+                                  final_ids, bits, pattern, max_bitstrings)
+    sim.prepare_contraction(PlannerConfig(sc_target=PLANNED_SC, trials=8,
+                                          iters=50, alpha=0.0))
     return sim
 
 
@@ -211,7 +252,16 @@ def main():
                     help="profile the run without the RGFlat form")
     ap.add_argument("--eager", action="store_true",
                     help="profile the eager run (no CUDA graph)")
+    ap.add_argument("--root", help="import the port from this checkout")
     args = ap.parse_args()
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
+    if args.workload == "1k-planned" and \
+            os.environ.get("PYTHONHASHSEED") != PLAN_HASH_SEED:
+        # the planner's plans depend on the string hash seed
+        os.execve(sys.executable, [sys.executable, os.path.abspath(__file__),
+                                   *sys.argv[1:]],
+                  dict(os.environ, PYTHONHASHSEED=PLAN_HASH_SEED))
 
     import torch
     from torch.profiler import ProfilerActivity, profile

@@ -100,8 +100,9 @@ GK_FORM_SHAPES = {
                                      (False, True), (True, True)])
 @pytest.mark.parametrize("shape", sorted(GK_FORM_SHAPES))
 def test_gk_forms_match_plain(cuda, monkeypatch, shape, batched, form):
-    """Each GK form against the plain version at width 1 (neither operand
-    batched) and 4, with x and w batched and not."""
+    """Each GK form (the mma form on wgmma) against the plain version at
+    width 1 (neither operand batched) and 4, with x and w batched and
+    not."""
     monkeypatch.setattr(gatherk, "MIN_X_ELEMS", 1)
     plan = gatherk.plan_gk_step(*GK_FORM_SHAPES[shape])
     assert plan is not None, gatherk.LAST_REJECT
@@ -122,7 +123,8 @@ def test_gk_forms_match_plain(cuda, monkeypatch, shape, batched, form):
 def test_gk_forms_unaligned(cuda, monkeypatch, case, form):
     """Offsets or buffers off 16-byte alignment take the 4-byte variant of
     either form: an f run of 6 (a 4-float group spans two outer indices),
-    or X starting one float into its allocation."""
+    or X starting one float into its allocation; the mma form stays the
+    mma form (the wgmma core's 4-byte copies)."""
     monkeypatch.setattr(gatherk, "MIN_X_ELEMS", 1)
     if case == "f_run_6":
         monkeypatch.setattr(gatherk, "F_MIN", 2)
@@ -140,7 +142,9 @@ def test_gk_forms_unaligned(cuda, monkeypatch, case, form):
     if case == "x_pointer":
         assert x[0].data_ptr() % 16 != 0 and x[0].is_contiguous()
     w = [_rand((plan.H * plan.K,), gen) for _ in "ri"]
+    before = gatherk.gk_call.forms[form]
     _check(gatherk.gk_call, gatherk.gk_plain, (plan, *x, *w, True, False))
+    assert gatherk.gk_call.forms[form] == before + 1
 
 
 GATHERED = {   # form: (rx_i, rx_j, riy, rd_i, rd_j)
@@ -1325,3 +1329,175 @@ def test_gloo_two_ranks_on_one_card(cuda, monkeypatch, tmp_path):
     for r in range(2):
         got = np.load(tmp_path / f"amps.{r}.npy")
         assert np.abs(got - want).max() <= 2e-5 * np.abs(want).max()
+
+
+# -- the wgmma core (csrc/wgmma_core.cuh): Pair and GK's mma form -----------
+
+def _pair_plan(K, M, N):
+    plan = lanes.plan_pair_step(("k", "m"), ("k", "n"), ("m", "n"),
+                                (K, M), (K, N))
+    assert plan is not None, lanes.LAST_REJECT
+    return plan
+
+
+def _pair_args(plan, xb, vb, W, seed, x_shift=0):
+    """Pair operands; ``x_shift`` starts X that many floats into its
+    allocation."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    K, M, N = plan.K, plan.M, plan.N
+    n = (W if xb else 1) * K * M
+    x = [_rand((n + x_shift,), gen)[x_shift:].reshape(
+        ((W,) if xb else ()) + (K * M,)) for _ in "ri"]
+    v = [_rand(((W,) if vb else ()) + (K * N,), gen) for _ in "ri"]
+    return (plan, *x, *v, xb, vb)
+
+
+def _counted(call, form, args, **kw):
+    """``call(*args, **kw)``, held to one launch (of ``form``, for a
+    wrapper that counts by form) and to one run of its kernel on the card
+    (the kernels' own counters)."""
+    before = call.launches, dict(getattr(call, "forms", {}))
+    out = {}
+    ran = _device_kernels(lambda: out.update(y=call(*args, **kw)))
+    kind = "pair" if call is lanes.pair_call else "gk"
+    assert ran == {(kind, form): 1}, ran
+    assert call.launches == before[0] + 1
+    after = getattr(call, "forms", {})
+    assert {f: after[f] - before[1][f] for f in after} == \
+        {f: int(f == form) for f in after}, (form, before, after)
+    return out["y"]
+
+
+@pytest.mark.parametrize("batched", [(False, False), (True, False),
+                                     (False, True), (True, True)])
+@pytest.mark.parametrize("kmn", [(37, 532, 468), (100, 260, 196),
+                                 (17, 1028, 1100), (1000, 388, 644)])
+def test_pair_wgmma_ragged(cuda, kmn, batched):
+    """Pair on the wgmma core at M, N multiples of 4 but of neither 64 nor
+    128 and K of no multiple of 8, at width 1 and 4, batched and
+    slice-invariant operands."""
+    plan = _pair_plan(*kmn)
+    xb, vb = batched
+    args = _pair_args(plan, xb, vb, 4 if (xb or vb) else 1, sum(kmn))
+    _counted(lanes.pair_call, None, args)
+    _check(lanes.pair_call, lanes.pair_plain, args)
+
+
+@pytest.mark.parametrize("case", ["m_130", "n_250", "x_pointer"])
+def test_pair_wgmma_unaligned(cuda, case):
+    """M or N off the 4-float grid, or X one float into its allocation:
+    the wgmma core's 4-byte copies, against the plain version."""
+    kmn = {"m_130": (200, 130, 128), "n_250": (200, 128, 250),
+           "x_pointer": (200, 128, 128)}[case]
+    plan = _pair_plan(*kmn)
+    args = _pair_args(plan, True, False, 2, 3,
+                      x_shift=1 if case == "x_pointer" else 0)
+    assert (args[1].data_ptr() % 16 != 0) == (case == "x_pointer")
+    _counted(lanes.pair_call, None, args)
+    _check(lanes.pair_call, lanes.pair_plain, args)
+
+
+@pytest.mark.parametrize("kmn,W", [((1024, 4096, 4096), 1),
+                                   ((512, 32768, 256), 2)])
+def test_pair_wgmma_path_shapes(cuda, kmn, W):
+    """The 1k path's Pair step (K 1024 M 4096 N 4096) and the 10k path's
+    (K 512 M 32768 N 256) on wgmma, against the plain version, and no
+    further from a float64 product than 4x the plain version."""
+    plan = _pair_plan(*kmn)
+    args = _pair_args(plan, W > 1, False, W, 17)
+    kr, ki = _counted(lanes.pair_call, None, args)
+    pr, pi = lanes.pair_plain(*args)
+    err = torch.abs(torch.complex(kr - pr, ki - pi)).max().item()
+    scale = torch.abs(torch.complex(pr, pi)).max().item()
+    assert err <= 2e-4 * scale + 1e-5, (err, scale)
+    # the first slice instance (X carries the width axis, V not)
+    one = lambda t: t[0] if W > 1 else t
+    _, xr, xi, vr, vi, _, _ = args
+    er, ei = lanes.pair_plain(plan, one(xr).double(), one(xi).double(),
+                              vr.double(), vi.double(), False, False)
+    d = lambda r, i: torch.abs(torch.complex(one(r).double() - er,
+                                             one(i).double() - ei)).max()
+    assert d(kr, ki) <= 4 * d(pr, pi), (d(kr, ki).item(), d(pr, pi).item())
+
+
+# GK steps at each H the paths have (32 .. 512) and F 64 and 32768
+GK_WGMMA_SHAPES = [(g, k, f, h) for h in (32, 64, 128, 256, 512)
+                   for g, k, f in ((48, 64 if h < 512 else 32, 64),
+                                   (2, 32, 32768))] + \
+    [(5, 36, 96, 40), (3, 16, 128, 128), (4, 128, 512, 128),
+     (3, 34, 64, 64)]   # K 34: W's rows take the 4-byte copies
+
+
+@pytest.mark.parametrize("batched", [(True, False), (False, True)])
+@pytest.mark.parametrize("gkfh", GK_WGMMA_SHAPES)
+def test_gk_wgmma_shapes(cuda, monkeypatch, gkfh, batched):
+    """GK's mma form on the wgmma core at H 32, 64, 128, 256, 512, f runs
+    of 64 and 32768, ragged M (G*F), N (H) and K tiles, batched X or W."""
+    monkeypatch.setattr(gatherk, "MIN_X_ELEMS", 1)
+    g, k, f, h = gkfh
+    plan = gatherk.plan_gk_step(("g1", "c1", "f1"), ("c1", "n1"),
+                                ("g1", "n1", "f1"), (g, k, f), (k, h))
+    assert plan is not None, gatherk.LAST_REJECT
+    monkeypatch.setattr(gatherk, "gk_form", lambda *a, **kw: "mma")
+    xb, wb = batched
+    gen = torch.Generator(device="cuda").manual_seed(h + f)
+    W = 2
+    x = [_rand(((W,) if xb else ()) + (plan.x_elems,), gen) for _ in "ri"]
+    w = [_rand(((W,) if wb else ()) + (plan.H * plan.K,), gen) for _ in "ri"]
+    args = (plan, *x, *w, xb, wb)
+    _counted(gatherk.gk_call, "mma", args)
+    _check(gatherk.gk_call, gatherk.gk_plain, args)
+
+
+def _wgmma_cases(monkeypatch):
+    """(name, wrapper, plain, args): Pair and GK at ragged shapes that the
+    wgmma core takes."""
+    monkeypatch.setattr(gatherk, "MIN_X_ELEMS", 1)
+    monkeypatch.setattr(gatherk, "gk_form", lambda *a, **k: "mma")
+    pair = _pair_args(_pair_plan(100, 260, 196), True, False, 3, 23)
+    gk = gatherk.plan_gk_step(*GK_FORM_SHAPES["h40_k32"])
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    gk_args = (gk, *[_rand((3, gk.x_elems), gen) for _ in "ri"],
+               *[_rand((gk.H * gk.K,), gen) for _ in "ri"], True, False)
+    return {"pair": (lanes.pair_call, lanes.pair_plain, pair),
+            "gk": (gatherk.gk_call, gatherk.gk_plain, gk_args)}
+
+
+@pytest.mark.parametrize("which", ["pair", "gk"])
+def test_wgmma_one_pass_matches_tf32_plain(cuda, monkeypatch, which):
+    """The wgmma core's one-pass TF32 form against the plain TF32 form
+    (operands rounded as the kernel rounds them, products in float32)."""
+    call, plain, args = _wgmma_cases(monkeypatch)[which]
+    form = None if which == "pair" else "mma"
+    kr, ki = _counted(call, form, args, passes=1)
+    pr, pi = plain(*args, tf32=True)
+    err = torch.abs(torch.complex(kr - pr, ki - pi)).max().item()
+    scale = torch.abs(torch.complex(pr, pi)).max().item()
+    assert err <= 2e-4 * scale + 1e-5, (err, scale)
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+@pytest.mark.parametrize("which", ["pair", "gk"])
+def test_wgmma_graph_replay_equals_eager(cuda, monkeypatch, which, passes):
+    """Each wgmma kernel captured in a CUDA graph and replayed gives the
+    eager call's result exactly (max|d| 0), before and after new values
+    are copied into the same inputs; the replay runs the wgmma kernel on
+    the card (its own counter)."""
+    from artensor_tpu_torch.runtime.executor import GroupGraphs
+
+    call, _, args = _wgmma_cases(monkeypatch)[which]
+    form = None if which == "pair" else "mma"
+    want = [c.clone() for c in call(*args, passes=passes)]
+    graphs = GroupGraphs(torch.device("cuda"))
+    out = {}
+    graphs.capture(lambda: out.update(y=call(*args, passes=passes)))
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    for _ in range(2):
+        ran = _device_kernels(graphs.replay)
+        assert ran == {(which, form): 1}, ran
+        for g, w in zip(out["y"], want):
+            assert torch.equal(g, w), (g - w).abs().max().item()
+        for t in _tensors(args):
+            if t.dtype == torch.float32:
+                t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+        want = [c.clone() for c in call(*args, passes=passes)]
