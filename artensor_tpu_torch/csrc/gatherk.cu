@@ -23,34 +23,36 @@
 // step's bytes and flops (gatherk.gk_form):
 //
 // * "stream", for steps whose bytes at 3.35 TB/s take at least as long as
-//   their flops at 0.6 of the 67 TFLOP/s float32 FMA rate (K, H <= 16, and
-//   K 16 H 32, on the paths; every GGK step whose f run is not a multiple
-//   of the mma tile's 128).  Bound by bytes.  Each thread owns 4
-//   consecutive f values of one (w, o), loads them with 16-byte loads from
-//   each of the K gathered rows (re and im planes), keeps an H chunk of at
-//   most 16 outputs x 4 f in registers and stores them with 16-byte
-//   stores, f unit-stride across the warp.  GK's W chunk sits in shared
-//   memory, read as a broadcast; a GGK block's threads span several outer
-//   indices, each with its own W row (woff[o], at most 16 x 32 complex on
-//   the paths), so they read W[h, k] through L1, the same address across
-//   the threads of one o.  The K loop has no barrier, so a thread's row
-//   loads are independent and in flight together.  The H chunks of one f
-//   range are adjacent in block order, so the second reads X from L2.
-//   Offsets that are not 16-byte aligned take the 4-byte variant.
+//   their flops at 0.6 of the 67 TFLOP/s float32 FMA rate (GK's K, H <= 16,
+//   and K 16 H 32, on the paths), and every GGK step whose f run is not a
+//   multiple of the mma tile's 128 rows (the paths' F 64 steps).  Bound by
+//   bytes.  Each thread owns 4 consecutive f values of one (w, o), loads them
+//   with 16-byte loads from each of the K gathered rows (re and im planes),
+//   keeps an H chunk of at most 16 outputs x 4 f in registers and stores them
+//   with 16-byte stores, f unit-stride across the warp.  GK's W chunk sits in
+//   shared memory, read as a broadcast; a GGK block's threads span several
+//   outer indices, each with its own W row (woff[o], at most 16 x 32 complex
+//   on the paths), so they read W[h, k] through L1, the same address across
+//   the threads of one o.  The K loop has no barrier, so a thread's row loads
+//   are independent and in flight together.  The H chunks of one f range are
+//   adjacent in block order, so the second reads X from L2.  Offsets that are
+//   not 16-byte aligned take the 4-byte variant.
 // * "mma", for the other steps (K, H = 16..512): the product on the
-//   tensor cores at float32 accuracy (3xTF32), the X rows of all outer
-//   indices one flat operand of G*F rows, so that short f runs (F 64)
-//   still fill whole tiles.  GK runs it on wgmma (wgmma_core.cuh,
-//   gk_wgmma_kernel: X in the A role, M = G*F, W's (H, K) rows as the
-//   K-major B operand, N = H in tiles of 64, or 32 for H <= 32; 16-byte
-//   copies where the offsets and buffers allow, else 4-byte).  GGK runs
-//   it on mma.sync (tc_core.cuh, ggk_mma_kernel: W the (H x K) operand, X
-//   the (K x G*F) one): it reads the (H x K) operand of the block's outer
-//   index at woff[o], so its f run must be a multiple of the 128-wide N
-//   tile (a tile never spans two outer indices).  Bound by operations at
-//   the 3xTF32 rate or, for most such steps, by bytes.  ``passes`` 1 runs
-//   the one-pass TF32 form (precision "default"); the stream form keeps
-//   float32 FMAs at every precision.
+//   tensor cores at float32 accuracy (3xTF32), on wgmma (wgmma_core.cuh):
+//   X in the A role, the X rows of all outer indices one flat operand of
+//   M = G*F rows, so that short f runs (F 64) still fill whole tiles; W's
+//   (H, K) rows the K-major B operand, N = H, in tiles of 64, or 32 for
+//   H <= 32; 16-byte copies where the offsets and buffers allow, else
+//   4-byte.  GK runs it as gk_wgmma_kernel.  GGK (ggk_wgmma_kernel) reads
+//   the W rows of a tile's outer index at woff[o], so its f run must be a
+//   multiple of the 128-row M tile (a tile never spans two outer indices);
+//   its N tile is 16 wide for H <= 16 and its K chunk 16 deep for K <= 16
+//   (the 1k path's K 16 H 16 step fills both; there the core also reads X
+//   once for all slice instances of a tile and stores Y through shared
+//   memory: wgmma_core.cuh's STACK, REUSE_X, STAGE_Y).  Bound by
+//   operations at the 3xTF32 rate or, for most such steps, by bytes.
+//   ``passes`` 1 runs the one-pass TF32 form (precision "default"); the
+//   stream form keeps float32 FMAs at every precision.
 
 #include "runs.cuh"
 #include "tc_core.cuh"
@@ -323,79 +325,51 @@ int stream_any(const float* xr, const float* xi, const float* wr,
 #undef ST_ARGS
 }
 
-// -- GK and GGK "mma" forms --------------------------------------------------
-//
-// GGK's, on mma.sync:
-// H <= 32: 32 x 128 tiles, 4 warps of 32 x 32, a row of outputs at a time.
-// Else 64 x 128 tiles, 8 warps of 32 x 32, one output at a time within 128
-// registers, so that two blocks share an SM: K is only 32..128, a block's
-// ring is short, and the second block's loads fill its gaps.  On the
-// paths' K 64 steps (H 64 and 256) that beats the same tiles a row at a
-// time at one block an SM (255 registers) by 11-22%, and the 32 x 128
-// tiles by 17-28% (H100, scripts/gk_forms_torch_port.py; PERF.md).
+// -- GK and GGK "mma" forms, on wgmma (wgmma_core.cuh) -----------------------
 
-using GkNarrow = tc::Tile<2, 4, 1, 4>;
-using GkWide = tc::Tile<2, 4, 2, 4>;
-
-// GGK (p.aoff set)
-template <class T, int MIN_BLOCKS, bool ROW, int PASSES>
-__global__ void __launch_bounds__(T::THREADS, MIN_BLOCKS)
-ggk_mma_kernel(tc::Operands p, int n_mtiles)
-{
-    runs::count(&g_runs[3]);
-    tc::cgemm<T, true, true, ROW, PASSES>(p, n_mtiles);
-}
-
-// GK's mma form on wgmma (wgmma_core.cuh)
+// GK's: a 128 x 64 tile, or 128 x 32 for H <= 32; K in chunks of 32
 template <int BN, int PASSES, bool VEC>
 __global__ void __launch_bounds__(384, 1)   // wgmma_core.cuh: wg::gemm
 gk_wgmma_kernel(wg::Operands p)
 {
     runs::count(&g_runs[1]);
-    wg::gemm<true, BN, PASSES, VEC>(p);
+    wg::gemm<wg::Cfg<true, BN, PASSES, VEC>>(p);
 }
 
-template <bool VEC>
-int gk_wgmma_vec(const wg::Operands& p, int W, int passes, cudaStream_t s)
+// GGK's: as GK's with W's rows at woff[o]; also a 128 x 16 tile for
+// H <= 16, and K in chunks of 16 for K <= 16 (H 16 K 16 on the 1k path)
+template <int BN, int BK, int PASSES, bool VEC>
+__global__ void __launch_bounds__(384, 1)   // wgmma_core.cuh: wg::gemm
+ggk_wgmma_kernel(wg::Operands p)
 {
-    if (p.N <= 32)
-        return passes == 1
-            ? wg::launch<true, 32, 1, VEC>(gk_wgmma_kernel<32, 1, VEC>, p, W,
-                                           s)
-            : wg::launch<true, 32, 3, VEC>(gk_wgmma_kernel<32, 3, VEC>, p, W,
-                                           s);
-    return passes == 1
-        ? wg::launch<true, 64, 1, VEC>(gk_wgmma_kernel<64, 1, VEC>, p, W, s)
-        : wg::launch<true, 64, 3, VEC>(gk_wgmma_kernel<64, 3, VEC>, p, W, s);
+    runs::count(&g_runs[3]);
+    wg::gemm<wg::Cfg<true, BN, PASSES, VEC, BK>>(p);
 }
 
-int gk_wgmma(const float* xr, const float* xi, const float* wr,
-             const float* wi, float* yr, float* yi, const long long* xoff,
-             const long long* yoff, const long long* koff, long long O,
-             int H, int K, int F, long long hstride, long long x_ws,
-             long long w_ws, long long y_ws, int W, bool vec, int passes,
+// the GK (GGK) kernel of tile width BN, K chunk BK, ``PASSES`` passes and
+// X's 16-byte copies (VEC)
+template <bool GGK, int BN, int BK, int PASSES, bool VEC>
+int mma_kernel(const wg::Operands& p, int W, cudaStream_t s)
+{
+    using C = wg::Cfg<true, BN, PASSES, VEC, BK>;
+    static unsigned attr = 0;    // wg::launch: the kernel's devices
+    if constexpr (GGK)
+        return wg::launch<C>(ggk_wgmma_kernel<BN, BK, PASSES, VEC>, attr, p,
+                             W, s);
+    else
+        return wg::launch<C>(gk_wgmma_kernel<BN, PASSES, VEC>, attr, p, W,
+                             s);
+}
+
+template <bool GGK, int BN, int BK>
+int mma_tile(const wg::Operands& p, int W, int passes, bool vec,
              cudaStream_t s)
 {
-    if (O * F > 0x7fffffffLL || !tc::passes_ok(passes))
-        return (int)cudaErrorInvalidValue;
-    wg::Operands p{};
-    p.xr = xr; p.xi = xi; p.vr = wr; p.vi = wi; p.yr = yr; p.yi = yi;
-    p.M = (int)(O * F); p.N = H; p.K = K;
-    p.x_ws = x_ws; p.v_ws = w_ws; p.y_ws = y_ws; p.ldy = hstride;
-    p.koff = koff; p.xoff = xoff; p.yoff = yoff; p.F = F;
-    // W's (H, K) rows: 16-byte copies apart from X's (vec)
-    p.vec_v = tc::aligned16(wr) && tc::aligned16(wi) && K % 4 == 0 &&
-              w_ws % 4 == 0;
-    return vec ? gk_wgmma_vec<true>(p, W, passes, s)
-               : gk_wgmma_vec<false>(p, W, passes, s);
-}
-
-// the GK or GGK kernel of tile T in ``PASSES`` passes
-template <class T, int MIN_BLOCKS, bool ROW, int PASSES>
-int gk_mma_tile(const tc::Operands& p, int W, cudaStream_t s)
-{
-    return tc::launch<T, true>(ggk_mma_kernel<T, MIN_BLOCKS, ROW, PASSES>, p,
-                               W, s);
+    if (passes == 1)
+        return vec ? mma_kernel<GGK, BN, BK, 1, true>(p, W, s)
+                   : mma_kernel<GGK, BN, BK, 1, false>(p, W, s);
+    return vec ? mma_kernel<GGK, BN, BK, 3, true>(p, W, s)
+               : mma_kernel<GGK, BN, BK, 3, false>(p, W, s);
 }
 
 int gk_mma(const float* xr, const float* xi, const float* wr,
@@ -405,25 +379,25 @@ int gk_mma(const float* xr, const float* xi, const float* wr,
            long long hstride, long long x_ws, long long w_ws,
            long long y_ws, int W, bool vec, int passes, cudaStream_t s)
 {
-    // a block's N tile lies in one outer index where W follows it
-    if (O * F > 0x7fffffffLL || (woff && F % GkNarrow::BN)
-        || GkNarrow::BN != GkWide::BN || !tc::passes_ok(passes))
+    if (O * F > 0x7fffffffLL || !tc::passes_ok(passes))
         return (int)cudaErrorInvalidValue;
-    tc::Operands p{};
-    p.ar = wr; p.ai = wi; p.br = xr; p.bi = xi; p.yr = yr; p.yi = yi;
-    p.aoff = woff;
-    p.M = H; p.N = (int)(O * F); p.K = K;
-    p.lda = K; p.ldb = 0; p.ldy = hstride;
-    p.a_ws = w_ws; p.b_ws = x_ws; p.y_ws = y_ws;
-    p.koff = koff; p.xoff = xoff; p.yoff = yoff; p.F = F;
-    p.vec_a = tc::aligned16(wr) && tc::aligned16(wi) && K % 4 == 0 &&
+    wg::Operands p{};
+    p.xr = xr; p.xi = xi; p.vr = wr; p.vi = wi; p.yr = yr; p.yi = yi;
+    p.M = (int)(O * F); p.N = H; p.K = K;
+    p.x_ws = x_ws; p.v_ws = w_ws; p.y_ws = y_ws; p.ldy = hstride;
+    p.koff = koff; p.xoff = xoff; p.yoff = yoff; p.woff = woff; p.F = F;
+    // W's (H, K) rows: 16-byte copies apart from X's (vec); GGK's row
+    // offsets woff[o] are multiples of H K
+    p.vec_v = tc::aligned16(wr) && tc::aligned16(wi) && K % 4 == 0 &&
               w_ws % 4 == 0;
-    p.vec = vec;
-    if (H <= 32)
-        return passes == 1 ? gk_mma_tile<GkNarrow, 1, true, 1>(p, W, s)
-                           : gk_mma_tile<GkNarrow, 1, true, 3>(p, W, s);
-    return passes == 1 ? gk_mma_tile<GkWide, 2, false, 1>(p, W, s)
-                       : gk_mma_tile<GkWide, 2, false, 3>(p, W, s);
+    if (!woff)
+        return H <= 32 ? mma_tile<false, 32, 32>(p, W, passes, vec, s)
+                       : mma_tile<false, 64, 32>(p, W, passes, vec, s);
+    if (H <= 16)
+        return K <= 16 ? mma_tile<true, 16, 16>(p, W, passes, vec, s)
+                       : mma_tile<true, 16, 32>(p, W, passes, vec, s);
+    return H <= 32 ? mma_tile<true, 32, 32>(p, W, passes, vec, s)
+                   : mma_tile<true, 64, 32>(p, W, passes, vec, s);
 }
 
 int gk_any(const float* xr, const float* xi, const float* wr,
@@ -434,11 +408,6 @@ int gk_any(const float* xr, const float* xi, const float* wr,
            long long y_ws, int W, int form, int vec, int passes,
            cudaStream_t s)
 {
-    // GK's mma form on wgmma, GGK's on mma.sync
-    if (form == 1 && !woff)
-        return gk_wgmma(xr, xi, wr, wi, yr, yi, xoff, yoff, koff, O, H, K,
-                        F, hstride, x_ws, w_ws, y_ws, W, vec != 0, passes,
-                        s);
     if (form == 1)
         return gk_mma(xr, xi, wr, wi, yr, yi, xoff, yoff, woff, koff, O, H,
                       K, F, hstride, x_ws, w_ws, y_ws, W, vec != 0, passes,
@@ -469,7 +438,7 @@ extern "C" int gk_launch(const float* xr, const float* xi, const float* wr,
 }
 
 // GGK: as gk_launch, with W's (H, K) row of outer index o at woff[o]
-// (its mma form on mma.sync)
+// (its mma form needs F % 128 == 0)
 extern "C" int ggk_launch(const float* xr, const float* xi, const float* wr,
                           const float* wi, float* yr, float* yi,
                           const long long* xoff, const long long* yoff,

@@ -1,76 +1,90 @@
 // Split-complex product on Hopper's warpgroup tensor-core instruction
-// (wgmma) at float32 accuracy (3xTF32), under the pair kernel (pair.cu)
-// and the GK kernel's "mma" form (gatherk.cu).  GGK's mma form and the
-// complex matmul keep tc_core.cuh's mma.sync product.
+// (wgmma) at float32 accuracy (3xTF32): the port's one tensor-core core,
+// under the pair kernel and the complex matmul (pair.cu) and the "mma"
+// form of the GK and GGK kernels (gatherk.cu).
 //
 // Computes, per slice instance w,
 //   Y[m, n] = sum_k X[m, k] . V[n, k]        (complex, split re/im planes)
 // with X in wgmma's A role (registers) and V in its B role (shared memory):
 //   * Pair (GATHER false): X^T . V with X stored (K, M) and V (K, N), both
 //     row-major (m and n contiguous), Y (M, N) row-major;
+//   * the complex matmul (GATHER false, A_MK): as Pair with X stored
+//     (M, K), k contiguous; its batch is the width axis;
 //   * GK (GATHER true): Y = W . X per outer index, transposed so that the
 //     big side is M: m runs over the flat (outer index o, f) values, M =
 //     G * F, X[m, k] at xoff[o] + koff[k] + f; V is W, (H, K) rows (k
 //     contiguous), N = H; Y[m, n] at yoff[o] + f + n * ldy (ldy: hstride).
+//     GGK (woff set) reads the W rows of outer index o at woff[o]: F is a
+//     multiple of the 128-row M tile, so that a tile lies in one outer
+//     index and its producer reads one W row set.
 // A width stride of 0 reads a slice-invariant operand once for every
 // instance.  Ragged M, N and K are zero-filled on load and masked on store.
 //
 // Why this shape.  TF32 wgmma takes both shared-memory operands K-major
-// and cannot transpose them, and neither operand here is K-major in
-// memory (X is m-contiguous; Pair's V is n-contiguous).  The register
-// form (A in registers) ends half of that: each thread loads its A
-// fragment from a raw [k][m] tile and splits it into hi and lo there.  V
-// goes through one pass per K chunk that reads the raw tile ([k][n] for
-// Pair, [n][k] for GK) and writes hi and lo planes in the K-major
-// core-matrix layout the descriptors name (no swizzle: 8 rows of 16 bytes
-// a core matrix, the two k halves of a k8 slice 128 bytes apart, the
-// 8-row groups 256 bytes apart).  The 3xTF32 split needs that pass anyway.
+// and cannot transpose them, and X and Pair's V are not K-major in memory
+// (X is m-contiguous; Pair's V is n-contiguous).  The register form (A in
+// registers) ends half of that: each thread loads its A fragment from a
+// raw [k][m] tile ([m][k] for A_MK) and splits it into hi and lo there.
+// V goes through one pass per K chunk that reads the raw tile ([k][n] for
+// Pair and the complex matmul, [n][k] for GK) and writes hi and lo planes
+// in the K-major core-matrix layout the descriptors name (no swizzle: 8
+// rows of 16 bytes a core matrix, the two k halves of a k8 slice 128 bytes
+// apart, the 8-row groups 256 bytes apart).  The 3xTF32 split needs that
+// pass anyway.
 //
-// Arithmetic (tc_core.cuh's): x = hi + lo, hi = tf32(x), lo = tf32(x -
-// hi); a complex product per k8 slice is 12 wgmma (6 into re, 6 into im:
-// lo.hi, hi.lo, hi.hi; re -= Ai.Bi through the instruction's negation of
-// A, imm-scale-a -1, which is exact), or 4 in the one-pass form (PASSES 1,
-// precision "default": hi.hi, hi the operand with its low 13 mantissa bits
-// cleared).  The sums inside the tensor cores do not round to nearest
-// (tc_core.cuh: all of K 1024 added inside them came out 12x as far from
-// float64 as cuBLAS).  So every PROMOTE k8 slices a window starts a fresh
-// tensor-core accumulator (scale-d 0), and at its end the warpgroup waits
-// for its wgmma and adds that accumulator into float32 registers (round to
-// nearest); meanwhile the other warpgroup's wgmma keep the tensor cores
-// busy.  The 3xTF32 form promotes after every slice (PROMOTE_3XTF32,
-// below); the one-pass form, TF32 class anyway, takes a chunk's four
-// slices a window.  (Two sets of
+// Arithmetic (tc_core.cuh's split): x = hi + lo, hi = tf32(x), lo =
+// tf32(x - hi); a complex product per k8 slice is 12 wgmma (6 into re, 6
+// into im: lo.hi, hi.lo, hi.hi, the lo.lo term below 2^-22 of |a||b|
+// dropped; re -= Ai.Bi through the instruction's negation of A,
+// imm-scale-a -1, which is exact), or 4 in the one-pass form (PASSES 1,
+// precision "default": hi.hi, hi the operand with its low 13 mantissa
+// bits cleared).  The sums inside the tensor cores do not round to
+// nearest: with all of K 1024 added inside them the pair step came out
+// 12x as far from float64 as cuBLAS's float32 product (H100).  So every
+// PROMOTE k8 slices a window starts a fresh tensor-core accumulator
+// (scale-d 0), and at its end the warpgroup waits for its wgmma and adds
+// that accumulator into float32 registers (round to nearest); meanwhile
+// the other warpgroup's wgmma keep the tensor cores busy.  The 3xTF32
+// form promotes after every slice (PROMOTE_3XTF32, below); the one-pass
+// form, TF32 class anyway, takes four slices a window.  (Two sets of
 // tensor-core accumulators, a window queued before the last one drains,
 // ran slower on the card: ptxas serialises wgmma whose accumulators other
 // instructions read while a group is in flight.)
 //
 // Kernel shape.  A block is three warpgroups, one block an SM
 // (__launch_bounds__(384, 1)): a producer and two consumers of 64 output
-// rows each (a 128 x BN tile, BN 64, or 32 for narrow N).  The producer
-// gives registers back (setmaxnreg.dec 40); it walks K in chunks of BK =
-// 32, copying each chunk's raw X and V into a ring of STAGES (3-4)
-// shared-memory stages by cp.async, STAGES - 2 chunks ahead, and splits
-// V into the hi/lo planes of one of two plane buffers.  The consumers take
-// registers (setmaxnreg.inc 232) for two sets of (re, im) accumulators,
-// the tensor cores' and the float32 ones, declared inside their branch so
-// that ptxas allocates them there; they read the A fragments from the raw
-// stage (the next k8 slice's while a slice's wgmma run), issue the wgmma
-// and promote.  Chunks are handed over on mbarriers: "full" (the
-// producer's 128 threads arrive once a chunk's copies have landed and its
-// planes are written) and "empty" (the consumers' 256 threads arrive once
-// its wgmma have completed).  The grid is persistent (walking tiles
-// blockIdx.x, + gridDim.x, ...; tile_at orders them), and the chunks of a
-// block's tiles are one sequence through the ring, so the next tile's
-// first chunks load while the last one finishes.  Against the earlier
-// shape, two warpgroups sharing the copies and the split between their
-// products (256 threads, two barriers a chunk), this one was 16-19% faster
-// at the 1k and 10k Pair steps, with the same output
-// (scripts/wgmma_ws_torch_port.cu, PERF.md).
+// rows each (a 128 x BN tile; BN 64, 32 or 16, the N side's width).  The
+// producer gives registers back (setmaxnreg.dec 40); it walks K in chunks
+// of BK (32, or 16 for GGK steps of K <= 16, which a 32-deep chunk would
+// leave half empty), copying each chunk's raw X and V into a ring of
+// STAGES (3-4) shared-memory stages by cp.async, STAGES - 2 chunks ahead,
+// and splits V into the hi/lo planes of one of two plane buffers.  The
+// consumers take registers (setmaxnreg.inc 232) for two sets of (re, im)
+// accumulators, the tensor cores' and the float32 ones, declared inside
+// their branch so that ptxas allocates them there; they read the A
+// fragments from the raw stage (the next k8 slice's while a slice's wgmma
+// run), issue the wgmma and promote.  Chunks are handed over on
+// mbarriers: "full" (the producer's 128 threads arrive once a chunk's
+// copies have landed and its planes are written) and "empty" (the
+// consumers' 256 threads arrive once its wgmma have completed).  The grid
+// is persistent (walking tiles blockIdx.x, + gridDim.x, ...; Tiles
+// orders them), and the chunks of a block's tiles are one sequence
+// through the ring, so the next tile's first chunks load while the last
+// one finishes and its outputs are stored.  GGK's 1k step (K 16 H 16, X
+// slice-invariant) is one chunk a tile: there a block takes a run of
+// tiles, the slice instance fastest, and copies an M tile's X, and its
+// consumers read and split their A fragments, once for all its slice
+// instances (REUSE_X); its outputs go out through shared memory in 16-byte
+// stores (STAGE_Y).  Against the earlier shape, two
+// warpgroups sharing the copies and the split between their products (256
+// threads, two barriers a chunk), this one was 16-19% faster at the 1k
+// and 10k Pair steps, with the same output (scripts/wgmma_ws_torch_port.cu,
+// PERF.md).
 //
 // The ring copies 16 bytes a cp.async where every row and offset lies on
 // a 4-float grid and the buffers on 16 bytes (VEC: Pair, M and N multiples
-// of 4; GK, gatherk.gk_aligned; V's rows apart, Operands::vec_v), else 4
-// bytes a cp.async, as gatherk.cu's stream form does.
+// of 4; the complex matmul, K and N; GK and GGK, gatherk.gk_aligned; V's
+// rows apart, Operands::vec_v), else 4 bytes a cp.async.
 //
 // Under CUDA-graph capture (runtime/executor.GroupRunner) a launch's
 // arguments, pointers included, are baked into the graph; that is right
@@ -93,46 +107,84 @@ namespace wg {
 // 0.43-0.60x the plain version's; at 2 the GK step is 1.05x, at 4 2.04x,
 // and longer windows ran slower (two slices' A fragments live in flight).
 constexpr int PROMOTE_3XTF32 = 1;
-// the one-pass form's window: a whole chunk's four slices
+// the one-pass form's window: four slices
 template <int PASSES>
 constexpr int PROMOTE = PASSES == 3 ? PROMOTE_3XTF32 : 4;
 
 struct Operands {
-    const float *xr, *xi;   // A role: Pair's X (K, M); GK's X
+    const float *xr, *xi;   // A role: Pair's X (K, M); the complex
+                            // matmul's A (M, K); GK's X
     const float *vr, *vi;   // B role: Pair's V (K, N); GK's W (H, K)
     float *yr, *yi;
     int M, N, K;
     long long x_ws, v_ws, y_ws;   // slice-width strides (0: invariant)
     long long ldy;                // GK: Y's stride between columns n
     const long long *koff, *xoff, *yoff;   // GK's tables
+    const long long* woff;        // GGK: W's rows of outer index o, or null
     int F;                        // GK: f run length
     bool vec_v;                   // V's rows and buffers on 16 bytes
     int n_mtiles, n_ntiles, n_kchunks;
+    int W;                        // slice width
     long long n_tiles;            // W * n_ntiles * n_mtiles
 };
 
-template <bool GATHER, int BN_, int PASSES>
+// A kernel's compile-time shape: GATHER (GK, GGK) or not (Pair, the
+// complex matmul, with A_MK); the N tile BN; the K chunk BK; the passes;
+// VEC, X's 16-byte copies (and Pair's 8-byte Y stores).
+template <bool GATHER_, int BN_, int PASSES_, bool VEC_, int BK_ = 32,
+          bool A_MK_ = false>
 struct Cfg {
-    static constexpr int BM = 128, BN = BN_, BK = 32;
+    static constexpr bool GATHER = GATHER_, VEC = VEC_, A_MK = A_MK_;
+    static constexpr int BM = 128, BN = BN_, BK = BK_, PASSES = PASSES_;
     static constexpr int THREADS = 384;         // three warpgroups
     static constexpr int PRODUCER = 128;        // the first of them
-    static constexpr int LDA = BM + 8;          // raw X rows [k][m]: 8 mod 32
+    // raw X rows: [k][m] (8 mod 32 floats) or, A_MK, [m][k] (4 mod 32),
+    // so that the consumers' fragment reads hit 32 distinct banks
+    static constexpr int LDA = A_MK ? BK + 4 : BM + 8;
+    static constexpr int A_ROWS = A_MK ? BM : BK;
     static constexpr int B_ROWS = GATHER ? BN : BK;
     static constexpr int LDB = GATHER ? BK + 4 : BN + 8;   // [n][k] / [k][n]
-    static constexpr int A_PART = BK * LDA, B_PART = B_ROWS * LDB;
+    static constexpr int A_PART = A_ROWS * LDA, B_PART = B_ROWS * LDB;
     static constexpr int STAGE = 2 * A_PART + 2 * B_PART;  // floats
-    static constexpr int NPLANES = PASSES == 3 ? 4 : 2;    // re/im hi (lo)
-    static constexpr int PLANE = BK * BN;                  // floats
+    // The 16-wide N tile (GGK, H <= 16) multiplies re and im side by side:
+    // its B planes are [Vr | Vi] and [-Vi | Vr], 32 wide, so that a complex
+    // product is 2 wgmma of n32 (6 in 3xTF32) into one accumulator [re |
+    // im], where 16-wide planes take 4 of n16 (12): an n16 wgmma costs the
+    // tensor cores nearly what an n32 one does (2-3% on the 1k K 16 H 16
+    // step, scripts/ggk_wgmma_torch_port.py; the same sums in the same
+    // order, so the same result).
+    static constexpr bool STACK = GATHER && BN == 16;
+    static constexpr int PW = STACK ? 2 * BN : BN;         // plane width
+    static constexpr int NPLANES = PASSES == 3 ? 4 : 2;    // hi (lo) planes
+    static constexpr int PLANE = BK * PW;                  // floats
     static constexpr int PLANES = NPLANES * PLANE;         // one buffer
+    // The narrow N tile (GGK, H <= 16) stores a finished tile through
+    // shared memory: each consumer warpgroup's 64 x 16 outputs as [n][m]
+    // rows (64 + 4 floats: the fragment writes hit 32 banks), written out
+    // along m in 16-byte stores (VEC), where its fragments would take a
+    // thread 16 scattered 4-byte stores.
+    static constexpr bool STAGE_Y = GATHER && VEC && BN == 16;
+    static constexpr int LDY = 64 + 4;
+    static constexpr int Y_PART = STAGE_Y ? BN * LDY : 0;  // a plane's
+    static constexpr int Y_STAGE = 2 * 2 * Y_PART;         // floats: 2 warp-
+                                                           // groups, re, im
     static constexpr int CAP = 232448;          // the H100's block maximum
     static constexpr int BARS = 64;             // bytes: the mbarriers
-    static constexpr int FIXED = 2 * PLANES * 4 + BARS;
+    static constexpr int FIXED = (2 * PLANES + Y_STAGE) * 4 + BARS;
     static constexpr int STAGES_FIT = (CAP - FIXED) / (STAGE * 4);
     static constexpr int STAGES = STAGES_FIT > 4 ? 4 : STAGES_FIT;
     static constexpr int AHEAD = STAGES - 2;    // chunks copied ahead
     static constexpr int SMEM = FIXED + STAGES * STAGE * 4;
+    // A K chunk of 16 (GGK, K <= 16) is its tile's only chunk, and its two
+    // k8 slices' A fragments fit the consumers' fragment slots: where X is
+    // slice-invariant, a block walks the slice instances of one M tile in
+    // turn, copying the tile's X and reading its fragments once (reuse).
+    static constexpr bool REUSE_X = GATHER && BK == 16;
     static_assert(STAGES >= 3, "shared memory");
-    static_assert(BN == 32 || BN == 64, "BN");
+    static_assert(BN == 16 || BN == 32 || BN == 64, "BN");
+    static_assert(BK == 16 || BK == 32, "BK");
+    static_assert(PASSES == 1 || PASSES == 3, "PASSES");
+    static_assert(!(GATHER && A_MK), "A_MK is a form of the plain product");
 };
 
 // -- PTX ----------------------------------------------------------------------
@@ -221,8 +273,17 @@ __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t b,
                                     int acc)
 {
     static_assert(SA == 1 || SA == -1, "imm-scale-a");
-    static_assert(BN == 32 || BN == 64, "BN");
-    if constexpr (BN == 32) {
+    static_assert(BN == 16 || BN == 32 || BN == 64, "BN");
+    if constexpr (BN == 16) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+            "{%8, %9, %10, %11}, %12, p, %14, 1;\n}\n"
+            : WG_D8(0)
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc),
+              "n"(SA));
+    } else if constexpr (BN == 32) {
         asm volatile(
             "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
             "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
@@ -256,134 +317,221 @@ struct TileAt {
     int m0, n0;
 };
 
-// Tile t: Pair runs the M tiles of one N tile next to each other; GK the
-// N tiles (H) of one M tile, which read the same X rows (from L2 for all
-// but the first), W being small
-template <bool GATHER>
-__device__ __forceinline__ TileAt tile_at(const Operands& p, long long t,
-                                          int BM, int BN)
+// Whether the block walks its tiles in the reuse order (Cfg::REUSE_X): X
+// slice-invariant, one K chunk and one N tile a tile.
+template <class C>
+__device__ __forceinline__ bool reuse(const Operands& p)
 {
-    const long long per_w = (long long)p.n_mtiles * p.n_ntiles;
-    const long long r = t % per_w;
-    const int fast = GATHER ? p.n_ntiles : p.n_mtiles;
-    const int mt = (int)(GATHER ? r / fast : r % fast);
-    const int nt = (int)(GATHER ? r % fast : r / fast);
-    return TileAt{t / per_w, mt * BM, nt * BN};
+    return C::REUSE_X && p.x_ws == 0 && p.n_kchunks == 1 && p.n_ntiles == 1;
 }
 
-// Copy chunk ``kc`` of tile ``at`` (X rows k0 .. k0 + BK of the tile's
-// BM m values, V's BK x BN values) into ``stage``, 16 bytes a cp.async
-// (X: VEC; V: p.vec_v), else 4; each of the producer's threads (``tid``)
-// copies its share.  Rows and columns past M, N and K read as zeros.
-template <bool GATHER, int BN, int PASSES, bool VEC>
-__device__ __forceinline__ void load(const Operands& p, const TileAt& at,
-                                     int kc, float* stage, int tid)
+// The block's first tile in the reuse order: each block takes a run of
+// consecutive tiles, the slice instance fastest
+__device__ __forceinline__ long long first_tile(const Operands& p, int b)
 {
-    using C = Cfg<GATHER, BN, PASSES>;
-    constexpr int BM = C::BM, BK = C::BK, LDA = C::LDA, LDB = C::LDB;
-    constexpr int T = C::PRODUCER;
+    return (long long)b * p.n_tiles / gridDim.x;
+}
+
+// The block's tiles in turn: ``at`` is the current one, ``next`` steps to
+// the next.  The order: tile blockIdx.x + q gridDim.x of the slice
+// instances' tiles, Pair and the complex matmul running the M tiles of
+// one N tile next to each other, GK the N tiles (H) of one M tile, which
+// read the same X rows (from L2 for all but the first), W being small; or
+// the reuse order.  Stepped without 64-bit divisions (software routines:
+// a few a tile cost as much as the rest of a tile's hand-over when a tile
+// is one chunk, as GGK's and GK's K <= 32 tiles are).
+template <class C>
+struct Tiles {
+    const Operands& p;
+    const bool reusing;
+    long long per_w;     // tiles a slice instance
+    long long r;         // the tile within its instance
+    long long step_w, step_r;    // gridDim.x tiles on, in instances and r
+    TileAt at;
+
+    __device__ __forceinline__ explicit Tiles(const Operands& p_)
+        : p(p_), reusing(reuse<C>(p_)),
+          per_w((long long)p_.n_mtiles * p_.n_ntiles)
+    {
+        long long w;
+        if (reusing) {
+            const long long t = first_tile(p, blockIdx.x);
+            w = t % p.W;
+            r = t / p.W;     // the M tile (one N tile)
+        } else {
+            w = blockIdx.x / per_w;
+            r = blockIdx.x % per_w;
+            step_w = gridDim.x / per_w;
+            step_r = gridDim.x % per_w;
+        }
+        set(w);
+    }
+
+    // at = slice instance w, tile r of it (GK: N tiles fastest)
+    __device__ __forceinline__ void set(long long w)
+    {
+        const int fast = C::GATHER ? p.n_ntiles : p.n_mtiles;
+        const int ri = (int)r;
+        const int a = fast == 1 ? ri : ri / fast;
+        const int b = fast == 1 ? 0 : ri % fast;
+        at = TileAt{w, (C::GATHER ? a : b) * C::BM,
+                    (C::GATHER ? b : a) * C::BN};
+    }
+
+    __device__ __forceinline__ void next()
+    {
+        if (reusing) {
+            if (++at.w == p.W) {
+                at.w = 0;
+                at.m0 += C::BM;
+            }
+            return;
+        }
+        long long w = at.w + step_w;
+        r += step_r;
+        if (r >= per_w) {
+            r -= per_w;
+            ++w;
+        }
+        set(w);
+    }
+};
+
+// Copy chunk ``kc`` of tile ``at`` (X's BK x BM values, V's BK x BN) into
+// ``stage``, 16 bytes a cp.async (X: VEC; V: p.vec_v), else 4; each of the
+// producer's threads (``tid``) copies its share.  Rows and columns past M,
+// N and K read as zeros.  ``x_too`` false: V alone (the reuse order's
+// consumers hold the tile's X already).
+template <class C>
+__device__ __forceinline__ void load(const Operands& p, const TileAt& at,
+                                     int kc, float* stage, int tid,
+                                     bool x_too)
+{
+    constexpr int BM = C::BM, BN = C::BN, BK = C::BK;
+    constexpr int LDA = C::LDA, LDB = C::LDB, T = C::PRODUCER;
     const float* xr = p.xr + at.w * p.x_ws;
     const float* xi = p.xi + at.w * p.x_ws;
-    const float* vr = p.vr + at.w * p.v_ws;
-    const float* vi = p.vi + at.w * p.v_ws;
+    // GGK: the W rows of the tile's outer index (a tile lies in one)
+    const long long vb = at.w * p.v_ws
+        + (C::GATHER && p.woff ? p.woff[at.m0 / p.F] : 0);
+    const float* vr = p.vr + vb;
+    const float* vi = p.vi + vb;
     const int k0 = kc * BK;
-    // X: a fixed 4-float column chunk ac of rows ar0 + RA q
-    constexpr int A_CH = BM / 4, RA = T / A_CH;
-    const int ac = tid % A_CH, ar0 = tid / A_CH;
-    const int m = at.m0 + 4 * ac;
-    if constexpr (VEC) {
-        const bool m_ok = m < p.M;   // M % 4 == 0: a chunk is whole or out
-        const long long xcol = !m_ok ? 0
-            : GATHER ? p.xoff[m / p.F] + m % p.F : (long long)m;
+    if (!x_too) {
+    } else if constexpr (C::A_MK) {
+        // X (M, K) rows: a fixed 4-float k chunk ac of rows ar0 + RA q
+        constexpr int A_CH = BK / 4, RA = T / A_CH;
+        static_assert(T % A_CH == 0 && BM % RA == 0, "X tile");
+        const int ac = tid % A_CH, ar0 = tid / A_CH;
+        const int k = k0 + 4 * ac;
 #pragma unroll
-        for (int q = 0; q < BK / RA; ++q) {
-            const int r = ar0 + RA * q, k = k0 + r;
-            const bool ok = m_ok && k < p.K;
-            const long long off = !ok ? 0
-                : (GATHER ? p.koff[k] : (long long)k * p.M) + xcol;
+        for (int q = 0; q < BM / RA; ++q) {
+            const int r = ar0 + RA * q, m = at.m0 + r;
+            // with VEC (K % 4 == 0) a chunk is whole or out
+            const int lim = m < p.M ? p.K - k : 0;
+            const long long off = lim > 0 ? (long long)m * p.K + k : 0;
             float* d = stage + r * LDA + 4 * ac;
-            tc::cp16(d, xr + off, ok ? 16 : 0);
-            tc::cp16(d + C::A_PART, xi + off, ok ? 16 : 0);
+            tc::copy4(d, xr + off, lim, C::VEC, xr);
+            tc::copy4(d + C::A_PART, xi + off, lim, C::VEC, xi);
         }
-    } else {   // each of the 4 m values on its own (GK: maybe two outer
-               // indices)
-        long long xcol[4];
+    } else {
+        // X [k][m]: a fixed 4-float m chunk ac of rows ar0 + RA q
+        constexpr int A_CH = BM / 4, RA = T / A_CH;
+        static_assert(T % A_CH == 0 && BK % RA == 0, "X tile");
+        const int ac = tid % A_CH, ar0 = tid / A_CH;
+        const int m = at.m0 + 4 * ac;
+        if constexpr (C::VEC) {
+            const bool m_ok = m < p.M;   // M % 4 == 0: a chunk is whole or out
+            const long long xcol = !m_ok ? 0
+                : C::GATHER ? p.xoff[m / p.F] + m % p.F : (long long)m;
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-            xcol[e] = m + e >= p.M ? -1
-                : GATHER ? p.xoff[(m + e) / p.F] + (m + e) % p.F
-                         : (long long)(m + e);
+            for (int q = 0; q < BK / RA; ++q) {
+                const int r = ar0 + RA * q, k = k0 + r;
+                const bool ok = m_ok && k < p.K;
+                const long long off = !ok ? 0
+                    : (C::GATHER ? p.koff[k] : (long long)k * p.M) + xcol;
+                float* d = stage + r * LDA + 4 * ac;
+                tc::cp16(d, xr + off, ok ? 16 : 0);
+                tc::cp16(d + C::A_PART, xi + off, ok ? 16 : 0);
+            }
+        } else {   // each of the 4 m values on its own (GK: maybe two
+                   // outer indices)
+            long long xcol[4];
 #pragma unroll
-        for (int q = 0; q < BK / RA; ++q) {
-            const int r = ar0 + RA * q, k = k0 + r;
-            const long long row = k >= p.K ? 0
-                : GATHER ? p.koff[k] : (long long)k * p.M;
-            float* d = stage + r * LDA + 4 * ac;
+            for (int e = 0; e < 4; ++e)
+                xcol[e] = m + e >= p.M ? -1
+                    : C::GATHER ? p.xoff[(m + e) / p.F] + (m + e) % p.F
+                                : (long long)(m + e);
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const bool ok = k < p.K && xcol[e] >= 0;
-                const long long off = ok ? row + xcol[e] : 0;
-                tc::cp4(d + e, xr + off, ok ? 4 : 0);
-                tc::cp4(d + C::A_PART + e, xi + off, ok ? 4 : 0);
+            for (int q = 0; q < BK / RA; ++q) {
+                const int r = ar0 + RA * q, k = k0 + r;
+                const long long row = k >= p.K ? 0
+                    : C::GATHER ? p.koff[k] : (long long)k * p.M;
+                float* d = stage + r * LDA + 4 * ac;
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const bool ok = k < p.K && xcol[e] >= 0;
+                    const long long off = ok ? row + xcol[e] : 0;
+                    tc::cp4(d + e, xr + off, ok ? 4 : 0);
+                    tc::cp4(d + C::A_PART + e, xi + off, ok ? 4 : 0);
+                }
             }
         }
     }
-    // V: Pair, a column chunk bc of rows [k] br0 + RB q; GK, a k chunk bc
-    // of rows [n] br0 + RB q
-    constexpr int B_CH = GATHER ? BK / 4 : BN / 4, RB = T / B_CH;
-    constexpr int B_ITERS = (GATHER ? BN : BK) / RB;
-    static_assert(B_ITERS >= 1 && (GATHER ? BN : BK) % RB == 0, "V tile");
+    // V: Pair and the complex matmul, a column chunk bc of rows [k] br0 +
+    // RB q; GK, a k chunk bc of rows [n] br0 + RB q (a narrow tile leaves
+    // some threads without a row)
+    constexpr int B_CH = C::GATHER ? BK / 4 : BN / 4, RB = T / B_CH;
+    constexpr int B_ITERS = (C::B_ROWS + RB - 1) / RB;
+    static_assert(T % B_CH == 0 && (C::B_ROWS % RB == 0 || B_ITERS == 1),
+                  "V tile");
     const int bc = tid % B_CH, br0 = tid / B_CH;
     float* sb = stage + 2 * C::A_PART;
 #pragma unroll
     for (int q = 0; q < B_ITERS; ++q) {
         const int r = br0 + RB * q;
+        if (C::B_ROWS % RB && r >= C::B_ROWS)
+            break;
         // Pair: row k = k0 + r, columns n0 + 4 bc; GK: row n = n0 + r,
         // k = k0 + 4 bc; the 4 values along the row, ``lim`` of them in
         // range (with vec_v: 4 or 0, K % 4 == 0 for GK, N % 4 for Pair)
-        const int k = GATHER ? k0 + 4 * bc : k0 + r;
-        const int n = GATHER ? at.n0 + r : at.n0 + 4 * bc;
+        const int k = C::GATHER ? k0 + 4 * bc : k0 + r;
+        const int n = C::GATHER ? at.n0 + r : at.n0 + 4 * bc;
         const bool ok = k < p.K && n < p.N;
-        const int lim = !ok ? 0 : GATHER ? p.K - k : p.N - n;
+        const int lim = !ok ? 0 : C::GATHER ? p.K - k : p.N - n;
         const long long off = !ok ? 0
-            : GATHER ? (long long)n * p.K + k : (long long)k * p.N + n;
+            : C::GATHER ? (long long)n * p.K + k : (long long)k * p.N + n;
         float* d = sb + r * LDB + 4 * bc;
         tc::copy4(d, vr + off, lim, p.vec_v, vr);
         tc::copy4(d + C::B_PART, vi + off, lim, p.vec_v, vi);
     }
 }
 
-// the tile of the block's ``q``-th tile slot, and its first chunk's item
-template <bool GATHER>
-__device__ __forceinline__ TileAt my_tile(const Operands& p, long long q,
-                                          int BM, int BN)
-{
-    return tile_at<GATHER>(p, blockIdx.x + q * gridDim.x, BM, BN);
-}
-
 // Split chunk ``item``'s raw V (stage s) into the hi (and lo) planes of
-// buffer ``pl``: plane order re hi, im hi, re lo, im lo; element (n, k) of
-// k8 slice j at j*BN*8 + (n/8)*64 + ((k%8)/4)*32 + (n%8)*4 + k%4 floats.
-template <bool GATHER, int BN, int PASSES>
+// buffer ``pl``: plane order re hi, im hi, re lo, im lo (STACK: [re | im]
+// hi, [-im | re] hi, then lo); element (n, k) of k8 slice j at j*PW*8 +
+// (n/8)*64 + ((k%8)/4)*32 + (n%8)*4 + k%4 floats.
+template <class C>
 __device__ __forceinline__ void split_v(const float* sb, float* pl, int ct)
 {
-    using C = Cfg<GATHER, BN, PASSES>;
-    constexpr int BK = C::BK, LDB = C::LDB, PLANE = C::PLANE;
+    constexpr int BN = C::BN, LDB = C::LDB, PLANE = C::PLANE, PW = C::PW;
     constexpr int T = C::PRODUCER;
-    constexpr int TASKS = BN * BK / 4;    // (n, 4 k) chunks, re and im each
-    static_assert(TASKS % T == 0, "split tasks");
+    constexpr int TASKS = BN * C::BK / 4;  // (n, 4 k) chunks, re and im each
+    static_assert(TASKS % T == 0 || TASKS < T, "split tasks");
 #pragma unroll
-    for (int q = 0; q < TASKS / T; ++q) {
+    for (int q = 0; q < (TASKS + T - 1) / T; ++q) {
         const int id = ct + T * q;
+        if (TASKS < T && id >= TASKS)
+            break;
         const int n = id % BN, k = 4 * (id / BN);
         float r[4], i[4];
-        if (GATHER) {    // raw [n][k]
+        if (C::GATHER) {    // raw [n][k]
             const float4 a = *reinterpret_cast<const float4*>(sb + n * LDB + k);
             const float4 b = *reinterpret_cast<const float4*>(
                 sb + C::B_PART + n * LDB + k);
             r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w;
             i[0] = b.x; i[1] = b.y; i[2] = b.z; i[3] = b.w;
-        } else {         // raw [k][n]
+        } else {            // raw [k][n]
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 r[e] = sb[(k + e) * LDB + n];
@@ -393,60 +541,122 @@ __device__ __forceinline__ void split_v(const float* sb, float* pl, int ct)
         uint32_t rh[4], rl[4], ih[4], il[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-            tc::split<PASSES>(r[e], rh[e], rl[e]);
-            tc::split<PASSES>(i[e], ih[e], il[e]);
+            tc::split<C::PASSES>(r[e], rh[e], rl[e]);
+            tc::split<C::PASSES>(i[e], ih[e], il[e]);
         }
-        const int off = (k / 8) * BN * 8 + (n / 8) * 64 + ((k % 8) / 4) * 32
+        const int off = (k / 8) * PW * 8 + (n / 8) * 64 + ((k % 8) / 4) * 32
                         + (n % 8) * 4;
-        *reinterpret_cast<uint4*>(pl + off) = make_uint4(rh[0], rh[1], rh[2],
-                                                         rh[3]);
-        *reinterpret_cast<uint4*>(pl + PLANE + off) =
-            make_uint4(ih[0], ih[1], ih[2], ih[3]);
-        if (PASSES == 3) {
-            *reinterpret_cast<uint4*>(pl + 2 * PLANE + off) =
-                make_uint4(rl[0], rl[1], rl[2], rl[3]);
-            *reinterpret_cast<uint4*>(pl + 3 * PLANE + off) =
-                make_uint4(il[0], il[1], il[2], il[3]);
+        auto put = [&](int plane, int at, const uint32_t* v, bool neg) {
+            const uint32_t s = neg ? 0x80000000u : 0u;   // exact negation
+            *reinterpret_cast<uint4*>(pl + plane * PLANE + at) =
+                make_uint4(v[0] ^ s, v[1] ^ s, v[2] ^ s, v[3] ^ s);
+        };
+        // column n + BN of a stacked plane: 8-column groups BN / 8 on
+        constexpr int HI = (BN / 8) * 64;
+        if (C::STACK) {
+            put(0, off, rh, false);
+            put(0, off + HI, ih, false);
+            put(1, off, ih, true);
+            put(1, off + HI, rh, false);
+        } else {
+            put(0, off, rh, false);
+            put(1, off, ih, false);
+        }
+        if (C::PASSES == 3 && C::STACK) {
+            put(2, off, rl, false);
+            put(2, off + HI, il, false);
+            put(3, off, il, true);
+            put(3, off + HI, rl, false);
+        } else if (C::PASSES == 3) {
+            put(2, off, rl, false);
+            put(3, off, il, false);
         }
     }
     // the planes are read by wgmma (the async proxy)
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-template <bool GATHER, int BN, bool VEC>
-__device__ __forceinline__ void store(const Operands& p, const TileAt& at,
-                                      int row0, const float* ar,
-                                      const float* ai, int g, int t)
+// the consumer warpgroup ``wgc``'s 128 threads (named barriers 2 and 3)
+__device__ __forceinline__ void consumer_sync(int wgc)
 {
+    asm volatile("bar.sync %0, 128;\n" :: "r"(2 + wgc) : "memory");
+}
+
+// A warp's 16 rows of a finished tile, from the accumulator fragments:
+// thread (g, t) holds rows g and g + 8, columns 8 j + 2 t (+ 1); with
+// STAGE_Y through the warpgroup's [n][m] rows in ``sy``
+template <class C>
+__device__ __forceinline__ void store(const Operands& p, const TileAt& at,
+                                      int wgc, float* sy, const float* ar,
+                                      const float* ai)
+{
+    const int lt = threadIdx.x % 128, warp = lt / 32, lane = lt % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row0 = 64 * wgc + 16 * warp;
     float* yr = p.yr + at.w * p.y_ws;
     float* yi = p.yi + at.w * p.y_ws;
+    if constexpr (C::STAGE_Y) {
+        constexpr int LDY = C::LDY, PART = C::Y_PART;
+        sy += wgc * 2 * PART;
+        consumer_sync(wgc);          // the last tile's rows are read
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        const int m = at.m0 + row0 + g + 8 * h;
-        if (m >= p.M)
-            continue;
-        const long long base = GATHER
-            ? p.yoff[m / p.F] + m % p.F : (long long)m * p.N;
+        for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int j = 0; j < BN / 8; ++j) {
-            const int n = at.n0 + 8 * j + 2 * t;
-            if (n >= p.N)
-                continue;
-            const float* vr = ar + 4 * j + 2 * h;
-            const float* vi = ai + 4 * j + 2 * h;
-            if (GATHER || !VEC) {
-                const long long ldy = GATHER ? p.ldy : 1;
-                yr[base + n * ldy] = vr[0];
-                yi[base + n * ldy] = vi[0];
-                if (n + 1 < p.N) {
-                    yr[base + (n + 1) * ldy] = vr[1];
-                    yi[base + (n + 1) * ldy] = vi[1];
+            for (int j = 0; j < C::BN / 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int a = (8 * j + 2 * t + e) * LDY + 16 * warp + g
+                                  + 8 * h;
+                    sy[a] = ar[4 * j + 2 * h + e];
+                    sy[PART + a] = ai[4 * j + 2 * h + e];
                 }
-            } else {   // N % 4 == 0: n + 1 < N too
-                *reinterpret_cast<float2*>(yr + base + n) =
-                    make_float2(vr[0], vr[1]);
-                *reinterpret_cast<float2*>(yi + base + n) =
-                    make_float2(vi[0], vi[1]);
+        consumer_sync(wgc);
+        // (n, 4 m) chunks: 16 a column, consecutive threads along m;
+        // F % 4 == 0 (VEC), so a chunk lies in one outer index
+        constexpr int TASKS = C::BN * 16;
+        static_assert(TASKS % 128 == 0, "staged Y");
+#pragma unroll
+        for (int q = 0; q < TASKS / 128; ++q) {
+            const int id = lt + 128 * q, n = id / 16, c = id % 16;
+            const int m = at.m0 + 64 * wgc + 4 * c;
+            if (m >= p.M || at.n0 + n >= p.N)
+                continue;
+            const long long a = p.yoff[m / p.F] + m % p.F
+                                + (long long)(at.n0 + n) * p.ldy;
+            *reinterpret_cast<float4*>(yr + a) =
+                *reinterpret_cast<const float4*>(sy + n * LDY + 4 * c);
+            *reinterpret_cast<float4*>(yi + a) =
+                *reinterpret_cast<const float4*>(sy + PART + n * LDY + 4 * c);
+        }
+    } else {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int m = at.m0 + row0 + g + 8 * h;
+            if (m >= p.M)
+                continue;
+            const long long base = C::GATHER
+                ? p.yoff[m / p.F] + m % p.F : (long long)m * p.N;
+#pragma unroll
+            for (int j = 0; j < C::BN / 8; ++j) {
+                const int n = at.n0 + 8 * j + 2 * t;
+                if (n >= p.N)
+                    continue;
+                const float* vr = ar + 4 * j + 2 * h;
+                const float* vi = ai + 4 * j + 2 * h;
+                if (C::GATHER || !C::VEC) {
+                    const long long ldy = C::GATHER ? p.ldy : 1;
+                    yr[base + n * ldy] = vr[0];
+                    yi[base + n * ldy] = vi[0];
+                    if (n + 1 < p.N) {
+                        yr[base + (n + 1) * ldy] = vr[1];
+                        yi[base + (n + 1) * ldy] = vi[1];
+                    }
+                } else {   // N % 4 == 0: n + 1 < N too
+                    *reinterpret_cast<float2*>(yr + base + n) =
+                        make_float2(vr[0], vr[1]);
+                    *reinterpret_cast<float2*>(yi + base + n) =
+                        make_float2(vi[0], vi[1]);
+                }
             }
         }
     }
@@ -456,24 +666,24 @@ __device__ __forceinline__ void store(const Operands& p, const TileAt& at,
 // j / nks) copied into raw stage j % STAGES, AHEAD items before it is
 // split into plane buffer j % 2.  Item j - 2, the last user of both that
 // buffer and raw stage (j + AHEAD) % STAGES, must be done first.
-template <bool GATHER, int BN, int PASSES, bool VEC>
+template <class C>
 __device__ __forceinline__ void producer(const Operands& p, float* planes,
                                          float* raw, uint64_t* full,
                                          uint64_t* empty, int total)
 {
-    using C = Cfg<GATHER, BN, PASSES>;
     const int tid = threadIdx.x;          // 0 .. 127
     const int nks = p.n_kchunks;
-    int kc = 0;
-    long long q = 0;
-    TileAt at = my_tile<GATHER>(p, 0, C::BM, BN);
+    Tiles<C> tiles(p);
+    int kc = 0, m_last = -1;
     auto copy_next = [&](int i) {         // item i, the items in order
         if (i < total) {
-            load<GATHER, BN, PASSES, VEC>(
-                p, at, kc, raw + (i % C::STAGES) * C::STAGE, tid);
+            const TileAt& at = tiles.at;
+            load<C>(p, at, kc, raw + (i % C::STAGES) * C::STAGE, tid,
+                    !tiles.reusing || at.m0 != m_last);
+            m_last = at.m0;
             if (++kc == nks) {
                 kc = 0;
-                at = my_tile<GATHER>(p, ++q, C::BM, BN);
+                tiles.next();
             }
         }
         tc::cp_commit();
@@ -487,9 +697,8 @@ __device__ __forceinline__ void producer(const Operands& p, float* planes,
         copy_next(j + C::AHEAD);
         tc::cp_wait<C::AHEAD>();          // item j's copies, this thread's
         producer_sync();                  // and the other producers'
-        split_v<GATHER, BN, PASSES>(
-            raw + (j % C::STAGES) * C::STAGE + 2 * C::A_PART,
-            planes + (j % 2) * C::PLANES, tid);
+        split_v<C>(raw + (j % C::STAGES) * C::STAGE + 2 * C::A_PART,
+                   planes + (j % 2) * C::PLANES, tid);
         mbar_arrive(&full[j % 2]);
     }
     tc::cp_wait<0>();
@@ -497,16 +706,19 @@ __device__ __forceinline__ void producer(const Operands& p, float* planes,
 
 // A consumer warpgroup (``wgc`` 0 or 1: output rows 64 wgc ..): per item,
 // per k8 slice, the A fragment from the raw stage, 12 wgmma (4 in one
-// pass) into the tensor-core accumulators d, and at a window's end d added
-// into the float32 accumulators acc; a tile's last item stores acc.
-template <bool GATHER, int BN, int PASSES, bool VEC>
+// pass; STACK 6 and 2) into the tensor-core accumulators d, and at a
+// window's end d added into the float32 accumulators acc; a tile's last
+// item stores acc.  acc and d hold re then im (STACK: the [re | im]
+// columns of one n32 accumulator, which is the same order).
+template <class C>
 __device__ __forceinline__ void consumer(const Operands& p,
                                          const float* planes,
-                                         const float* raw, uint64_t* full,
-                                         uint64_t* empty, int total)
+                                         const float* raw, float* sy,
+                                         uint64_t* full, uint64_t* empty,
+                                         int total)
 {
-    using C = Cfg<GATHER, BN, PASSES>;
-    constexpr int BK = C::BK, LDA = C::LDA, PLANE = C::PLANE, NR = BN / 2;
+    constexpr int BN = C::BN, BK = C::BK, LDA = C::LDA, PLANE = C::PLANE;
+    constexpr int NR = BN / 2, PASSES = C::PASSES;
     constexpr int P = PROMOTE<PASSES>;
     // A fragment slots: two at a window of one slice (a slice's wgmma
     // read one while the next slice's is written), else one a slice of
@@ -517,34 +729,37 @@ __device__ __forceinline__ void consumer(const Operands& p,
     const int row0 = 64 * wgc + 16 * warp;    // the warp's 16 rows of 128
     const int nks = p.n_kchunks;
     const int nk8_all = (p.K + 7) / 8;
-    float acc_r[NR], acc_i[NR], d_r[NR], d_i[NR];
+    float acc[2 * NR], d[2 * NR];
 #pragma unroll
-    for (int e = 0; e < NR; ++e) {
-        acc_r[e] = 0.f; acc_i[e] = 0.f; d_r[e] = 0.f; d_i[e] = 0.f;
+    for (int e = 0; e < 2 * NR; ++e) {
+        acc[e] = 0.f;
+        d[e] = 0.f;
     }
     uint32_t ar_h[FR][4], ar_l[FR][4], ai_h[FR][4], ai_l[FR][4];
     // slice j's fragment (rows row0 + g (+8), columns t (+4)) into slot f
     auto frag = [&](const float* sa, int j, int f) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-            const int a = (8 * j + t + 4 * (c >> 1)) * LDA + row0 + g
-                          + 8 * (c & 1);
+            const int m = row0 + g + 8 * (c & 1), k = 8 * j + t + 4 * (c >> 1);
+            const int a = C::A_MK ? m * LDA + k : k * LDA + m;
             tc::split<PASSES>(sa[a], ar_h[f][c], ar_l[f][c]);
             tc::split<PASSES>(sa[C::A_PART + a], ai_h[f][c], ai_l[f][c]);
         }
     };
-    int kc = -1;                 // the item's chunk within its tile
-    long long tile_q = 0;        // its tile slot
+    Tiles<C> tiles(p);
+    int kc = 0;                  // the item's chunk within its tile
+    int m_last = -1;             // the last tile's M tile
     for (int it = 0; it < total; ++it) {
-        if (++kc == nks) {
-            kc = 0;
-            ++tile_q;
-        }
+        const TileAt& at = tiles.at;
+        // the reuse order's next slice instance of an M tile: its A
+        // fragments are in their slots already
+        const bool keep = tiles.reusing && at.m0 == m_last;
         mbar_wait(&full[it % 2], (it / 2) & 1);
         const float* sa = raw + (it % C::STAGES) * C::STAGE;
         const float* pl = planes + (it % 2) * C::PLANES;
         const int nk8 = min(BK / 8, nk8_all - kc * (BK / 8));
-        frag(sa, 0, 0);
+        if (!keep)
+            frag(sa, 0, 0);
 #pragma unroll
         for (int j = 0; j < BK / 8; ++j) {
             if (j >= nk8)
@@ -552,61 +767,81 @@ __device__ __forceinline__ void consumer(const Operands& p,
             const int f = j % FR;
             const int kk = kc * (BK / 8) + j;     // k8 slice of the tile
             const int go = kk % P ? 1 : 0;        // 0: a fresh window
-            const float* b = pl + j * BN * 8;
-            const uint64_t brh = desc(b), bih = desc(b + PLANE);
+            const float* b = pl + j * C::PW * 8;
+            // planes 0 and 1 (2 and 3: lo): re and im, or STACK's
+            // [re | im] and [-im | re]
+            const uint64_t b0h = desc(b), b1h = desc(b + PLANE);
             wg_fence();
-            pin<NR>(d_r);
-            pin<NR>(d_i);
-            if (PASSES == 3) {
-                const uint64_t brl = desc(b + 2 * PLANE);
-                const uint64_t bil = desc(b + 3 * PLANE);
+            pin<2 * NR>(d);
+            if constexpr (C::STACK) {
+                // d = [re | im] += Ar [Vr | Vi] + Ai [-Vi | Vr]: small
+                // terms first (lo.hi, hi.lo), then hi.hi
+                constexpr int N2 = 2 * BN;
+                if (PASSES == 3) {
+                    const uint64_t b0l = desc(b + 2 * PLANE);
+                    const uint64_t b1l = desc(b + 3 * PLANE);
+                    mma<N2, 1>(d, ar_l[f], b0h, go);
+                    mma<N2, 1>(d, ai_l[f], b1h, 1);
+                    mma<N2, 1>(d, ar_h[f], b0l, 1);
+                    mma<N2, 1>(d, ai_h[f], b1l, 1);
+                    mma<N2, 1>(d, ar_h[f], b0h, 1);
+                    mma<N2, 1>(d, ai_h[f], b1h, 1);
+                } else {
+                    mma<N2, 1>(d, ar_h[f], b0h, go);
+                    mma<N2, 1>(d, ai_h[f], b1h, 1);
+                }
+            } else if (PASSES == 3) {
+                float* dr = d;
+                float* di = d + NR;
+                const uint64_t b0l = desc(b + 2 * PLANE);
+                const uint64_t b1l = desc(b + 3 * PLANE);
                 // small terms first: lo.hi, hi.lo, then hi.hi; re
                 // subtracts Ai.Bi through imm-scale-a -1
-                mma<BN, 1>(d_r, ar_l[f], brh, go);
-                mma<BN, 1>(d_i, ar_l[f], bih, go);
-                mma<BN, -1>(d_r, ai_l[f], bih, 1);
-                mma<BN, 1>(d_i, ai_l[f], brh, 1);
-                mma<BN, 1>(d_r, ar_h[f], brl, 1);
-                mma<BN, 1>(d_i, ar_h[f], bil, 1);
-                mma<BN, -1>(d_r, ai_h[f], bil, 1);
-                mma<BN, 1>(d_i, ai_h[f], brl, 1);
-                mma<BN, 1>(d_r, ar_h[f], brh, 1);
-                mma<BN, 1>(d_i, ar_h[f], bih, 1);
-                mma<BN, -1>(d_r, ai_h[f], bih, 1);
-                mma<BN, 1>(d_i, ai_h[f], brh, 1);
+                mma<BN, 1>(dr, ar_l[f], b0h, go);
+                mma<BN, 1>(di, ar_l[f], b1h, go);
+                mma<BN, -1>(dr, ai_l[f], b1h, 1);
+                mma<BN, 1>(di, ai_l[f], b0h, 1);
+                mma<BN, 1>(dr, ar_h[f], b0l, 1);
+                mma<BN, 1>(di, ar_h[f], b1l, 1);
+                mma<BN, -1>(dr, ai_h[f], b1l, 1);
+                mma<BN, 1>(di, ai_h[f], b0l, 1);
+                mma<BN, 1>(dr, ar_h[f], b0h, 1);
+                mma<BN, 1>(di, ar_h[f], b1h, 1);
+                mma<BN, -1>(dr, ai_h[f], b1h, 1);
+                mma<BN, 1>(di, ai_h[f], b0h, 1);
             } else {
-                mma<BN, 1>(d_r, ar_h[f], brh, go);
-                mma<BN, 1>(d_i, ar_h[f], bih, go);
-                mma<BN, -1>(d_r, ai_h[f], bih, 1);
-                mma<BN, 1>(d_i, ai_h[f], brh, 1);
+                float* dr = d;
+                float* di = d + NR;
+                mma<BN, 1>(dr, ar_h[f], b0h, go);
+                mma<BN, 1>(di, ar_h[f], b1h, go);
+                mma<BN, -1>(dr, ai_h[f], b1h, 1);
+                mma<BN, 1>(di, ai_h[f], b0h, 1);
             }
             wg_commit();
-            if (j + 1 < nk8)
+            if (j + 1 < nk8 && !keep)
                 frag(sa, j + 1, (j + 1) % FR);
             if (kk % P == P - 1 || kk == nk8_all - 1) {
                 // the window is done: into float32
                 wg_wait<0>();
-                pin<NR>(d_r);
-                pin<NR>(d_i);
+                pin<2 * NR>(d);
 #pragma unroll
-                for (int e = 0; e < NR; ++e) {
-                    acc_r[e] += d_r[e];
-                    acc_i[e] += d_i[e];
-                }
+                for (int e = 0; e < 2 * NR; ++e)
+                    acc[e] += d[e];
             }
         }
         wg_wait<0>();
-        pin<NR>(d_r);
-        pin<NR>(d_i);
+        pin<2 * NR>(d);
         mbar_arrive(&empty[it % 2]);
         if (kc == nks - 1) {
-            store<GATHER, BN, VEC>(p, my_tile<GATHER>(p, tile_q, C::BM, BN),
-                                   row0, acc_r, acc_i, g, t);
+            store<C>(p, at, wgc, sy, acc, acc + NR);
 #pragma unroll
-            for (int e = 0; e < NR; ++e) {
-                acc_r[e] = 0.f;
-                acc_i[e] = 0.f;
-            }
+            for (int e = 0; e < 2 * NR; ++e)
+                acc[e] = 0.f;
+        }
+        if (++kc == nks) {
+            kc = 0;
+            m_last = at.m0;
+            tiles.next();
         }
     }
 }
@@ -614,18 +849,19 @@ __device__ __forceinline__ void consumer(const Operands& p,
 // One block's work: its tiles blockIdx.x, + gridDim.x, ..., each in
 // chunks of BK, the chunks of all its tiles one sequence of items through
 // the ring.  Each user calls it from a __global__ kernel of its own
-// (pair.cu's pair_wgmma_kernel, gatherk.cu's gk_wgmma_kernel), with
-// __launch_bounds__(384, 1): the kernel is compiled at 168 registers a
-// thread, which the producer lowers to 40 and the consumers raise to 232
-// (128 x 40 + 256 x 232 registers fit an SM's 65536).
-template <bool GATHER, int BN, int PASSES, bool VEC>
+// (pair.cu's pair_wgmma_kernel and cmm_wgmma_kernel, gatherk.cu's
+// gk_wgmma_kernel and ggk_wgmma_kernel), with __launch_bounds__(384, 1):
+// the kernel is compiled at 168 registers a thread, which the producer
+// lowers to 40 and the consumers raise to 232 (128 x 40 + 256 x 232
+// registers fit an SM's 65536).
+template <class C>
 __device__ __forceinline__ void gemm(const Operands& p)
 {
-    using C = Cfg<GATHER, BN, PASSES>;
     extern __shared__ __align__(128) float smem[];
     float* planes = smem;                        // 2 buffers
     float* raw = smem + 2 * C::PLANES;           // STAGES stages
-    uint64_t* bars = reinterpret_cast<uint64_t*>(raw + C::STAGES * C::STAGE);
+    float* sy = raw + C::STAGES * C::STAGE;      // STAGE_Y: Y's rows
+    uint64_t* bars = reinterpret_cast<uint64_t*>(sy + C::Y_STAGE);
     uint64_t* full = bars;                       // 2, by plane buffer
     uint64_t* empty = bars + 2;                  // 2
     if (threadIdx.x == 0) {
@@ -637,32 +873,40 @@ __device__ __forceinline__ void gemm(const Operands& p)
     __syncthreads();
     // items: chunk i % nks of the block's tile slot i / nks (fewer than
     // 2^31 a block: the launch checks)
-    const int total = (int)((p.n_tiles - blockIdx.x + gridDim.x - 1)
-                            / gridDim.x) * p.n_kchunks;
+    const int total = (int)(reuse<C>(p)
+        ? first_tile(p, blockIdx.x + 1) - first_tile(p, blockIdx.x)
+        : (p.n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x)
+        * p.n_kchunks;
     if (threadIdx.x < C::PRODUCER) {
         asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-        producer<GATHER, BN, PASSES, VEC>(p, planes, raw, full, empty, total);
+        producer<C>(p, planes, raw, full, empty, total);
     } else {
         asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-        consumer<GATHER, BN, PASSES, VEC>(p, planes, raw, full, empty,
-                                          total);
+        consumer<C>(p, planes, raw, sy, full, empty, total);
     }
 }
 
-// Launch ``kern`` (a kernel running gemm<GATHER, BN, PASSES, VEC>) over an
-// M x N product at slice width W: one block an SM, at most one a tile.
-// The shared-memory attribute is set per instantiation (one kernel each).
-template <bool GATHER, int BN, int PASSES, bool VEC>
-int launch(void (*kern)(Operands), Operands p, int W, cudaStream_t stream)
+// Launch ``kern`` (a kernel running gemm<C>) over an M x N product at
+// slice width W: one block an SM, at most one a tile.  ``attr``, the
+// caller's for this kernel (one Cfg may serve two kernels: GK's and
+// GGK's), holds a bit for each device whose shared-memory attribute the
+// kernel has.
+template <class C>
+int launch(void (*kern)(Operands), unsigned& attr, Operands p, int W,
+           cudaStream_t stream)
 {
-    using C = Cfg<GATHER, BN, PASSES>;
-    static unsigned attr = 0;    // devices whose attribute is set (bit)
     if (p.K < 1 || p.M < 1 || p.N < 1 || W <= 0 || W > 65535)
         return (int)cudaErrorInvalidConfiguration;
+    // GGK: an M tile lies in one outer index
+    if (C::GATHER && p.woff && p.F % C::BM)
+        return (int)cudaErrorInvalidValue;
     p.n_mtiles = (p.M + C::BM - 1) / C::BM;
-    p.n_ntiles = (p.N + BN - 1) / BN;
+    p.n_ntiles = (p.N + C::BN - 1) / C::BN;
     p.n_kchunks = (p.K + C::BK - 1) / C::BK;
+    p.W = W;
     p.n_tiles = (long long)W * p.n_mtiles * p.n_ntiles;
+    if ((long long)p.n_mtiles * p.n_ntiles > 0x7fffffffLL)   // Tiles::set
+        return (int)cudaErrorInvalidConfiguration;
     int dev = 0, sms = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)

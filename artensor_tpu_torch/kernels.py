@@ -5,9 +5,10 @@ library with a plain C interface, bound with ``ctypes``: a file that
 includes PyTorch's headers takes minutes to compile, a plain one seconds,
 and the build runs at first use inside every fresh checkout.  The
 compilers are started together, one per source.  ``pair.cu`` and
-``gatherk.cu`` both include ``wgmma_core.cuh`` (the tensor-core product of
-Pair and GK's mma form, on wgmma) and ``tc_core.cuh`` (the mma.sync
-product of GGK's mma form and the complex matmul).  Libraries are cached
+``gatherk.cu`` both include ``wgmma_core.cuh`` (the tensor-core product,
+on wgmma, of Pair, the complex matmul and the GK and GGK mma form) and
+``tc_core.cuh`` (its operands' split and the cp.async copies, which
+``rgflat.cu`` also uses).  Libraries are cached
 in ``_build/`` next to this file (git-ignored), or where
 ``ARTENSOR_TPU_CACHE`` points (``cache.py``), named by a hash of the
 source, the headers and the flags, so an edited source or header rebuilds

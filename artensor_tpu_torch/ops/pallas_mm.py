@@ -2,11 +2,12 @@
 
 Port of ``artensor_tpu/ops/pallas_mm.py``.  One complex product in split
 representation is four real products (re = ar.br - ai.bi, im = ar.bi +
-ai.br); the kernel (``cmm_launch`` in ``csrc/pair.cu``, the pair kernel
-with A stored (M, K)) fuses all four per output tile, reading each operand
-tile once for both its products.  The batch is a grid axis.  Unlike the
-TPU kernel it takes any M and N (ragged tiles are masked) rather than
-raising when its tiles do not divide them.
+ai.br); the kernel (``cmm_launch`` in ``csrc/pair.cu``: the pair kernel's
+wgmma product with A stored (M, K), ``csrc/wgmma_core.cuh``) fuses all
+four per output tile, reading each operand tile once for both its
+products, at 3xTF32 (or one TF32 pass).  The batch is the product's width
+axis.  Unlike the TPU kernel it takes any M, N and K (ragged tiles are
+masked) rather than raising when its tiles do not divide them.
 
 No path of the port calls it, as no path of the JAX package does.  The
 wrapper takes its plain PyTorch version (``complex_batched_matmul_plain``)

@@ -124,9 +124,9 @@ STEP_OVERHEAD_W1_S = 323e-6
 # a complex multiply-add).
 H100_COMPLEX_MULADD_PER_S = kernels.H100_TF32_FLOP_PER_S / 3.0 / 8.0
 H100_HBM_BYTES_PER_S = kernels.H100_HBM_BYTES_PER_S
-# The mma k-step (``mma.sync.m16n8k8`` in ``csrc/tc_core.cuh``): a step
-# contracting K < 8 bond values fills only K/8 of it; wider steps run at
-# the full rate.
+# The tensor cores' k-step (the k8 slice of ``wgmma m64nNk8`` TF32 in
+# ``csrc/wgmma_core.cuh``): a step contracting K < 8 bond values fills
+# only K/8 of it; wider steps run at the full rate.
 MMA_K_STEP = 8.0
 # No per-step floor: the port's wall estimate charges only the width-
 # amortized overhead (``metrics.scheme_wall_estimate``).

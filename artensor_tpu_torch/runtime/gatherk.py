@@ -649,16 +649,18 @@ def plan_ggk_step(rx_i, rx_j, riy, rdims_i, rdims_j, gi, gj,
 # The GK kernel (csrc/gatherk.cu) runs a GK or GGK step in one of two
 # forms, chosen here from the step's shape: "stream" (float32 FMAs, one
 # thread per 4 f values) for steps whose bytes bound them at the FMA rate,
-# "mma" (3xTF32 on the tensor cores: GK's on wgmma, csrc/wgmma_core.cuh;
-# GGK's on mma.sync, csrc/tc_core.cuh) for the others.
+# "mma" (3xTF32 on the tensor cores, on wgmma: csrc/wgmma_core.cuh) for
+# the others.
 
 GK_FORMS = ("stream", "mma")  # gk_launch's form codes, in order
 STREAM_W_CAP = 4096           # max complex W values (H chunk x K) the GK
                               # stream form stages in shared memory (32 KiB)
 STREAM_FMA_SHARE = 0.6        # share of the FMA rate the stream form is
                               # held to when it is chosen (see gk_form)
-MMA_TILE_N = 128              # the mma form's N tile (GkNarrow/GkWide::BN)
-GGK_MMA_K_MIN = 32            # min K of a GGK step in the mma form (see gk_form)
+MMA_TILE_M = 128              # the mma form's M tile (wg::Cfg::BM): a GGK
+                              # step's f run is a multiple of it
+GGK_MMA_K_MIN = 16            # min K of a GGK step in the mma form: its
+                              # narrow kernel's K chunk (see gk_form)
 
 
 def stream_hchunk(H):
@@ -699,7 +701,7 @@ def gk_form(plan, width=1, x_batched=True, w_batched=False):
     least as long as its flops at ``STREAM_FMA_SHARE`` of the float32 FMA
     rate, else "mma"; for a GK step (``GKPlan``) the stream form also
     needs its W chunk to fit shared memory, for a GGK step (``GGKPlan``)
-    the mma form needs an f run that is a multiple of ``MMA_TILE_N`` (a
+    the mma form needs an f run that is a multiple of ``MMA_TILE_M`` (a
     tile holds one outer index's W) and at least ``GGK_MMA_K_MIN``
     contract values.  The share is measured, not derived
     (``scripts/gk_forms_torch_port.py``, every GK step of the three paths
@@ -708,17 +710,24 @@ def gk_form(plan, width=1, x_batched=True, w_batched=False):
     H 32 (10.7) 1.10x; K 32 H 32 (16) ran 1.12-1.19x faster on the tensor
     cores and K 16 H 128 (14.2) 1.03x.  0.6 cuts between 10.7 and 14.2
     (1.0 would be 20 flop a byte), so every GK step of the paths takes its
-    faster form.  The GGK K floor is measured the same way: the 1k path's
-    K 16 H 16 F 512 step (X slice-invariant, so 16 flop a byte) ran
-    1.6-1.7 ms streamed and 2.6 ms on the tensor cores, whose blocks then
-    each hold one 16-deep K chunk and a half-empty 32-row W tile."""
+    faster form.  GGK steps take the same test
+    (``scripts/gk_forms_torch_port.py --kind ggk``,
+    ``scripts/ggk_wgmma_torch_port.py``): the 1k path's K 16 H 16 F 512
+    step (X slice-invariant, so 16 flop a byte; the mma form's narrow
+    kernel: N tile 16, K chunk 16, X read once for all slice instances)
+    ran 1.75 ms on the tensor cores against 3.17 streamed at width 64,
+    0.89 against 1.60 at width 32 and 0.045 against 0.065 at width 1
+    (H100); the F 64 steps (1k's K 2 H 2, 10k's K 32 H 2) fill no 128-row
+    tile and stream.  ``GGK_MMA_K_MIN`` is the narrow kernel's K chunk:
+    below it the chunk is part empty (and below K 12 the bytes already
+    keep a step streamed)."""
     t_bytes = gk_bytes(plan, width, x_batched, w_batched) \
         / kernels.H100_HBM_BYTES_PER_S
     t_ops = gk_flops(plan, width, x_batched, w_batched) / (
         STREAM_FMA_SHARE * kernels.H100_FP32_FLOP_PER_S)
     if isinstance(plan, GGKPlan):
         stream_ok = True
-        mma_ok = (plan.row.F % MMA_TILE_N == 0
+        mma_ok = (plan.row.F % MMA_TILE_M == 0
                   and plan.row.K >= GGK_MMA_K_MIN)
     else:
         stream_ok = stream_hchunk(plan.H) * plan.K <= STREAM_W_CAP

@@ -48,9 +48,13 @@ block walk's slice-invariant steps) is not made twice.  Phases, in order
    every RGRow and RGFlat step also through ``apply_ggk_step`` with the
    copies it no longer makes timed alone;
 4. the lane kernel on synthetic plans of the forms the path lacks (head
-   orientation, combo legs, a pinned grid leg; X of 2^24 elements), and
-   the complex batched matmul (``ops/pallas_mm.py``, on no path) at two
-   shapes, each against its plain version, with the same numbers;
+   orientation, combo legs, a pinned grid leg; X of 2^24 elements), the
+   complex batched matmul (``ops/pallas_mm.py``, on no path) at two
+   shapes with ``torch.matmul`` of complex64 as its yardstick, GGK's mma
+   form at a synthetic K 32 H 32 F 512 step (``GGK_MMA_STEP``) and, the
+   evidence of ``gatherk.gk_form``'s cut for GGK, the 1k/default path's
+   K 16 H 16 F 512 GGK step at the path's width in both forms, each
+   against its plain version, with the same numbers;
 5. each path end to end: ``TensorNetworkSimulation`` with all its slices
    on the card, as ``contraction()`` runs it there (a slice group
    captured as a CUDA graph after one eager warm-up group, replayed for
@@ -201,11 +205,11 @@ rate outside the tensor cores (``bound_fp32_ms`` and ``bound_3xtf32_ms``
 give either rate for every kernel).  Each step is also held to the bound
 of the design it runs (``form``): bytes for the "stream" form of GK and
 GGK, 3xTF32 for "mma", FP32 FMA for the rest ("fma").  Each tensor-core
-step also names its core (``core``): "wgmma" (``csrc/wgmma_core.cuh``:
-Pair and GK's mma form) or "mma.sync" (``csrc/tc_core.cuh``: GGK's mma
-form, the complex matmul).  Per path the GK and GGK steps' summed time is
+step also names its core (``core``): "wgmma" (``csrc/wgmma_core.cuh``, the
+port's one tensor-core product: Pair, the complex matmul and the GK and
+GGK mma form).  Per path the GK and GGK steps' summed time is
 printed against their summed bounds, and so is the summed time of the
-Pair and GK mma steps (the two kernels on the wgmma core), and at the
+steps on the wgmma core (Pair, GK and GGK mma), and at the
 largest GK, GGK, RGRow, RGFlat and Pair step of each path the kernel's and
 the plain version's errors against a float64 product of the same inputs,
 over two slice instances (the kernel's may be at most ``F64_ERR_RATIO``
@@ -279,7 +283,7 @@ ONE_PASS_KINDS = ("gk", "ggk", "pair")   # kernels with a tensor-core form
 FORM_KINDS = ("gk", "ggk")   # kernels whose launches are counted by form
 # the tensor-core product each (kind, form) runs on
 CORES = {("gk", "mma"): "wgmma", ("pair", "mma"): "wgmma",
-         ("ggk", "mma"): "mma.sync"}
+         ("ggk", "mma"): "wgmma"}
 # the one-pass TF32 form (precision 'default') against the plain version's
 # TF32 form: the same products of the same TF32 operands, each exact in
 # float32, summed in another order -- the 3-pass form's tolerance
@@ -1109,14 +1113,14 @@ def check_kernels(path):
                   f"{res['ms_per_group'] / res['design_bound_ms_per_group']:.2f})"
                   f" and FP32 bounds {res['fp32_bound_ms_per_group']:.4f} ms;"
                   f" by core {json.dumps(res['cores'])}", flush=True)
-    # the two kernels the wgmma core took over: Pair and GK's mma form
-    tc = [c for kind in ("gk", "pair") if kind in out
+    # the steps on the wgmma core: Pair and the GK and GGK mma form
+    tc = [c for kind in ("gk", "ggk", "pair") if kind in out
           for c in out[kind]["cores"].values()]
     if tc:
         ms = sum(c["ms_per_group"] for c in tc)
         bound = sum(c["design_bound_ms_per_group"] for c in tc)
         out["tc_sum"] = dict(ms_per_group=ms, design_bound_ms_per_group=bound)
-        print(f"path {path['name']} Pair + GK mma: "
+        print(f"path {path['name']} Pair + GK and GGK mma: "
               f"{sum(c['steps'] for c in tc)} steps, kernel {ms:.4f} ms a "
               f"slice group against summed design bounds {bound:.4f} ms "
               f"(ratio {ms / bound:.2f})", flush=True)
@@ -1176,7 +1180,7 @@ def check_complex_mm():
         flops = 8 * B * M * N * K
         reps = 5 if flops > 1e12 else 20
         nbytes = 8 * (B * M * K + B * K * N + B * M * N)
-        r = dict(width=1, step=step, form="mma", core="mma.sync",
+        r = dict(width=1, step=step, form="mma", core=CORES[("pair", "mma")],
                  max_abs_err=err,
                  max_rel_err=err / scale, tol=tol, ms=time_ms(call, reps),
                  plain_ms=time_ms(plain, 3),
@@ -1249,6 +1253,45 @@ def check_ggk_one_pass():
     r["one_pass"] = run_one_pass("ggk", plan, False, False, 1, seed=300,
                                  ms3=r["ms"])
     return r
+
+
+GGK_CUT_STEP = (16, 16, 512)    # (K, H, F) of the 1k path's GGK step that
+                                # gatherk.gk_form's GGK cut decides
+
+
+def check_ggk_cut(paths):
+    """Phase 4d: the 1k/default path's K 16 H 16 F 512 GGK step at the
+    path's width in both forms of the GK kernel (``gatherk.gk_form``
+    overridden for the call), each against its plain version with its ms
+    and design bound: the evidence of ``gk_form``'s cut for GGK steps.
+    Returns each form's result and the form ``gk_form`` picks."""
+    from artensor_tpu_torch.runtime import gatherk
+
+    path = next(p for p in paths if p["name"] == "1k/default")
+    W = path["W"]
+    steps = [c for c in path["cases"].get("ggk", [])
+             if isinstance(c[0].row, gatherk.GKPlan)
+             and (c[0].row.K, c[0].row.H, c[0].row.F) == GGK_CUT_STEP]
+    check(steps, "1k/default has no K 16 H 16 F 512 GGK step")
+    plan, bx, by = steps[0]
+    xs, ws = (bx, by) if plan.row.w_is_j else (by, bx)
+    choose = gatherk.gk_form
+    chosen = choose(plan, W, xs, ws)
+    out = dict(chosen=chosen)
+    for form in gatherk.GK_FORMS:
+        gatherk.gk_form = lambda *a, _f=form, **k: _f
+        try:
+            r = run_kernel("ggk", plan, bx, by, W, seed=400)
+        finally:
+            gatherk.gk_form = choose
+        report(f"ggk cut 1k/default {form}", r)
+        out[form] = r
+    print(f"ggk cut ({out['mma']['step']}, width {W}): stream "
+          f"{out['stream']['ms']:.4f} ms, mma {out['mma']['ms']:.4f} ms "
+          f"(core {out['mma']['core']}); design bound "
+          f"{out['mma']['design_bound_ms']:.4f} ms ("
+          f"{out['mma']['bound_by']}); gk_form picks {chosen}", flush=True)
+    return out
 
 
 def fresh_memory():
@@ -3634,8 +3677,10 @@ def main():
     one_pass = {k: next((checked[n][k]["one_pass"] for n in labels
                          if "one_pass" in checked[n].get(k, {})), None)
                 for k in ONE_PASS_KINDS}
+    ggk_synthetic = check_ggk_one_pass()
     if one_pass["ggk"] is None:     # no path runs a GGK step on mma
-        one_pass["ggk"] = check_ggk_one_pass()["one_pass"]
+        one_pass["ggk"] = ggk_synthetic["one_pass"]
+    ggk_cut = check_ggk_cut(paths)
     one_pass["complex_mm"] = cmm[-1]["one_pass"]
 
     # -- 5. the paths end to end ----------------------------------------------
@@ -3797,6 +3842,12 @@ def main():
             line[-1].update({k: big[k] for k in GLUE_KEYS})
         if kind in ONE_PASS_KINDS:
             line[-1]["one_pass"] = one_pass[kind]
+        if kind == "ggk":
+            line[-1]["synthetic"] = {k: ggk_synthetic[k] for k in keys}
+            line[-1]["cut"] = dict(
+                chosen=ggk_cut["chosen"],
+                **{f: {k: ggk_cut[f][k] for k in keys}
+                   for f in ("stream", "mma")})
     (_, source, replaces), big = OFF_PATH["complex_mm"], cmm[-1]
     line.append({
         "name": "complex_mm", "route": "cuda", "source": source,

@@ -74,7 +74,7 @@ def turn(root, names, kinds, width):
                         > gatherk.STREAM_W_CAP:
                     continue
                 if kind == "ggk" and form == "mma" and \
-                        row.F % gatherk.MMA_TILE_N:
+                        row.F % gatherk.MMA_TILE_M:
                     continue
                 if form == "fma":
                     r = chip_smoke.run_kernel(kind, plan, bx, by, width,

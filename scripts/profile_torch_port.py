@@ -67,13 +67,16 @@ PLAN_HASH_SEED = "0"     # chip_smoke.PLAN_HASH_SEED
 
 FAMILIES = (   # (family, substrings of the kernel name), first match wins
     ("gatherk.cu (GGK stream)", ("ggk_stream_kernel",)),
-    ("gatherk.cu (GGK mma)", ("ggk_mma_kernel",)),
+    # GGK's mma form: on wgmma, or (a checkout before it, --root) on
+    # mma.sync
+    ("gatherk.cu (GGK mma)", ("ggk_wgmma_kernel", "ggk_mma_kernel")),
     ("gatherk.cu (GK stream)", ("gk_stream_kernel",)),
     # GK's mma form and Pair: on wgmma, or (an older checkout's, --root)
     # on mma.sync
     ("gatherk.cu (GK mma)", ("gk_wgmma_kernel", "gk_mma_kernel")),
     ("pair.cu (Pair)", ("pair_wgmma_kernel", "pair_mma_kernel<false")),
-    ("pair.cu (complex matmul)", ("cmm_kernel", "pair_mma_kernel<true")),
+    ("pair.cu (complex matmul)", ("cmm_wgmma_kernel", "cmm_kernel",
+                                  "pair_mma_kernel<true")),
     ("rgrow.cu (RGRow)", ("rgrow_kernel",)),
     ("rgflat.cu (RGFlat)", ("rgflat_kernel",)),
     ("lane.cu (Lane)", ("lane_kernel",)),

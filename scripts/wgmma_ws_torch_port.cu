@@ -34,6 +34,18 @@ namespace two {
 using wg::Operands;
 using wg::TileAt;
 
+// tile slot q of the block: tile blockIdx.x + q gridDim.x, the M tiles of
+// one N tile next to each other (the core's order then)
+__device__ __forceinline__ TileAt my_tile(const Operands& p, long long q,
+                                          int BM, int BN)
+{
+    const long long t = blockIdx.x + q * gridDim.x;
+    const long long per_w = (long long)p.n_mtiles * p.n_ntiles;
+    const long long r = t % per_w;
+    return TileAt{t / per_w, (int)(r % p.n_mtiles) * BM,
+                  (int)(r / p.n_mtiles) * BN};
+}
+
 template <int PASSES>
 struct Cfg {
     static constexpr int BM = 128, BN = 64, BK = 32, THREADS = 256;
@@ -135,14 +147,14 @@ __global__ void __launch_bounds__(256, 1) pair_two_kernel(Operands p)
     const int nk8_all = (p.K + 7) / 8;
     int ld_kc = 0;
     long long ld_q = 0;
-    TileAt ld_at = wg::my_tile<false>(p, 0, C::BM, BN);
+    TileAt ld_at = my_tile(p, 0, C::BM, BN);
     auto load_next = [&](int i) {
         if (i < total) {
             load<PASSES>(p, ld_at, ld_kc, stages + (i % STAGES) * C::STAGE,
                          tid);
             if (++ld_kc == nks) {
                 ld_kc = 0;
-                ld_at = wg::my_tile<false>(p, ++ld_q, C::BM, BN);
+                ld_at = my_tile(p, ++ld_q, C::BM, BN);
             }
         }
         tc::cp_commit();
@@ -236,9 +248,8 @@ __global__ void __launch_bounds__(256, 1) pair_two_kernel(Operands p)
         wg::pin<NR>(d_r);
         wg::pin<NR>(d_i);
         if (kc == nks - 1) {
-            wg::store<false, BN, true>(
-                p, wg::my_tile<false>(p, tile_q, C::BM, BN), row0, acc_r,
-                acc_i, g, t);
+            wg::store<wg::Cfg<false, BN, PASSES, true>>(
+                p, my_tile(p, tile_q, C::BM, BN), wgc, nullptr, acc_r, acc_i);
 #pragma unroll
             for (int e = 0; e < NR; ++e) {
                 acc_r[e] = 0.f;
@@ -255,7 +266,7 @@ __global__ void __launch_bounds__(256, 1) pair_two_kernel(Operands p)
 template <int PASSES>
 __global__ void __launch_bounds__(384, 1) pair_ws_kernel(wg::Operands p)
 {
-    wg::gemm<false, 64, PASSES, true>(p);
+    wg::gemm<wg::Cfg<false, 64, PASSES, true>>(p);
 }
 
 #define CK(x) do { cudaError_t e_ = (x); if (e_ != cudaSuccess) { \
@@ -311,8 +322,9 @@ static void run_two(const wg::Operands& q, int W)
 template <int PASSES>
 static void run_ws(const wg::Operands& p, int W)
 {
-    const int e = wg::launch<false, 64, PASSES, true>(pair_ws_kernel<PASSES>,
-                                                      p, W, 0);
+    static unsigned attr = 0;
+    const int e = wg::launch<wg::Cfg<false, 64, PASSES, true>>(
+        pair_ws_kernel<PASSES>, attr, p, W, 0);
     CK((cudaError_t)e);
 }
 

@@ -264,6 +264,104 @@ def test_ggk_forms_unaligned(cuda, monkeypatch, case, form):
     _run_gathered(plan, True, True, x_shift=1)
 
 
+@pytest.mark.parametrize("batched", BATCHINGS)
+@pytest.mark.parametrize("step", sorted(GGK_PATH_STEPS))
+def test_ggk_one_pass_at_path_shapes(cuda, monkeypatch, step, batched):
+    """GGK's mma form (on wgmma) in one TF32 pass at each path step's
+    shape, against the plain version's TF32 form, counted as a one-pass
+    launch; the F 64 steps are refused by the mma form in one pass too."""
+    monkeypatch.setattr(gatherk, "GGK_MIN_WORK", 1)
+    *case, B, bi, bj, forms = GGK_PATH_STEPS[step]
+    plan = _gathered(tuple(case), B, bi, bj)
+    monkeypatch.setattr(gatherk, "gk_form", lambda *a, **k: "mma")
+    xb, wb = batched
+    row = plan.row
+    gen = torch.Generator(device="cuda").manual_seed(B)
+    W = 3 if (xb or wb) else 1
+    x = [_rand(((W,) if xb else ()) + (plan.bi_rows * row.x_elems,), gen)
+         for _ in "ri"]
+    w = [_rand(((W,) if wb else ()) + (plan.bj_rows * row.H * row.K,), gen)
+         for _ in "ri"]
+    args = (plan, *x, *w, xb, wb)
+    if "mma" not in forms:
+        with pytest.raises(RuntimeError, match="ggk"):
+            gatherk.ggk_call(*args, passes=1)
+        return
+    before = gatherk.ggk_call.one_pass
+    kr, ki = gatherk.ggk_call(*args, passes=1)
+    pr, pi = gatherk.ggk_plain(*args, tf32=True)
+    torch.cuda.synchronize()
+    assert gatherk.ggk_call.one_pass == before + 1
+    err = torch.abs(torch.complex(kr - pr, ki - pi)).max().item()
+    scale = torch.abs(torch.complex(pr, pi)).max().item()
+    assert err <= 2e-4 * scale + 1e-5, (err, scale)
+
+
+# (K, H, F) of a GGK row (k, f) x (k, h): each tile shape of GGK's wgmma
+# form (N tile 16 with K chunks of 16 and of 32, N tiles 32 and 64), f runs
+# of 128 (W's rows change at every M tile) and 512 (at every fourth), a
+# ragged K chunk and N tile (K 24, H 40), and K 6 (W's rows off the
+# 4-float grid: its 4-byte copies)
+GGK_WGMMA_SHAPES = [(16, 16, 128), (16, 16, 512), (32, 16, 128),
+                    (32, 32, 512), (64, 64, 128), (24, 40, 128),
+                    (6, 12, 128)]
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+@pytest.mark.parametrize("batched", [(True, True), (False, True)])
+@pytest.mark.parametrize("shape", GGK_WGMMA_SHAPES, ids=str)
+def test_ggk_wgmma_tiles(cuda, monkeypatch, shape, batched, passes):
+    """GGK's mma form at every tile shape it instantiates, against the
+    plain version (its TF32 form for one pass); the kernel counts its
+    launches in ``gatherk_runs``' GGK "mma" slot."""
+    from artensor_tpu_torch.kernels import device_runs
+
+    monkeypatch.setattr(gatherk, "GGK_MIN_WORK", 1)
+    K, H, F = shape
+    plan = _gathered((("k", "f"), ("k", "h"), ("h", "f"), (K, F), (K, H)),
+                     90, 30, 11, seed=K + H)
+    row = plan.row
+    assert isinstance(row, gatherk.GKPlan) and (row.K, row.H, row.F) == shape
+    monkeypatch.setattr(gatherk, "gk_form", lambda *a, **k: "mma")
+    xb, wb = batched
+    gen = torch.Generator(device="cuda").manual_seed(F + K)
+    W = 3
+    x = [_rand(((W,) if xb else ()) + (plan.bi_rows * row.x_elems,), gen)
+         for _ in "ri"]
+    w = [_rand(((W,) if wb else ()) + (plan.bj_rows * H * K,), gen)
+         for _ in "ri"]
+    args = (plan, *x, *w, xb, wb)
+    before = device_runs()[("ggk", "mma")]
+    kr, ki = gatherk.ggk_call(*args, passes=passes)
+    pr, pi = gatherk.ggk_plain(*args, tf32=passes == 1)
+    assert device_runs()[("ggk", "mma")] == before + 1
+    err = torch.abs(torch.complex(kr - pr, ki - pi)).max().item()
+    scale = torch.abs(torch.complex(pr, pi)).max().item()
+    assert err <= 2e-4 * scale + 1e-5, (err, scale)
+
+
+@pytest.mark.parametrize("operand", ["x", "w"])
+def test_ggk_wgmma_unaligned_pointers(cuda, monkeypatch, operand):
+    """GGK's mma form with X or W one float into its allocation (the
+    core's 4-byte copies of that operand) at the 1k K 16 H 16 step's
+    shape."""
+    monkeypatch.setattr(gatherk, "GGK_MIN_WORK", 1)
+    *case, B, bi, bj, _ = GGK_PATH_STEPS["1k_k16_h16_f512"]
+    plan = _gathered(tuple(case), 60, 20, 8)
+    row = plan.row
+    monkeypatch.setattr(gatherk, "gk_form", lambda *a, **k: "mma")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    W = 2
+    shift = lambda n, o: _rand((n + o,), gen)[o:]
+    nx, nw = plan.bi_rows * row.x_elems, plan.bj_rows * row.H * row.K
+    ox, ow = (1, 0) if operand == "x" else (0, 1)
+    x = [shift(W * nx, ox).reshape(W, nx) for _ in "ri"]
+    w = [shift(W * nw, ow).reshape(W, nw) for _ in "ri"]
+    assert (x[0].data_ptr() % 16 != 0) == (operand == "x")
+    assert (w[0].data_ptr() % 16 != 0) == (operand == "w")
+    _check(gatherk.ggk_call, gatherk.ggk_plain, (plan, *x, *w, True, True))
+
+
 @pytest.mark.parametrize("batched,x_shift", [((True, True), 0),
                                              ((True, False), 1),
                                              ((False, True), 0)])
@@ -537,6 +635,89 @@ def test_complex_matmul_kernel_matches_plain(cuda, bmkn):
     b = tuple(_rand((B, K, N), gen) for _ in "ri")
     _check(pallas_mm.complex_batched_matmul,
            pallas_mm.complex_batched_matmul_plain, (a, b))
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+@pytest.mark.parametrize("bmkn", [(32, 1024, 256, 1024), (2, 256, 64, 256),
+                                  (3, 130, 36, 68)])
+def test_complex_matmul_wgmma_shapes(cuda, bmkn, passes):
+    """The complex matmul on the wgmma core at ``chip_smoke.CMM_SHAPES``
+    and at a shape of ragged M and N tiles with K and N on the 4-float
+    grid, against the plain version (its TF32 form for one pass); the
+    kernel counts its launches in ``pair_runs``' second slot."""
+    from artensor_tpu_torch.kernels import device_runs
+
+    B, M, K, N = bmkn
+    gen = torch.Generator(device="cuda").manual_seed(M + passes)
+    a = tuple(_rand((B, M, K), gen) for _ in "ri")
+    b = tuple(_rand((B, K, N), gen) for _ in "ri")
+    before = device_runs()[("complex_mm", None)]
+    kr, ki = pallas_mm.complex_batched_matmul(a, b, passes=passes)
+    pr, pi = pallas_mm.complex_batched_matmul_plain(a, b, tf32=passes == 1)
+    assert device_runs()[("complex_mm", None)] == before + 1
+    err = torch.abs(torch.complex(kr - pr, ki - pi)).max().item()
+    scale = torch.abs(torch.complex(pr, pi)).max().item()
+    assert err <= 2e-4 * scale + 1e-5, (err, scale)
+
+
+@pytest.mark.parametrize("operand", ["a", "b", "y"])
+def test_complex_matmul_unaligned_pointers(cuda, monkeypatch, operand):
+    """The complex matmul with A or B one float into its allocation, or
+    the output so (the wrapper's ``torch.empty`` made to hand out such a
+    buffer): the core's 4-byte copies and 4-byte stores."""
+    B, M, K, N = 2, 192, 40, 136
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    shifted = lambda shape, on: (
+        _rand((int(np.prod(shape)) + 1,), gen)[1:].reshape(shape) if on
+        else _rand(shape, gen))
+    a = tuple(shifted((B, M, K), operand == "a") for _ in "ri")
+    b = tuple(shifted((B, K, N), operand == "b") for _ in "ri")
+    if operand == "y":
+        empty = torch.empty
+        monkeypatch.setattr(torch, "empty", lambda shape, **kw: empty(
+            (int(np.prod(shape)) + 1,), **kw)[1:].reshape(shape))
+    kr, ki = pallas_mm.complex_batched_matmul(a, b)
+    monkeypatch.undo()
+    assert (kr.data_ptr() % 16 != 0) == (operand == "y")
+    pr, pi = pallas_mm.complex_batched_matmul_plain(a, b)
+    torch.cuda.synchronize()
+    err = torch.abs(torch.complex(kr - pr, ki - pi)).max().item()
+    scale = torch.abs(torch.complex(pr, pi)).max().item()
+    assert err <= 2e-4 * scale + 1e-5, (err, scale)
+
+
+@pytest.mark.parametrize("which", ["ggk", "complex_mm"])
+def test_wgmma_float64_error_at_most_plain(cuda, monkeypatch, which):
+    """GGK's mma form at the 1k path's K 16 H 16 F 512 step (W batched,
+    width 2) and the complex matmul at B 4 M 512 K 256 N 512: each one's
+    largest error against a float64 product of the same inputs is at
+    most the plain version's (float32 on cuBLAS)."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    if which == "ggk":
+        monkeypatch.setattr(gatherk, "GGK_MIN_WORK", 1)
+        monkeypatch.setattr(gatherk, "gk_form", lambda *a, **k: "mma")
+        *case, B, bi, bj, _ = GGK_PATH_STEPS["1k_k16_h16_f512"]
+        plan = _gathered(tuple(case), B, bi, bj)
+        row = plan.row
+        x = [_rand((plan.bi_rows * row.x_elems,), gen) for _ in "ri"]
+        w = [_rand((2, plan.bj_rows * row.H * row.K), gen) for _ in "ri"]
+        args = (plan, *x, *w, False, True)
+        call, plain = gatherk.ggk_call, gatherk.ggk_plain
+        f64 = (plan, *[t.double() for t in x + w], False, True)
+    else:
+        a = tuple(_rand((4, 512, 256), gen) for _ in "ri")
+        b = tuple(_rand((4, 256, 512), gen) for _ in "ri")
+        args = (a, b)
+        call = pallas_mm.complex_batched_matmul
+        plain = pallas_mm.complex_batched_matmul_plain
+        f64 = (tuple(t.double() for t in a), tuple(t.double() for t in b))
+    kr, ki = call(*args)
+    pr, pi = plain(*args)
+    er, ei = plain(*f64)
+    ref = torch.complex(er, ei)
+    d = lambda r, i: torch.abs(torch.complex(r.double(), i.double())
+                               - ref).max().item()
+    assert d(kr, ki) <= d(pr, pi), (d(kr, ki), d(pr, pi))
 
 
 @pytest.mark.parametrize("n_bits,plan", [

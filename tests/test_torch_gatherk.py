@@ -192,6 +192,13 @@ GGK_CASES = {
     "gk_row_grid_leg": (("g", "k", "f0", "f1"), ("k", "h"),
                         ("g", "h", "f0", "f1"), (3, 4, 2, 128), (4, 2),
                         17, 4, 3, "gk"),
+    # the 1k path's K 16 H 16 F 512 GGK step (the mma form's N tile of 16
+    # and K chunk of 16 on the card), B cut from 894 to 20
+    "gk_row_1k_k16_h16_f512": (("k0", "k1", "k2", "k3", "f"),
+                               ("k0", "k1", "k2", "k3", "h0", "h1", "h2",
+                                "h3"),
+                               ("h0", "h1", "h2", "h3", "f"),
+                               (2, 2, 2, 2, 512), (2,) * 8, 20, 6, 4, "gk"),
     "rg_interleaved": (("k0", "k1", "f0", "k2", "f1"), ("k1", "k0", "k2", "h"),
                        ("h", "f0", "f1"), (4, 2, 2, 16, 4), (2, 4, 16, 2),
                        40, 7, 6, "rg"),
@@ -424,10 +431,23 @@ def test_gk_einsum_yardstick_matches_plain(low_thresholds, name):
 
 
 # the GGK steps of the n30 paths as chip_smoke.py runs them (width 32):
-# (K, H, F, G) -> the form gatherk.gk_form picks
+# (K, H, F, G) -> the form gatherk.gk_form picks.  The 1k K 16 H 16 step
+# runs on the tensor cores (wgmma: X slice-invariant, its N tile 16 wide
+# and its K chunk 16 deep); the F 64 steps stream (no 128-row tile fits
+# an outer index).
 GGK_PATH_FORMS = {
-    "1k": {(16, 16, 512, 1): "stream", (2, 2, 64, 64): "stream"},
+    "1k": {(16, 16, 512, 1): "mma", (2, 2, 64, 64): "stream"},
     "10k": {(32, 2, 64, 1): "stream"},
+}
+# the same steps at the default form's widths (1k 64, 10k 128) and width
+# 1, each with its own batching: (K, H, F, G) -> (x batched, w batched,
+# form)
+GGK_DEFAULT_WIDTH_FORMS = {
+    ("1k", 64): {(16, 16, 512, 1): (False, True, "mma"),
+                 (2, 2, 64, 64): (True, False, "stream")},
+    ("10k", 128): {(32, 2, 64, 1): (True, True, "stream")},
+    ("1k", 1): {(16, 16, 512, 1): (False, True, "mma"),
+                (2, 2, 64, 64): (True, False, "stream")},
 }
 
 
@@ -447,15 +467,36 @@ def test_ggk_form_of_every_path_step(name):
         got[(row.K, row.H, row.F, len(row.xoff))] = pgk.gk_form(
             plan, 32, xs, ws)
         assert pgk.gk_aligned(plan)
-        if row.F % pgk.MMA_TILE_N or row.K < pgk.GGK_MMA_K_MIN:
+        if row.F % pgk.MMA_TILE_M or row.K < pgk.GGK_MMA_K_MIN:
             assert got[(row.K, row.H, row.F, len(row.xoff))] == "stream"
     assert got == GGK_PATH_FORMS[name]
 
 
+@pytest.mark.parametrize("name,width", sorted(GGK_DEFAULT_WIDTH_FORMS))
+def test_ggk_form_at_default_widths(name, width):
+    """``gk_form`` on each GGK step at the default form's width (and at
+    width 1, where ``chip_smoke.py`` also runs the largest step), with the
+    step's real batching: the 1k K 16 H 16 step's X is slice-invariant and
+    its W batched; bytes against flops then count X once.  The mma form
+    is the faster one there at widths 1, 32 and 64 on the card
+    (``scripts/ggk_wgmma_torch_port.py``)."""
+    import chip_smoke
+
+    path = chip_smoke.compile_path(name, width)
+    got = {}
+    for plan, bx, by in path["cases"]["ggk"]:
+        xs, ws = (bx, by) if plan.w_is_j else (by, bx)
+        row = plan.row
+        got[(row.K, row.H, row.F, len(row.xoff))] = (
+            xs, ws, pgk.gk_form(plan, width, xs, ws))
+    assert got == GGK_DEFAULT_WIDTH_FORMS[(name, width)]
+
+
 def test_ggk_form_rules(low_thresholds):
     """A GGK step goes to the mma form only where the GK rule would (bytes
-    against flops) and its f run fills whole 128-wide tiles and K is at
-    least ``GGK_MMA_K_MIN``; otherwise it streams."""
+    against flops) and its f run fills whole 128-row tiles and K is at
+    least ``GGK_MMA_K_MIN`` (16, the narrow kernel's K chunk); otherwise
+    it streams."""
     gi = np.repeat(np.arange(40), 2)
     gj = np.arange(80) % 8
 
@@ -467,7 +508,9 @@ def test_ggk_form_rules(low_thresholds):
     assert form(64, 64, 512, True) == "mma"
     assert form(64, 64, 512, False) == "mma"
     assert form(64, 64, 192, True) == "stream"      # F not a tile multiple
-    assert form(16, 64, 512, False) == "stream"     # K below the floor
+    assert form(16, 64, 512, False) == "mma"        # K at the floor
+    assert form(16, 16, 512, False) == "mma"        # the 1k step's shape
+    assert form(14, 64, 512, False) == "stream"     # K below the floor
     assert form(4, 4, 512, True) == "stream"        # bytes bound it
 
 

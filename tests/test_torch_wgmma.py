@@ -1,4 +1,5 @@
-"""The wgmma core of Pair and GK's mma form, on the CPU.
+"""The wgmma core (Pair, the complex matmul, GK's and GGK's mma form), on
+the CPU.
 
 Three things are held here without a card:
 
@@ -13,8 +14,9 @@ Three things are held here without a card:
 * the host rules: that every Pair and GK mma step of the three committed
   n30 plans runs on the wgmma core with 16-byte copies, in which
   orientation, and which shapes and buffers take its 4-byte copies;
-* ``pair_call`` and ``gk_call`` counting launches by form, on fake
-  launches (no kernel runs), and passing what the C entry points take.
+* ``pair_call``, ``gk_call``, ``ggk_call`` and the complex matmul
+  counting launches (by form), on fake launches (no kernel runs), and
+  passing what the C entry points take.
 """
 
 import types
@@ -25,6 +27,7 @@ import pytest
 import torch
 
 from artensor_tpu_torch import kernels
+from artensor_tpu_torch.ops import pallas_mm
 from artensor_tpu_torch.runtime import gatherk, lanes
 
 from test_torch_tc import DATA, MMA_STEPS, PATHS, WIDTH, _gk_steps, _tf32
@@ -79,7 +82,8 @@ def test_promoted_accumulation_is_float32_class(K):
     """At the chosen interval the emulated error against float64 stays
     within 2x the float32 product's (the card holds the kernel to 4x the
     plain version's); all of K summed inside the tensor cores is at least
-    2.5x it, growing with K (tc_core.cuh records 12x at K 1024 on the card)."""
+    2.5x it, growing with K (wgmma_core.cuh records 12x at K 1024 on the
+    card)."""
     rng = np.random.default_rng(K)
     a = rng.standard_normal((16, K)).astype(np.float32)
     b = rng.standard_normal((K, 24)).astype(np.float32)
@@ -202,7 +206,9 @@ class _FakeLaunches:
                                     plan, n)), dtype=torch.long)
                                 for n in names})
         lib = types.SimpleNamespace(pair_launch="pair_launch",
-                                    gk_launch="gk_launch")
+                                    gk_launch="gk_launch",
+                                    ggk_launch="ggk_launch",
+                                    cmm_launch="cmm_launch")
         monkeypatch.setattr(kernels, "load", lambda: lib)
         monkeypatch.setattr(kernels, "launch", self.launch)
 
@@ -262,3 +268,64 @@ def test_gk_forms_count_fake_launches(monkeypatch):
     after = gatherk.gk_call.forms
     assert {f: after[f] - before[f] for f in gatherk.GK_FORMS} == \
         {"stream": 1, "mma": 3}
+
+
+def _ggk_plan(monkeypatch, k, h, f, B=40):
+    monkeypatch.setattr(gatherk, "GGK_MIN_WORK", 1)
+    gi = np.repeat(np.arange(B // 2), 2)
+    gj = np.arange(B) % 8
+    p = gatherk.plan_ggk_step(("k", "f"), ("k", "h"), ("h", "f"), (k, f),
+                              (k, h), gi, gj, B // 2, 8)
+    assert p is not None and isinstance(p.row, gatherk.GKPlan), \
+        gatherk.LAST_REJECT
+    return p
+
+
+def test_ggk_forms_count_fake_launches(monkeypatch):
+    """ggk_call counts each launch in the form it passes, with the W row
+    offsets (``woff``) of every outer index and its pass count; a
+    one-pass mma launch is counted as such."""
+    fake = _FakeLaunches(monkeypatch)
+    monkeypatch.setattr(kernels, "ptr", lambda t: t)   # keep the tables
+    before = dict(gatherk.ggk_call.forms), gatherk.ggk_call.one_pass
+    cases = [(_ggk_plan(monkeypatch, 16, 16, 512), "mma", 3),
+             (_ggk_plan(monkeypatch, 64, 64, 128), "mma", 1),
+             (_ggk_plan(monkeypatch, 2, 2, 64), "stream", 1)]
+    for p, form, passes in cases:
+        monkeypatch.setattr(gatherk, "gk_form", lambda *a, _f=form, **k: _f)
+        row = p.row
+        x = [torch.zeros(p.bi_rows * row.x_elems) for _ in "ri"]
+        w = [torch.zeros((2, p.bj_rows * row.H * row.K)) for _ in "ri"]
+        gatherk.ggk_call(p, *x, *w, False, True, passes=passes)
+    # ggk_launch: the woff table (9th argument) holds each outer index's W
+    # row; then O, H, K, F, and the width, form code, 16-byte flag and
+    # passes last
+    for (fn, args), (p, form, passes) in zip(fake.calls, cases):
+        row = p.row
+        assert fn == "ggk_launch"
+        assert args[8].tolist() == p.woff.tolist()
+        assert args[10:14] == (len(p.xoff), row.H, row.K, row.F)
+        assert args[18:] == (2, gatherk.GK_FORMS.index(form), 1, passes)
+    after = gatherk.ggk_call.forms
+    assert {f: after[f] - before[0][f] for f in gatherk.GK_FORMS} == \
+        {"stream": 1, "mma": 2}
+    assert gatherk.ggk_call.one_pass - before[1] == 1
+
+
+def test_complex_matmul_counts_fake_launches(monkeypatch):
+    """The complex matmul passes B, M, K, N and its pass count to
+    ``cmm_launch`` (one launch, the batch the product's width axis) and
+    counts one-pass launches apart."""
+    fake = _FakeLaunches(monkeypatch)
+    before = (pallas_mm.complex_batched_matmul.launches,
+              pallas_mm.complex_batched_matmul.one_pass)
+    for B, M, K, N, passes in ((2, 100, 37, 70, 3), (32, 1024, 256, 1024, 1)):
+        a = (torch.zeros((B, M, K)), torch.zeros((B, M, K)))
+        b = (torch.zeros((B, K, N)), torch.zeros((B, K, N)))
+        yr, yi = pallas_mm.complex_batched_matmul(a, b, passes=passes)
+        assert yr.shape == yi.shape == (B, M, N)
+    assert [(fn, args[6:]) for fn, args in fake.calls] == [
+        ("cmm_launch", (2, 100, 37, 70, 3)),
+        ("cmm_launch", (32, 1024, 256, 1024, 1))]
+    assert pallas_mm.complex_batched_matmul.launches - before[0] == 2
+    assert pallas_mm.complex_batched_matmul.one_pass - before[1] == 1
