@@ -22,12 +22,11 @@ unbatched, and every step (dot fallback or kernel) reads them once for all
 instances.  Slice bits are taken MSB-first, as in the reference.
 """
 
-import time
-
 import numpy as np
 import torch
 
 from ..ops.field import SplitField
+from . import tracing
 from .lowering import apply_lowered, physical_shape
 
 
@@ -100,13 +99,18 @@ def apply_dense_step(field, x, y, s, bx=False, by=False):
 def execute_dense(tensors, steps, field, batched=()):
     """Run dense scheme ``steps`` over staged (flat) field tensors.
     ``batched``: ids of the buffers that carry a leading slice-width axis.
-    Returns ``(result, result_is_batched)``."""
+    Returns ``(result, result_is_batched)``.  Each step runs in a ``step``
+    span while tracing is enabled (``sparse.step_span``)."""
+    from .sparse import step_span
+
     bufs = list(tensors)
     bat = set(batched)
     last = 0
-    for s in steps:
+    for n, s in enumerate(steps):
         bi, bj = s.i in bat, s.j in bat
-        bufs[s.i] = apply_dense_step(field, bufs[s.i], bufs[s.j], s, bi, bj)
+        with step_span(n, s, field):
+            bufs[s.i] = apply_dense_step(field, bufs[s.i], bufs[s.j], s,
+                                         bi, bj)
         bufs[s.j] = None    # free the consumed operand
         if bj:
             bat.add(s.i)
@@ -369,8 +373,20 @@ class GroupRunner:
     propagates; nothing falls back to the eager run.  Elsewhere every
     group runs eagerly: the plain version of the graph run.  ``stats``:
     captures (one per width), replays, warm-up groups, capture seconds
-    (warm-up included), and ``run_s``, the last call's group loop (on the
-    card to a synchronize)."""
+    (warm-up included: the ``runner.capture`` spans), and ``run_s``, the
+    last call's ``runner.call`` span less the captures it made (on the
+    card to a synchronize).
+
+    Spans (``tracing``): a capture is a set-up span, ``runner.capture``
+    (``runner.warmup``, then one ``runner.graph`` a segment); a call is
+    ``runner.call``, and while tracing is enabled its parts under it:
+    ``runner.key`` (the staged buffers' addresses), ``runner.ids`` (the
+    slice ids made, and copied into a width's static buffer),
+    ``runner.reset`` (the accumulator), ``runner.replay`` (one a group:
+    the graph launch) or, eagerly, ``runner.group``, ``runner.clone``
+    (the result copied out of the graphs' buffers) and ``runner.sync``.
+    The counter ``runner.recaptures`` counts captures made anew because
+    the staged buffers moved."""
 
     def __init__(self, field, segments, combine, acc_spec, width=1,
                  eager=False):
@@ -396,33 +412,47 @@ class GroupRunner:
     def __call__(self, tensors, ids=None, init=None, progress=None):
         """``init`` (tensors as ``acc_spec``; default the empty
         accumulator) combined with every group's part over the slice ids
-        ``ids`` (an int64 tensor on the tensors' device; None: nothing
-        sliced, one group).  ``progress(done, total)`` after each
-        group."""
-        device = _device(tensors, self.field)
-        plan = self.capture(tensors, ids)
+        ``ids`` (an int64 tensor on the tensors' device, or a callable
+        that makes it from the device; None: nothing sliced, one group).
+        ``progress(done, total)`` after each group."""
+        with tracing.timed("runner.call") as call:
+            captured = self.stats["capture_s"]
+            device = _device(tensors, self.field)
+            if callable(ids):
+                with tracing.hot("runner.ids"):
+                    ids = ids(device)
+            plan = self.capture(tensors, ids)
+            if device.type == "cuda" and not self.eager:
+                acc = self._replay(plan, ids, init, device, progress)
+            else:
+                acc = self._eager(plan, tensors, ids, init, device,
+                                  progress)
+        self.stats["run_s"] = call.seconds - (self.stats["capture_s"]
+                                              - captured)
+        return acc
+
+    def _eager(self, plan, tensors, ids, init, device, progress):
         n = 1 if ids is None else len(ids)
-        if device.type == "cuda" and not self.eager:
-            return self._replay(plan, ids, init, device, progress)
-        t0 = time.perf_counter()
-        acc = None if init is None else tuple(c.clone() for c in init)
-        if acc is None and ids is not None:
-            acc = self._empty(device)
+        with tracing.hot("runner.reset"):
+            acc = None if init is None else tuple(c.clone() for c in init)
+            if acc is None and ids is not None:
+                acc = self._empty(device)
         g0 = 0
         for w, groups in plan:
             for _ in range(groups):
-                part = self._group(tensors, None if ids is None
-                                   else ids[g0:g0 + w])
-                if acc is None:
-                    acc = part
-                else:
-                    self.combine(acc, part)
+                with tracing.hot("runner.group"):
+                    part = self._group(tensors, None if ids is None
+                                       else ids[g0:g0 + w])
+                    if acc is None:
+                        acc = part
+                    else:
+                        self.combine(acc, part)
                 g0 += w or 1
                 if progress is not None:
                     progress(g0, n)
         if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        self.stats["run_s"] = time.perf_counter() - t0
+            with tracing.hot("runner.sync"):
+                torch.cuda.synchronize(device)
         return acc
 
     def capture(self, tensors, ids=None):
@@ -439,8 +469,11 @@ class GroupRunner:
         plan = [(None, 1)] if ids is None \
             else group_widths(len(ids), self.width)
         if device.type == "cuda" and not self.eager:
-            key = _key(tensors, self.field)
+            with tracing.hot("runner.key"):
+                key = _key(tensors, self.field)
             if key != self._cap_key:
+                if self._cap_key is not None:
+                    tracing.count("runner.recaptures")
                 torch.cuda.synchronize(device)
                 self._caps.clear()  # the old graphs and their pool go first
                 self._acc = self._pool = None
@@ -452,77 +485,84 @@ class GroupRunner:
 
     def _capture(self, tensors, ids, w, device):
         torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        sel = None if ids is None else ids[:w].clone()
-        try:
-            on_capture_stream(lambda: self._group(tensors, sel), device)
-        except Exception as e:
-            if out_of_memory(e):
-                raise CaptureOutOfMemory(0, e) from e
-            raise
-        torch.cuda.synchronize(device)
-        self.stats["warmup_groups"] += 1
-        if self._acc is None and ids is not None:
-            self._acc = self._empty(device)
-        acc = self._acc
-        graphs = GroupGraphs(device, self._pool)
-        self._pool = graphs.pool
-        table = {}
-        last = len(self.segments) - 1
-        for si, seg in enumerate(self.segments):
-            def body(si=si, seg=seg):
-                if si == 0:
-                    table["ids"] = sel
-                seg(tensors, table)
-                if si == last:
-                    part = table.pop("part")
-                    table.clear()   # no buffer of the group outlives it
-                    if acc is None:
-                        table["out"] = part
-                    else:
-                        self.combine(acc, part)
+        with tracing.span("runner.capture", width=w) as span:
+            sel = None if ids is None else ids[:w].clone()
+            with tracing.span("runner.warmup"):
+                try:
+                    on_capture_stream(lambda: self._group(tensors, sel),
+                                      device)
+                except Exception as e:
+                    if out_of_memory(e):
+                        raise CaptureOutOfMemory(0, e) from e
+                    raise
+                torch.cuda.synchronize(device)
+            self.stats["warmup_groups"] += 1
+            if self._acc is None and ids is not None:
+                self._acc = self._empty(device)
+            acc = self._acc
+            graphs = GroupGraphs(device, self._pool)
+            self._pool = graphs.pool
+            table = {}
+            last = len(self.segments) - 1
+            for si, seg in enumerate(self.segments):
+                def body(si=si, seg=seg):
+                    if si == 0:
+                        table["ids"] = sel
+                    seg(tensors, table)
+                    if si == last:
+                        part = table.pop("part")
+                        table.clear()   # no buffer of the group outlives it
+                        if acc is None:
+                            table["out"] = part
+                        else:
+                            self.combine(acc, part)
 
-            try:
-                graphs.capture(body)
-            except Exception as e:
-                if out_of_memory(e):
-                    raise CaptureOutOfMemory(si, e) from e
-                raise
-        self.stats["captures"] += 1
-        self.stats["capture_s"] += time.perf_counter() - t0
+                with tracing.span("runner.graph", segment=si):
+                    try:
+                        graphs.capture(body)
+                    except Exception as e:
+                        if out_of_memory(e):
+                            raise CaptureOutOfMemory(si, e) from e
+                        raise
+            self.stats["captures"] += 1
+        self.stats["capture_s"] += span.seconds
         self._caps[w] = dict(graphs=graphs, ids=sel, out=table.get("out"))
 
     def _replay(self, plan, ids, init, device, progress):
-        t0 = time.perf_counter()
         if ids is None:
             cap = self._caps[None]
-            cap["graphs"].replay()
+            with tracing.hot("runner.replay"):
+                cap["graphs"].replay()
             self.stats["replays"] += 1
-            acc = tuple(c.clone() for c in cap["out"])
+            with tracing.hot("runner.clone"):
+                acc = tuple(c.clone() for c in cap["out"])
             if init is not None:
                 self.combine(acc, init)
-            n = 1
         else:
             acc, n = self._acc, len(ids)
-            if init is None:
-                for c, (_, v, _dt) in zip(acc, self.acc_spec):
-                    c.fill_(v)
-            else:
-                for c, v in zip(acc, init):
-                    c.copy_(v)
+            with tracing.hot("runner.reset"):
+                if init is None:
+                    for c, (_, v, _dt) in zip(acc, self.acc_spec):
+                        c.fill_(v)
+                else:
+                    for c, v in zip(acc, init):
+                        c.copy_(v)
             g0 = 0
             for w, groups in plan:
                 cap = self._caps[w]
                 for _ in range(groups):
-                    cap["ids"].copy_(ids[g0:g0 + w])
-                    cap["graphs"].replay()
+                    with tracing.hot("runner.ids"):
+                        cap["ids"].copy_(ids[g0:g0 + w])
+                    with tracing.hot("runner.replay"):
+                        cap["graphs"].replay()
                     self.stats["replays"] += 1
                     g0 += w
                     if progress is not None:
                         progress(g0, n)
-            acc = tuple(c.clone() for c in acc)
-        torch.cuda.synchronize(device)
-        self.stats["run_s"] = time.perf_counter() - t0
+            with tracing.hot("runner.clone"):
+                acc = tuple(c.clone() for c in acc)
+        with tracing.hot("runner.sync"):
+            torch.cuda.synchronize(device)
         if ids is None and progress is not None:
             progress(1, 1)
         return acc
@@ -588,9 +628,11 @@ def make_sliced_runner(execute, steps, slicing_axes, num_sliced,
             if num_sliced else None
 
     def run(tensors, slice_ids=None, init=None):
+        # the ids are made inside the runner's call span
+        ids = (lambda device: slice_ids_tensor(slice_ids, n_slices, device)) \
+            if num_sliced else None
         return field.join(runner(
-            tensors, ids_of(tensors, slice_ids),
-            None if init is None else field.buffers(init)))
+            tensors, ids, None if init is None else field.buffers(init)))
 
     run.capture = lambda tensors, slice_ids=None: runner.capture(
         tensors, ids_of(tensors, slice_ids))

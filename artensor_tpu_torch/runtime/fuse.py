@@ -20,13 +20,15 @@ deterministic.  The rewrite search (``_Sim``, ``_try_rewrite``,
 ``reassociate_small_chains``) is the JAX logic unchanged; the candidate
 model ``_sweep_cost`` reads the card's rates (``HBM_BYTES_PER_S``,
 ``FLOPS_PER_S``, ``K_FULL``), and every candidate is arbitrated by the
-caller (the compiled scheme's wall estimate, ``runtime/sparse.py``).
+caller: ``fuse_by_estimate`` keeps a rewrite only if the compiled
+scheme's wall estimate drops, for the dense and the sparse compile alike.
 """
 
 from functools import reduce
 from operator import mul
 
 from .. import kernels
+from . import tracing
 from .gatherk import HK_CAP as W_CAP, MIN_X_ELEMS
 
 COMPUTE_SLACK = 1.3      # merged step must stay (nearly) traffic-bound
@@ -288,3 +290,32 @@ def reassociate_small_chains(order, tensor_bonds, bond_dims,
             return order
         order = new_order
     return order
+
+
+def fuse_by_estimate(order, tensor_bonds, bond_dims, estimate, **kwargs):
+    """``reassociate_small_chains(order, tensor_bonds, bond_dims,
+    **kwargs)`` with each candidate rewrite kept only if ``estimate`` of
+    it drops: ``estimate(candidate_order)`` compiles the candidate and
+    returns its wall estimate, ``estimate(None)`` the scheme of ``order``
+    (made lazily: no candidate, no compile).  Runs in a ``scheme.fuse``
+    span whose attributes ``compiles`` and ``rewrites`` count the trial
+    compiles and the rewrites kept."""
+    with tracing.span("scheme.fuse", compiles=0, rewrites=0) as sp:
+        best = []
+
+        def est(o):
+            sp.attrs["compiles"] += 1
+            return estimate(o)
+
+        def accept(cand):
+            if not best:
+                best.append(est(None))
+            e = est(cand)
+            if e < best[0]:
+                best[0] = e
+                sp.attrs["rewrites"] += 1
+                return True
+            return False
+
+        return reassociate_small_chains(order, tensor_bonds, bond_dims,
+                                        accept=accept, **kwargs)

@@ -51,7 +51,8 @@ CUDA tensors it launches the kernel (on the operands' card, through
 ``kernels.launch``) or raises.  ``launches`` on each wrapper counts kernel
 launches (none while a CUDA graph is captured: ``kernels.launch``).  The GK kernel runs GK and GGK steps in two forms, "stream"
 (bound by bytes, float32 FMAs) and "mma" (3xTF32 on the tensor cores);
-``gk_form`` picks one from the step's bytes and flops.
+``gk_form`` picks one from the step's bytes and flops, and the wrapper
+notes it on the open ``step`` span while tracing is enabled.
 """
 
 from dataclasses import dataclass, field as dc_field
@@ -62,6 +63,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from . import tracing
 from .lanes import kernel_precision
 from .lowering import apply_reorder, physical_shape, plan_reorder
 
@@ -859,13 +861,14 @@ def gk_call(plan, xr, xi, wr, wi, x_batched, w_batched, passes=3):
     dev = kernels.check_operands("gk", (xr, xi, wr, wi),
                           (xl + (plan.x_elems,),) * 2
                           + (wl + (plan.H * plan.K,),) * 2)
+    form = gk_form(plan, W, x_batched, w_batched)
+    tracing.note(form=form)
     if dev.type == "cpu":
         return gk_plain(plan, xr, xi, wr, wi, x_batched, w_batched)
     t = _device_tables(plan, dev, ("xoff", "yoff", "koff"))
     lead = (W,) if (x_batched or w_batched) else ()
     yr = torch.empty(lead + (plan.y_elems,), dtype=torch.float32, device=dev)
     yi = torch.empty_like(yr)
-    form = gk_form(plan, W, x_batched, w_batched)
     vec = gk_aligned(plan) and all(c.data_ptr() % 16 == 0
                                    for c in (xr, xi, yr, yi))
     n = kernels.launch(
@@ -905,6 +908,8 @@ def ggk_call(plan, xr, xi, wr, wi, x_batched, w_batched, passes=3):
     wl = (W,) if w_batched else ()
     dev = kernels.check_operands("ggk", (xr, xi, wr, wi),
                           (xl + (x_n,),) * 2 + (wl + (w_n,),) * 2)
+    form = gk_form(plan, W, x_batched, w_batched)
+    tracing.note(form=form)
     if dev.type == "cpu":
         return ggk_plain(plan, xr, xi, wr, wi, x_batched, w_batched)
     t = _device_tables(plan, dev, ("xoff", "yoff", "woff"))
@@ -912,7 +917,6 @@ def ggk_call(plan, xr, xi, wr, wi, x_batched, w_batched, passes=3):
     lead = (W,) if (x_batched or w_batched) else ()
     yr = torch.empty(lead + (y_n,), dtype=torch.float32, device=dev)
     yi = torch.empty_like(yr)
-    form = gk_form(plan, W, x_batched, w_batched)
     vec = gk_aligned(plan) and all(c.data_ptr() % 16 == 0
                                    for c in (xr, xi, yr, yi))
     n = kernels.launch(

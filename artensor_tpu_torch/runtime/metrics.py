@@ -24,14 +24,13 @@ The factors come from ``data/calibration_h100.json``, fitted on the card
 by ``scripts/fit_calibration_torch_port.py``; without the file they are
 the identity.  ``segmented_wall_estimate`` charges the segmented executor
 (``segmented.py``) the same per-slice device cost plus a measured replay
-cost per CUDA graph (``SEGMENT_REPLAY_S``); ``ContractionReport`` and
-``Timer`` carry ``TensorNetworkSimulation.contraction``'s report.
+cost per CUDA graph (``SEGMENT_REPLAY_S``); ``ContractionReport``
+carries ``TensorNetworkSimulation.contraction``'s report.
 """
 
 import json
 import math
 import os
-import time
 from dataclasses import dataclass, field
 from functools import reduce
 from operator import mul
@@ -646,13 +645,3 @@ class ContractionReport:
                 f"capture {self.compile_s:.2f}s, {self.executor} at width "
                 f"{self.slice_batch}, reorders {self.reorders}")
 
-
-class Timer:
-    """Wall seconds of a ``with`` block (``elapsed``)."""
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.elapsed = time.perf_counter() - self.t0

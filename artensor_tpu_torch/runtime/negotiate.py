@@ -18,12 +18,11 @@ candidate (phase 2).  Hard guard everywhere: no step that had a kernel in
 pass 1 may lose it.  Only a strictly better final state is committed.
 """
 
+from . import tracing
+
 HOT_SHARE = 0.02     # a pass-1 dot fallback step is chain-seed-worthy
                      # when its modeled time exceeds this share of the
                      # scheme
-
-# the last search's work, for diagnostics: compiles made and host seconds
-LAST_STATS = {"compiles": 0, "seconds": 0.0}
 
 
 def negotiate(compile_fn, max_trials=40, chain_budget=100,
@@ -41,17 +40,24 @@ def negotiate(compile_fn, max_trials=40, chain_budget=100,
     compile grows with the bitstring count), so the result may depend on
     the host's speed when a search reaches it.  Phase 0 (the
     highest-value accumulation) runs first and each later phase checks
-    the clock.  ``LAST_STATS`` records the search's compiles and seconds.
+    the clock.  The search runs in a ``scheme.negotiate`` span whose
+    attribute ``compiles`` counts the calls of ``compile_fn``.
     """
+    with tracing.span("scheme.negotiate", compiles=0) as sp:
+        def counted(overrides):
+            sp.attrs["compiles"] += 1
+            return compile_fn(overrides)
+
+        return _search(counted, max_trials, chain_budget, time_budget_s)
+
+
+def _search(compile_fn, max_trials, chain_budget, time_budget_s):
     import time as _time
 
     from .metrics import scheme_wall_components, scheme_wall_estimate
 
-    t0 = _time.monotonic()
-    LAST_STATS.update(compiles=1, seconds=0.0)
     res1, steps1, requests = compile_fn(None)
     if not requests:
-        LAST_STATS["seconds"] = _time.monotonic() - t0
         return res1
     t_start = _time.monotonic()
 
@@ -76,7 +82,6 @@ def negotiate(compile_fn, max_trials=40, chain_budget=100,
             return cache[key] + (False,)
         res2, steps2, req2 = compile_fn(trial)
         state["compiles"] += 1
-        LAST_STATS["compiles"] += 1
         lost = any(k and s.lane is None for k, s in zip(kern1, steps2))
         est2 = scheme_wall_estimate(steps2, 0)[0]
         out = (res2, steps2, req2, est2, lost)
@@ -222,5 +227,4 @@ def negotiate(compile_fn, max_trials=40, chain_budget=100,
                 else:
                     break
                 acc, pend, est = move
-    LAST_STATS["seconds"] = _time.monotonic() - t0
     return state["best"]

@@ -21,10 +21,9 @@ compiler's (the port's pre-permuted GK form has no estimate gate:
 """
 
 import dataclasses
-import time
 from dataclasses import dataclass
 
-from . import gatherk
+from . import gatherk, tracing
 from .gatherk import GKPlan, plan_gk_step, plan_gk_step_pre
 from .lanes import plan_lane_step, plan_pair_step, prune_lane_plans
 from .lowering import Lowered, _prod, lower_step, preferred_output_order
@@ -86,12 +85,6 @@ def make_dense_step(i, j, ix_i, ix_j, iy, dims_i, dims_j, lane=None):
                      tuple(dims_i), tuple(dims_j), low, lane)
 
 
-# the last contraction_scheme call's work (diagnostics): fusion and
-# negotiation host seconds, their trial compiles, the rewrites kept
-LAST_COMPILE = {"fuse_s": 0.0, "fuse_compiles": 0, "rewrites": 0,
-                "negotiate_s": 0.0, "negotiate_compiles": 0}
-
-
 def contraction_scheme(ctree, lane_schedule=True, negotiate=True,
                        fuse=True):
     """Dense (full-amplitude) scheme.
@@ -103,57 +96,58 @@ def contraction_scheme(ctree, lane_schedule=True, negotiate=True,
     False compiles the plain dot lowering in transpose-free orders.
     ``negotiate``: producer-order negotiation over the layout requests.
     ``fuse``: gate-block fusion, each rewrite kept only if the compiled
-    scheme's wall estimate drops.  ``LAST_COMPILE`` records the seconds
-    and trial compiles of both passes.
+    scheme's wall estimate drops.  The compile runs in a
+    ``scheme.compile`` span, the two passes in ``scheme.fuse`` and
+    ``scheme.negotiate`` spans under it (``compile_stats``).
     """
     from . import negotiate as _neg
 
-    LAST_COMPILE.update(fuse_s=0.0, fuse_compiles=0, rewrites=0,
-                        negotiate_s=0.0, negotiate_compiles=0)
-    if not lane_schedule or not negotiate \
-            or len(ctree.tn.tensor_bonds) > LANE_SCHEDULE_MAX_TENSORS:
-        steps, ob, _ = _compile_dense(ctree, lane_schedule, None)
-        return steps, ob
-    t0 = time.perf_counter()
-    if fuse:
-        from ..planner.tree import ContractionTree
-        from .fuse import reassociate_small_chains
-        from .metrics import scheme_wall_estimate
+    with tracing.span("scheme.compile", kind="dense"):
+        if not lane_schedule or not negotiate \
+                or len(ctree.tn.tensor_bonds) > LANE_SCHEDULE_MAX_TENSORS:
+            steps, ob, _ = _compile_dense(ctree, lane_schedule, None)
+            return steps, ob
+        if fuse:
+            from ..planner.tree import ContractionTree
+            from .fuse import fuse_by_estimate
+            from .metrics import scheme_wall_estimate
 
-        tn = ctree.tn
+            tn = ctree.tn
 
-        def est_of(ct):
-            LAST_COMPILE["fuse_compiles"] += 1
-            s, _ob, _req = _compile_dense(ct, lane_schedule, None)
-            return scheme_wall_estimate(s, 0)[0]
+            def estimate(order):
+                ct = ctree if order is None else ContractionTree(tn, order)
+                s, _ob, _req = _compile_dense(ct, lane_schedule, None)
+                return scheme_wall_estimate(s, 0)[0]
 
-        state = {}
+            fused = fuse_by_estimate(ctree.to_order_dfs(), tn.tensor_bonds,
+                                     tn.bond_dims, estimate)
+            if fused != [tuple(p) for p in ctree.to_order_dfs()]:
+                ctree = ContractionTree(tn, fused)
 
-        def accept(cand):
-            if "est" not in state:      # lazy: no candidates, no compile
-                state["est"] = est_of(ctree)
-            e = est_of(ContractionTree(tn, cand))
-            if e < state["est"]:
-                state["est"] = e
-                LAST_COMPILE["rewrites"] += 1
-                return True
-            return False
+        def compile_fn(overrides):
+            steps, ob, req = _compile_dense(ctree, lane_schedule, overrides)
+            return (steps, ob), steps, req
 
-        fused = reassociate_small_chains(
-            ctree.to_order_dfs(), tn.tensor_bonds, tn.bond_dims,
-            accept=accept)
-        if fused != [tuple(p) for p in ctree.to_order_dfs()]:
-            ctree = ContractionTree(tn, fused)
-    t1 = time.perf_counter()
-    LAST_COMPILE["fuse_s"] = t1 - t0
+        return _neg.negotiate(compile_fn)
 
-    def compile_fn(overrides):
-        steps, ob, req = _compile_dense(ctree, lane_schedule, overrides)
-        return (steps, ob), steps, req
 
-    out = _neg.negotiate(compile_fn)
-    LAST_COMPILE.update(negotiate_s=time.perf_counter() - t1,
-                        negotiate_compiles=_neg.LAST_STATS["compiles"])
+def compile_stats(compile_span=None):
+    """What a scheme compile (its ``scheme.compile`` span; default the
+    last) spent on its passes, read from its spans: ``fuse_s``,
+    ``fuse_compiles``, ``rewrites``, ``negotiate_s`` and
+    ``negotiate_compiles`` (zeros for a pass that did not run)."""
+    out = dict(fuse_s=0.0, fuse_compiles=0, rewrites=0, negotiate_s=0.0,
+               negotiate_compiles=0)
+    compile_span = compile_span or tracing.last("scheme.compile")
+    if compile_span is None:
+        return out
+    for sp in tracing.children(compile_span):
+        if sp.name == "scheme.fuse":
+            out.update(fuse_s=sp.seconds, fuse_compiles=sp.attrs["compiles"],
+                       rewrites=sp.attrs["rewrites"])
+        elif sp.name == "scheme.negotiate":
+            out.update(negotiate_s=sp.seconds,
+                       negotiate_compiles=sp.attrs["compiles"])
     return out
 
 

@@ -38,17 +38,16 @@ model, so its choices may differ from the JAX package's; given the same
 order and overrides, the steps are the JAX compiler's.
 """
 
-import time
 from dataclasses import dataclass, field as dc_field
 from math import ceil, log2
 
 import numpy as np
 import torch
 
-from . import gatherk, lanes
+from . import gatherk, lanes, tracing
 # imported with this module, not at the first compile: fuse binds
 # gatherk's size gate when it is imported
-from .fuse import reassociate_small_chains
+from .fuse import fuse_by_estimate
 from .gatherk import (GGKPlan, GKPlan, apply_ggk_step, apply_gk_step,
                       plan_ggk_step, plan_gk_step, plan_gk_step_pre)
 from .lanes import (LanePlan, PairPlan, apply_lane_step, apply_pair_step,
@@ -224,75 +223,49 @@ def contraction_scheme_sparse(ctree, bitstrings, sc_target=31,
         every candidate rewrite is kept only if the compiled scheme's wall
         estimate drops.
 
-    Returns (steps, output_bonds, bitstrings_sorted).  ``LAST_COMPILE``
-    records the fusion and negotiation seconds and compile counts.
+    Returns (steps, output_bonds, bitstrings_sorted).  The compile runs
+    in a ``scheme.compile`` span, the two passes in ``scheme.fuse`` and
+    ``scheme.negotiate`` spans under it (``scheme.compile_stats``).
     """
-    t0 = time.perf_counter()
-    LAST_COMPILE.update(fuse_s=0.0, fuse_compiles=0, rewrites=0,
-                        negotiate_s=0.0, negotiate_compiles=0)
-    order = None
-    base_order = ctree.to_order_dfs()
-    if fuse and lane_schedule and len(base_order) <= (
-            lane_max_steps or LANE_SCHEDULE_MAX_STEPS):
-        from .metrics import scheme_wall_estimate
+    with tracing.span("scheme.compile", kind="sparse"):
+        order = None
+        base_order = ctree.to_order_dfs()
+        if fuse and lane_schedule and len(base_order) <= (
+                lane_max_steps or LANE_SCHEDULE_MAX_STEPS):
+            from .metrics import scheme_wall_estimate
 
-        tn = ctree.tn
-        final_qubits = list(tn.final_qubits)
-        targets = np.array([[int(c) for c in s] for s in bitstrings],
-                           dtype=np.uint8)
+            tn = ctree.tn
+            targets = np.array([[int(c) for c in s] for s in bitstrings],
+                               dtype=np.uint8)
 
-        def est_of(o):
-            LAST_COMPILE["fuse_compiles"] += 1
-            s, *_ = _compile_sparse(ctree, bitstrings, sc_target,
-                                    lane_schedule, None, lane_max_steps,
-                                    _order=o)
-            return scheme_wall_estimate(s, 0)[0]
+            def estimate(o):
+                s, *_ = _compile_sparse(ctree, bitstrings, sc_target,
+                                        lane_schedule, None, lane_max_steps,
+                                        _order=o)
+                return scheme_wall_estimate(s, 0)[0]
 
-        state = {}
+            order = fuse_by_estimate(
+                base_order, tn.tensor_bonds, tn.bond_dims, estimate,
+                targets=targets,
+                qubit_of_tensor={tid: (q,) for q, tid
+                                 in enumerate(tn.final_qubits)})
+        if not lane_schedule or not negotiate:
+            steps1, ob1, bits1, _ = _compile_sparse(
+                ctree, bitstrings, sc_target, lane_schedule, None,
+                lane_max_steps, _order=order)
+            return steps1, ob1, bits1
+        from . import negotiate as _neg
 
-        def accept(cand):
-            if "est" not in state:      # lazy: no candidates, no compile
-                state["est"] = est_of(None)
-            e = est_of(cand)
-            if e < state["est"]:
-                state["est"] = e
-                LAST_COMPILE["rewrites"] += 1
-                return True
-            return False
+        memo = {}
 
-        order = reassociate_small_chains(
-            base_order, tn.tensor_bonds, tn.bond_dims,
-            targets=targets,
-            qubit_of_tensor={tid: (q,) for q, tid
-                             in enumerate(final_qubits)},
-            accept=accept)
-    t1 = time.perf_counter()
-    LAST_COMPILE["fuse_s"] = t1 - t0
-    if not lane_schedule or not negotiate:
-        steps1, ob1, bits1, _ = _compile_sparse(
-            ctree, bitstrings, sc_target, lane_schedule, None,
-            lane_max_steps, _order=order)
-        return steps1, ob1, bits1
-    from . import negotiate as _neg
+        def compile_fn(overrides):
+            steps, ob, bits, req = _compile_sparse(
+                ctree, bitstrings, sc_target, lane_schedule, overrides,
+                lane_max_steps, _memo=memo, _order=order)
+            return (steps, ob, bits), steps, req
 
-    memo = {}
+        return _neg.negotiate(compile_fn)
 
-    def compile_fn(overrides):
-        steps, ob, bits, req = _compile_sparse(
-            ctree, bitstrings, sc_target, lane_schedule, overrides,
-            lane_max_steps, _memo=memo, _order=order)
-        return (steps, ob, bits), steps, req
-
-    out = _neg.negotiate(compile_fn)
-    LAST_COMPILE.update(negotiate_s=time.perf_counter() - t1,
-                        negotiate_compiles=_neg.LAST_STATS["compiles"])
-    return out
-
-
-# the last contraction_scheme_sparse call's work (diagnostics): fusion and
-# negotiation host seconds, their trial compiles, the rewrites kept
-LAST_COMPILE = {"fuse_s": 0.0, "fuse_compiles": 0, "rewrites": 0,
-                "negotiate_s": 0.0, "negotiate_compiles": 0}
 
 _BATCH_LABELS = {"batch", "batch_i", "batch_j"}
 
@@ -728,6 +701,18 @@ def kernel_kind(step):
     return None
 
 
+def step_span(index, s, field):
+    """The ``step`` span of the ``index``-th step ``s`` of a run, while
+    tracing is enabled (else ``tracing.NULL``): attributes ``index`` and
+    ``kind``, the kernel that runs it (``kernel_kind``) or "dot" for the
+    dot fallback; a GK or GGK step's wrapper adds its ``form``."""
+    if not tracing.ENABLED:
+        return tracing.NULL
+    kind = kernel_kind(s) if s.lane is not None and field.supports_lanes \
+        else None
+    return tracing.hot("step", index=index, kind=kind or "dot")
+
+
 def step_tables(s, device):
     """The step's index arrays as int64 tensors on ``device``: the aligned
     chunks' ``(gi, gj)`` and the cross merge's ``post_select``, uploaded
@@ -785,13 +770,16 @@ def apply_sparse_step(field, x, y, s, bx=False, by=False):
 def execute_sparse(tensors, steps, field, batched=()):
     """Run a sparse scheme over staged (flat) field tensors.  ``batched``:
     ids of the buffers that carry a leading slice-width axis.  Returns
-    ``(result, result_is_batched)``."""
+    ``(result, result_is_batched)``.  Each step runs in a ``step`` span
+    while tracing is enabled (``step_span``)."""
     bufs = list(tensors)
     bat = set(batched)
     last = 0
-    for s in steps:
+    for n, s in enumerate(steps):
         bi, bj = s.i in bat, s.j in bat
-        bufs[s.i] = apply_sparse_step(field, bufs[s.i], bufs[s.j], s, bi, bj)
+        with step_span(n, s, field):
+            bufs[s.i] = apply_sparse_step(field, bufs[s.i], bufs[s.j], s,
+                                          bi, bj)
         bufs[s.j] = None
         if bj:
             bat.add(s.i)

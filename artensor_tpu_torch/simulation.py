@@ -53,6 +53,7 @@ from .circuits import TensorNetworkCircuit
 from .network import NumericalTensorNetwork
 from .plan_io import plan_from_dict
 from .planner import find_order
+from .runtime import tracing
 
 # schemes above this many device steps run segmented (one CUDA graph per
 # ``segment_steps`` steps, runtime/segmented.py), as in the JAX package
@@ -211,23 +212,24 @@ class TensorNetworkSimulation:
         """Load a plan (path or dict saved by ``plan_io.save_plan`` of
         either package) for this network and compile the scheme.
         ``sc_target`` (sparse mode only) defaults to the plan's
-        ``meta.sc_target``."""
-        if not isinstance(plan, dict):
-            with open(plan) as f:
-                plan = json.load(f)
-        if sc_target is None:
-            sc_target = (plan.get("meta") or {}).get("sc_target")
-        if sc_target is None and self.pattern == "sparse":
-            raise ValueError("the plan names no sc_target: pass one")
-        self.order, self.slicing_bonds, self.ctree = plan_from_dict(plan)
-        self.sc_target = None if sc_target is None else float(sc_target)
-        self._shard_plan = None
-        self._compile_scheme()
+        ``meta.sc_target``.  Runs in a ``load_plan`` span."""
+        with tracing.span("load_plan", pattern=self.pattern):
+            if not isinstance(plan, dict):
+                with open(plan) as f:
+                    plan = json.load(f)
+            if sc_target is None:
+                sc_target = (plan.get("meta") or {}).get("sc_target")
+            if sc_target is None and self.pattern == "sparse":
+                raise ValueError("the plan names no sc_target: pass one")
+            self.order, self.slicing_bonds, self.ctree = plan_from_dict(plan)
+            self.sc_target = None if sc_target is None else float(sc_target)
+            self._shard_plan = None
+            self._compile_scheme()
         return self
 
     def _compile_scheme(self):
-        """Compile the default scheme of the plan; ``compile_seconds``."""
-        t0 = time.perf_counter()
+        """Compile the default scheme of the plan; ``compile_seconds``: its
+        ``scheme.compile`` span's."""
         if self.pattern == "normal":
             from .runtime.scheme import contraction_scheme
 
@@ -242,7 +244,7 @@ class TensorNetworkSimulation:
             self._set_scheme(*contraction_scheme_sparse(
                 self.ctree, self.bitstrings, sc_target=self.sc_target,
                 lane_max_steps=lane_max))
-        self.compile_seconds = time.perf_counter() - t0
+        self.compile_seconds = tracing.last("scheme.compile").seconds
 
     def _set_scheme(self, steps, output_bonds, bitstrings_sorted=None):
         """Take a compiled scheme (``contraction_scheme_sparse``'s result,
@@ -271,10 +273,13 @@ class TensorNetworkSimulation:
         from .runtime.sparse import apply_sparse_step, execute_sparse
 
         field = field or SplitField()
-        run_steps, host_arrays = ex.precompute_static_steps(
-            self.steps, [self.tensors[i] for i in range(len(self.tensors))],
-            self.slicing_axes)
-        arrays = ex.stage_tensors(field, host_arrays, device)
+        with tracing.span("prepare.fold"):
+            run_steps, host_arrays = ex.precompute_static_steps(
+                self.steps,
+                [self.tensors[i] for i in range(len(self.tensors))],
+                self.slicing_axes)
+        with tracing.span("prepare.stage"):
+            arrays = ex.stage_tensors(field, host_arrays, device)
         if self.pattern == "normal":
             out_shape = (2,) * len(self.output_bonds)
             execute, apply_step = ex.execute_dense, ex.apply_dense_step
@@ -301,18 +306,21 @@ class TensorNetworkSimulation:
         step runs from the host, as on the CPU.  ``callable.stats``: the
         runner's captures, replays and capture seconds;
         ``callable.capture()`` makes its graphs without running it (as
-        ``parallel.dispatch_batches`` needs of a group's run)."""
+        ``parallel.dispatch_batches`` needs of a group's run).  Runs in a
+        ``prepare`` span: ``prepare.fold`` and ``prepare.stage`` under
+        it."""
         from .runtime import executor as ex
 
         from .ops.field import make_field
 
         device = require_device(device)
-        field, run_steps, arrays, out_shape, execute, _ = self._staged(
-            device, make_field(dtype, precision, mode, algo))
-        run = ex.make_sliced_runner(
-            execute, run_steps, self.slicing_axes,
-            len(self.slicing_bonds), out_shape, field,
-            slice_batch=slice_batch, eager=eager)
+        with tracing.span("prepare"):
+            field, run_steps, arrays, out_shape, execute, _ = self._staged(
+                device, make_field(dtype, precision, mode, algo))
+            run = ex.make_sliced_runner(
+                execute, run_steps, self.slicing_axes,
+                len(self.slicing_bonds), out_shape, field,
+                slice_batch=slice_batch, eager=eager)
         call = lambda: run(arrays)
         call.stats = run.stats
         call.capture = lambda: run.capture(arrays)
@@ -350,7 +358,9 @@ class TensorNetworkSimulation:
         ``torch.cuda.OutOfMemoryError`` (logged).  ``report``: a
         ``runtime.metrics.ContractionReport`` to fill in.
         ``profile_dir``: a ``torch.profiler`` trace of the execution,
-        written there as ``trace.json``.  ``self.run_stats`` holds the
+        written there as ``trace.json``, with tracing enabled (the
+        program's spans name its phases in it).  The call runs in a
+        ``contraction`` span.  ``self.run_stats`` holds the
         executor, the width it used, and its captures, replays and
         capture seconds (over a mesh, summed over its replicas, each
         replica's under ``replicas``).
@@ -367,7 +377,7 @@ class TensorNetworkSimulation:
         k = len(self.slicing_bonds)
         graphs = device.type == "cuda"
         factor = None
-        prof = None
+        prof = traced = None
         if profile_dir is not None:
             from torch.profiler import ProfilerActivity, profile
 
@@ -375,8 +385,9 @@ class TensorNetworkSimulation:
                 ([ProfilerActivity.CUDA] if graphs else [])
             prof = profile(activities=acts)
             prof.__enter__()
+            traced = tracing.enable()
         try:
-            with mt.Timer() as wall:
+            with tracing.span("contraction") as wall:
                 if scientific_notation:
                     from .runtime.rescaled import make_rescaled_runner
 
@@ -449,6 +460,7 @@ class TensorNetworkSimulation:
                 result = field.unwrap(result).reshape(out_shape)
         finally:
             if prof is not None:
+                tracing.enable(traced)
                 prof.__exit__(None, None, None)
                 os.makedirs(profile_dir, exist_ok=True)
                 prof.export_chrome_trace(
@@ -458,7 +470,7 @@ class TensorNetworkSimulation:
         if report is not None:
             report.predicted_flops = (2 ** k) * mt.scheme_flops(
                 run_steps, algo if mode == "split" else "naive")
-            report.wall_s = wall.elapsed
+            report.wall_s = wall.seconds
             report.compile_s = stats.get("capture_s", 0.0)
             report.num_slices = 2 ** k
             report.num_steps = len(run_steps)
@@ -540,10 +552,9 @@ class TensorNetworkSimulation:
         order, sliced, ctree = find_order(
             tb, bd, self.final_qubits, max_bitstrings=self.max_bitstrings,
             **config.find_order_kwargs())
-        t1 = time.perf_counter()
+        self.plan_seconds = time.perf_counter() - t0
         steps, output_bonds = contraction_scheme(ctree)
-        self.plan_seconds = t1 - t0
-        self.compile_seconds = time.perf_counter() - t1
+        self.compile_seconds = tracing.last("scheme.compile").seconds
         axes = ex.build_slicing_axes(self.tensor_bonds, chosen + sliced)
         self.ctree, self.order = ctree, order
         self.slicing_bonds = list(sliced)

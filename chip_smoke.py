@@ -810,10 +810,10 @@ def compile_paths(name, W):
     """Both forms of a workload's scheme: the off form at ``W``
     (``compile_path``), then the default form through ``load_plan`` at the
     width the wall estimate picks (timed, split into fusion and
-    negotiation by ``sparse.LAST_COMPILE``).  Returns the two paths'
-    states, off first."""
+    negotiation by the compile's spans, ``scheme.compile_stats``).
+    Returns the two paths' states, off first."""
     from artensor_tpu_torch import TensorNetworkSimulation, random_circuit
-    from artensor_tpu_torch.runtime import sparse
+    from artensor_tpu_torch.runtime import scheme
 
     off = compile_path(name, W)
     sim = TensorNetworkSimulation.from_circuit(random_circuit(**CIRCUIT),
@@ -822,7 +822,7 @@ def compile_paths(name, W):
     sim.load_plan(PATHS[name][0])
     default_s = time.perf_counter() - t0
     return [off, path_state(name, "default", sim, off["ref"], None,
-                            default_s, dict(sparse.LAST_COMPILE))]
+                            default_s, scheme.compile_stats())]
 
 
 def compile_dense_paths():
@@ -850,7 +850,7 @@ def compile_dense_paths():
     t0 = time.perf_counter()
     sim.load_plan(DENSE_PLAN)
     dflt = path_state("dense", "default", sim, ref, 1,
-                      time.perf_counter() - t0, dict(scheme.LAST_COMPILE))
+                      time.perf_counter() - t0, scheme.compile_stats())
     return [off, dflt]
 
 
@@ -871,7 +871,7 @@ def compile_block_path(dense):
           "slices")
     return block_path(sim, "dense-blocks", "default", steps, axes, chosen,
                       k, D_OUT, dense["ref"], time.perf_counter() - t0,
-                      dict(scheme.LAST_COMPILE), 2 ** len(output_bonds))
+                      scheme.compile_stats(), 2 ** len(output_bonds))
 
 
 def block_path(sim, name, form, steps, axes, chosen, k, d_out, ref,
@@ -1739,7 +1739,7 @@ def block_walk(path, post, eager=False, mode="split"):
     seconds from the
     generator's start to its last block less the block scheme's compile
     (the post-hoc walk recompiles it each walk, a planned walk never), the
-    compile's seconds (``scheme.LAST_COMPILE``: fusion and negotiation,
+    compile's seconds (``scheme.compile_stats``: fusion and negotiation,
     the whole of the default form's compile) and the seconds of the
     blocks after the first."""
     from artensor_tpu_torch.runtime import scheme
@@ -1752,8 +1752,9 @@ def block_walk(path, post, eager=False, mode="split"):
             eager=eager):
         stamps.append(time.perf_counter())
         res.append((bits, qubits, v))
+    stats = scheme.compile_stats()
     compile_s = 0.0 if path["planned"] else \
-        scheme.LAST_COMPILE["fuse_s"] + scheme.LAST_COMPILE["negotiate_s"]
+        stats["fuse_s"] + stats["negotiate_s"]
     return (res, stamps[-1] - t0 - compile_s, compile_s,
             stamps[-1] - stamps[0])
 
@@ -2699,7 +2700,7 @@ def drive_planned(wrappers):
                                     TensorNetworkSimulation,
                                     quantum_circuit_simulation,
                                     random_circuit)
-    from artensor_tpu_torch.runtime import sparse
+    from artensor_tpu_torch.runtime import scheme
 
     build_s = native_build()
     ref = load_fixture(PATHS["1k"][1])
@@ -2724,7 +2725,7 @@ def drive_planned(wrappers):
         TensorNetworkSimulation.prepare_contraction = real
     (sim,) = kept
     plan = plan_summary(sim, PATHS["1k"][0])
-    stats = dict(sparse.LAST_COMPILE)
+    stats = scheme.compile_stats()
     st = sim.run_stats
     check(st["executor"] == "graph" and st["slice_batch"] == 1,
           f"1k-planned: the one-shot ran as {st['executor']} at width "
@@ -2767,7 +2768,7 @@ def plan_walk(dense_ref):
     d_out, sc = PLANNED_WALK
     sim = TensorNetworkSimulation.from_circuit(random_circuit(**CIRCUIT))
     sim.prepare_output_sharded(d_out, sc_target=sc)
-    stats = dict(scheme.LAST_COMPILE)
+    stats = scheme.compile_stats()
     plan = plan_summary(sim)
     steps, axes, chosen, output_bonds, k, _ = _dense_shard_setup(sim, d_out)
     print(f"planner dense-planned: prepare_output_sharded({d_out}, "
@@ -3257,7 +3258,7 @@ def post_hoc_block_path(dense, d_out):
     restore()
     return block_path(sim, "dense", f"sharded-d{d_out}", steps, axes, chosen,
                       k, d_out, dense["ref"], time.perf_counter() - t0,
-                      dict(scheme.LAST_COMPILE), 2 ** len(output_bonds))
+                      scheme.compile_stats(), 2 ** len(output_bonds))
 
 
 def drive_sharded(path, wrappers, mesh, label):

@@ -139,8 +139,8 @@ def dense_turn(root, name, form):
             blocks = sim.contraction_output_blocks(D_OUT, postprocess=touch,
                                                    device="cuda")
             stamps = [time.perf_counter() for _ in blocks]
-            comp = scheme.LAST_COMPILE["fuse_s"] \
-                + scheme.LAST_COMPILE["negotiate_s"]
+            st = scheme.compile_stats()
+            comp = st["fuse_s"] + st["negotiate_s"]
             return (stamps[-1] - t0 - comp, comp,
                     (stamps[-1] - stamps[0]) / (len(stamps) - 1))
 

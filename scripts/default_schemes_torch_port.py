@@ -18,7 +18,6 @@ import argparse
 import json
 import os
 import sys
-import time
 from collections import Counter
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -38,7 +37,7 @@ WORKLOADS = {   # name: (plan, amplitude fixture), as in chip_smoke.py
 def default_scheme(name):
     """(steps, seconds, compile stats) of the workload's default form."""
     from artensor_tpu_torch.plan_io import load_plan
-    from artensor_tpu_torch.runtime import sparse
+    from artensor_tpu_torch.runtime import scheme, sparse, tracing
 
     plan, fixture = WORKLOADS[name]
     with open(os.path.join(DATA, fixture)) as f:
@@ -46,9 +45,9 @@ def default_scheme(name):
     with open(os.path.join(DATA, plan)) as f:
         sc = json.load(f)["meta"]["sc_target"]
     _, _, ctree = load_plan(os.path.join(DATA, plan))
-    t0 = time.perf_counter()
     steps, _, _ = sparse.contraction_scheme_sparse(ctree, bits, sc)
-    return steps, time.perf_counter() - t0, dict(sparse.LAST_COMPILE)
+    span = tracing.last("scheme.compile")
+    return steps, span.seconds, scheme.compile_stats(span)
 
 
 def record(steps):

@@ -96,7 +96,7 @@ def census(path=PLAN):
         dev = metrics.scheme_device_peak_bytes(run_steps, 1,
                                                sim.slicing_axes)
         staged = sum(8 * a.size for a in arrays)
-        print(f"{form}: compile {dt:.2f} s ({scheme.LAST_COMPILE}); "
+        print(f"{form}: compile {dt:.2f} s ({scheme.compile_stats()}); "
               f"{len(sim.steps)} steps, {len(run_steps)} on the device "
               f"{kinds} ({pre} pre-permuted GK); modeled live set "
               f"{peak / 2**30:.3f} GiB, device peak {dev / 2**30:.4f} GiB "

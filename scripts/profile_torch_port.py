@@ -14,11 +14,14 @@ scheme in ``--form``: "default", what ``load_plan`` compiles, or "off",
 ``metrics.dividing_slice_width`` picks for the scheme) once to warm up,
 then:
 
-1. one run with a CUDA-event pair around every step, summed by the kernel
-   that runs the step (``dot`` = the matmul fallback ``apply_lowered``);
-   each step's time includes its glue (reorders, W preparation, gathers);
-   the rest of the run is slice selection and accumulation; this run is
-   eager (every step from the host), the events need it;
+1. one eager run (every step from the host) under ``torch.profiler``
+   with the program's tracing on: each device operation is put down to
+   the ``step`` span it was launched under (``tnbench/progtrace.py``
+   reads the profiler's links) and summed by the step's kind (``dot`` =
+   the matmul fallback ``apply_lowered``) and form; a step's time
+   includes its glue (reorders, W preparation, gathers), not the gaps
+   between its kernels; the rest of the run is slice selection and
+   accumulation;
 2. the warm wall (median of 3) and one run under ``torch.profiler`` as
    ``contraction()`` runs on the card, one slice group captured as a CUDA
    graph and replayed (``--eager``: every step from the host, as the port
@@ -241,6 +244,69 @@ def ab(slice_batch, name, form):
         raise SystemExit("rgflat A/B: the two sides disagree")
 
 
+def step_times(sim, run, tracing):
+    """Part 1: the eager run ``run`` profiled with tracing on, its device
+    time put down to the steps of ``sim``'s run (by kind, the costliest,
+    the aligned ones) and to the rest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from artensor_tpu_torch.runtime import executor
+    from tnbench import progtrace
+
+    run_steps, _ = executor.precompute_static_steps(
+        sim.steps, [sim.tensors[i] for i in range(len(sim.tensors))],
+        sim.slicing_axes)
+    prev = tracing.enable()
+    try:
+        mark = time.perf_counter_ns()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        tracing.enable(prev)
+    steps = [s for s in tracing.spans("step") if s.start >= mark]
+    program = {s.name for s in tracing.spans() if s.start >= mark}
+    host, dev = progtrace.profile_events(prof, program)
+    stack = progtrace.program_stacks(host, program)
+    by_kind, n_kind, by_step = defaultdict(float), defaultdict(int), \
+        defaultdict(float)
+    for sp in steps:
+        n_kind[sp.attrs["kind"]] += 1
+    total = rest = 0.0
+    for d in dev:
+        ms = 1e-6 * (d.end - d.start)
+        total += ms
+        inner = [s for s in stack(d) or () if s[0] == "step"]
+        if not inner:
+            rest += ms
+            continue
+        a = steps[inner[-1][1]].attrs
+        kind = a["kind"] + (f" {a['form']}" if "form" in a else "")
+        by_kind[kind] += ms
+        by_step[(a["index"], kind)] += ms
+    print(f"eager run: {total:.2f} ms of device operations, "
+          f"{1e3 * wall:.2f} ms host wall (profiled, tracing on)")
+    print("by step kind (device operations under each step's span):")
+    for kind, ms in sorted(by_kind.items(), key=lambda t: -t[1]):
+        print(f"  {kind:11s} {ms:9.3f} ms  {100 * ms / total:5.1f}%  "
+              f"({n_kind[kind.split()[0]]} step runs of the kind)")
+    print(f"  {'rest':11s} {rest:9.3f} ms  {100 * rest / total:5.1f}%  "
+          "(slice selection, accumulation)")
+    print("top steps (all groups of the run):")
+    for (i, kind), ms in sorted(by_step.items(), key=lambda t: -t[1])[:12]:
+        print(f"  {ms:9.3f} ms  step {i:3d} {kind:11s} "
+              f"{describe(run_steps[i])}")
+    print("aligned (gathered) steps (all groups of the run):")
+    for (i, kind), ms in sorted(by_step.items()):
+        desc = describe(run_steps[i])
+        if kind.split()[0] in ("ggk", "rgrow", "rgflat") or "gathered" in desc:
+            print(f"  {ms:9.3f} ms  step {i:3d} {kind:11s} {desc}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--slice-batch", type=int, default=0,
@@ -272,7 +338,7 @@ def main():
     if not torch.cuda.is_available():
         print("profile_torch_port: no CUDA device", file=sys.stderr)
         return 2
-    from artensor_tpu_torch.runtime import executor, sparse
+    from artensor_tpu_torch.runtime import sparse
 
     if args.ab_rgflat:
         print(f"card: {torch.cuda.get_device_name(0)}; workload "
@@ -297,59 +363,14 @@ def main():
     print(f"peak device memory of an eager run: "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
 
-    # -- 1. per step kind, CUDA events ---------------------------------------
-    marks = []
-    mod = executor if args.workload == "dense" else sparse
-    name = "apply_dense_step" if mod is executor else "apply_sparse_step"
-    inner = getattr(mod, name)
-
-    def timed_step(field, x, y, s, bx=False, by=False):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = inner(field, x, y, s, bx, by)
-        b.record()
-        marks.append((sparse.kernel_kind(s) or "dot", a, b,
-                      (id(s), describe(s), tuple(out[0].shape))))
-        return out
-
-    setattr(mod, name, timed_step)
+    # -- 1. per step kind, from the program's step spans ---------------------
     try:
-        t0 = time.perf_counter()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        run()
-        end.record()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        setattr(mod, name, inner)
-    by_kind = defaultdict(float)
-    n_kind = defaultdict(int)
-    by_step = defaultdict(float)
-    for kind, a, b, step in marks:
-        by_kind[kind] += a.elapsed_time(b)
-        n_kind[kind] += 1
-        by_step[(kind,) + step] += a.elapsed_time(b)
-    total = start.elapsed_time(end)
-    print(f"run {total:.2f} ms between device events, "
-          f"{1e3 * wall:.2f} ms host wall (with per-step events)")
-    print("by step kind (events around each step, glue included):")
-    for kind, ms in sorted(by_kind.items(), key=lambda t: -t[1]):
-        print(f"  {kind:6s} {ms:9.3f} ms  {100 * ms / total:5.1f}%  "
-              f"({n_kind[kind]} step runs)")
-    rest = total - sum(by_kind.values())
-    print(f"  {'rest':6s} {rest:9.3f} ms  {100 * rest / total:5.1f}%  "
-          "(slice selection, accumulation, gaps)")
-    print("top steps (all groups of the run):")
-    for (kind, _, desc, shape), ms in sorted(by_step.items(),
-                                             key=lambda t: -t[1])[:12]:
-        print(f"  {ms:9.3f} ms  {kind:5s} {desc}  out {shape}")
-    print("aligned (gathered) steps (all groups of the run):")
-    for (kind, _, desc, shape), ms in by_step.items():
-        if kind in ("ggk", "rgrow", "rgflat") or "gathered" in desc:
-            print(f"  {ms:9.3f} ms  {kind:6s} {desc}  out {shape}")
+        from artensor_tpu_torch.runtime import tracing
+    except ImportError:
+        tracing = None
+        print("the port has no span recorder: step times not measured")
+    if tracing is not None:
+        step_times(sim, run, tracing)
 
     # -- 2. the run as profiled: warm wall, then torch.profiler -------------
     del run

@@ -22,6 +22,7 @@ from artensor_tpu_torch.plan_io import plan_from_dict
 from artensor_tpu_torch.runtime import metrics as pmt
 from artensor_tpu_torch.runtime import negotiate as pneg
 from artensor_tpu_torch.runtime import sparse as psparse
+from artensor_tpu_torch.runtime import tracing
 from artensor_tpu_torch.runtime.sparse import kernel_kind
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -108,7 +109,8 @@ def test_search_matches_jax_on_one_compile_function(seed, monkeypatch):
         calls[name + "_result"] = neg.negotiate(logged, time_budget_s=1e9)
     assert calls["port"] == calls["jax"]
     assert calls["port_result"] == calls["jax_result"]
-    assert pneg.LAST_STATS["compiles"] == len(calls["port"])
+    assert tracing.last("scheme.negotiate").attrs["compiles"] == \
+        len(calls["port"])
 
 
 # -- the JAX invariants under the port's model ---------------------------------

@@ -587,5 +587,7 @@ def test_n30_default_scheme_matches_record(name, plan, fixture):
     census = Counter(kernel_kind(s) or "dot" for s in steps)
     assert dict(census) == want["census"]
     assert psparse.scheme_digest(steps) == want["digest"]
-    stats = psparse.LAST_COMPILE
+    from artensor_tpu_torch.runtime import scheme as pscheme
+
+    stats = pscheme.compile_stats()
     assert stats["rewrites"] > 0 and stats["negotiate_compiles"] > 1
