@@ -8,7 +8,8 @@ compilers are started together, one per source.  ``pair.cu`` and
 ``gatherk.cu`` both include ``wgmma_core.cuh`` (the tensor-core product,
 on wgmma, of Pair, the complex matmul and the GK and GGK mma form) and
 ``tc_core.cuh`` (its operands' split and the cp.async copies, which
-``rgflat.cu`` also uses).  Libraries are cached
+``rgflat.cu`` also uses).  ``permute.cu`` is the copy kernel of every
+reorder (``ops/permute.py``).  Libraries are cached
 in ``_build/`` next to this file (git-ignored), or where
 ``ARTENSOR_TPU_CACHE`` points (``cache.py``), named by a hash of the
 source, the headers and the flags, so an edited source or header rebuilds
@@ -17,7 +18,8 @@ and an unchanged one loads at once.
 Nothing here runs at import: ``load()`` builds on its first call, from the
 wrapper that first launches a kernel.  A failed build raises.  Every
 kernel counts the launches that ran on the card (``csrc/runs.cuh``);
-``device_runs()`` reads the counts.
+``device_runs()`` reads the step kernels' counts, ``read_runs`` any
+source's (``ops.permute.permute_runs``: the copy kernel's, by mode).
 """
 
 import ctypes
@@ -34,7 +36,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 DEFAULT_BUILD_DIR = Path(__file__).resolve().parent / "_build"
 BUILD_DIR = DEFAULT_BUILD_DIR     # cache.enable_compile_cache may move it
-SOURCES = ("gatherk", "rgrow", "rgflat", "lane", "pair")
+SOURCES = ("gatherk", "rgrow", "rgflat", "lane", "pair", "permute")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -68,10 +70,17 @@ SIGNATURES = {
         "pair_launch": [_P] * 6 + [_I, _I, _I, _L, _L, _L, _I, _I, _P],
         "cmm_launch": [_P] * 6 + [_I, _I, _I, _I, _I, _P],
     },
+    "permute": {
+        "permute_launch": [_P] * 5 + [_I, _I, _I, _P],
+        "permute_runs": [_P],
+    },
 }
-# each source's launches that ran on the card, counted by its kernels
+# each step kernel's launches that ran on the card, counted by its kernels
 # (csrc/runs.cuh), slot by slot: (kind, form); the pair kernel also runs
-# the complex matmul
+# the complex matmul.  The copy kernel (permute.cu) counts its own, read
+# apart (ops.permute.permute_runs): device_runs() is the step kernels'
+# census, which chip_smoke.py, the card tests and tnbench/progtrace.py
+# hold to a scheme's steps and to a trace's step kernels
 RUN_SLOTS = {
     "gatherk": (("gk", "stream"), ("gk", "mma"), ("ggk", "stream"),
                 ("ggk", "mma")),
@@ -199,19 +208,25 @@ def launch(name, fn, dev, *args):
         return 0 if torch.cuda.is_current_stream_capturing() else 1
 
 
+def read_runs(name, n):
+    """The first ``n`` launch counters of source ``name`` (its C entry
+    point ``<name>_runs``).  Waits for the card's work."""
+    lib = load()
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * n)()
+    check(getattr(lib, f"{name}_runs")(ctypes.cast(buf, ctypes.c_void_p)),
+          f"{name}_runs")
+    return list(buf)
+
+
 def device_runs():
-    """The launches of each kernel that ran on the card so far, by
+    """The launches of each step kernel that ran on the card so far, by
     ``(kind, form)`` (``RUN_SLOTS``), as the kernels count them
     (``csrc/runs.cuh``): a replay of a captured graph counts as a launch
     does, a capture counts nothing.  Waits for the card's work."""
-    lib = load()
-    torch.cuda.synchronize()
     out = {}
     for name, slots in RUN_SLOTS.items():
-        buf = (ctypes.c_ulonglong * len(slots))()
-        check(getattr(lib, f"{name}_runs")(ctypes.cast(buf, ctypes.c_void_p)),
-              f"{name}_runs")
-        out.update(zip(slots, buf))
+        out.update(zip(slots, read_runs(name, len(slots))))
     return out
 
 

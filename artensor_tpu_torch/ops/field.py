@@ -46,6 +46,7 @@ tables of its own: it gathers re/im pairs through an ``(n, 2)`` view.
 import numpy as np
 import torch
 
+from . import permute
 from .einsum import as_precision, matmul_precision, pairwise_einsum
 
 _REAL = {np.dtype(np.complex64): torch.float32,
@@ -74,11 +75,12 @@ def _storage_dtype(storage, rdtype):
 
 def _matrix_forms(a, b, dnums):
     """``(am, bm, shape)`` of ``lax.dot_general``'s product of tensors
-    shaped like ``a`` and ``b``: ``am`` / ``bm`` permute and reshape an
-    operand into (batch, rows, k) / (batch, k, cols) form (a copy unless
-    the permutation is the identity); ``shape``: the output's, batch
-    dims, then a's free dims, then b's free dims, in stored order, as
-    XLA's dot_general produces them."""
+    shaped like ``a`` and ``b``: ``am`` / ``bm`` permute and reshape the
+    components of an operand (a tuple of tensors) into (batch, rows, k) /
+    (batch, k, cols) form (``permute.reshape``: a copy, one for a pair of
+    one layout, unless the permuted view reshapes as a view); ``shape``:
+    the output's, batch dims, then a's free dims, then b's free dims, in
+    stored order, as XLA's dot_general produces them."""
     (ca, cb), (ba, bb) = dnums
     fa = [d for d in range(a.dim()) if d not in ca and d not in ba]
     fb = [d for d in range(b.dim()) if d not in cb and d not in bb]
@@ -89,17 +91,32 @@ def _matrix_forms(a, b, dnums):
     k = int(np.prod([a.shape[d] for d in ca])) if ca else 1
     m = int(np.prod(fa_sz)) if fa_sz else 1
     n = int(np.prod(fb_sz)) if fb_sz else 1
-    am = lambda c: c.permute(*ba, *fa, *ca).reshape(nb, m, k)
-    bm = lambda c: c.permute(*bb, *cb, *fb).reshape(nb, k, n)
+    pa, pb = (*ba, *fa, *ca), (*bb, *cb, *fb)
+    am = lambda cs: permute.reshape((c.permute(*pa) for c in cs), (nb, m, k))
+    bm = lambda cs: permute.reshape((c.permute(*pb) for c in cs), (nb, k, n))
     return am, bm, (*bsz, *fa_sz, *fb_sz)
+
+
+def _gemm(t):
+    """``t``, a matrix form on the card, as cuBLAS's batched GEMM reads it:
+    where its two matrix dims (both longer than 1) both stride past one
+    element, ``at::bmm`` copies it contiguous for the call; the copy is
+    made here instead, by the permute kernel, for the one call (the same
+    layout, so the same product, reaches cuBLAS either way)."""
+    if (t.is_cuda and t.shape[-1] > 1 and t.shape[-2] > 1
+            and t.stride(-1) != 1 and t.stride(-2) != 1):
+        return permute.contiguous((t,))[0]
+    return t
 
 
 def _upcast(form, rdtype):
     """``form`` followed by a cast to ``rdtype`` where the operand is
-    stored narrower (reduced storage: products in the real dtype)."""
+    stored narrower (reduced storage: products in the real dtype), one
+    component at a time."""
     if rdtype is None:
         return form
-    return lambda c: form(c) if c.dtype == rdtype else form(c).to(rdtype)
+    cast = lambda c: c if c.dtype == rdtype else c.to(rdtype)
+    return lambda cs: tuple(cast(form((c,))[0]) for c in cs)
 
 
 def _dot(a, b, dnums, rdtype=None):
@@ -107,7 +124,8 @@ def _dot(a, b, dnums, rdtype=None):
     ``torch.matmul`` on their matrix forms."""
     am, bm, shape = _matrix_forms(a, b, dnums)
     am, bm = _upcast(am, rdtype), _upcast(bm, rdtype)
-    return torch.matmul(am(a), bm(b)).reshape(shape)
+    return torch.matmul(_gemm(am((a,))[0]), _gemm(bm((b,))[0])).reshape(
+        shape)
 
 
 def _split_dot(a, b, dnums, algo="naive", rdtype=None, sdtype=None):
@@ -115,39 +133,41 @@ def _split_dot(a, b, dnums, algo="naive", rdtype=None, sdtype=None):
 
     Output axes as ``_matrix_forms``.  Each operand component is permuted
     into matrix form once.  ``naive``: the four real products accumulate
-    in place into the output (``baddbmm_``); the larger operand's
-    components are permuted one at a time, the second after the first's
-    copy is dropped, so the step holds one component copy of it
-    (``metrics.dot_copy_elems``).  ``karatsuba``: three products, the
-    operand sums formed in the stored dtype, as the JAX package forms
-    them.  ``rdtype``: the real dtype the products are summed in (where
-    the operands are stored narrower); ``sdtype``: the dtype the result is
-    stored in, rounded once."""
+    in place into the output (``baddbmm_``); the smaller operand's two
+    components are permuted together, the larger operand's one at a time,
+    the second after the first's copy is dropped, so the step holds one
+    component copy of it (``metrics.dot_copy_elems``).  ``karatsuba``:
+    three products, the operand sums formed in the stored dtype, as the
+    JAX package forms them.  ``rdtype``: the real dtype the products are
+    summed in (where the operands are stored narrower); ``sdtype``: the
+    dtype the result is stored in, rounded once."""
     am, bm, shape = _matrix_forms(a[0], b[0], dnums)
     am, bm = _upcast(am, rdtype), _upcast(bm, rdtype)
+    am1, bm1 = (lambda c: am((c,))[0]), (lambda c: bm((c,))[0])
+    mm = lambda x, y: torch.matmul(_gemm(x), _gemm(y))
     if algo == "karatsuba":
-        yr = torch.matmul(am(a[0]), bm(b[0]))
-        t2 = torch.matmul(am(a[1]), bm(b[1]))
-        yi = torch.matmul(am(a[0] + a[1]), bm(b[0] + b[1]))
+        yr = mm(am1(a[0]), bm1(b[0]))
+        t2 = mm(am1(a[1]), bm1(b[1]))
+        yi = mm(am1(a[0] + a[1]), bm1(b[0] + b[1]))
         yi.sub_(yr).sub_(t2)
         yr.sub_(t2)
         del t2
     elif a[0].numel() >= b[0].numel():
-        br, bi = bm(b[0]), bm(b[1])
-        x = am(a[0])
-        yr, yi = torch.matmul(x, br), torch.matmul(x, bi)
+        br, bi = bm(b)
+        x = am1(a[0])
+        yr, yi = mm(x, br), mm(x, bi)
         del x
-        x = am(a[1])
-        yr.baddbmm_(x, bi, alpha=-1.0)
-        yi.baddbmm_(x, br)
+        x = am1(a[1])
+        yr.baddbmm_(_gemm(x), _gemm(bi), alpha=-1.0)
+        yi.baddbmm_(_gemm(x), _gemm(br))
     else:
-        ar, ai = am(a[0]), am(a[1])
-        x = bm(b[0])
-        yr, yi = torch.matmul(ar, x), torch.matmul(ai, x)
+        ar, ai = am(a)
+        x = bm1(b[0])
+        yr, yi = mm(ar, x), mm(ai, x)
         del x
-        x = bm(b[1])
-        yr.baddbmm_(ai, x, alpha=-1.0)
-        yi.baddbmm_(ar, x)
+        x = bm1(b[1])
+        yr.baddbmm_(_gemm(ai), _gemm(x), alpha=-1.0)
+        yi.baddbmm_(_gemm(ar), _gemm(x))
     out = yr.reshape(shape), yi.reshape(shape)
     if sdtype is not None and sdtype != yr.dtype:
         out = tuple(c.to(sdtype) for c in out)
@@ -157,11 +177,9 @@ def _split_dot(a, b, dnums, algo="naive", rdtype=None, sdtype=None):
 # -- structural ops on one tensor, shared by the fields ----------------------
 
 def _regroup1(c, dims, perm, final_shape):
-    """reshape(dims) -> permute(perm) -> reshape(final_shape)."""
-    c = c.reshape(dims)
-    if tuple(perm) != tuple(range(len(perm))):
-        c = c.permute(*perm)
-    return c.reshape(final_shape)
+    """reshape(dims) -> permute(perm) -> reshape(final_shape)
+    (``permute.regroup``)."""
+    return permute.regroup((c,), dims, perm, final_shape)[0]
 
 
 def _index_logical1(c, dims, axis, idx, out_shape):
@@ -328,8 +346,9 @@ class SplitField(_Field):
 
     # -- structural ops ---------------------------------------------------
     def regroup(self, x, dims, perm, final_shape):
-        """reshape(dims) -> permute(perm) -> reshape(final_shape)."""
-        return tuple(_regroup1(c, dims, perm, final_shape) for c in x)
+        """reshape(dims) -> permute(perm) -> reshape(final_shape), both
+        components in one copy (``permute.regroup``)."""
+        return permute.regroup(x, dims, perm, final_shape)
 
     def index_logical(self, x, dims, axis, idx, out_shape):
         """Select index ``idx`` of logical ``axis`` on flat-stored ``x``
@@ -347,11 +366,10 @@ class SplitField(_Field):
         return tuple(torch.index_select(c, axis, indices) for c in x)
 
     def reshape(self, x, shape):
-        return tuple(c.reshape(shape) for c in x)
+        return permute.reshape(x, shape)
 
     def concat(self, parts, axis=0):
-        return (torch.cat([p[0] for p in parts], dim=axis),
-                torch.cat([p[1] for p in parts], dim=axis))
+        return permute.concat(parts, axis)
 
     def transpose(self, x, perm):
         return tuple(c.permute(*perm) for c in x)
@@ -428,10 +446,10 @@ class ComplexField(_Field):
         return torch.index_select(x, axis, _as_index(indices, x.device))
 
     def reshape(self, x, shape):
-        return x.reshape(shape)
+        return permute.reshape((x,), shape)[0]
 
     def concat(self, parts, axis=0):
-        return torch.cat(list(parts), dim=axis)
+        return permute.concat([(p,) for p in parts], axis)[0]
 
     def transpose(self, x, perm):
         return x.permute(*perm)
@@ -569,7 +587,7 @@ class FusedField(_Field):
                             tuple(range(n)) + tuple(p + n for p in ro.perm),
                             lead + ro.final_shape)
             return self._store(out)
-        return self._store(out.reshape(lead + plan.phys_y))
+        return self._store(permute.reshape((out,), lead + plan.phys_y)[0])
 
     def einsum(self, a, b, ix_a, ix_b, iy):
         """Label einsum on folded tensors: one product with R."""
@@ -630,10 +648,10 @@ class FusedField(_Field):
         return v.reshape(v.shape[:-2] + (v.shape[-2] * 2,))
 
     def reshape(self, x, shape):
-        return x.reshape(_fold(shape))
+        return permute.reshape((x,), _fold(shape))[0]
 
     def concat(self, parts, axis=0):
-        return torch.cat(list(parts), dim=axis)
+        return permute.concat([(p,) for p in parts], axis)[0]
 
 
 def make_field(dtype=np.complex64, precision="highest", mode="split",

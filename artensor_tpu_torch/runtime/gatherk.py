@@ -63,6 +63,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..ops import permute
 from . import tracing
 from .lanes import kernel_precision
 from .lowering import apply_reorder, physical_shape, plan_reorder
@@ -1163,15 +1164,16 @@ rgflat_call.launches = 0
 
 def _wk_rows(w, row, rows, lead):
     """W's stored rows -> (lead, rows, H, K) flattened: a digit transpose
-    (``wk_idx`` is built from digit strides, so it always is one)."""
+    (``wk_idx`` is built from digit strides, so it always is one), both
+    components in one copy."""
     n = len(lead) + 1
     perm = tuple(range(n)) + tuple(n + p for p in row.w_perm)
-    return tuple(c.reshape(lead + (rows,) + tuple(row.w_dims)).permute(*perm)
-                 .reshape(lead + (-1,)).contiguous() for c in w)
+    return permute.contiguous(permute.regroup(
+        w, lead + (rows,) + tuple(row.w_dims), perm, lead + (-1,)))
 
 
 def _flat(x, lead):
-    return tuple(c.reshape(lead + (-1,)).contiguous() for c in x)
+    return permute.contiguous(permute.reshape(x, lead + (-1,)))
 
 
 def apply_gk_step(field, x, y, plan, bx=False, by=False):

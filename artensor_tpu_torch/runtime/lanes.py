@@ -71,6 +71,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..ops import permute
 from .lowering import (apply_reorder, physical_shape, plan_reorder,
                        preferred_output_order)
 
@@ -703,8 +704,8 @@ def lane_plain(plan, xr, xi, wr, wi, x_batched, w_batched):
     yperm = [src[a] for a in plan.y_axes]
 
     def x_view(c):          # (G, C, L, F)
-        return c.reshape(plan.view_x).permute(perm).reshape(
-            _prod(g_dims), plan.n_combos, plan.L, plan.F)
+        return permute.regroup((c,), plan.view_x, perm, (
+            _prod(g_dims), plan.n_combos, plan.L, plan.F))[0]
 
     def wp(c):              # (C, H, L)
         m = c[idx] * sign
@@ -727,7 +728,7 @@ def lane_plain(plan, xr, xi, wr, wi, x_batched, w_batched):
             im = pi if im is None else im + pi
         for out, t in ((yr, re), (yi, im)):
             t = t.reshape(g_dims + (plan.H, plan.F)).permute(yperm)
-            (out[s] if lead else out).copy_(t.reshape(-1))
+            permute.copy((t,), ((out[s] if lead else out).view(t.shape),))
     return yr, yi
 
 
@@ -767,8 +768,8 @@ def apply_lane_step(field, x, y, plan, bx=False, by=False):
     xv, wv, bxv, bwv = (x, y, bx, by) if plan.w_is_j else (y, x, by, bx)
     xlead = (xv[0].shape[0],) if bxv else ()
     wlead = (wv[0].shape[0],) if bwv else ()
-    xr, xi = (c.reshape(xlead + (-1,)).contiguous() for c in xv)
-    wr, wi = (c.reshape(wlead + (-1,)).contiguous() for c in wv)
+    xr, xi = permute.contiguous(permute.reshape(xv, xlead + (-1,)))
+    wr, wi = permute.contiguous(permute.reshape(wv, wlead + (-1,)))
     yr, yi = lane_call(plan, xr, xi, wr, wi, bxv, bwv)
     return field.reshape((yr, yi), (xlead or wlead)
                          + physical_shape(plan.dims_y))
@@ -928,8 +929,8 @@ def apply_pair_step(field, x, y, plan, bx=False, by=False):
             plan._dev[str(dev)] = torch.as_tensor(
                 np.ascontiguousarray(plan.v_perm), dtype=torch.long).to(dev)
         vs = field.take(vs, plan._dev[str(dev)], axis=len(ylead))
-    xr, xi = (c.reshape(xlead + (-1,)).contiguous() for c in x)
-    vr, vi = (c.reshape(ylead + (-1,)).contiguous() for c in vs)
+    xr, xi = permute.contiguous(permute.reshape(x, xlead + (-1,)))
+    vr, vi = permute.contiguous(permute.reshape(vs, ylead + (-1,)))
     yr, yi = pair_call(plan, xr, xi, vr, vi, bx, by,
                        kernels.tc_passes(kernel_precision(field)))
     return field.reshape((yr, yi), (xlead or ylead)

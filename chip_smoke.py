@@ -50,7 +50,10 @@ block walk's slice-invariant steps) is not made twice.  Phases, in order
 4. the lane kernel on synthetic plans of the forms the path lacks (head
    orientation, combo legs, a pinned grid leg; X of 2^24 elements), the
    complex batched matmul (``ops/pallas_mm.py``, on no path) at two
-   shapes with ``torch.matmul`` of complex64 as its yardstick, GGK's mma
+   shapes with ``torch.matmul`` of complex64 as its yardstick, the
+   permute-copy kernel (``csrc/permute.cu``, every reorder of the port)
+   at the main path's four largest reorders (``PERMUTE_STEPS``) bit for
+   bit against PyTorch's strided copy, its yardstick, GGK's mma
    form at a synthetic K 32 H 32 F 512 step (``GGK_MMA_STEP``) and, the
    evidence of ``gatherk.gk_form``'s cut for GGK, the 1k/default path's
    K 16 H 16 F 512 GGK step at the path's width in both forms, each
@@ -65,9 +68,16 @@ block walk's slice-invariant steps) is not made twice.  Phases, in order
    by the wrappers (the launches they make: the warm-up group's; a
    capture records the kernels, a replay calls no wrapper) and by
    the kernels' own counters over the run (``kernels.device_runs``: the
-   kernels the card ran, the warm-up group's and every replay's); then
+   kernels the card ran, the warm-up group's and every replay's); the
+   permute-copy kernel's launches in that run likewise: a slice group's
+   reorders are those its capture recorded (the ``tracing`` counters
+   less the launches), the warm-up group launched as many and the card
+   ran those and every replay's (``permute_held``; every later counted
+   run, phases 8-10 included, is held the same way); then
    the same run
-   eagerly and as graph replay on the same staged inputs: the max |d|
+   eagerly and as graph replay on the same staged inputs (the eager
+   run's first call launches the permute kernel for a group's reorders in
+   every group): the max |d|
    between the two (held to the fixture's gate) and each one's error
    against the fixture, both warm walls (median of 3), the capture
    seconds, and the graph run's peak device memory (its warm-up and
@@ -192,7 +202,10 @@ the kind, and under ``paths`` every path's ("<workload>/<form>", the
 planned ones and phase 10's runs included) launches, kernels
 run on the card (``device_launches``), replays and steps; ``launches``
 and ``device_launches`` summed over the paths; the complex matmul's
-larger shape, 0 launches), the card line, and last ``{"ok": true,
+larger shape, 0 launches; the permute kernel's largest reorder and its
+path, and per path its reorders a slice group and its launches by the
+wrapper and on the card, summed as for the others; phase 4c's timing
+launches apart, under ``timed``), the card line, and last ``{"ok": true,
 "device": {...}}``.
 The bound of a kernel call (``runtime/metrics.bounds``, which the wall
 estimate shares; the JSON line's ``bound_ms``) is the larger of its bytes
@@ -326,6 +339,19 @@ LANE_FORMS = {
                dict(lane_count=2, pin=1, orient="head")),
 }
 CMM_SHAPES = ((2, 256, 64, 256), (32, 1024, 256, 1024))   # (B, M, K, N)
+# the main path's largest reorders, as the permute-copy kernel
+# (csrc/permute.cu, ops/permute.py) gets them on the benchmark's cells at
+# their widths: (sizes, strides, components); a split pair is one launch
+PERMUTE_STEPS = {
+    "1k-sc25 dot 22": ((32, 2, 32, 524288), (33554432, 16777216, 1, 32), 2),
+    "1k-sc25 dot 31": ((32, 4, 2, 8, 524288),
+                       (33554432, 8, 16777216, 1, 32), 2),
+    "dense dot 30": ((256, 8192, 64, 2, 2, 2),
+                     (2097152, 128, 1, 536870912, 1048576, 64), 1),
+    "1k GK 24": ((64, 8, 2, 2, 2, 4, 4, 8, 2, 8, 4, 8, 4),
+                 (16777216, 524288, 32768, 512, 16, 1, 4194304, 1024, 32,
+                  65536, 8192, 64, 4), 2),
+}
 
 
 class SmokeFailure(Exception):
@@ -1218,6 +1244,59 @@ def check_complex_mm():
     return out
 
 
+def check_permute():
+    """Phase 4c: the permute-copy kernel at the main path's largest
+    reorders (``PERMUTE_STEPS``) against PyTorch's strided copy of the same
+    views (``copy_``, its yardstick and the copy the port made before the
+    kernel), bit for bit; its time beside its bound, each byte read once
+    and written once at 3.35 TB/s."""
+    import torch
+
+    from artensor_tpu_torch import kernels
+    from artensor_tpu_torch.ops import permute
+
+    out = []
+    for step, (sizes, strides, ncomp) in PERMUTE_STEPS.items():
+        n = 1 + sum((d - 1) * st for d, st in zip(sizes, strides))
+        gen = torch.Generator(device=DEVICE).manual_seed(300)
+        src = [torch.randn(n, generator=gen, device=DEVICE)
+               for _ in range(ncomp)]
+        views = tuple(x.as_strided(sizes, strides) for x in src)
+        outs = tuple(torch.empty(sizes, device=DEVICE) for _ in views)
+        lib_out = torch.empty(sizes, device=DEVICE)
+        call = lambda: permute.copy(views, outs)
+        lib = lambda: [lib_out.copy_(v) for v in views]
+        before = permute.permute_copy.launches
+        call()
+        check(permute.permute_copy.launches == before + 1,
+              f"permute {step}: {ncomp} components took "
+              f"{permute.permute_copy.launches - before} launches, not 1")
+        for v, o in zip(views, outs):
+            lib_out.copy_(v)
+            check(torch.equal(o.view(torch.int32), lib_out.view(torch.int32)),
+                  f"permute {step}: the kernel's copy differs from PyTorch's")
+        p = permute.plan(sizes, strides, 4)
+        nbytes = 2 * 4 * ncomp * int(torch.Size(sizes).numel())
+        ms = time_ms(call, 10)
+        r = dict(step=step, path=f"{step.split()[0]}/default",
+                 width=sizes[0], mode=p.mode, unit=p.unit,
+                 components=ncomp, ms=ms, bytes=nbytes,
+                 bound_ms=1e3 * nbytes / kernels.H100_HBM_BYTES_PER_S,
+                 bound_by="bytes", library_ms=time_ms(lib, 10),
+                 max_abs_err=0.0)
+        r["tb_per_s"] = nbytes / ms / 1e9
+        print(f"kernel permute ({step}) mode {p.mode} unit {p.unit} "
+              f"components {ncomp}: ms {ms:.4f} bound_ms "
+              f"{r['bound_ms']:.4f} (bytes, {r['tb_per_s']:.2f} TB/s, "
+              f"{100 * r['bound_ms'] / ms:.1f}% of the bound) library_ms "
+              f"{r['library_ms']:.4f} bytes {nbytes}; bit for bit equal to "
+              f"PyTorch's copy", flush=True)
+        out.append(r)
+        del src, views, outs, lib_out
+        torch.cuda.empty_cache()
+    return out
+
+
 # a GGK step of GK's mma form (K 32, H 32, F 512: bound by operations),
 # for the one-pass check where no path has one: (rx_i, rx_j, riy, rd_i,
 # rd_j, B, bi_rows, bj_rows)
@@ -1360,7 +1439,7 @@ def fixture_share(path, res):
                                       + AMP_RMS_TOL * rms)).max())
 
 
-def graph_vs_eager(path, held=0):
+def graph_vs_eager(path, held=0, reorders=None):
     """The path's whole run, eagerly and as graph replay, on the same
     staged inputs (one ``_staged``): the graph run first, from a fresh
     allocator (its peak over its first call, capture included, and over
@@ -1368,7 +1447,9 @@ def graph_vs_eager(path, held=0):
     allocator's largest reserve), then the eager
     one; both warm walls (median of 3), the capture seconds, both
     results against the fixture and against each other (held to the
-    fixture's gate, ``state_gate``)."""
+    fixture's gate, ``state_gate``).  ``reorders``: a slice group's
+    reorders in the graph run (``permute_held``), which the eager run's
+    first call must launch in every group."""
     import torch
 
     from artensor_tpu_torch.runtime import executor as ex
@@ -1400,7 +1481,16 @@ def graph_vs_eager(path, held=0):
           f"{name}: graph runner stats {stats}")
     del run
     run = mk(True)
-    res_e = run(arrays)
+    res_e, ran = counted_on_card(lambda: run(arrays))
+    eager = ran["permute"]
+    if reorders is not None:
+        groups = path["n_slices"] // W
+        check(eager["launches"] == eager["made"]
+              == sum(eager["runs"].values()) == reorders * groups,
+              f"{name}: the eager run made {eager['made']} reorders, "
+              f"launched {eager['launches']}, the card ran "
+              f"{json.dumps(eager['runs'])}; expected {reorders} in each "
+              f"of {groups} groups")
     walls_e = timed_runs(lambda: run(arrays))
     del run
     d, share = state_gate(res_g, res_e)
@@ -1410,6 +1500,7 @@ def graph_vs_eager(path, held=0):
                graph_est_s=est,
                eager_s=statistics.median(walls_e), eager_walls=walls_e,
                first_s=first_s, capture_s=stats["capture_s"],
+               eager_permute=eager,
                graph_vs_eager_max_abs=d, graph_vs_eager_gate_share=share,
                graph_fixture_share=err_g, eager_fixture_share=err_e,
                peak_gib=peak / 2 ** 30, reserved_gib=reserved / 2 ** 30)
@@ -1436,7 +1527,8 @@ def main_run(path, wrappers, report=None):
     """The path through ``contraction()``, as a user calls it (graph
     replay on the card), from a fresh allocator, its kernels counted on
     the card (``counted_on_card``), with the kernel launch counts of that
-    run (``run_counts``).  Checks that it ran at the width asked for."""
+    run (``run_counts``).  Checks that it ran at the width asked for, and
+    that its groups reorder through the permute-copy kernel."""
     sim, W, name = path["sim"], path["W"], path["name"]
     fresh_memory()
     reset_counts(wrappers)
@@ -1448,24 +1540,32 @@ def main_run(path, wrappers, report=None):
     check(st["executor"] == "graph" and st["slice_batch"] == W,
           f"{name}: ran as {st['executor']} at width {st['slice_batch']}, "
           f"asked for graph replay at {W}")
-    return amps, first_s, run_counts(path, wrappers, ran, st)
+    counts = run_counts(path, wrappers, ran, st)
+    check(counts["permute"]["per_group"] > 0,
+          f"{name}: no reorder went through the permute-copy kernel")
+    return amps, first_s, counts
 
 
 def counted_on_card(fn):
     """``fn()`` and the port's kernels that the card ran meanwhile, as the
     kernels count themselves (``kernels.device_runs``: each kernel's first
     thread adds one to its slot, so a graph replay counts as a launch
-    does): by kind, and for GK and GGK by form.  Not a ``torch.profiler``
-    trace: on the H100 it lost a dense run's device events now and then,
-    GK kernels among them (PERF.md)."""
+    does): by kind, and for GK and GGK by form; and the permute-copy
+    kernel's counts over the call (``permute_counts``).  Not a
+    ``torch.profiler`` trace: on the H100 it lost a dense run's device
+    events now and then, GK kernels among them (PERF.md)."""
     import torch
 
     from artensor_tpu_torch.kernels import device_runs
 
-    before = device_runs()
+    before, perm = device_runs(), permute_counts()
     out = fn()
     torch.cuda.synchronize()
-    after = device_runs()
+    after, perm_after = device_runs(), permute_counts()
+    perm = dict(made=perm_after["made"] - perm["made"],
+                launches=perm_after["launches"] - perm["launches"],
+                runs={m: n - perm["runs"][m]
+                      for m, n in perm_after["runs"].items()})
     counts = dict.fromkeys(KERNELS, 0)
     forms = {k: {} for k in FORM_KINDS}
     for (kind, form), n in after.items():
@@ -1474,7 +1574,52 @@ def counted_on_card(fn):
             counts[kind] += n
         if kind in forms and n:
             forms[kind][form] = n
-    return out, dict(counts=counts, forms=forms)
+    return out, dict(counts=counts, forms=forms, permute=perm)
+
+
+def permute_counts():
+    """The permute-copy kernel's counts so far: the reorders the port
+    made (``made``: the ``tracing`` counters ``permute.row`` and
+    ``permute.tile``, launched or recorded into a graph under capture),
+    the launches made (``permute_copy.launches``) and the launches that
+    ran on the card, by mode (``permute.permute_runs``)."""
+    from artensor_tpu_torch.ops import permute
+    from artensor_tpu_torch.runtime import tracing
+
+    c = tracing.counters()
+    return dict(made=c.get("permute.row", 0) + c.get("permute.tile", 0),
+                launches=permute.permute_copy.launches,
+                runs=permute.permute_runs())
+
+
+def permute_held(name, perm, st, once=False):
+    """The permute-copy kernel's reorders in a run (``perm``, as
+    ``counted_on_card`` counts them; ``st``: the run's ``captures``,
+    ``warmup_groups`` and ``replays``).  A capture records one slice
+    group's reorders without a launch, so the reorders made less the
+    launches, over the captures, are a group's (``per_group``); the
+    warm-up groups launched as many each (``once``: and the steps the run
+    makes once, a block walk's), and the card ran those launches and
+    every replay's group.  Returns the counts."""
+    recorded = perm["made"] - perm["launches"]
+    caps = st["captures"]
+    check(caps > 0 and recorded % caps == 0,
+          f"{name} permute: {recorded} reorders recorded in {caps} "
+          "captures, not as many in each")
+    per = recorded // caps
+    extra = perm["launches"] - per * st["warmup_groups"]
+    check(extra >= 0 if once else extra == 0,
+          f"{name} permute: {perm['launches']} launches, {per} reorders a "
+          f"group in {st['warmup_groups']} warm-up groups")
+    ran = sum(perm["runs"].values())
+    want = perm["launches"] + per * st["replays"]
+    check(ran == want, f"{name} permute: {ran} kernels run on the card "
+          f"({json.dumps(perm['runs'])}), expected {want}: the "
+          f"{perm['launches']} launches and {per} a replay over "
+          f"{st['replays']} replays")
+    return dict(per_group=per, launches=perm["launches"],
+                device_launches=ran, device_modes=perm["runs"],
+                once=extra)
 
 
 def run_counts(path, wrappers, ran, st):
@@ -1484,7 +1629,8 @@ def run_counts(path, wrappers, ran, st):
     replay calls no wrapper), and the kernels that the card ran
     (``device_launches``, the kernels' own counts: the warm-up group's and
     every replay's).  Each is held to the census times the groups it
-    covers."""
+    covers; the permute-copy kernel's to its reorders a group
+    (``permute_held``)."""
     launches, forms = check_counts(
         path, {k: f.launches for k, f in wrappers.items()},
         {k: dict(wrappers[k].forms) for k in FORM_KINDS},
@@ -1492,9 +1638,11 @@ def run_counts(path, wrappers, ran, st):
     device, device_forms = check_counts(
         path, ran["counts"], ran["forms"],
         st["warmup_groups"] + st["replays"], "kernels run on the card")
+    perm = permute_held(path["name"], ran["permute"], st,
+                        once=bool(path.get("census_once")))
     return dict(launches=launches, forms=forms, device_launches=device,
                 device_forms=device_forms, replays=st["replays"],
-                warmup_groups=st["warmup_groups"])
+                warmup_groups=st["warmup_groups"], permute=perm)
 
 
 def drive(path, wrappers):
@@ -1518,7 +1666,7 @@ def drive(path, wrappers):
     worst = amp_check(name, amps, r, sim.bitstrings_sorted)
     print(f"path {name}: mean 2^30|a|^2 "
           f"{(2 ** 30) * float(np.mean(np.abs(amps) ** 2)):.4f}", flush=True)
-    cmp = graph_vs_eager(path)
+    cmp = graph_vs_eager(path, reorders=counts["permute"]["per_group"])
     out = dict(**counts, first_s=first_s,
                warm_s=cmp["graph_s"], walls=cmp["graph_walls"],
                peak_gib=cmp["peak_gib"], compile_s=path["compile_s"],
@@ -1648,7 +1796,8 @@ def counts_line(c):
             f"(their own counts; warm-up group and {c['replays']} replays) "
             f"{json.dumps(c['device_launches'])}; GK and GGK by form: "
             f"launches {json.dumps(c['forms'])}, run "
-            f"{json.dumps(c['device_forms'])}")
+            f"{json.dumps(c['device_forms'])}; permute: "
+            f"{json.dumps(c['permute'])}")
 
 
 def check_peak(path, peak):
@@ -1684,6 +1833,8 @@ def drive_dense(path, wrappers):
     check(st["captures"] == 1 and st["replays"] == 1,
           f"{name}: graph runner stats {st}")
     counts = run_counts(path, wrappers, ran, st)
+    check(counts["permute"]["per_group"] > 0,
+          f"{name}: no reorder went through the permute-copy kernel")
     print(f"path {name}: first run {first_s:.3f} s (staging, warm-up, "
           f"capture and the counters' reads included); "
           f"{counts_line(counts)}",
@@ -1700,7 +1851,8 @@ def drive_dense(path, wrappers):
     print(f"path {name}: norm^2 {nrm:.9f} (|norm^2 - 1| "
           f"{abs(nrm - 1):.3e}, limit {NORM_TOL})", flush=True)
     check(abs(nrm - 1) <= NORM_TOL, f"{name}: norm^2 {nrm} off 1")
-    cmp = graph_vs_eager(path, held=nbytes(re, im))
+    cmp = graph_vs_eager(path, held=nbytes(re, im),
+                         reorders=counts["permute"]["per_group"])
     print(f"path {name} warm wall: median {cmp['graph_s']:.4f} s, estimate "
           f"{path['est_s']:.4f} s; peak {cmp['peak_gib']:.3f} GiB measured, "
           f"modeled {path['model_peak'] / 2 ** 30:.3f} GiB (+ staged "
@@ -3052,10 +3204,12 @@ def mesh_counts(path, wrappers, ran, replicas):
     """A mesh run's launches (``run_counts``): the replicas share the
     card's counters, so each kernel is held to its census times the
     replicas' warm-up groups (the wrappers) and their warm-up groups and
-    replays (the card), summed."""
+    replays (the card), summed (a segmented replica, which keeps no
+    ``captures``, captures its one width once)."""
     return run_counts(path, wrappers, ran, dict(
         warmup_groups=sum(r["warmup_groups"] for r in replicas),
-        replays=sum(r["replays"] for r in replicas)))
+        replays=sum(r["replays"] for r in replicas),
+        captures=sum(r.get("captures", 1) for r in replicas)))
 
 
 def drive_mesh(path, wrappers, mesh, label, single_s):
@@ -3176,17 +3330,23 @@ def drive_dispatch(paths, wrappers, devices, label):
     (``prepare`` at each path's width, captured when built), group ``g``
     on ``devices[g % n]``: both built before either runs, the runs
     together; every kernel held to the census of both summed, each result
-    against its fixture; then each run again alone, in turn."""
+    against its fixture, the permute-copy kernel's runs to the reorders
+    each runner's capture recorded (``permute_held``); then each run
+    again alone, in turn."""
     import torch
 
     from artensor_tpu_torch import parallel
 
-    calls = []
+    calls, perms = [], []
 
     def make_runner(path):
         def runner(dev):
             call = path["sim"].prepare(slice_batch=path["W"], device=dev)
+            before = permute_counts()
             call.capture()
+            after = permute_counts()
+            perms.append({k: after[k] - before[k]
+                          for k in ("made", "launches")})
             calls.append(call)
             return call
         return runner
@@ -3213,13 +3373,36 @@ def drive_dispatch(paths, wrappers, devices, label):
         check(launches[kind] == want_w and device[kind] == want_d,
               f"{label} {kind}: {launches[kind]} launches, {device[kind]} "
               f"run on the card; expected {want_w}, {want_d}")
+    made = sum(p["made"] for p in perms)
+    check(ran["permute"]["launches"] == sum(p["launches"] for p in perms)
+          and ran["permute"]["made"] == made,
+          f"{label} permute: {json.dumps(ran['permute'])} over the run, "
+          f"{json.dumps(perms)} in the runners' captures")
+    per = []    # each runner's reorders a group, as its capture recorded
+    for p, c, q in zip(paths, calls, perms):
+        per.append(q["made"] - q["launches"])
+        check(c.stats["captures"] == 1 and per[-1] > 0
+              and q["launches"] == per[-1] * c.stats["warmup_groups"],
+              f"{label} {p['name']} permute: {json.dumps(q)} in its "
+              f"capture, {json.dumps(c.stats)}")
+    want = sum(q["launches"] + n * c.stats["replays"]
+               for q, n, c in zip(perms, per, calls))
+    perm = dict(per_group=per,
+                launches=ran["permute"]["launches"],
+                device_launches=sum(ran["permute"]["runs"].values()),
+                device_modes=ran["permute"]["runs"])
+    check(perm["device_launches"] == want,
+          f"{label} permute: {perm['device_launches']} kernels run on the "
+          f"card, expected {want} (the warm-up groups' launches and each "
+          f"runner's reorders a group over its replays)")
     shares = [fixture_share(p, r) for p, r in zip(paths, res)]
     check(max(shares) <= 1.0, f"{label}: a group misses its fixture")
     del res
     alone = [statistics.median(timed_runs(c)) for c in calls]
     out = dict(launches=launches, device_launches=device,
                replays=sum(c.stats["replays"] for c in calls),
-               wall_s=wall, build_s=last["prepare_s"], run_s=last["run_s"],
+               permute=perm, wall_s=wall, build_s=last["prepare_s"],
+               run_s=last["run_s"],
                alone_warm_s=alone, peak_gib=peak / 2 ** 30,
                reserved_gib=reserved / 2 ** 30,
                groups=[dict(path=p["name"],
@@ -3420,7 +3603,8 @@ def dist_worker(prefix, backend, W):
                 replicas=last["replicas"],
                 launches={k: f.launches for k, f in wrappers.items()},
                 forms={k: dict(wrappers[k].forms) for k in FORM_KINDS},
-                device_launches=ran["counts"], device_forms=ran["forms"]))
+                device_launches=ran["counts"], device_forms=ran["forms"],
+                permute=ran["permute"]))
         allreduce_s = None
         if size == 1:   # psum leaves a group of one alone: the backend's
             # own all-reduce, twice (the first makes the communicator)
@@ -3511,6 +3695,7 @@ def drive_distributed(path, wrappers, schemes):
                               np.array([ref[b] for b in bits]), bits)
             launches = dict.fromkeys(KERNELS, 0)
             device = dict.fromkeys(KERNELS, 0)
+            perm = dict(per_group=[], launches=0, device_launches=0)
             for rk in ranks:
                 first, reps = rk["runs"][0], rk["runs"][0]["replicas"]
                 warm = sum(r["warmup_groups"] for r in reps)
@@ -3523,6 +3708,13 @@ def drive_distributed(path, wrappers, schemes):
                 for k in KERNELS:
                     launches[k] += first["launches"][k]
                     device[k] += first["device_launches"][k]
+                q = permute_held(
+                    f"{label} rank {rk['rank']}", first["permute"], dict(
+                        warmup_groups=warm, replays=groups - warm,
+                        captures=sum(r["captures"] for r in reps)))
+                perm["per_group"].append(q["per_group"])
+                perm["launches"] += q["launches"]
+                perm["device_launches"] += q["device_launches"]
             summary = [dict(rank=rk["rank"], device=rk["device"],
                             init_s=rk["init_s"],
                             scheme_load_s=rk["scheme_load_s"],
@@ -3535,7 +3727,7 @@ def drive_distributed(path, wrappers, schemes):
                             psum_s=[r["psum_s"] for r in rk["runs"]],
                             allreduce_s=rk["allreduce_s"]) for rk in ranks]
             out[label] = dict(
-                launches=launches, device_launches=device,
+                launches=launches, device_launches=device, permute=perm,
                 replays=sum(r["replays"] for rk in ranks
                             for r in rk["runs"][0]["replicas"]),
                 backend=backend, processes=n_procs, wall_s=wall,
@@ -3675,6 +3867,11 @@ def main():
     # -- 4. lane forms the paths lack, the complex matmul (on no path) --------
     forms = check_lane_forms()
     cmm = check_complex_mm()
+    perm, perm_timed = counted_on_card(check_permute)
+    perm_timed = perm_timed["permute"]
+    check(perm_timed["launches"] == sum(perm_timed["runs"].values()),
+          f"permute: phase 4c launched {perm_timed['launches']}, the card "
+          f"ran {json.dumps(perm_timed['runs'])}")
     one_pass = {k: next((checked[n][k]["one_pass"] for n in labels
                          if "one_pass" in checked[n].get(k, {})), None)
                 for k in ONE_PASS_KINDS}
@@ -3858,6 +4055,26 @@ def main():
         **{k: big[k] for k in keys}, "path": None,
         "one_pass": one_pass["complex_mm"],
         "shapes": [{k: r[k] for k in keys} for r in cmm]})
+    # the kernel's launches in each path's own run (phase 4c's timing
+    # calls apart, as "timed")
+    by_path = {**{n: runs[n]["permute"] for n in labels},
+               "cli": cli["permute"],
+               **{n: r["permute"] for n, r in multi.items()}}
+    big = max(perm, key=lambda r: r["bytes"])
+    line.append({
+        "name": "permute", "route": "cuda",
+        "source": "artensor_tpu_torch/csrc/permute.cu",
+        "replaces": None,       # XLA's transposes did this work
+        "launches": sum(p["launches"] for p in by_path.values()),
+        "device_launches": sum(p["device_launches"]
+                               for p in by_path.values()),
+        "cli_launches": cli["permute"]["launches"],
+        "cli_device_launches": cli["permute"]["device_launches"],
+        **{k: big[k] for k in ("step", "path", "ms", "bound_ms", "bound_by",
+                               "library_ms", "max_abs_err")},
+        "steps": perm, "paths": by_path,
+        "timed": {"launches": perm_timed["launches"],
+                  "device_launches": perm_timed["runs"]}})
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1682,3 +1682,146 @@ def test_wgmma_graph_replay_equals_eager(cuda, monkeypatch, which, passes):
             if t.dtype == torch.float32:
                 t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
         want = [c.clone() for c in call(*args, passes=passes)]
+
+
+# -- the permute-copy kernel (csrc/permute.cu) -------------------------------
+
+PERMUTE_DTYPES = [torch.bfloat16, torch.float16, torch.float32, torch.float64,
+                  torch.complex64, torch.complex128]
+PERMUTE_CASES = {       # (logical dims, permutation)
+    "transpose": ((1000, 768), (1, 0)),
+    "shared-run": ((64, 8, 48), (1, 0, 2)),
+    "short-run": ((9, 40, 3), (1, 0, 2)),
+    "twos": ((2,) * 14, (13, 0, 12, 1, 11, 2, 10, 3, 9, 4, 8, 5, 7, 6)),
+    "width": ((32,) + (2,) * 11, (0, 1, 3, 5, 7, 9, 11, 2, 4, 6, 8, 10)),
+    "odd": ((5, 7, 11, 3), (2, 0, 3, 1)),
+    "copy": ((3, 1 << 16), (0, 1)),
+}
+
+
+def _bits(t):
+    """``t``'s bits, for comparisons that NaNs and signed zeros pass."""
+    if t.is_complex():
+        t = torch.view_as_real(t)
+    return t.contiguous().view({2: torch.int16, 4: torch.int32,
+                                8: torch.int64}[t.element_size()])
+
+
+@pytest.mark.parametrize("case", sorted(PERMUTE_CASES))
+@pytest.mark.parametrize("dtype", PERMUTE_DTYPES, ids=str)
+def test_permute_kernel_bit_for_bit(cuda, dtype, case):
+    """Every element size: the kernel's copy of a permuted view (from an
+    unaligned start too) is ``.contiguous()``'s, bit for bit, and a pair
+    of one layout is one launch."""
+    from artensor_tpu_torch.ops import permute
+
+    dims, perm = PERMUTE_CASES[case]
+    n = int(np.prod(dims))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    raw = torch.randint(-2 ** 15, 2 ** 15, (2, (n + 1) * 8), generator=gen,
+                        dtype=torch.int16, device="cuda")
+    for start in (0, 1):
+        base = raw.view(torch.uint8).view(dtype)
+        xs = tuple(b[start:start + n].view(dims).permute(*perm)
+                   for b in base)
+        before = permute.permute_copy.launches
+        got = permute.contiguous(xs)
+        assert permute.permute_copy.launches == before + (
+            0 if xs[0].is_contiguous() else 1)
+        for g, x in zip(got, xs):
+            assert g.is_contiguous() and g.shape == x.shape
+            assert torch.equal(_bits(g), _bits(x.contiguous()))
+
+
+def test_permute_kernel_above_2_31_bytes(cuda):
+    """A component of 2^30 float32 (4 GiB), its odd and even axes parted
+    as in dense-state step 30's reorder (at PyTorch's 25 dims), bit for
+    bit."""
+    from artensor_tpu_torch.ops import permute
+
+    x = torch.arange(1 << 30, dtype=torch.int32, device="cuda").view(
+        torch.float32)
+    perm = (0,) + tuple(range(1, 25, 2)) + tuple(range(2, 25, 2))
+    v = x.view((64,) + (2,) * 24).permute(*perm)
+    (got,) = permute.contiguous((v,))
+    want = v.contiguous()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_permute_kernel_in_a_captured_graph(cuda):
+    """A split pair's regroup captured in a CUDA graph: the capture
+    launches nothing, each replay runs the kernel once (its own counter,
+    by mode) and copies the inputs' current values."""
+    from artensor_tpu_torch.ops import permute
+    from artensor_tpu_torch.runtime.executor import GroupGraphs
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    xs = tuple(torch.randn(32 * 2 ** 11, generator=gen, device="cuda")
+               for _ in range(2))
+    dims = (32,) + (2,) * 11
+    perm = (0, 1, 3, 5, 7, 9, 11, 2, 4, 6, 8, 10)
+    want = lambda: [x.view(dims).permute(*perm).reshape(32, -1)
+                    for x in xs]
+    out = {}
+    graphs = GroupGraphs(torch.device("cuda"))
+    before = permute.permute_copy.launches
+    graphs.capture(lambda: out.update(
+        y=permute.regroup(xs, dims, perm, (32, -1))))
+    assert permute.permute_copy.launches == before
+    for _ in range(2):
+        runs = permute.permute_runs()
+        graphs.replay()
+        after = permute.permute_runs()
+        assert (after["tile"] - runs["tile"], after["row"] - runs["row"]) \
+            == (1, 0)
+        for g, w in zip(out["y"], want()):
+            assert torch.equal(g, w)
+        for x in xs:
+            x.copy_(torch.randn(x.shape, generator=gen, device="cuda"))
+
+
+def test_permute_kernel_counts_each_mode(cuda):
+    """The kernel counts its launches by mode on the card, the wrapper
+    and the host counters by launch and by bytes."""
+    from artensor_tpu_torch.ops import permute
+    from artensor_tpu_torch.runtime import tracing
+
+    x = torch.randn(64, 8, 64, device="cuda")
+    views = {"row": x.permute(1, 0, 2), "tile": x.permute(2, 0, 1)}
+    for mode, v in views.items():
+        runs, host = permute.permute_runs(), tracing.counters()
+        before = permute.permute_copy.launches
+        permute.contiguous((v,))
+        after, now = permute.permute_runs(), tracing.counters()
+        assert {m: after[m] - runs[m] for m in runs} == {
+            m: int(m == mode) for m in runs}
+        assert permute.permute_copy.launches == before + 1
+        assert now[f"permute.{mode}"] == host.get(f"permute.{mode}", 0) + 1
+        assert now["permute.bytes"] - host.get("permute.bytes", 0) == \
+            2 * x.numel() * 4
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_permute_kernel_concat(cuda, axis):
+    """A split pair's concat along each axis: each part (one permuted, one
+    contiguous, one of another length) copied into its slice of the
+    outputs by the kernel, one launch a part, ``torch.cat``'s bits."""
+    from artensor_tpu_torch.ops import permute
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    shape = [16, 24, 40]
+    parts = []
+    for k, n in enumerate((8, 16, 4)):
+        s = list(shape)
+        s[axis] = n
+        raw = [torch.randn(s, generator=gen, device="cuda") for _ in "ri"]
+        if k == 0:      # a permuted view of the same shape
+            raw = [torch.randn([s[2], s[0], s[1]], generator=gen,
+                               device="cuda").permute(1, 2, 0)
+                   for _ in "ri"]
+        parts.append(tuple(raw))
+    before = permute.permute_copy.launches
+    got = permute.concat(parts, axis)
+    assert permute.permute_copy.launches == before + len(parts)
+    for i in range(2):
+        assert torch.equal(got[i], torch.cat([p[i] for p in parts], axis))
