@@ -8,7 +8,8 @@ from {sqrt(X), sqrt(Y), sqrt(W)} (never the same gate twice running on a
 qubit) and fsim gates along one of the grid-coupler patterns A/B/C/D per
 cycle, closed by a single-qubit layer.  The seed draws only the
 single-qubit gates: the couplers, and so the network's shape, are the
-same for every seed.
+same for every seed.  ``sites`` puts the qubits on any set of grid
+positions: a coupler is kept only where both of its ends hold a qubit.
 """
 
 import numpy as np
@@ -40,18 +41,34 @@ def _couplers(rows, cols, pattern):
     return pairs
 
 
+def site_qubits(rows, cols, sites):
+    """The grid positions of the qubits: every site of the ``rows`` x
+    ``cols`` grid, row by row, or the ``sites`` given (``[row, col]``
+    pairs, qubit ``i`` on the ``i``-th)."""
+    if sites is None:
+        return grid_qubits(rows, cols)
+    qubits = [(int(r), int(c)) for r, c in sites]
+    if len(set(qubits)) != len(qubits) or not all(
+            0 <= r < rows and 0 <= c < cols for r, c in qubits):
+        raise ValueError(f"sites must be distinct positions of the {rows} x "
+                         f"{cols} grid")
+    return qubits
+
+
 def random_circuit(rows, cols, cycles, seed=0, sequence="ABCDCDAB",
-                   theta=1.5, phi=0.5):
+                   theta=1.5, phi=0.5, sites=None):
     """Generate an RCS circuit.
 
     Returns ``(n, layers)`` consumable by ``TensorNetworkCircuit``.  Each of
     the ``cycles`` cycles emits a single-qubit layer plus an fsim layer on
     the cycle's coupler pattern; a final single-qubit layer closes the
     circuit (so the last n tensors are one 1q gate per qubit — the
-    convention the sparse big-batch mode relies on).
+    convention the sparse big-batch mode relies on).  With ``sites``
+    (see ``site_qubits``) the qubits sit on those positions alone, and
+    each pattern keeps the couplers whose two ends both hold one.
     """
     rng = np.random.default_rng(seed)
-    qubits = grid_qubits(rows, cols)
+    qubits = site_qubits(rows, cols, sites)
     index = {q: i for i, q in enumerate(qubits)}
     n = len(qubits)
     prev = [None] * n
@@ -72,6 +89,7 @@ def random_circuit(rows, cols, cycles, seed=0, sequence="ABCDCDAB",
         fsims = [
             ("fsim", (index[a], index[b]), (theta, phi))
             for a, b in _couplers(rows, cols, pattern)
+            if a in index and b in index
         ]
         if fsims:
             layers.append(fsims)

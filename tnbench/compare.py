@@ -1,5 +1,6 @@
 """Whether what the timed path produced is right: the program's amplitudes
-against the plain reference (``reference/statevector.py``), which runs
+against the plain reference (``reference/statevector.py``, or
+``reference/network.py`` where the configuration names it), which runs
 after the program's state is freed.
 
 Two numbers, each against the cell's limit (``workloads/<cell>.json``):
@@ -8,8 +9,9 @@ Two numbers, each against the cell's limit (``workloads/<cell>.json``):
 - ``err_max``: max |a - r| / rms(r), the widest gap in units of the
   reference's root mean square amplitude.
 
-Amplitude batches: every batch of the window is compared whole, and each
-number is the worst batch's.  State batches: the last state of the window
+Amplitude batches: every batch of the window is compared whole (against
+the network reference, at its sample of the bitstrings), and each number
+is the worst batch's.  State batches: the last state of the window
 is compared whole (both numbers), and every batch's sampled amplitudes
 add to ``err_max``.  A batch fails when a number it reads is above its
 limit; ``correct`` needs every number within its limit and no batch

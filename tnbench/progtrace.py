@@ -8,11 +8,12 @@ profiler links each device operation to the innermost host range open
 where it was launched.  This pass, made once after a traced window:
 
 1. frees the harness's runner (``run.call``) and runs eager calls of one
-   group at the cell's width (``prepare(eager=True)``: the Python code
-   the graphs captured) under the profiler: the step map, the second
-   call's device operations in order, each put down to the ``step`` span
-   that launched it (its index, kind and form) or else to the runner
-   (slice selection, width reduction, accumulation);
+   group at the cell's width (``run.make_call(eager=True)``: the Python
+   code the graphs captured; over a share, the share's ids) under the
+   profiler: the step map, the second call's device operations in order,
+   each put down to the ``step`` span that launched it (its index, kind
+   and form) or else to the runner (slice selection, width reduction,
+   accumulation);
 2. frees that runner, builds a graph runner of the same width and
    profiles ``CALLS`` calls of it, after one more that is dropped (the
    first call of a profile may lose an operation): the operations
@@ -327,11 +328,9 @@ def run_pass(run, tracing, calls=CALLS):
     run.call = None          # the harness's runner and its graphs go first
     gc.collect()
     torch.cuda.empty_cache()
-    kw = dict(slice_batch=run.width, device=run.device, dtype=run.dtype,
-              precision=run.precision)
     prev = tracing.enable()
     try:
-        eager = run.sim.prepare(eager=True, **kw)
+        eager = run.make_call(eager=True)
         eager()                                  # warm: handles, tables
         torch.cuda.synchronize()
         mark = time.perf_counter_ns()
@@ -347,7 +346,7 @@ def run_pass(run, tracing, calls=CALLS):
         torch.cuda.empty_cache()
 
         tracing.disable()
-        graph = run.sim.prepare(**kw)
+        graph = run.make_call()
         graph()                                  # captures
         graph()
         torch.cuda.synchronize()

@@ -13,6 +13,12 @@ blocks from the last qubit to the first leaves the qubits in their order.
 A two-qubit gate is a sum over its nonzero entries of scaled quarter views
 of the state.  At n = 30 the state is 16 GiB and a product or a gate needs
 a second one beside it.
+
+``fixed`` projects wire segments onto a bit: segment ``(k, q)`` is qubit
+``q`` after its ``k``-th gate (``k = 0``: the input), the bond the
+circuit's tensor network labels ``"{k}-{q}"``.  ``share_state`` sums such
+projected states over a range of slice ids of a plan's sliced bonds: the
+part of every amplitude that those slices carry.
 """
 
 import numpy as np
@@ -70,11 +76,24 @@ def _two_qubit(psi, n, g, a, b):
     return out.reshape(-1)
 
 
-def state_vector(n, layers, device="cpu", dtype=torch.complex128):
+def _project(psi, n, fixed, step, qubits):
+    """Zero the part of ``psi`` where a qubit of ``qubits`` at its
+    ``step`` differs from the bit ``fixed`` holds for it (taken out)."""
+    for q in qubits:
+        bit = fixed.pop((step[q], q), None)
+        if bit is not None:
+            psi.view(2 ** q, 2, 2 ** (n - q - 1))[:, 1 - bit, :].zero_()
+
+
+def state_vector(n, layers, device="cpu", dtype=torch.complex128,
+                 fixed=None):
     """The flat ``2**n`` state of the circuit ``(n, layers)``; each gate is
-    ``(name, qubits, params)``."""
+    ``(name, qubits, params)``.  ``fixed``: ``{(k, q): bit}``, wire
+    segments projected onto a bit (see the module's text)."""
     psi = torch.zeros(2 ** n, dtype=dtype, device=device)
     psi[0] = 1.0
+    fixed, step = dict(fixed or {}), [0] * n
+    _project(psi, n, fixed, step, range(n))
     for layer in layers:
         mats, pairs, seen = {}, [], set()
         for name, qubits, params in layer:
@@ -91,6 +110,43 @@ def state_vector(n, layers, device="cpu", dtype=torch.complex128):
             psi = _single_layer(psi, n, mats)
         for m, (a, b) in pairs:
             psi = _two_qubit(psi, n, m, a, b)
+        if fixed:
+            for q in seen:
+                step[q] += 1
+            _project(psi, n, fixed, step, seen)
+    if fixed:
+        raise ValueError(f"the circuit has no wire segments {sorted(fixed)}")
+    return psi
+
+
+def _aligned_blocks(lo, hi):
+    """``[lo, hi)`` as ``(start, size)`` blocks, each size a power of two
+    that divides its start."""
+    out = []
+    while lo < hi:
+        size = lo & -lo if lo else 1 << (hi.bit_length() - 1)
+        while lo + size > hi:
+            size //= 2
+        out.append((lo, size))
+        lo += size
+    return out
+
+
+def share_state(n, layers, slicing_bonds, ids, device="cpu"):
+    """The sum over the slice ids ``ids`` (a range) of the circuit's state
+    with the wire segments ``slicing_bonds`` (labels ``"{k}-{q}"``) fixed
+    to each id's bits, the first segment the most significant bit.  One
+    projected state per aligned block of the range: a block fixes its
+    leading bits and leaves the rest free."""
+    k = len(slicing_bonds)
+    segs = [tuple(int(x) for x in str(b).split("-")) for b in slicing_bonds]
+    psi = None
+    for lo, size in _aligned_blocks(ids.start, ids.stop):
+        free = size.bit_length() - 1
+        fixed = {segs[x]: (lo >> (k - 1 - x)) & 1 for x in range(k - free)}
+        part = state_vector(n, layers, device=device, fixed=fixed)
+        psi = part if psi is None else psi.add_(part)
+        del part
     return psi
 
 

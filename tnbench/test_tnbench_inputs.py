@@ -1,7 +1,9 @@
 """The benchmark's inputs: the seeded circuits simplify to the network each
-frozen plan was made for, the frozen generator equals the program's, and
-the traffic generator's draws."""
+frozen plan was made for, the frozen generator equals the program's, its
+site lists, the traffic generator's draws and shares, and the four cells'
+inputs as they were before sites and shares."""
 
+import hashlib
 import json
 import os
 
@@ -89,3 +91,109 @@ def test_state_sample_and_axis_index():
     moved = psi.reshape((2,) * 6).transpose(axes).reshape(-1)
     idx = np.arange(2 ** 6)
     assert np.array_equal(moved[traffic.axis_index(idx, axes, 6)], psi)
+
+
+def test_sites_of_the_whole_grid_give_the_grid():
+    sites = [[r, c] for r in range(3) for c in range(4)]
+    for seed in (0, 9):
+        assert random_circuit(3, 4, 8, seed=seed, sites=sites) == \
+            random_circuit(3, 4, 8, seed=seed)
+
+
+def _couplers_by_layer(layers, positions):
+    """Each fsim layer's couplers as pairs of grid positions."""
+    return [{tuple(sorted(positions[q] for q in qs)) for g, qs, _ in layer}
+            for layer in layers if layer[0][0] == "fsim"]
+
+
+@pytest.mark.parametrize("gone", [(0, 0), (1, 2), (2, 3)])
+def test_a_site_left_out_drops_its_couplers_alone(gone):
+    grid = [(r, c) for r in range(3) for c in range(4)]
+    sites = [p for p in grid if p != gone]
+    _, full = random_circuit(3, 4, 8)
+    n, cut = random_circuit(3, 4, 8, sites=[list(p) for p in sites])
+    assert n == 11
+    want = [{c for c in layer if gone not in c}
+            for layer in _couplers_by_layer(full, grid)]
+    assert _couplers_by_layer(cut, sites) == [c for c in want if c]
+    assert sum(map(len, want)) < sum(map(len, _couplers_by_layer(full,
+                                                                 grid)))
+
+
+def test_qubits_are_numbered_in_the_order_the_sites_are_listed():
+    sites = [[1, 1], [0, 1], [1, 0], [0, 0]]
+    n, layers = random_circuit(2, 2, 8, seed=3, sites=sites)
+    couplers = {tuple(qs) for layer in layers for g, qs, _ in layer
+                if g == "fsim"}
+    # A pairs (0,0)-(0,1): qubits 3, 1; C pairs (0,0)-(1,0): qubits 3, 2
+    assert {(3, 1), (3, 2), (2, 0), (1, 0)} == couplers
+    with pytest.raises(ValueError):
+        random_circuit(2, 2, 8, sites=[[0, 0], [0, 0]])
+    with pytest.raises(ValueError):
+        random_circuit(2, 2, 8, sites=[[0, 0], [2, 0]])
+
+
+def test_share_ranges_and_widths():
+    assert traffic.share({}, 6) is None
+    ids = traffic.share({"share": {"first": 16, "slices": 16}}, 6)
+    assert ids == range(16, 32)
+    for bad in ({"first": 60, "slices": 8}, {"first": -1, "slices": 2},
+                {"first": 0, "slices": 0}):
+        with pytest.raises(ValueError):
+            traffic.share({"share": bad}, 6)
+    assert traffic.share_width(64, range(16, 32)) == 16
+    assert traffic.share_width(8, range(16, 48)) == 8
+    assert traffic.share_width(64, None) == 64
+    for width, ids in ((8, range(0, 12)), (64, range(0, 3)),
+                       (16, range(4, 28))):
+        with pytest.raises(ValueError, match="multiple"):
+            traffic.share_width(width, ids)
+    assert traffic.slices_run(6, ids) == 24
+    assert traffic.amps_per_batch(1000, 6, range(16, 32)) == 250.0
+
+
+def test_reference_sample_from_the_seed(monkeypatch):
+    every = traffic.reference_sample(1000, 7)
+    assert np.array_equal(every, np.arange(1000))
+    assert np.array_equal(traffic.reference_sample(12, 7), np.arange(12))
+    monkeypatch.setattr(traffic, "REFERENCE_SAMPLES", 16)
+    a = traffic.reference_sample(1000, 7)
+    assert np.array_equal(a, traffic.reference_sample(1000, 7))
+    assert not np.array_equal(a, traffic.reference_sample(1000, 8))
+    assert len(np.unique(a)) == 16 and np.all(np.diff(a) > 0)
+    assert np.array_equal(traffic.reference_sample(16, 7), np.arange(16))
+
+
+# sha256 (first 16 hex digits) of each cell's circuits at seeds 0 and
+# 2**31 + 11 and of its bitstrings, as the harness made them before sites
+# and shares
+BEFORE = {"sparse-1k": ("3d11a5df698737d0", "fa021cc43046776b"),
+          "dense-state": ("3d11a5df698737d0", "4f53cda18c2baa0c"),
+          "sparse-10k": ("3d11a5df698737d0", "727c6f6663ec6fb8"),
+          "sparse-1k-sc25": ("3d11a5df698737d0", "fa021cc43046776b")}
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_cells_without_sites_or_share_read_as_before(name):
+    cell = manifest.cell(name)
+    assert "sites" not in cell.config["circuit"]
+    assert "share" not in cell.traffic
+    assert cell.config.get("reference", "statevector") == "statevector"
+    h = hashlib.sha256()
+    for seed in (0, 2 ** 31 + 11):
+        h.update(repr(traffic.circuit(cell.config, seed)).encode())
+    n = traffic.circuit(cell.config, 0)[0]
+    bits = traffic.bitstrings(cell.traffic, n)
+    got = (h.hexdigest()[:16],
+           hashlib.sha256(repr(bits).encode()).hexdigest()[:16])
+    assert got == BEFORE[name]
+    with open(cell.plan_path) as f:
+        k = len(json.load(f)["slicing_bonds"])
+    ids = traffic.share(cell.traffic, k)
+    assert ids is None
+    assert [traffic.share_width(w, ids) for w in (1, 32, 64, 128)] == \
+        [1, 32, 64, 128]
+    assert traffic.slices_run(k, ids) == 2 ** k
+    n_amps = 2 ** n if cell.traffic["requests"] == "state" else len(bits)
+    got = traffic.amps_per_batch(n_amps, k, ids)
+    assert got == n_amps and type(got) is int

@@ -27,7 +27,8 @@ def drive(mini, name, trace=0, seconds=0.3):
     return run.execute(small(mini, name), SEED, seconds, trace, device="cpu")
 
 
-@pytest.mark.parametrize("name", ["small-sparse", "small-dense"])
+@pytest.mark.parametrize("name", ["small-sparse", "small-dense",
+                                  "small-share"])
 def test_small_run_is_correct(mini, name):
     res = drive(mini, name)
     assert res["correct"] is True and res["failed"] == 0
@@ -49,11 +50,11 @@ def test_trace_run_on_the_cpu_reads_no_device_metric(mini):
 
 @pytest.fixture
 def broken(monkeypatch):
-    """Breaks what the program's runner returns: ``kind`` "amplitude"
-    alters one answer where it is produced; "half_batch" leaves the second
-    half of the batch's answers out (zero); "half" sums half of the slices
-    and leaves the rest out."""
-    from artensor_tpu_torch import TensorNetworkSimulation
+    """Breaks what the program's sliced runner returns, under ``prepare``
+    and under a share's call alike: ``kind`` "amplitude" alters one answer
+    where it is produced; "half_batch" leaves the second half of the
+    batch's answers out (zero); "half" sums half of the slices and leaves
+    the rest out."""
     from artensor_tpu_torch.runtime import executor
 
     def apply(kind):
@@ -65,13 +66,13 @@ def broken(monkeypatch):
                 return ids[:max(1, len(ids) // 2)]
             monkeypatch.setattr(executor, "slice_ids_tensor", half)
             return
-        prepare = TensorNetworkSimulation.prepare
+        make = executor.make_sliced_runner
 
-        def altered(self, *a, **k):
-            call = prepare(self, *a, **k)
+        def altered(*a, **k):
+            run = make(*a, **k)
 
-            def wrapped():
-                out = call()
+            def wrapped(tensors, slice_ids=None, init=None):
+                out = run(tensors, slice_ids, init)
                 re, im = (c.reshape(-1) for c in out)
                 if kind == "half_batch":
                     re[re.numel() // 2:] = 0
@@ -79,9 +80,9 @@ def broken(monkeypatch):
                 else:
                     re[re.numel() // 3] += 10 * float(re.abs().max())
                 return out
-            wrapped.stats = call.stats
+            wrapped.stats, wrapped.capture = run.stats, run.capture
             return wrapped
-        monkeypatch.setattr(TensorNetworkSimulation, "prepare", altered)
+        monkeypatch.setattr(executor, "make_sliced_runner", altered)
     return apply
 
 
@@ -89,13 +90,31 @@ def broken(monkeypatch):
                                        ("small-sparse", "half_batch"),
                                        ("small-sparse", "half"),
                                        ("small-dense", "amplitude"),
-                                       ("small-dense", "half_batch")])
+                                       ("small-dense", "half_batch"),
+                                       ("small-share", "amplitude"),
+                                       ("small-share", "half_batch"),
+                                       ("small-share", "half")])
 def test_broken_timed_path_is_not_correct(mini, broken, name, kind):
     broken(kind)
     res = drive(mini, name)
     assert res["correct"] is False
     assert res["failed"] >= 1
     assert any(c["value"] > c["limit"] for c in res["compared"].values())
+
+
+@pytest.mark.parametrize("kind", [None, "half_batch", "half"])
+def test_share_run_compared_at_a_sample(mini, broken, monkeypatch, kind):
+    """The share cell with more bitstrings than the network reference
+    computes: correct as it stands, and not correct with half of the
+    batch's answers or half of its slices left out."""
+    from tnbench import traffic
+
+    monkeypatch.setattr(traffic, "REFERENCE_SAMPLES", 8)
+    if kind:
+        broken(kind)
+    res = drive(mini, "small-share")
+    assert res["correct"] is (kind is None)
+    assert (res["failed"] == 0) is (kind is None)
 
 
 def test_forbidden_modules_compare_whole_names(monkeypatch):
@@ -153,17 +172,26 @@ def test_no_file_of_the_benchmark_imports_jax():
                     assert mod.split(".")[0] not in run.FORBIDDEN, (f, mod)
 
 
-def test_reference_imports_nothing_of_the_program():
+def test_reference_imports_nothing_of_the_program(mini):
+    """Both references, by their sources and by a run of each in a fresh
+    process (the network one along the small share cell's plan)."""
     ref = os.path.join(HERE, "reference")
     for f in os.listdir(ref):
         if f.endswith(".py"):
             for mod in _imports(os.path.join(ref, f)):
-                assert mod.split(".")[0] in ("math", "numpy", "torch"), mod
+                assert mod.split(".")[0] in ("json", "math", "numpy",
+                                             "torch"), mod
     code = ("import sys; sys.path[0] = sys.argv[1]\n"
             "import tnbench.reference.statevector as s\n"
+            "import tnbench.reference.network as net\n"
+            "from tnbench.circuits import random_circuit\n"
             "s.state_vector(4, [[('x_1_2', (0,), ())]])\n"
+            "n, layers = random_circuit(3, 4, 8, sites=eval(sys.argv[3]))\n"
+            "net.amplitudes(n, layers, sys.argv[2], ['0' * n], range(2))\n"
             "print(sorted({m.split('.')[0] for m in sys.modules}))\n")
-    p = subprocess.run([sys.executable, "-c", code, ROOT],
+    plan = str(mini / "tnbench" / "configs" / "small-share-plan.json")
+    sites = repr(small(mini, "small-share").config["circuit"]["sites"])
+    p = subprocess.run([sys.executable, "-c", code, ROOT, plan, sites],
                        capture_output=True, text=True, timeout=120)
     assert p.returncode == 0, p.stderr
     loaded = set(ast.literal_eval(p.stdout.strip()))
