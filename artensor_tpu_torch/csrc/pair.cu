@@ -12,8 +12,13 @@
 // cmm_launch replaces artensor_tpu/ops/pallas_mm.py::_kernel
 // (complex_batched_matmul, pallas_call :61): (B, M, K) . (B, K, N) -> (B, M,
 // N), the batch the width axis of the product.  The TPU kernel raised unless
-// its 256-tiles divided M and N; this one masks the ragged tiles.  It is on
-// no path of the port (nor of the JAX package).
+// its 256-tiles divided M and N; this one masks the ragged tiles.  The
+// port's dot fallback runs its split products on it (ops/field.py,
+// SplitField.dot, where ops/pallas_mm.cmm_route sends them), at the tile
+// ops/pallas_mm.cmm_tile picks from the product's shape: the N tile
+// (64, 32 or 16), the K chunk (32 or 16), the role swap (Y^T = B^T . A^T
+// where M is below the 128-row tile and N above it) and the passes.
+// An operand of batch stride 0 is read once for every batch entry.
 //
 // Bound: operations.  With K = 256..1024 and M, N in the hundreds to
 // thousands a step does 8*M*N*K flop on 8*(M*K + K*N + M*N) bytes, far
@@ -47,24 +52,27 @@ pair_wgmma_kernel(wg::Operands p)
     wg::gemm<wg::Cfg<false, 64, PASSES, VEC>>(p);
 }
 
-template <int PASSES, bool VEC>
+// the complex matmul: A (M, K) in the A role (A_MK), or, SWAP, B (K, N)
+template <int PASSES, bool VEC, int BN = 64, int BK = 32, bool SWAP = false>
 __global__ void __launch_bounds__(384, 1)   // wgmma_core.cuh: wg::gemm
 cmm_wgmma_kernel(wg::Operands p)
 {
     runs::count(&g_runs[1]);
-    wg::gemm<wg::Cfg<false, 64, PASSES, VEC, 32, true>>(p);
+    wg::gemm<wg::Cfg<false, BN, PASSES, VEC, BK, !SWAP, SWAP>>(p);
 }
 
 // Pair (A_MK false) or the complex matmul (true) in ``PASSES`` passes,
 // 16-byte copies (VEC) where the rows, width strides and buffers lie on 16
-// bytes
-template <bool A_MK, int PASSES, bool VEC>
+// bytes; the complex matmul at N tile BN, K chunk BK, maybe swapped
+template <bool A_MK, int PASSES, bool VEC, int BN = 64, int BK = 32,
+          bool SWAP = false>
 int wgmma_kernel(const wg::Operands& p, int W, cudaStream_t s)
 {
-    using C = wg::Cfg<false, 64, PASSES, VEC, 32, A_MK>;
+    using C = wg::Cfg<false, BN, PASSES, VEC, BK, A_MK && !SWAP, SWAP>;
     static unsigned attr = 0;    // wg::launch: the kernel's devices
     if constexpr (A_MK)
-        return wg::launch<C>(cmm_wgmma_kernel<PASSES, VEC>, attr, p, W, s);
+        return wg::launch<C>(cmm_wgmma_kernel<PASSES, VEC, BN, BK, SWAP>,
+                             attr, p, W, s);
     else
         return wg::launch<C>(pair_wgmma_kernel<PASSES, VEC>, attr, p, W, s);
 }
@@ -77,6 +85,33 @@ int wgmma(const wg::Operands& p, int W, int passes, bool vec, cudaStream_t s)
                    : wgmma_kernel<A_MK, 1, false>(p, W, s);
     return vec ? wgmma_kernel<A_MK, 3, true>(p, W, s)
                : wgmma_kernel<A_MK, 3, false>(p, W, s);
+}
+
+// the complex matmul's float32-class tiles: N tile bn, K chunk bk, swapped
+// or not, in PASSES 3 (3xTF32) or 6 (the three-term split)
+template <bool VEC, int BN, int BK, int PASSES>
+int cmm_tile(const wg::Operands& p, int W, bool swap, cudaStream_t s)
+{
+    return swap ? wgmma_kernel<true, PASSES, VEC, BN, BK, true>(p, W, s)
+                : wgmma_kernel<true, PASSES, VEC, BN, BK, false>(p, W, s);
+}
+
+// passes 6 runs the 16-deep K chunk alone (its products are K < 16)
+template <bool VEC>
+int cmm_tiles(const wg::Operands& p, int W, int bn, int bk, bool swap,
+              int passes, cudaStream_t s)
+{
+    if (passes == 6)
+        return bn == 16 ? cmm_tile<VEC, 16, 16, 6>(p, W, swap, s)
+             : bn == 32 ? cmm_tile<VEC, 32, 16, 6>(p, W, swap, s)
+                        : cmm_tile<VEC, 64, 16, 6>(p, W, swap, s);
+    if (bk == 16)
+        return bn == 16 ? cmm_tile<VEC, 16, 16, 3>(p, W, swap, s)
+             : bn == 32 ? cmm_tile<VEC, 32, 16, 3>(p, W, swap, s)
+                        : cmm_tile<VEC, 64, 16, 3>(p, W, swap, s);
+    return bn == 16 ? cmm_tile<VEC, 16, 32, 3>(p, W, swap, s)
+         : bn == 32 ? cmm_tile<VEC, 32, 32, 3>(p, W, swap, s)
+                    : cmm_tile<VEC, 64, 32, 3>(p, W, swap, s);
 }
 
 bool aligned16(const float* a, const float* b, const float* c,
@@ -107,26 +142,54 @@ extern "C" int pair_launch(const float* xr, const float* xi, const float* vr,
     return wgmma<false>(p, W, passes, vec, (cudaStream_t)stream);
 }
 
-// (B, M, K) . (B, K, N) -> (B, M, N); A = (ar, ai), B = (br, bi); the
-// batch is the core's width axis
+// (B, M, K) . (B, K, N) -> (B, M, N); A = (ar, ai), B = (br, bi), each
+// batch entry a_ws / b_ws floats on (M K / K N, or 0: the same matrix for
+// every entry); the batch is the core's width axis.  The tile: N tile bn
+// (64, 32, 16) and K chunk bk (32, 16), the role swap (swap: X = B, V = A,
+// Y^T stored); passes 3 (3xTF32), 6 (the
+// three-term split, K chunk 16) or 1 (one pass: the 128 x 64 x 32 tile
+// unswapped alone)
 extern "C" int cmm_launch(const float* ar, const float* ai, const float* br,
                           const float* bi, float* yr, float* yi, int B,
-                          int M, int K, int N, int passes, void* stream)
+                          int M, int K, int N, long long a_ws, long long b_ws,
+                          int bn, int bk, int swap, int passes, void* stream)
 {
-    if (!tc::passes_ok(passes))
+    if ((!tc::passes_ok(passes) && passes != 6) ||
+        (bn != 16 && bn != 32 && bn != 64) || (bk != 16 && bk != 32) ||
+        (passes == 1 && (bn != 64 || bk != 32 || swap)) ||
+        (passes == 6 && bk != 16))
         return (int)cudaErrorInvalidValue;
     wg::Operands p{};
-    p.xr = ar; p.xi = ai; p.vr = br; p.vi = bi; p.yr = yr; p.yi = yi;
-    p.M = M; p.N = N; p.K = K;
-    p.x_ws = (long long)M * K; p.v_ws = (long long)K * N;
+    p.F = 1;
+    p.K = K;
     p.y_ws = (long long)M * N;
-    p.ldy = N; p.F = 1;
-    // A's rows (k) and B's and Y's (n) on the 4-float grid: then every
-    // width stride is too
-    const bool vec = K % 4 == 0 && N % 4 == 0 &&
-                     aligned16(ar, ai, br, bi, yr, yi);
+    const cudaStream_t s = (cudaStream_t)stream;
+    const bool ok16 = aligned16(ar, ai, br, bi, yr, yi) && a_ws % 4 == 0 &&
+                      b_ws % 4 == 0;
+    if (swap) {
+        // Y^T (N, M) = B^T . A^T: X is B, (K, N) rows as Pair's (K, M); V
+        // is A, (M, K) rows as GK's W; Y^T's column m at m N
+        p.xr = br; p.xi = bi; p.vr = ar; p.vi = ai; p.yr = yr; p.yi = yi;
+        p.M = N; p.N = M;
+        p.x_ws = b_ws; p.v_ws = a_ws;
+        p.ldy = N;
+        const bool vec = N % 4 == 0 && ok16;
+        p.vec_v = K % 4 == 0 && ok16;
+        return vec ? cmm_tiles<true>(p, B, bn, bk, true, passes, s)
+                   : cmm_tiles<false>(p, B, bn, bk, true, passes, s);
+    }
+    p.xr = ar; p.xi = ai; p.vr = br; p.vi = bi; p.yr = yr; p.yi = yi;
+    p.M = M; p.N = N;
+    p.x_ws = a_ws; p.v_ws = b_ws;
+    p.ldy = N;
+    // A's rows (k) and B's and Y's (n) on the 4-float grid, and the batch
+    // strides
+    const bool vec = K % 4 == 0 && N % 4 == 0 && ok16;
     p.vec_v = vec;
-    return wgmma<true>(p, B, passes, vec, (cudaStream_t)stream);
+    if (passes == 1)
+        return wgmma<true>(p, B, passes, vec, s);
+    return vec ? cmm_tiles<true>(p, B, bn, bk, false, passes, s)
+               : cmm_tiles<false>(p, B, bn, bk, false, passes, s);
 }
 
 // the launches that ran on the card, by slot (g_runs)

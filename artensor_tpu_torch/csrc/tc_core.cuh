@@ -42,6 +42,17 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo)
     }
 }
 
+// x = hi + mid + lo, all TF32 (the three-term split: float32's 24 bits
+// and more, where hi + lo above keeps 22)
+__device__ __forceinline__ void split3(float x, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo)
+{
+    hi = to_tf32(x);
+    const float r = x - __uint_as_float(hi);
+    mid = to_tf32(r);
+    lo = to_tf32(r - __uint_as_float(mid));
+}
+
 __device__ __forceinline__ void cp16(float* dst, const float* src, int bytes)
 {
     const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);

@@ -9,7 +9,11 @@
 //   * Pair (GATHER false): X^T . V with X stored (K, M) and V (K, N), both
 //     row-major (m and n contiguous), Y (M, N) row-major;
 //   * the complex matmul (GATHER false, A_MK): as Pair with X stored
-//     (M, K), k contiguous; its batch is the width axis;
+//     (M, K), k contiguous; its batch is the width axis.  Its role swap
+//     (SWAP, for M below the 128-row tile and N above it) computes
+//     Y^T = B^T . A^T: X is B stored (K, N), read as Pair's X, V is A
+//     stored (M, K), read as GK's W ([n][k] rows), and Y^T[m, n] lies at
+//     m + n * ldy;
 //   * GK (GATHER true): Y = W . X per outer index, transposed so that the
 //     big side is M: m runs over the flat (outer index o, f) values, M =
 //     G * F, X[m, k] at xoff[o] + koff[k] + f; V is W, (H, K) rows (k
@@ -38,7 +42,12 @@
 // dropped; re -= Ai.Bi through the instruction's negation of A,
 // imm-scale-a -1, which is exact), or 4 in the one-pass form (PASSES 1,
 // precision "default": hi.hi, hi the operand with its low 13 mantissa
-// bits cleared).  The sums inside the tensor cores do not round to
+// bits cleared).  The complex matmul's short products (K below 16, where
+// a sum of few terms does not hide 3xTF32's 22-bit operands) run the
+// three-term split (PASSES 6: x = hi + mid + lo, tc_core.cuh's split3; per
+// real product lo.hi, hi.lo, mid.mid, mid.hi, hi.mid, hi.hi, 24 wgmma a k8
+// slice, the terms below 2^-33 of |a||b| dropped).  The sums inside the
+// tensor cores do not round to
 // nearest: with all of K 1024 added inside them the pair step came out
 // 12x as far from float64 as cuBLAS's float32 product (H100).  So every
 // PROMOTE k8 slices a window starts a fresh tensor-core accumulator
@@ -109,7 +118,7 @@ namespace wg {
 constexpr int PROMOTE_3XTF32 = 1;
 // the one-pass form's window: four slices
 template <int PASSES>
-constexpr int PROMOTE = PASSES == 3 ? PROMOTE_3XTF32 : 4;
+constexpr int PROMOTE = PASSES == 1 ? 4 : PROMOTE_3XTF32;
 
 struct Operands {
     const float *xr, *xi;   // A role: Pair's X (K, M); the complex
@@ -129,12 +138,17 @@ struct Operands {
 };
 
 // A kernel's compile-time shape: GATHER (GK, GGK) or not (Pair, the
-// complex matmul, with A_MK); the N tile BN; the K chunk BK; the passes;
-// VEC, X's 16-byte copies (and Pair's 8-byte Y stores).
+// complex matmul, with A_MK, or its role swap, SWAP); the N tile BN; the K
+// chunk BK; the passes; VEC, X's 16-byte copies (and Pair's 8-byte Y
+// stores).
 template <bool GATHER_, int BN_, int PASSES_, bool VEC_, int BK_ = 32,
-          bool A_MK_ = false>
+          bool A_MK_ = false, bool SWAP_ = false>
 struct Cfg {
     static constexpr bool GATHER = GATHER_, VEC = VEC_, A_MK = A_MK_;
+    static constexpr bool SWAP = SWAP_;
+    // V stored [n][k] (GK's W, the swap's A) rather than [k][n]; Y stored
+    // through ldy, column n ldy apart (GK, the swap)
+    static constexpr bool V_NK = GATHER || SWAP;
     static constexpr int BM = 128, BN = BN_, BK = BK_, PASSES = PASSES_;
     static constexpr int THREADS = 384;         // three warpgroups
     static constexpr int PRODUCER = 128;        // the first of them
@@ -142,20 +156,22 @@ struct Cfg {
     // so that the consumers' fragment reads hit 32 distinct banks
     static constexpr int LDA = A_MK ? BK + 4 : BM + 8;
     static constexpr int A_ROWS = A_MK ? BM : BK;
-    static constexpr int B_ROWS = GATHER ? BN : BK;
-    static constexpr int LDB = GATHER ? BK + 4 : BN + 8;   // [n][k] / [k][n]
+    static constexpr int B_ROWS = V_NK ? BN : BK;
+    static constexpr int LDB = V_NK ? BK + 4 : BN + 8;     // [n][k] / [k][n]
     static constexpr int A_PART = A_ROWS * LDA, B_PART = B_ROWS * LDB;
     static constexpr int STAGE = 2 * A_PART + 2 * B_PART;  // floats
-    // The 16-wide N tile (GGK, H <= 16) multiplies re and im side by side:
+    // The 16-wide N tile (GGK, H <= 16; the complex matmul, N <= 16)
+    // multiplies re and im side by side:
     // its B planes are [Vr | Vi] and [-Vi | Vr], 32 wide, so that a complex
     // product is 2 wgmma of n32 (6 in 3xTF32) into one accumulator [re |
     // im], where 16-wide planes take 4 of n16 (12): an n16 wgmma costs the
     // tensor cores nearly what an n32 one does (2-3% on the 1k K 16 H 16
     // step, scripts/ggk_wgmma_torch_port.py; the same sums in the same
     // order, so the same result).
-    static constexpr bool STACK = GATHER && BN == 16;
+    static constexpr bool STACK = BN == 16;
     static constexpr int PW = STACK ? 2 * BN : BN;         // plane width
-    static constexpr int NPLANES = PASSES == 3 ? 4 : 2;    // hi (lo) planes
+    static constexpr int NPLANES = 2 * (PASSES == 6 ? 3 : PASSES == 3 ? 2 : 1);
+                                   // hi (lo; mid, lo) planes
     static constexpr int PLANE = BK * PW;                  // floats
     static constexpr int PLANES = NPLANES * PLANE;         // one buffer
     // The narrow N tile (GGK, H <= 16) stores a finished tile through
@@ -183,8 +199,9 @@ struct Cfg {
     static_assert(STAGES >= 3, "shared memory");
     static_assert(BN == 16 || BN == 32 || BN == 64, "BN");
     static_assert(BK == 16 || BK == 32, "BK");
-    static_assert(PASSES == 1 || PASSES == 3, "PASSES");
+    static_assert(PASSES == 1 || PASSES == 3 || PASSES == 6, "PASSES");
     static_assert(!(GATHER && A_MK), "A_MK is a form of the plain product");
+    static_assert(!(SWAP && (GATHER || A_MK)), "SWAP reads X as Pair does");
 };
 
 // -- PTX ----------------------------------------------------------------------
@@ -479,9 +496,9 @@ __device__ __forceinline__ void load(const Operands& p, const TileAt& at,
         }
     }
     // V: Pair and the complex matmul, a column chunk bc of rows [k] br0 +
-    // RB q; GK, a k chunk bc of rows [n] br0 + RB q (a narrow tile leaves
-    // some threads without a row)
-    constexpr int B_CH = C::GATHER ? BK / 4 : BN / 4, RB = T / B_CH;
+    // RB q; GK and the swap, a k chunk bc of rows [n] br0 + RB q (a narrow
+    // tile leaves some threads without a row)
+    constexpr int B_CH = C::V_NK ? BK / 4 : BN / 4, RB = T / B_CH;
     constexpr int B_ITERS = (C::B_ROWS + RB - 1) / RB;
     static_assert(T % B_CH == 0 && (C::B_ROWS % RB == 0 || B_ITERS == 1),
                   "V tile");
@@ -495,12 +512,12 @@ __device__ __forceinline__ void load(const Operands& p, const TileAt& at,
         // Pair: row k = k0 + r, columns n0 + 4 bc; GK: row n = n0 + r,
         // k = k0 + 4 bc; the 4 values along the row, ``lim`` of them in
         // range (with vec_v: 4 or 0, K % 4 == 0 for GK, N % 4 for Pair)
-        const int k = C::GATHER ? k0 + 4 * bc : k0 + r;
-        const int n = C::GATHER ? at.n0 + r : at.n0 + 4 * bc;
+        const int k = C::V_NK ? k0 + 4 * bc : k0 + r;
+        const int n = C::V_NK ? at.n0 + r : at.n0 + 4 * bc;
         const bool ok = k < p.K && n < p.N;
-        const int lim = !ok ? 0 : C::GATHER ? p.K - k : p.N - n;
+        const int lim = !ok ? 0 : C::V_NK ? p.K - k : p.N - n;
         const long long off = !ok ? 0
-            : C::GATHER ? (long long)n * p.K + k : (long long)k * p.N + n;
+            : C::V_NK ? (long long)n * p.K + k : (long long)k * p.N + n;
         float* d = sb + r * LDB + 4 * bc;
         tc::copy4(d, vr + off, lim, p.vec_v, vr);
         tc::copy4(d + C::B_PART, vi + off, lim, p.vec_v, vi);
@@ -509,8 +526,8 @@ __device__ __forceinline__ void load(const Operands& p, const TileAt& at,
 
 // Split chunk ``item``'s raw V (stage s) into the hi (and lo) planes of
 // buffer ``pl``: plane order re hi, im hi, re lo, im lo (STACK: [re | im]
-// hi, [-im | re] hi, then lo); element (n, k) of k8 slice j at j*PW*8 +
-// (n/8)*64 + ((k%8)/4)*32 + (n%8)*4 + k%4 floats.
+// hi, [-im | re] hi, then lo; PASSES 6: hi, mid, lo); element (n, k) of
+// k8 slice j at j*PW*8 + (n/8)*64 + ((k%8)/4)*32 + (n%8)*4 + k%4 floats.
 template <class C>
 __device__ __forceinline__ void split_v(const float* sb, float* pl, int ct)
 {
@@ -525,7 +542,7 @@ __device__ __forceinline__ void split_v(const float* sb, float* pl, int ct)
             break;
         const int n = id % BN, k = 4 * (id / BN);
         float r[4], i[4];
-        if (C::GATHER) {    // raw [n][k]
+        if (C::V_NK) {      // raw [n][k]
             const float4 a = *reinterpret_cast<const float4*>(sb + n * LDB + k);
             const float4 b = *reinterpret_cast<const float4*>(
                 sb + C::B_PART + n * LDB + k);
@@ -538,11 +555,16 @@ __device__ __forceinline__ void split_v(const float* sb, float* pl, int ct)
                 i[e] = sb[C::B_PART + (k + e) * LDB + n];
             }
         }
-        uint32_t rh[4], rl[4], ih[4], il[4];
+        uint32_t rh[4], rl[4], ih[4], il[4], rx[4], ix[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-            tc::split<C::PASSES>(r[e], rh[e], rl[e]);
-            tc::split<C::PASSES>(i[e], ih[e], il[e]);
+            if constexpr (C::PASSES == 6) {
+                tc::split3(r[e], rh[e], rl[e], rx[e]);
+                tc::split3(i[e], ih[e], il[e], ix[e]);
+            } else {
+                tc::split<C::PASSES>(r[e], rh[e], rl[e]);
+                tc::split<C::PASSES>(i[e], ih[e], il[e]);
+            }
         }
         const int off = (k / 8) * PW * 8 + (n / 8) * 64 + ((k % 8) / 4) * 32
                         + (n % 8) * 4;
@@ -562,14 +584,23 @@ __device__ __forceinline__ void split_v(const float* sb, float* pl, int ct)
             put(0, off, rh, false);
             put(1, off, ih, false);
         }
-        if (C::PASSES == 3 && C::STACK) {
+        if (C::PASSES != 1 && C::STACK) {
             put(2, off, rl, false);
             put(2, off + HI, il, false);
             put(3, off, il, true);
             put(3, off + HI, rl, false);
-        } else if (C::PASSES == 3) {
+        } else if (C::PASSES != 1) {
             put(2, off, rl, false);
             put(3, off, il, false);
+        }
+        if (C::PASSES == 6 && C::STACK) {
+            put(4, off, rx, false);
+            put(4, off + HI, ix, false);
+            put(5, off, ix, true);
+            put(5, off + HI, rx, false);
+        } else if (C::PASSES == 6) {
+            put(4, off, rx, false);
+            put(5, off, ix, false);
         }
     }
     // the planes are read by wgmma (the async proxy)
@@ -634,8 +665,8 @@ __device__ __forceinline__ void store(const Operands& p, const TileAt& at,
             const int m = at.m0 + row0 + g + 8 * h;
             if (m >= p.M)
                 continue;
-            const long long base = C::GATHER
-                ? p.yoff[m / p.F] + m % p.F : (long long)m * p.N;
+            const long long base = C::GATHER ? p.yoff[m / p.F] + m % p.F
+                : C::SWAP ? (long long)m : (long long)m * p.N;
 #pragma unroll
             for (int j = 0; j < C::BN / 8; ++j) {
                 const int n = at.n0 + 8 * j + 2 * t;
@@ -643,8 +674,8 @@ __device__ __forceinline__ void store(const Operands& p, const TileAt& at,
                     continue;
                 const float* vr = ar + 4 * j + 2 * h;
                 const float* vi = ai + 4 * j + 2 * h;
-                if (C::GATHER || !C::VEC) {
-                    const long long ldy = C::GATHER ? p.ldy : 1;
+                if (C::V_NK || !C::VEC) {
+                    const long long ldy = C::V_NK ? p.ldy : 1;
                     yr[base + n * ldy] = vr[0];
                     yi[base + n * ldy] = vi[0];
                     if (n + 1 < p.N) {
@@ -706,7 +737,7 @@ __device__ __forceinline__ void producer(const Operands& p, float* planes,
 
 // A consumer warpgroup (``wgc`` 0 or 1: output rows 64 wgc ..): per item,
 // per k8 slice, the A fragment from the raw stage, 12 wgmma (4 in one
-// pass; STACK 6 and 2) into the tensor-core accumulators d, and at a
+// pass, 24 in six; STACK 6, 2 and 12) into the tensor-core accumulators d, and at a
 // window's end d added into the float32 accumulators acc; a tile's last
 // item stores acc.  acc and d hold re then im (STACK: the [re | im]
 // columns of one n32 accumulator, which is the same order).
@@ -735,15 +766,25 @@ __device__ __forceinline__ void consumer(const Operands& p,
         acc[e] = 0.f;
         d[e] = 0.f;
     }
+    // hi and lo (PASSES 6: hi, mid and lo) of the A fragments
+    constexpr int XF = PASSES == 6 ? FR : 1;
     uint32_t ar_h[FR][4], ar_l[FR][4], ai_h[FR][4], ai_l[FR][4];
+    uint32_t ar_x[XF][4], ai_x[XF][4];
     // slice j's fragment (rows row0 + g (+8), columns t (+4)) into slot f
     auto frag = [&](const float* sa, int j, int f) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
             const int m = row0 + g + 8 * (c & 1), k = 8 * j + t + 4 * (c >> 1);
             const int a = C::A_MK ? m * LDA + k : k * LDA + m;
-            tc::split<PASSES>(sa[a], ar_h[f][c], ar_l[f][c]);
-            tc::split<PASSES>(sa[C::A_PART + a], ai_h[f][c], ai_l[f][c]);
+            if constexpr (PASSES == 6) {
+                tc::split3(sa[a], ar_h[f][c], ar_l[f][c], ar_x[f][c]);
+                tc::split3(sa[C::A_PART + a], ai_h[f][c], ai_l[f][c],
+                           ai_x[f][c]);
+            } else {
+                tc::split<PASSES>(sa[a], ar_h[f][c], ar_l[f][c]);
+                tc::split<PASSES>(sa[C::A_PART + a], ai_h[f][c],
+                                  ai_l[f][c]);
+            }
         }
     };
     Tiles<C> tiles(p);
@@ -777,7 +818,25 @@ __device__ __forceinline__ void consumer(const Operands& p,
                 // d = [re | im] += Ar [Vr | Vi] + Ai [-Vi | Vr]: small
                 // terms first (lo.hi, hi.lo), then hi.hi
                 constexpr int N2 = 2 * BN;
-                if (PASSES == 3) {
+                if constexpr (PASSES == 6) {
+                    // lo.hi, hi.lo, mid.mid, mid.hi, hi.mid, hi.hi
+                    const uint64_t b0m = desc(b + 2 * PLANE);
+                    const uint64_t b1m = desc(b + 3 * PLANE);
+                    const uint64_t b0x = desc(b + 4 * PLANE);
+                    const uint64_t b1x = desc(b + 5 * PLANE);
+                    mma<N2, 1>(d, ar_x[f], b0h, go);
+                    mma<N2, 1>(d, ai_x[f], b1h, 1);
+                    mma<N2, 1>(d, ar_h[f], b0x, 1);
+                    mma<N2, 1>(d, ai_h[f], b1x, 1);
+                    mma<N2, 1>(d, ar_l[f], b0m, 1);
+                    mma<N2, 1>(d, ai_l[f], b1m, 1);
+                    mma<N2, 1>(d, ar_l[f], b0h, 1);
+                    mma<N2, 1>(d, ai_l[f], b1h, 1);
+                    mma<N2, 1>(d, ar_h[f], b0m, 1);
+                    mma<N2, 1>(d, ai_h[f], b1m, 1);
+                    mma<N2, 1>(d, ar_h[f], b0h, 1);
+                    mma<N2, 1>(d, ai_h[f], b1h, 1);
+                } else if (PASSES == 3) {
                     const uint64_t b0l = desc(b + 2 * PLANE);
                     const uint64_t b1l = desc(b + 3 * PLANE);
                     mma<N2, 1>(d, ar_l[f], b0h, go);
@@ -790,6 +849,28 @@ __device__ __forceinline__ void consumer(const Operands& p,
                     mma<N2, 1>(d, ar_h[f], b0h, go);
                     mma<N2, 1>(d, ai_h[f], b1h, 1);
                 }
+            } else if constexpr (PASSES == 6) {
+                float* dr = d;
+                float* di = d + NR;
+                const uint64_t b0m = desc(b + 2 * PLANE);
+                const uint64_t b1m = desc(b + 3 * PLANE);
+                const uint64_t b0x = desc(b + 4 * PLANE);
+                const uint64_t b1x = desc(b + 5 * PLANE);
+                // lo.hi, hi.lo, mid.mid, mid.hi, hi.mid, hi.hi, each as
+                // re += Ar.Vr - Ai.Vi, im += Ar.Vi + Ai.Vr
+                auto term = [&](const uint32_t* xr, const uint32_t* xi,
+                                uint64_t vr, uint64_t vi, int fresh) {
+                    mma<BN, 1>(dr, xr, vr, fresh);
+                    mma<BN, 1>(di, xr, vi, fresh);
+                    mma<BN, -1>(dr, xi, vi, 1);
+                    mma<BN, 1>(di, xi, vr, 1);
+                };
+                term(ar_x[f], ai_x[f], b0h, b1h, go);
+                term(ar_h[f], ai_h[f], b0x, b1x, 1);
+                term(ar_l[f], ai_l[f], b0m, b1m, 1);
+                term(ar_l[f], ai_l[f], b0h, b1h, 1);
+                term(ar_h[f], ai_h[f], b0m, b1m, 1);
+                term(ar_h[f], ai_h[f], b0h, b1h, 1);
             } else if (PASSES == 3) {
                 float* dr = d;
                 float* di = d + NR;

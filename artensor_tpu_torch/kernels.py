@@ -68,7 +68,8 @@ SIGNATURES = {
     },
     "pair": {
         "pair_launch": [_P] * 6 + [_I, _I, _I, _L, _L, _L, _I, _I, _P],
-        "cmm_launch": [_P] * 6 + [_I, _I, _I, _I, _I, _P],
+        "cmm_launch": [_P] * 6 + [_I, _I, _I, _I, _L, _L, _I, _I, _I, _I,
+                                  _P],
     },
     "permute": {
         "permute_launch": [_P] * 5 + [_I, _I, _I, _P],
@@ -247,9 +248,10 @@ def tf32_round(t):
         torch.float32)
 
 
-def check_operands(name, tensors, shapes):
+def check_operands(name, tensors, shapes, contiguous=True):
     """Validate a wrapper's operands: one device (CPU or CUDA), float32,
-    the expected shapes, contiguous.  Returns the device."""
+    the expected shapes, contiguous (unless ``contiguous`` is False: the
+    wrapper reads their strides).  Returns the device."""
     dev = tensors[0].device
     for t, shp in zip(tensors, shapes):
         if t.device != dev:
@@ -259,7 +261,7 @@ def check_operands(name, tensors, shapes):
         if tuple(t.shape) != tuple(shp):
             raise ValueError(f"{name}: operand shape {tuple(t.shape)}, "
                              f"expected {tuple(shp)}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")

@@ -10,7 +10,10 @@ decision:
              kernels at FP32, and the tensor-core kernel forms (Pair, GK
              and GGK "mma", the complex matmul) at 3xTF32 (hi.hi + hi.lo
              + lo.hi, ``csrc/tc_core.cuh``).  What the port has run since
-             its first slice.
+             its first slice.  The dot fallback's split products run on
+             the complex matmul where ``pallas_mm.cmm_route`` sends them
+             (3xTF32, or below K 16 the three-term split), else on
+             cuBLAS.
   'high'     the same as 'highest'.  The JAX kernels clamp HIGH to
              HIGHEST (``kernel_precision``), and the TPU's HIGH is bf16x3,
              whose H100 counterpart is the 3xTF32 the kernels already

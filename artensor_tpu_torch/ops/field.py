@@ -11,7 +11,10 @@ package's flat physical shape ``(d0, rest)``
            pass; the kernels run in this form only, at float32 storage
            (``supports_lanes``).  A complex product is four real products
            (``algo='naive'``) or three (``'karatsuba'``: t1 = ar.br, t2 =
-           ai.bi, t3 = (ar+ai).(br+bi), re = t1 - t2, im = t3 - t1 - t2).
+           ai.bi, t3 = (ar+ai).(br+bi), re = t1 - t2, im = t3 - t1 - t2);
+           on the card the dot fallback's naive products at float32
+           storage and 3xTF32 precision run as one launch of the complex
+           matmul kernel where ``pallas_mm.cmm_route`` sends them.
   complex  one native ``torch.complex64`` / ``complex128`` tensor; a
            product is one complex ``torch.matmul`` (cuBLAS's complex
            GEMM on the card).  No kernel runs, as in the JAX package.
@@ -46,8 +49,9 @@ tables of its own: it gathers re/im pairs through an ``(n, 2)`` view.
 import numpy as np
 import torch
 
-from . import permute
+from . import pallas_mm, permute
 from .einsum import as_precision, matmul_precision, pairwise_einsum
+from ..runtime import tracing
 
 _REAL = {np.dtype(np.complex64): torch.float32,
          np.dtype(np.complex128): torch.float64}
@@ -73,6 +77,24 @@ def _storage_dtype(storage, rdtype):
     return _STORAGE[storage]
 
 
+def _dims(shape_a, shape_b, dnums):
+    """``(fa, fb, nb, m, k, n)`` of ``lax.dot_general``'s product of
+    tensors of shapes ``shape_a`` and ``shape_b``: the free dims of each,
+    then the product's batch, rows, contracted and column sizes."""
+    (ca, cb), (ba, bb) = dnums
+    fa = [d for d in range(len(shape_a)) if d not in ca and d not in ba]
+    fb = [d for d in range(len(shape_b)) if d not in cb and d not in bb]
+    size = lambda shape, ds: int(np.prod([shape[d] for d in ds]))
+    return (fa, fb, size(shape_a, ba), size(shape_a, fa), size(shape_a, ca),
+            size(shape_b, fb))
+
+
+def product_dims(shape_a, shape_b, dnums):
+    """``(B, M, K, N)`` of the matrix product that ``lax.dot_general`` of
+    tensors of shapes ``shape_a`` and ``shape_b`` is (``_matrix_forms``)."""
+    return _dims(shape_a, shape_b, dnums)[2:]
+
+
 def _matrix_forms(a, b, dnums):
     """``(am, bm, shape)`` of ``lax.dot_general``'s product of tensors
     shaped like ``a`` and ``b``: ``am`` / ``bm`` permute and reshape the
@@ -82,19 +104,12 @@ def _matrix_forms(a, b, dnums):
     the output's, batch dims, then a's free dims, then b's free dims, in
     stored order, as XLA's dot_general produces them."""
     (ca, cb), (ba, bb) = dnums
-    fa = [d for d in range(a.dim()) if d not in ca and d not in ba]
-    fb = [d for d in range(b.dim()) if d not in cb and d not in bb]
-    bsz = [a.shape[d] for d in ba]
-    fa_sz = [a.shape[d] for d in fa]
-    fb_sz = [b.shape[d] for d in fb]
-    nb = int(np.prod(bsz)) if bsz else 1
-    k = int(np.prod([a.shape[d] for d in ca])) if ca else 1
-    m = int(np.prod(fa_sz)) if fa_sz else 1
-    n = int(np.prod(fb_sz)) if fb_sz else 1
+    fa, fb, nb, m, k, n = _dims(a.shape, b.shape, dnums)
     pa, pb = (*ba, *fa, *ca), (*bb, *cb, *fb)
     am = lambda cs: permute.reshape((c.permute(*pa) for c in cs), (nb, m, k))
     bm = lambda cs: permute.reshape((c.permute(*pb) for c in cs), (nb, k, n))
-    return am, bm, (*bsz, *fa_sz, *fb_sz)
+    return am, bm, (*(a.shape[d] for d in ba), *(a.shape[d] for d in fa),
+                    *(b.shape[d] for d in fb))
 
 
 def _gemm(t):
@@ -172,6 +187,35 @@ def _split_dot(a, b, dnums, algo="naive", rdtype=None, sdtype=None):
     if sdtype is not None and sdtype != yr.dtype:
         out = tuple(c.to(sdtype) for c in out)
     return out
+
+
+def _row_major(pair):
+    """A split pair of (B, rows, cols) matrix forms as the complex matmul
+    kernel reads them: row-major matrices, each batch entry on from the
+    last or all the same one (batch stride 0); others are copied
+    contiguous, both components in one launch (``permute.contiguous``)."""
+    t = pair[0]
+    _, rows, cols = t.shape
+    dense = lambda c: ((c.stride(2) == 1 or cols == 1)
+                       and (c.stride(1) == cols or rows == 1)
+                       and (c.shape[0] == 1
+                            or c.stride(0) in (0, rows * cols)))
+    if all(dense(c) for c in pair) and pair[0].stride() == pair[1].stride():
+        return tuple(pair)
+    return permute.contiguous(pair)
+
+
+def _cmm_dot(a, b, dnums):
+    """``lax.dot_general`` on split pairs as one launch of the complex
+    matmul kernel (float32 class: 3xTF32, or the three-term split below
+    K 16, ``pallas_mm.cmm_tile``) on their matrix forms: both components
+    of each operand in matrix form at once (``_matrix_forms``: one reorder
+    for a pair), no cuBLAS-layout copy (``_gemm``).  Output axes as
+    ``_matrix_forms``."""
+    am, bm, shape = _matrix_forms(a[0], b[0], dnums)
+    yr, yi = pallas_mm.complex_batched_matmul(_row_major(am(a)),
+                                              _row_major(bm(b)))
+    return yr.reshape(shape), yi.reshape(shape)
 
 
 # -- structural ops on one tensor, shared by the fields ----------------------
@@ -256,12 +300,14 @@ class SplitField(_Field):
 
     ``supports_lanes``: eligible steps run the hand-written kernels --
     float32 storage of complex64 only, as in the JAX package
-    (``field.py:51-52``)."""
+    (``field.py:51-52``).  ``cmm``: the dot fallback's products may run on
+    the complex matmul kernel (``dot``); the fused field's split steps
+    keep cuBLAS (False), as no port kernel runs in the fused mode."""
 
     mode = "split"
 
     def __init__(self, dtype=np.complex64, precision="highest", algo="naive",
-                 storage="f32"):
+                 storage="f32", cmm=True):
         self.dtype = np.dtype(dtype)
         self.rdtype = _real_dtype(self.dtype)
         self.precision = as_precision(precision)
@@ -273,6 +319,7 @@ class SplitField(_Field):
         self.sdtype = _storage_dtype(storage, self.rdtype)
         self.supports_lanes = (storage == "f32"
                                and self.rdtype == torch.float32)
+        self.cmm = cmm and self.supports_lanes
 
     def buffers(self, x):
         return tuple(x)
@@ -335,10 +382,21 @@ class SplitField(_Field):
         return self.dot(a, b, (((2,), (1,)), ((0,), (0,))))
 
     def dot(self, a, b, dnums):
-        """General dot_general (multi-dim batch/contract) on split pairs
-        (``_split_dot``), under the precision's TF32 setting (the
-        caller's is given back)."""
+        """General dot_general (multi-dim batch/contract) on split pairs:
+        on the card one complex matmul launch where ``pallas_mm.
+        cmm_route`` sends the product (``_cmm_dot``), else ``_split_dot``
+        under the precision's TF32 setting (the caller's is given back).
+        Each product made on the card counts ``dot.cmm`` or ``dot.cublas``
+        (``runtime/tracing.count``), launched or recorded under a graph's
+        capture."""
         narrow = self.sdtype != self.rdtype
+        if a[0].is_cuda:
+            routed = self.cmm and pallas_mm.cmm_route(
+                *product_dims(a[0].shape, b[0].shape, dnums), a[0].device,
+                self.precision, self.algo, self.storage)
+            tracing.count("dot.cmm" if routed else "dot.cublas")
+            if routed:
+                return _cmm_dot(a, b, dnums)
         with matmul_precision(self.precision):
             return _split_dot(a, b, dnums, self.algo,
                               self.rdtype if narrow else None,
@@ -560,7 +618,7 @@ class FusedField(_Field):
             # both operands above FUSED_W_MAX_ELEMS: the split products
             # on the two halves, the result interleaved again
             helper = SplitField(self.dtype, self.precision, self.algo,
-                                self.storage)
+                                self.storage, cmm=False)
             re, im = apply_lowered(helper, self._unfold_pair(x),
                                    self._unfold_pair(y), low, bx, by)
             return self._interleave(re, im)

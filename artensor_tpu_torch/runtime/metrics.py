@@ -144,18 +144,24 @@ def slice_dynamic_ids(steps, slicing_axes):
 
 
 def dot_copy_elems(low, bl=False, br=False, width=1):
-    """The permuted operand copies that ``ops/field._split_dot`` holds at
+    """The permuted operand copies that the card's split field holds at
     once in ``apply_lowered``'s dot of ``low`` (``bl`` / ``br``: the left /
     right operand, after the swap, carries a width axis of ``width``), as
     ``(left, right)`` split-pair elements, per width instance for a
     batched operand.  An operand is copied unless its permutation into
     matrix form is the identity on its axes longer than 1 (a permuted view
-    that the product takes as it is counts as a copy: an upper bound); the
-    larger operand is copied a component at a time (half its elements),
-    the smaller whole."""
+    that the product takes as it is counts as a copy: an upper bound).  A
+    product on the complex matmul kernel (``pallas_mm.cmm_route`` at the
+    default field: 'highest', naive, float32 storage) holds both
+    components of each copied operand; on cuBLAS (``ops/field.
+    _split_dot``) the larger operand is copied a component at a time
+    (half its elements), the smaller whole."""
+    from ..ops.field import product_dims
+    from ..ops.pallas_mm import cmm_route
     from .lowering import batched_dnums
 
-    (ca, cb), (ba, bb) = batched_dnums(low, bl, br)[0]
+    dn = batched_dnums(low, bl, br)[0]
+    (ca, cb), (ba, bb) = dn
     shp_l = ((width,) if bl else ()) + tuple(low.shape_l)
     shp_r = ((width,) if br else ()) + tuple(low.shape_r)
 
@@ -168,8 +174,13 @@ def dot_copy_elems(low, bl=False, br=False, width=1):
     left_big = n_l >= n_r
     cp_l = copied(shp_l, tuple(ba), tuple(ca))
     cp_r = copied(shp_r, tuple(bb) + tuple(cb), ())
-    el = (0.5 if left_big else 1.0) * _prod(low.shape_l) if cp_l else 0
-    er = (1.0 if left_big else 0.5) * _prod(low.shape_r) if cp_r else 0
+    if cmm_route(*product_dims(shp_l, shp_r, dn), "cuda", "highest",
+                 "naive", "f32"):
+        part_l = part_r = 1.0
+    else:
+        part_l, part_r = (0.5, 1.0) if left_big else (1.0, 0.5)
+    el = part_l * _prod(low.shape_l) if cp_l else 0
+    er = part_r * _prod(low.shape_r) if cp_r else 0
     return el, er
 
 

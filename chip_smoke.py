@@ -49,8 +49,11 @@ block walk's slice-invariant steps) is not made twice.  Phases, in order
    copies it no longer makes timed alone;
 4. the lane kernel on synthetic plans of the forms the path lacks (head
    orientation, combo legs, a pinned grid leg; X of 2^24 elements), the
-   complex batched matmul (``ops/pallas_mm.py``, on no path) at two
-   shapes with ``torch.matmul`` of complex64 as its yardstick, the
+   complex batched matmul (``ops/pallas_mm.py``, the dot fallback's
+   products where ``cmm_route`` sends them) at two shapes with
+   ``torch.matmul`` of complex64 as its yardstick and at the benchmark
+   cells' largest dot products (``CMM_DOT_SHAPES``) with the dot
+   fallback's cuBLAS products (``field._split_dot``) as its yardstick, the
    permute-copy kernel (``csrc/permute.cu``, every reorder of the port)
    at the main path's four largest reorders (``PERMUTE_STEPS``) bit for
    bit against PyTorch's strided copy, its yardstick, GGK's mma
@@ -73,7 +76,9 @@ block walk's slice-invariant steps) is not made twice.  Phases, in order
    reorders are those its capture recorded (the ``tracing`` counters
    less the launches), the warm-up group launched as many and the card
    ran those and every replay's (``permute_held``; every later counted
-   run, phases 8-10 included, is held the same way); then
+   run, phases 8-10 included, is held the same way); the complex
+   matmul's launches are held so to the dot products the path routes to
+   it (``cmm_held``: the ``tracing`` counter ``dot.cmm``); then
    the same run
    eagerly and as graph replay on the same staged inputs (the eager
    run's first call launches the permute kernel for a group's reorders in
@@ -284,6 +289,7 @@ F64_MAX_ELEMS = 1 << 28       # largest step (X + Y elements of one slice
                               # instance) whose float64 check fits beside
                               # its buffers
 PEAK_MODEL_SHARE = 0.9        # the peak model's share of the measured peak
+F64_ROWS = 1 << 14            # rows of a dot product checked in float64
 KERNEL_RTOL = 2e-4            # kernel vs plain: max|d| <= rtol*max|plain| + atol
 KERNEL_ATOL = 1e-5            #   (float32 sums in another order)
 AMP_RTOL = 1e-3               # amplitudes vs fixture:
@@ -318,12 +324,10 @@ KERNELS = {   # name: (wrapper as module.attr, source, TPU kernel it replaces)
     "pair": ("runtime.lanes.pair_call", "artensor_tpu_torch/csrc/pair.cu",
              "artensor_tpu/runtime/lanes.py:855"),
 }
-# on no path of the port (nor of the JAX package): checked in phase 4 only
-OFF_PATH = {
-    "complex_mm": ("ops.pallas_mm.complex_batched_matmul",
-                   "artensor_tpu_torch/csrc/pair.cu",
-                   "artensor_tpu/ops/pallas_mm.py:22"),
-}
+# the dot fallback's kernel: no step of a census is its own, so its
+# launches are held to the products each run routes to it (``cmm_held``)
+CMM = ("ops.pallas_mm.complex_batched_matmul",
+       "artensor_tpu_torch/csrc/pair.cu", "artensor_tpu/ops/pallas_mm.py:22")
 # synthetic lane steps of the forms the paths lack, from the index lists of
 # tests/test_lanes.py at X = 2^24 elements: (ix_x, ix_w, iy, dims_x,
 # dims_w, plan_lane_step arguments)
@@ -339,6 +343,15 @@ LANE_FORMS = {
                dict(lane_count=2, pin=1, orient="head")),
 }
 CMM_SHAPES = ((2, 256, 64, 256), (32, 1024, 256, 1024))   # (B, M, K, N)
+# the benchmark cells' largest dot products at their widths (B, M, K, N):
+# dense-state steps 6, 25, 7, 11, 8 and 30 (30 also sparse-1k-sc25's step
+# 32), sparse-1k-sc25's steps 21 (the role swap) and 46 (a chunk),
+# sparse-1k's step 63 (a chunk)
+CMM_DOT_SHAPES = ((1, 65536, 256, 16384), (1, 1 << 23, 128, 128),
+                  (1, 1 << 24, 64, 64), (1, 1 << 25, 32, 32),
+                  (1, 1 << 26, 16, 16), (1, 1 << 27, 8, 8),
+                  (1, 64, 64, 1 << 24), (123, 65536, 32, 2),
+                  (31616, 1024, 8, 8))
 # the main path's largest reorders, as the permute-copy kernel
 # (csrc/permute.cu, ops/permute.py) gets them on the benchmark's cells at
 # their widths: (sizes, strides, components); a split pair is one launch
@@ -1171,16 +1184,21 @@ def check_lane_forms():
 
 def check_complex_mm():
     """Phase 4b: the complex batched matmul against its plain version,
-    with ``torch.matmul`` of complex64 as its yardstick."""
+    with ``torch.matmul`` of complex64 as its yardstick (``CMM_SHAPES``),
+    and at the cells' dot products (``CMM_DOT_SHAPES``) with the dot
+    fallback's cuBLAS products (``field._split_dot``) as its library
+    time and the largest errors of both against float64 on a slice of the
+    rows (``F64_ROWS``)."""
     import numpy as np
     import torch
 
-    from artensor_tpu_torch.ops import pallas_mm
+    from artensor_tpu_torch.ops import field, pallas_mm
     from artensor_tpu_torch.runtime import metrics
 
     out = []
     gen = torch.Generator(device=DEVICE).manual_seed(200)
-    for B, M, K, N in CMM_SHAPES:
+    dn = (((2,), (1,)), ((0,), (0,)))
+    for B, M, K, N in CMM_SHAPES + CMM_DOT_SHAPES:
         a = tuple(torch.randn((B, M, K), generator=gen, device=DEVICE)
                   for _ in range(2))
         b = tuple(torch.randn((B, K, N), generator=gen, device=DEVICE)
@@ -1190,30 +1208,57 @@ def check_complex_mm():
         kr, ki = call()
         pr, pi = plain()
         torch.cuda.synchronize()
-        ref = torch.complex(pr, pi)
-        err = torch.abs(torch.complex(kr, ki) - ref).max().item()
-        scale = torch.abs(ref).max().item()
+        err = torch.abs(torch.complex(kr - pr, ki - pi)).max().item()
+        scale = torch.abs(torch.complex(pr, pi)).max().item()
         tol = KERNEL_RTOL * scale + KERNEL_ATOL
         step = f"B {B} M {M} K {K} N {N}"
         check(np.isfinite(err) and err <= tol,
               f"complex_mm {step}: kernel disagrees with its plain version:"
               f" max|d| {err:.3e} > tol {tol:.3e}")
-        ac, bc = torch.complex(*a), torch.complex(*b)
-        lib = lambda: torch.matmul(ac, bc)
-        lib_err = torch.abs(lib() - ref).max().item()
-        check(lib_err <= tol, f"complex_mm yardstick disagrees with the "
-              f"plain version: {lib_err:.3e} > tol {tol:.3e}")
         flops = 8 * B * M * N * K
-        reps = 5 if flops > 1e12 else 20
         nbytes = 8 * (B * M * K + B * K * N + B * M * N)
+        reps = 5 if flops > 1e12 or nbytes > 1e9 else 20
+        if (B, M, K, N) in CMM_SHAPES:
+            ref = torch.complex(pr, pi)
+            ac, bc = torch.complex(*a), torch.complex(*b)
+            lib = lambda: torch.matmul(ac, bc)
+            lib_err = torch.abs(lib() - ref).max().item()
+            check(lib_err <= tol, f"complex_mm yardstick disagrees with "
+                  f"the plain version: {lib_err:.3e} > tol {tol:.3e}")
+        else:   # what the dot fallback ran before the route
+            lib = lambda: field._split_dot(a, b, dn)
         r = dict(width=1, step=step, form="mma", core=CORES[("pair", "mma")],
+                 tile=pallas_mm.cmm_tile(B, M, K, N),
+                 routed=pallas_mm.cmm_route(B, M, K, N, DEVICE, "highest",
+                                            "naive", "f32"),
                  max_abs_err=err,
                  max_rel_err=err / scale, tol=tol, ms=time_ms(call, reps),
                  plain_ms=time_ms(plain, 3),
                  **metrics.bounds(nbytes, flops, "mma"),
                  library_ms=time_ms(lib, reps), bytes=nbytes, flops=flops,
                  x_batched=True, w_batched=True)
+        if (B, M, K, N) in CMM_DOT_SHAPES:
+            # float64 on a slice: the first rows (or columns, the swap's)
+            rows = (slice(None), slice(0, F64_ROWS), slice(None))
+            cols = (slice(None), slice(None), slice(0, F64_ROWS))
+            cut = rows if M >= N else cols
+            sa = tuple(t[:, cut[1]].double() for t in a)
+            sb = tuple(t[:, :, cut[2]].double() for t in b)
+            f64 = torch.complex(*pallas_mm.complex_batched_matmul_plain(
+                sa, sb))
+            e64 = lambda y: torch.abs(torch.complex(  # noqa: E731
+                y[0][cut].double(), y[1][cut].double()) - f64).max().item()
+            r.update(f64_err=e64((kr, ki)), plain_f64_err=e64((pr, pi)))
+            check(not r["routed"] or r["f64_err"] <= 2 * r["plain_f64_err"],
+                  f"complex_mm {step}: float64 error {r['f64_err']:.3e}, "
+                  f"more than twice cuBLAS's {r['plain_f64_err']:.3e}")
+            del sa, sb, f64
         report("complex_mm", r)
+        if (B, M, K, N) not in CMM_SHAPES:
+            out.append(r)
+            del a, b, kr, ki, pr, pi
+            torch.cuda.empty_cache()
+            continue
         # the one-pass form against the plain TF32 form
         before = pallas_mm.complex_batched_matmul.one_pass
         one = lambda: pallas_mm.complex_batched_matmul(a, b, passes=1)
@@ -1551,21 +1596,23 @@ def counted_on_card(fn):
     kernels count themselves (``kernels.device_runs``: each kernel's first
     thread adds one to its slot, so a graph replay counts as a launch
     does): by kind, and for GK and GGK by form; and the permute-copy
-    kernel's counts over the call (``permute_counts``).  Not a
+    kernel's counts over the call (``permute_counts``) and the complex
+    matmul's (``cmm_counts``).  Not a
     ``torch.profiler`` trace: on the H100 it lost a dense run's device
     events now and then, GK kernels among them (PERF.md)."""
     import torch
 
     from artensor_tpu_torch.kernels import device_runs
 
-    before, perm = device_runs(), permute_counts()
+    before, perm, cmm = device_runs(), permute_counts(), cmm_counts()
     out = fn()
     torch.cuda.synchronize()
-    after, perm_after = device_runs(), permute_counts()
-    perm = dict(made=perm_after["made"] - perm["made"],
-                launches=perm_after["launches"] - perm["launches"],
-                runs={m: n - perm["runs"][m]
-                      for m, n in perm_after["runs"].items()})
+    after, perm_after, cmm_after = (device_runs(), permute_counts(),
+                                    cmm_counts())
+    held = lambda b, a: dict(  # noqa: E731
+        made=a["made"] - b["made"], launches=a["launches"] - b["launches"],
+        runs={m: n - b["runs"][m] for m, n in a["runs"].items()})
+    perm, cmm = held(perm, perm_after), held(cmm, cmm_after)
     counts = dict.fromkeys(KERNELS, 0)
     forms = {k: {} for k in FORM_KINDS}
     for (kind, form), n in after.items():
@@ -1574,7 +1621,7 @@ def counted_on_card(fn):
             counts[kind] += n
         if kind in forms and n:
             forms[kind][form] = n
-    return out, dict(counts=counts, forms=forms, permute=perm)
+    return out, dict(counts=counts, forms=forms, permute=perm, cmm=cmm)
 
 
 def permute_counts():
@@ -1592,10 +1639,26 @@ def permute_counts():
                 runs=permute.permute_runs())
 
 
-def permute_held(name, perm, st, once=False):
+def cmm_counts():
+    """The complex matmul's counts so far: the dot products the port made
+    on it (``made``: the ``tracing`` counter ``dot.cmm``, launched or
+    recorded into a graph under capture), the launches made
+    (``complex_batched_matmul.launches``) and the launches that ran on
+    the card (``kernels.device_runs``)."""
+    from artensor_tpu_torch.kernels import device_runs
+    from artensor_tpu_torch.ops import pallas_mm
+    from artensor_tpu_torch.runtime import tracing
+
+    return dict(made=tracing.counters().get("dot.cmm", 0),
+                launches=pallas_mm.complex_batched_matmul.launches,
+                runs={"cmm": device_runs()[("complex_mm", None)]})
+
+
+def permute_held(name, perm, st, once=False, what="permute"):
     """The permute-copy kernel's reorders in a run (``perm``, as
     ``counted_on_card`` counts them; ``st``: the run's ``captures``,
-    ``warmup_groups`` and ``replays``).  A capture records one slice
+    ``warmup_groups`` and ``replays``), or (``what``) the complex
+    matmul's routed dot products.  A capture records one slice
     group's reorders without a launch, so the reorders made less the
     launches, over the captures, are a group's (``per_group``); the
     warm-up groups launched as many each (``once``: and the steps the run
@@ -1604,22 +1667,32 @@ def permute_held(name, perm, st, once=False):
     recorded = perm["made"] - perm["launches"]
     caps = st["captures"]
     check(caps > 0 and recorded % caps == 0,
-          f"{name} permute: {recorded} reorders recorded in {caps} "
-          "captures, not as many in each")
+          f"{name} {what}: {recorded} recorded in {caps} captures, not as "
+          "many in each")
     per = recorded // caps
     extra = perm["launches"] - per * st["warmup_groups"]
     check(extra >= 0 if once else extra == 0,
-          f"{name} permute: {perm['launches']} launches, {per} reorders a "
-          f"group in {st['warmup_groups']} warm-up groups")
+          f"{name} {what}: {perm['launches']} launches, {per} a group in "
+          f"{st['warmup_groups']} warm-up groups")
     ran = sum(perm["runs"].values())
     want = perm["launches"] + per * st["replays"]
-    check(ran == want, f"{name} permute: {ran} kernels run on the card "
+    check(ran == want, f"{name} {what}: {ran} kernels run on the card "
           f"({json.dumps(perm['runs'])}), expected {want}: the "
           f"{perm['launches']} launches and {per} a replay over "
           f"{st['replays']} replays")
     return dict(per_group=per, launches=perm["launches"],
                 device_launches=ran, device_modes=perm["runs"],
                 once=extra)
+
+
+def cmm_held(name, cmm, st, once=False):
+    """The complex matmul's launches in a run (``cmm``, as
+    ``counted_on_card`` counts them), held to the dot products the run
+    routed to it as ``permute_held`` holds the copy kernel's to its
+    reorders: a group's products are those a capture recorded, the
+    warm-up groups launched as many each, and the card ran those and
+    every replay's.  Returns the counts."""
+    return permute_held(name, cmm, st, once, what="complex_mm")
 
 
 def run_counts(path, wrappers, ran, st):
@@ -1630,7 +1703,8 @@ def run_counts(path, wrappers, ran, st):
     (``device_launches``, the kernels' own counts: the warm-up group's and
     every replay's).  Each is held to the census times the groups it
     covers; the permute-copy kernel's to its reorders a group
-    (``permute_held``)."""
+    (``permute_held``), the complex matmul's to its routed dot products a
+    group (``cmm_held``)."""
     launches, forms = check_counts(
         path, {k: f.launches for k, f in wrappers.items()},
         {k: dict(wrappers[k].forms) for k in FORM_KINDS},
@@ -1640,9 +1714,11 @@ def run_counts(path, wrappers, ran, st):
         st["warmup_groups"] + st["replays"], "kernels run on the card")
     perm = permute_held(path["name"], ran["permute"], st,
                         once=bool(path.get("census_once")))
+    cmm = cmm_held(path["name"], ran["cmm"], st,
+                   once=bool(path.get("census_once")))
     return dict(launches=launches, forms=forms, device_launches=device,
                 device_forms=device_forms, replays=st["replays"],
-                warmup_groups=st["warmup_groups"], permute=perm)
+                warmup_groups=st["warmup_groups"], permute=perm, cmm=cmm)
 
 
 def drive(path, wrappers):
@@ -1797,7 +1873,8 @@ def counts_line(c):
             f"{json.dumps(c['device_launches'])}; GK and GGK by form: "
             f"launches {json.dumps(c['forms'])}, run "
             f"{json.dumps(c['device_forms'])}; permute: "
-            f"{json.dumps(c['permute'])}")
+            f"{json.dumps(c['permute'])}; complex matmul (routed dot "
+            f"products): {json.dumps(c['cmm'])}")
 
 
 def check_peak(path, peak):
@@ -3864,7 +3941,7 @@ def main():
     # -- 3. kernels against their plain versions ------------------------------
     checked = {p["name"]: check_kernels(p) for p in paths}
 
-    # -- 4. lane forms the paths lack, the complex matmul (on no path) --------
+    # -- 4. lane forms the paths lack, the complex matmul, the copy kernel ----
     forms = check_lane_forms()
     cmm = check_complex_mm()
     perm, perm_timed = counted_on_card(check_permute)
@@ -3879,10 +3956,11 @@ def main():
     if one_pass["ggk"] is None:     # no path runs a GGK step on mma
         one_pass["ggk"] = ggk_synthetic["one_pass"]
     ggk_cut = check_ggk_cut(paths)
-    one_pass["complex_mm"] = cmm[-1]["one_pass"]
+    one_pass["complex_mm"] = next(r["one_pass"] for r in reversed(cmm)
+                                  if "one_pass" in r)
 
     # -- 5. the paths end to end ----------------------------------------------
-    wrappers = {k: wrapper(v[0]) for k, v in {**KERNELS, **OFF_PATH}.items()}
+    wrappers = {k: wrapper(v[0]) for k, v in KERNELS.items()}
     runs, modes, fields, state = {}, {}, {}, None
     field_paths, dense_default, planned = [], None, []
     kept = {}   # the paths whose simulations phase 10 drives again
@@ -4046,15 +4124,23 @@ def main():
                 chosen=ggk_cut["chosen"],
                 **{f: {k: ggk_cut[f][k] for k in keys}
                    for f in ("stream", "mma")})
-    (_, source, replaces), big = OFF_PATH["complex_mm"], cmm[-1]
+    # its launches in each path's own run, held to the dot products the
+    # path routes to it (cmm_held)
+    (_, source, replaces) = CMM
+    big = next(r for r in cmm if "one_pass" in r and r["flops"] == max(
+        c["flops"] for c in cmm if "one_pass" in c))
+    by_path = {n: runs[n]["cmm"] for n in labels if "cmm" in runs[n]}
     line.append({
         "name": "complex_mm", "route": "cuda", "source": source,
         "replaces": replaces,
-        "launches": sum(runs[n]["launches"]["complex_mm"] for n in labels),
-        "device_launches": None,    # its kernel is Pair's: counted there
+        "launches": sum(p["launches"] for p in by_path.values()),
+        "device_launches": sum(p["device_launches"]
+                               for p in by_path.values()),
         **{k: big[k] for k in keys}, "path": None,
-        "one_pass": one_pass["complex_mm"],
-        "shapes": [{k: r[k] for k in keys} for r in cmm]})
+        "one_pass": one_pass["complex_mm"], "paths": by_path,
+        "shapes": [{k: r[k] for k in keys + ("tile", "routed", "f64_err",
+                                             "plain_f64_err") if k in r}
+                   for r in cmm]})
     # the kernel's launches in each path's own run (phase 4c's timing
     # calls apart, as "timed")
     by_path = {**{n: runs[n]["permute"] for n in labels},

@@ -720,6 +720,114 @@ def test_wgmma_float64_error_at_most_plain(cuda, monkeypatch, which):
     assert d(kr, ki) <= d(pr, pi), (d(kr, ki), d(pr, pi))
 
 
+# the dot fallback's product classes on the benchmark cells' paths, M (or N,
+# or B) scaled down: (B, M, K, N)
+ROUTED_CLASSES = {
+    "k8": (1, 1 << 16, 8, 8), "k16": (1, 1 << 15, 16, 16),
+    "k32": (1, 1 << 14, 32, 32), "k64": (1, 1 << 13, 64, 64),
+    "k128": (1, 1 << 12, 128, 128), "k256_wide": (1, 2048, 256, 4096),
+    "swap_m64": (1, 64, 64, 1 << 14), "swap_m32": (1, 32, 32, 1 << 14),
+    "b494_k8": (494, 1024, 8, 8), "n2": (8, 4096, 32, 2),
+    "k1": (1, 4096, 1, 16), "tiny": (32, 8, 2, 4),
+}
+
+
+@pytest.mark.parametrize("cls", sorted(ROUTED_CLASSES))
+def test_complex_matmul_routed_classes(cuda, cls):
+    """The complex matmul at the dot fallback's product classes (at the
+    tile ``cmm_tile`` picks: narrow N tiles, the 16-deep K chunk, the role
+    swap, the three-term split below K 16) against
+    the plain float32 product; from K ``ROUTE_MIN_K`` on, the classes the
+    route may send to the kernel, its largest error against a float64
+    product of the same inputs is at most twice the plain product's
+    (float32 on cuBLAS), and below it the route keeps cuBLAS."""
+    B, M, K, N = ROUTED_CLASSES[cls]
+    gen = torch.Generator(device="cuda").manual_seed(B + M + K + N)
+    a = tuple(_rand((B, M, K), gen) for _ in "ri")
+    b = tuple(_rand((B, K, N), gen) for _ in "ri")
+    kr, ki = pallas_mm.complex_batched_matmul(a, b)
+    pr, pi = pallas_mm.complex_batched_matmul_plain(a, b)
+    err = torch.abs(torch.complex(kr - pr, ki - pi)).max().item()
+    scale = torch.abs(torch.complex(pr, pi)).max().item()
+    assert err <= 2e-4 * scale + 1e-5, (err, scale)
+    if K < pallas_mm.ROUTE_MIN_K:
+        assert not pallas_mm.cmm_route(B, M, K, N, "cuda", "highest",
+                                       "naive", "f32")
+    else:
+        er, ei = pallas_mm.complex_batched_matmul_plain(
+            tuple(t.double() for t in a), tuple(t.double() for t in b))
+        ref = torch.complex(er, ei)
+        d = lambda r, i: torch.abs(torch.complex(r.double(), i.double())
+                                   - ref).max().item()
+        assert d(kr, ki) <= 2 * d(pr, pi), (d(kr, ki), d(pr, pi))
+
+
+@pytest.mark.parametrize("shared", ["a", "b"])
+@pytest.mark.parametrize("bmkn", [(6, 256, 32, 64), (6, 64, 8, 512)])
+def test_complex_matmul_reads_a_shared_operand_in_place(cuda, shared, bmkn):
+    """An operand that is the same for every batch entry, an expanded view
+    of one matrix (batch stride 0), is read in place by every entry (the
+    plain and the swapped tile): the product equals the one of the
+    operand copied out to every entry."""
+    B, M, K, N = bmkn
+    gen = torch.Generator(device="cuda").manual_seed(M + N)
+    one = lambda shape, on: _rand(((1,) if on else (B,)) + shape, gen) \
+        .expand((B,) + shape)
+    a = tuple(one((M, K), shared == "a") for _ in "ri")
+    b = tuple(one((K, N), shared == "b") for _ in "ri")
+    kr, ki = pallas_mm.complex_batched_matmul(a, b)
+    cr, ci = pallas_mm.complex_batched_matmul(
+        tuple(t.contiguous() for t in a), tuple(t.contiguous() for t in b))
+    assert torch.equal(kr, cr) and torch.equal(ki, ci)
+
+
+@pytest.mark.parametrize("mode,algo,precision,routed", [
+    ("split", "naive", "highest", True), ("split", "naive", "high", True),
+    ("split", "karatsuba", "highest", False),
+    ("split", "naive", "default", False),
+    ("complex", "naive", "highest", False),
+    ("fused", "naive", "highest", False)])
+def test_dot_products_run_on_the_complex_matmul(cuda, monkeypatch, mode,
+                                                 algo, precision, routed):
+    """Under graph replay a split, naive, 3xTF32 ``contraction`` runs each
+    dot-fallback product that ``cmm_route`` sends to the kernel as one
+    complex matmul launch: the card runs the kernel once a routed product
+    in the warm-up group and in each replay (the ``dot.cmm`` products
+    made, launched or recorded in a capture, over the warm-up groups and
+    captures); karatsuba, 'default', the complex and the fused field run
+    none and make no routed product, and neither does a split product
+    stored in bf16.  The small circuit's products are launch-bound, so the
+    route's size gates are lowered, as ``_small_sim`` lowers the
+    kernels'."""
+    from artensor_tpu_torch.ops.field import SplitField
+    from artensor_tpu_torch.runtime import tracing
+
+    monkeypatch.setattr(pallas_mm, "ROUTE_MIN_K", 1)
+    monkeypatch.setattr(pallas_mm, "LAUNCH_S", 0.0)
+    sim, circ = _small_sim(monkeypatch)
+    made = tracing.counters().get("dot.cmm", 0)
+    ran = _device_kernels(lambda: sim.contraction(
+        mode=mode, algo=algo, precision=precision, slice_batch=2,
+        device="cuda"))
+    made = tracing.counters().get("dot.cmm", 0) - made
+    st = sim.run_stats
+    assert st["executor"] == "graph"
+    n = ran.get(("complex_mm", None), 0)
+    if routed:
+        per, rest = divmod(made, st["warmup_groups"] + st["captures"])
+        assert per > 0 and rest == 0, (made, st)
+        assert n == per * (st["warmup_groups"] + st["replays"]), (n, per, st)
+    else:
+        assert made == 0 and n == 0, (made, n)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    a = tuple(_rand((2, 64, 32), gen).bfloat16() for _ in "ri")
+    b = tuple(_rand((2, 32, 64), gen).bfloat16() for _ in "ri")
+    narrow = SplitField(precision=precision, algo=algo, storage="bf16")
+    before = tracing.counters().get("dot.cmm", 0)
+    ran = _device_kernels(lambda: narrow.matmul(a, b))
+    assert tracing.counters().get("dot.cmm", 0) == before and not ran
+
+
 @pytest.mark.parametrize("n_bits,plan", [
     (1000, "rcs_n30_m14_s0_sparse_sc24.json"),
     (10000, "rcs_n30_m14_s0_sparse10k_sc24.json"),

@@ -55,9 +55,10 @@ DENSE_CENSUS = {
     "default": ({"gk": 14, "dot": 17}, 0),
 }
 # the device peak model of each form at width 1 (PERF.md section 4): the
-# live set (16 GiB: two 2^30-element states), one float32 component copy
-# of the 2^30-element operand of a dot step (4 GiB) and the GK tables
-DENSE_DEVICE_PEAK_GIB = {"off": 20.0234, "default": 20.0148}
+# live set (16 GiB: two 2^30-element states), both float32 components'
+# copy of the 2^30-element operand of a dot step (8 GiB: its product runs
+# on the complex matmul kernel, which reads them at once) and the GK tables
+DENSE_DEVICE_PEAK_GIB = {"off": 24.0234, "default": 24.0148}
 
 
 def _jax_kind(step):
@@ -256,5 +257,5 @@ def test_port_dense_plan_census(form):
     dev = metrics.scheme_device_peak_bytes(run_steps, 1, sim.slicing_axes)
     tables = metrics.kernel_table_bytes(run_steps)
     assert 16 * 2 ** 30 <= live < 16.001 * 2 ** 30
-    assert live + 2 ** 32 + tables <= dev < live + 2 ** 32 + tables + 2 ** 20
+    assert live + 2 ** 33 + tables <= dev < live + 2 ** 33 + tables + 2 ** 20
     assert abs(dev / 2 ** 30 - DENSE_DEVICE_PEAK_GIB[form]) < 1e-4

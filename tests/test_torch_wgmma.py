@@ -313,9 +313,11 @@ def test_ggk_forms_count_fake_launches(monkeypatch):
 
 
 def test_complex_matmul_counts_fake_launches(monkeypatch):
-    """The complex matmul passes B, M, K, N and its pass count to
-    ``cmm_launch`` (one launch, the batch the product's width axis) and
-    counts one-pass launches apart."""
+    """The complex matmul passes B, M, K, N, the batch strides, the tile
+    (``cmm_tile``'s N tile, K chunk, swap and passes; one pass: the 128 x
+    64 x 32 tile) and its pass count to ``cmm_launch`` (one launch, the
+    batch the product's width axis) and counts one-pass launches
+    apart."""
     fake = _FakeLaunches(monkeypatch)
     before = (pallas_mm.complex_batched_matmul.launches,
               pallas_mm.complex_batched_matmul.one_pass)
@@ -325,7 +327,7 @@ def test_complex_matmul_counts_fake_launches(monkeypatch):
         yr, yi = pallas_mm.complex_batched_matmul(a, b, passes=passes)
         assert yr.shape == yi.shape == (B, M, N)
     assert [(fn, args[6:]) for fn, args in fake.calls] == [
-        ("cmm_launch", (2, 100, 37, 70, 3)),
-        ("cmm_launch", (32, 1024, 256, 1024, 1))]
+        ("cmm_launch", (2, 100, 37, 70, 3700, 2590, 64, 32, 0, 3)),
+        ("cmm_launch", (32, 1024, 256, 1024, 262144, 262144, 64, 32, 0, 1))]
     assert pallas_mm.complex_batched_matmul.launches - before[0] == 2
     assert pallas_mm.complex_batched_matmul.one_pass - before[1] == 1
