@@ -87,8 +87,8 @@
 // stores (STAGE_Y).  Against the earlier shape, two
 // warpgroups sharing the copies and the split between their products (256
 // threads, two barriers a chunk), this one was 16-19% faster at the 1k
-// and 10k Pair steps, with the same output (scripts/wgmma_ws_torch_port.cu,
-// PERF.md).
+// and 10k Pair steps, with the same output (on an H100; PERF.md section
+// 6 keeps the readings).
 //
 // The ring copies 16 bytes a cp.async where every row and offset lies on
 // a 4-float grid and the buffers on 16 bytes (VEC: Pair, M and N multiples
@@ -111,8 +111,8 @@
 namespace wg {
 
 // k8 slices a promotion window in the 3xTF32 form.  1, from the error
-// against float64 on an H100 (scripts/wgmma_promote_torch_port.py,
-// PERF.md): at 1 the 1k and 10k Pair steps and the 1k GK step are
+// against float64 on an H100 (PERF.md section 6 keeps the readings): at
+// 1 the 1k and 10k Pair steps and the 1k GK step are
 // 0.43-0.60x the plain version's; at 2 the GK step is 1.05x, at 4 2.04x,
 // and longer windows ran slower (two slices' A fragments live in flight).
 constexpr int PROMOTE_3XTF32 = 1;

@@ -13,7 +13,7 @@ given once it holds for both sides, twice it is A's then B's, so
 ``--a . --form off --form default`` compares the two forms of this
 checkout.  ``--slice-batch`` defaults to the width the side's own wall
 estimate picks (``metrics.dividing_slice_width``), or 32 in a checkout
-that has no estimate.  For each workload of ``chip_smoke.py`` (the three
+that has no estimate.  For each workload of ``card_paths.py`` (the three
 sparse ones unless ``--workload`` names some; "dense" is the whole
 2^30-amplitude state through ``prepare()`` at width 1, "dense-blocks" the
 walk ``contraction_output_blocks(6)``, which always compiles the default
@@ -42,7 +42,7 @@ import subprocess
 import sys
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
-WORKLOADS = {   # name: (plan, amplitude fixture), as in chip_smoke.py
+WORKLOADS = {   # name: (plan, amplitude fixture), as in card_paths.py
     "1k": ("rcs_n30_m14_s0_sparse_sc24.json", "rcs_n30_m14_s0_amps1000.txt"),
     "10k": ("rcs_n30_m14_s0_sparse10k_sc24.json",
             "rcs_n30_m14_s0_amps10000.txt"),
@@ -52,7 +52,7 @@ WORKLOADS = {   # name: (plan, amplitude fixture), as in chip_smoke.py
 DENSE = {name: ("rcs_n30_m14_s0_dense_sc30.json",
                 "rcs_n30_m14_s0_amps1000.txt")
          for name in ("dense", "dense-blocks")}
-D_OUT = 6          # the walk's sliced output legs, as in chip_smoke.py
+D_OUT = 6          # the walk's sliced output legs, as in card_paths.py
 
 
 def dense_turn(root, name, form):

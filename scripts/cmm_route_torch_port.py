@@ -10,7 +10,7 @@ program's width) and lists the products its dot steps make at that width
 (``field.product_dims`` of ``lowering.batched_dnums``): the census.  Then,
 on the card, at each distinct (B, M, K, N): the kernel at ``cmm_tile``'s
 tile and ``field._split_dot`` (four cuBLAS products at FP32), each timed
-by ``chip_smoke.time_ms`` (device time, median), and for ``--seeds``
+by ``card_paths.time_ms`` (device time, median), and for ``--seeds``
 random inputs the largest error of each against a float64 product on a
 slice of the output (``SUB`` rows, or columns, or batch entries): the
 ratio of the kernel's to cuBLAS's, pooled over the seeds and per seed.
@@ -108,7 +108,7 @@ def main():
 
     import torch
 
-    import chip_smoke
+    import card_paths
     from artensor_tpu_torch import kernels
     from artensor_tpu_torch.ops import field, pallas_mm
     from tnbench import manifest
@@ -123,7 +123,7 @@ def main():
     kernels.load()
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as out:
-        head = dict(card=chip_smoke.card_line(), torch=torch.__version__,
+        head = dict(card=card_paths.card_line(), torch=torch.__version__,
                     shapes=len(shapes))
         out.write(json.dumps(head) + "\n")
         print(json.dumps(head), flush=True)
@@ -143,10 +143,10 @@ def main():
                 kern = lambda: pallas_mm.complex_batched_matmul(  # noqa
                     a, b)
                 if seed == 0:
-                    row["cublas_ms"] = chip_smoke.time_ms(cublas,
+                    row["cublas_ms"] = card_paths.time_ms(cublas,
                                                           5 if big else 20)
                     if runs:
-                        row["cmm_ms"] = chip_smoke.time_ms(kern,
+                        row["cmm_ms"] = card_paths.time_ms(kern,
                                                            5 if big else 20)
                 if not runs:
                     break

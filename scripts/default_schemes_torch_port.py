@@ -3,15 +3,18 @@
 
     python3 scripts/default_schemes_torch_port.py [--write | --check]
 
-For each workload of ``chip_smoke.py`` (1k, 10k, 1k-sc25) the default
+For each workload of ``card_paths.py`` (1k, 10k, 1k-sc25) the default
 form (``contraction_scheme_sparse`` with fusion and negotiation on, under
-the committed H100 calibration) is compiled on this host; the script prints
-its compile seconds (fusion and negotiation apart, with their trial
-compiles), its kernel census and ``sparse.scheme_digest``.  ``--write``
-saves census and digest to ``tests/data/torch_port_default_schemes.json``,
-which the CPU and card tests hold later compiles to; ``--check`` compares
-with that file and exits 1 on a difference.  Runs on the CPU (no card
-needed).
+the committed H100 calibration, as ``load_plan`` compiles it) is compiled
+on this host; the script prints its compile seconds (fusion and
+negotiation apart, with their trial compiles), its kernel census,
+``sparse.scheme_digest``, the slice width the wall estimate picks and the
+kernel steps by kind the card runs there (``card_paths.step_cases``).
+``--write`` saves them to ``tests/data/torch_port_default_schemes.json``,
+which the CPU and card tests hold later compiles to and
+``card_paths.KERNEL_STEPS`` takes the default forms' card cases from;
+``--check`` compares with that file and exits 1 on a difference.  Runs on
+the CPU (no card needed).
 """
 
 import argparse
@@ -22,56 +25,48 @@ from collections import Counter
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-DATA = os.path.join(ROOT, "artensor_tpu_torch", "data")
-RECORD = os.path.join(ROOT, "tests", "data",
-                      "torch_port_default_schemes.json")
-WORKLOADS = {   # name: (plan, amplitude fixture), as in chip_smoke.py
-    "1k": ("rcs_n30_m14_s0_sparse_sc24.json", "rcs_n30_m14_s0_amps1000.txt"),
-    "10k": ("rcs_n30_m14_s0_sparse10k_sc24.json",
-            "rcs_n30_m14_s0_amps10000.txt"),
-    "1k-sc25": ("rcs_n30_m14_s0_sparse_sc25.json",
-                "rcs_n30_m14_s0_amps1000.txt"),
-}
+
+import card_paths  # noqa: E402
+
+RECORD = card_paths.DEFAULT_RECORD
 
 
 def default_scheme(name):
-    """(steps, seconds, compile stats) of the workload's default form."""
-    from artensor_tpu_torch.plan_io import load_plan
-    from artensor_tpu_torch.runtime import scheme, sparse, tracing
+    """(path, seconds, compile stats) of the workload's default form
+    (``card_paths.compile_default_path``)."""
+    from artensor_tpu_torch.runtime import scheme, tracing
 
-    plan, fixture = WORKLOADS[name]
-    with open(os.path.join(DATA, fixture)) as f:
-        bits = [ln.split()[0] for ln in f if ln.strip()]
-    with open(os.path.join(DATA, plan)) as f:
-        sc = json.load(f)["meta"]["sc_target"]
-    _, _, ctree = load_plan(os.path.join(DATA, plan))
-    steps, _, _ = sparse.contraction_scheme_sparse(ctree, bits, sc)
+    path = card_paths.compile_default_path(name)
     span = tracing.last("scheme.compile")
-    return steps, span.seconds, scheme.compile_stats(span)
+    return path, span.seconds, scheme.compile_stats(span)
 
 
-def record(steps):
+def record(path):
     from artensor_tpu_torch.runtime.sparse import kernel_kind, scheme_digest
 
+    steps = path["sim"].steps
     census = Counter(kernel_kind(s) or "dot" for s in steps)
+    width, kernel_steps = card_paths.step_cases(path)
     return {"census": dict(sorted(census.items())),
-            "digest": scheme_digest(steps)}
+            "digest": scheme_digest(steps), "width": width,
+            "kernel_steps": kernel_steps}
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--write", action="store_true")
     ap.add_argument("--check", action="store_true")
-    ap.add_argument("--workload", action="append", choices=list(WORKLOADS))
+    ap.add_argument("--workload", action="append",
+                    choices=list(card_paths.PATHS))
     args = ap.parse_args()
     out, bad = {}, []
     want = {}
     if args.check:
         with open(RECORD) as f:
             want = json.load(f)
-    for name in args.workload or list(WORKLOADS):
-        steps, seconds, stats = default_scheme(name)
-        out[name] = record(steps)
+    for name in args.workload or list(card_paths.PATHS):
+        path, seconds, stats = default_scheme(name)
+        out[name] = record(path)
         print(f"{name}: compiled in {seconds:.2f} s ({json.dumps(stats)}); "
               f"{json.dumps(out[name])}", flush=True)
         if args.check and out[name] != want.get(name):

@@ -12,15 +12,15 @@ Model (``artensor_tpu_torch/runtime/metrics.py``, ``scheme_wall_estimate``):
 where ``kern_s`` sums each kernel step's design bound times its family's
 factor.  The script measures everything it fits, in one run on the card:
 
-1. the three workloads of ``chip_smoke.py`` (1k, 10k, 1k-sc25), each in
+1. the three workloads of ``card_paths.py`` (1k, 10k, 1k-sc25), each in
    the off form and the default form, compiled under the calibration in
    force (``data/calibration_h100.json`` if present, else identity);
 2. the family factors: for each kernel family, the summed device time of
-   every kernel step of the six paths (``chip_smoke.run_kernel`` at slice
-   width 32, checked against its plain version) over their summed design
-   bounds;
-3. the warm walls (``chip_smoke.warm_walls``: median of 3 after one
-   warm-up) of every path at
+   every kernel step of the six paths
+   (``card_paths.measure_checked`` at slice width 32, checked against its
+   plain version) over their summed design bounds;
+3. the warm walls (``warm_walls``: median of 3 after one warm-up) of
+   every path at
    every width from 8 up to the slice count that fits the memory budget
    (``metrics.max_safe_slice_batch``);
 4. the four global factors by non-negative least squares over those
@@ -41,7 +41,7 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-import chip_smoke as cs  # noqa: E402
+import card_paths as cp  # noqa: E402
 
 FIT_WIDTH = 32      # slice width of the kernel timings
 MIN_WIDTH = 8
@@ -50,14 +50,14 @@ MIN_WIDTH = 8
 def family_factors(paths):
     """Per family: summed kernel ms over summed design-bound ms, every
     kernel step of every path at ``FIT_WIDTH`` (each held against its
-    plain version by ``chip_smoke.run_kernel``)."""
+    plain version at the card tests' tolerance)."""
     fam = {"gk": "gk", "ggk": "ggk", "rgrow": "rgrow", "rgflat": "rgflat",
            "lane": "lane", "pair": "pair"}
     ms, bound = {}, {}
     for p in paths:
         for n, (kind, cases) in enumerate(sorted(p["cases"].items())):
             for plan, bx, by in cases:
-                r = cs.run_kernel(kind, plan, bx, by, FIT_WIDTH, seed=n)
+                r = cp.measure_checked(kind, plan, bx, by, FIT_WIDTH, seed=n)
                 ms[fam[kind]] = ms.get(fam[kind], 0.0) + r["ms"]
                 bound[fam[kind]] = bound.get(fam[kind], 0.0) \
                     + r["design_bound_ms"]
@@ -66,6 +66,31 @@ def family_factors(paths):
         print(f"family {f}: kernel {ms[f]:.4f} ms against design bounds "
               f"{bound[f]:.4f} ms: factor {out[f]:.4f}", flush=True)
     return out, {f: dict(ms=ms[f], design_bound_ms=bound[f]) for f in ms}
+
+
+def warm_walls(sim, W):
+    """Warm wall times of three whole runs (graph replay) after one
+    warm-up, each to its result's first value on the host, and the peak
+    device memory over all four (from a fresh allocator: cached blocks and
+    every stream's cuBLAS workspace freed)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = sim.prepare(slice_batch=W, device="cuda")
+    run()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()[0].reshape(-1)[0].item()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    del run
+    torch.cuda.empty_cache()
+    return walls, peak
 
 
 def main():
@@ -87,11 +112,11 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     out_path = args.out or metrics.CALIBRATION_PATH
-    card = cs.card_line()
+    card = cp.card_line()
     print(f"card: {card}", flush=True)
     kernels.load()
-    paths = [p for name in cs.PATHS
-             for p in cs.compile_paths(name, FIT_WIDTH)]
+    paths = [p for name in cp.PATHS
+             for p in cp.compile_paths(name, FIT_WIDTH)]
     fams, fam_detail = family_factors(paths)
 
     tmp = os.path.join(os.path.dirname(os.path.abspath(out_path)),
@@ -111,7 +136,7 @@ def main():
                                            sim.slicing_axes)
         w = MIN_WIDTH
         while w <= top:
-            walls, peak = cs.warm_walls(sim, w)
+            walls, peak = warm_walls(sim, w)
             wall = statistics.median(walls)
             points.append(dict(path=p["name"], width=w, wall_s=wall,
                                walls=walls, peak_gib=peak / 2 ** 30,
@@ -165,6 +190,6 @@ def main():
 if __name__ == "__main__":
     try:
         sys.exit(main())
-    except cs.SmokeFailure as e:
+    except cp.CardCheckError as e:
         print(f"fit: FAIL: {e}", file=sys.stderr)
         sys.exit(1)

@@ -34,10 +34,10 @@ The last three leave the output unwritten or wrong, so they are timed
 without the check.
 
 A turn compiles the 1k path's off-form scheme at each width
-(``chip_smoke.compile_path``), takes its K 16 H 16 F 512 GGK step (B 894,
+(``card_paths.compile_path``), takes its K 16 H 16 F 512 GGK step (B 894,
 X slice-invariant, W batched) and times the mma form
 (``gatherk.gk_form`` set to "mma"), 3 passes, with
-``chip_smoke.time_ms`` (device time, median of 10), after checking it
+``card_paths.time_ms`` (device time, median of 10), after checking it
 against the plain version (all but the ``no_`` variants); the
 ``as_is`` turns also time the stream form.  Prints one JSON line a turn,
 then a summary with each variant's ms by width (every turn's), the
@@ -104,13 +104,13 @@ def use_variant(name):
 def measure(name, widths):
     import torch
 
-    import chip_smoke
+    import card_paths
     from artensor_tpu_torch.runtime import gatherk
 
     choose = gatherk.gk_form
     out = dict(variant=name, ms={}, stream_ms={}, bound_ms={})
     for W in widths:
-        path = chip_smoke.compile_path("1k", W)
+        path = card_paths.compile_path("1k", W)
         plan, bx, by = next(
             c for c in path["cases"]["ggk"]
             if (c[0].row.K, c[0].row.H, c[0].row.F) == STEP)
@@ -118,18 +118,18 @@ def measure(name, widths):
         for form in forms:
             gatherk.gk_form = lambda *a, _f=form, **k: _f
             if name.startswith("no_"):
-                args = chip_smoke.kernel_operands("ggk", plan, bx, by, W,
+                args = card_paths.kernel_operands("ggk", plan, bx, by, W,
                                                   seed=W)["args"]
-                ms = chip_smoke.time_ms(lambda: gatherk.ggk_call(*args), 10)
+                ms = card_paths.time_ms(lambda: gatherk.ggk_call(*args), 10)
                 bound = None
             else:
-                r = chip_smoke.run_kernel("ggk", plan, bx, by, W, seed=W)
+                r = card_paths.measure_checked("ggk", plan, bx, by, W, seed=W)
                 ms, bound = r["ms"], r["design_bound_ms"]
                 out["step"] = r["step"]
             if name == "as_is" and form == "mma":
-                args = chip_smoke.kernel_operands("ggk", plan, bx, by, W,
+                args = card_paths.kernel_operands("ggk", plan, bx, by, W,
                                                   seed=W)["args"]
-                out.setdefault("one_pass_ms", {})[W] = chip_smoke.time_ms(
+                out.setdefault("one_pass_ms", {})[W] = card_paths.time_ms(
                     lambda: gatherk.ggk_call(*args, passes=1), 10)
                 del args
             gatherk.gk_form = choose
@@ -138,7 +138,7 @@ def measure(name, widths):
                 out["bound_ms"][W] = bound
         del path
         torch.cuda.empty_cache()
-    out["card"] = chip_smoke.card_line()
+    out["card"] = card_paths.card_line()
     return out
 
 

@@ -1,6 +1,7 @@
-"""Time every GK and GGK step of the three paths of ``chip_smoke.py`` in each
-of the GK kernel's two forms (and the RGRow steps in their one form), in
-one or more checkouts of the port, on one card.
+"""Time every GK and GGK step of the three off-form paths of
+``card_paths.py`` in each of the GK kernel's two forms (and the RGRow
+steps in their one form), in one or more checkouts of the port, on one
+card.
 
     python3 scripts/gk_forms_torch_port.py [--root DIR ...] \
         [--workload 1k|10k|1k-sc25 ...] [--kind gk|ggk|rgrow ...] \
@@ -10,15 +11,17 @@ one or more checkouts of the port, on one card.
 variants of ``csrc/`` unpacked from ``git archive`` into a git-ignored
 directory.  The roots take turns in the order given and then reversed (A B
 C C B A), each turn in a fresh process that imports ``artensor_tpu_torch``
-and ``chip_smoke`` from that root only.  A turn builds the kernels,
-compiles each path's scheme and runs every GK and GGK step at the path's
-slice width and operand batching, on random inputs made from a seed, once
-in each form that takes it: "stream" (for GK, where its W chunk fits that
-form's shared memory) and "mma" (for GGK, where its f run is a multiple of
-the mma tile's width), with ``gatherk.gk_form`` overridden for the call;
-an RGRow step (``--kind rgrow``) runs in its one form, "fma".
-``chip_smoke.run_kernel`` checks each call against the plain version at
-chip_smoke's tolerance and times it (CUDA events, median of repeats).
+from that root only (``card_paths`` and the timing from this checkout).
+A turn builds the kernels, compiles each path's scheme and runs every GK
+and GGK step at the path's slice width and operand batching, on random
+inputs made from a seed, once in each form that takes it: "stream" (for
+GK, where its W chunk fits that form's shared memory) and "mma" (for GGK,
+where its f run is a multiple of the mma tile's width), with
+``gatherk.gk_form`` overridden for the call; an RGRow step (``--kind
+rgrow``) runs in its one form, "fma".
+``card_paths.measure_checked`` times each call (CUDA
+events, median of repeats) after its max|d| to the plain version is
+checked at the card tests' tolerance.
 
 Each turn prints one JSON line.  The summary gives, per step, the form
 ``gk_form`` picks, the step's byte and 3xTF32 bounds and each form's ms in
@@ -35,7 +38,7 @@ import subprocess
 import sys
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
-WORKLOADS = ("1k", "10k", "1k-sc25")   # chip_smoke.PATHS
+WORKLOADS = ("1k", "10k", "1k-sc25")   # card_paths.PATHS
 
 
 def turn(root, names, kinds, width):
@@ -43,10 +46,12 @@ def turn(root, names, kinds, width):
     "rgrow") of
     the paths ``names`` in each form, with ``root``'s package.  Prints one
     JSON line."""
+    sys.path.insert(0, ROOT)
+    import card_paths
+
     sys.path.insert(0, root)
     import torch
 
-    import chip_smoke
     from artensor_tpu_torch import kernels
     from artensor_tpu_torch.runtime import gatherk
 
@@ -57,13 +62,13 @@ def turn(root, names, kinds, width):
     choose = gatherk.gk_form
     steps = []
     for name in names:
-        path = chip_smoke.compile_path(name, width)
+        path = card_paths.compile_path(name, width)
         for kind, (i, (plan, bx, by)) in [
                 (kind, c) for kind in kinds
                 for c in enumerate(path["cases"].get(kind, []))]:
             xs, ws = (bx, by) if plan.w_is_j else (by, bx)
             rec = dict(path=name, kind=kind, step=i + 1,
-                       shape=chip_smoke.describe(kind, plan),
+                       shape=card_paths.describe(kind, plan),
                        chosen="fma" if kind == "rgrow"
                        else choose(plan, width, xs, ws))
             row = plan if kind == "gk" else plan.row
@@ -77,8 +82,8 @@ def turn(root, names, kinds, width):
                         row.F % gatherk.MMA_TILE_M:
                     continue
                 if form == "fma":
-                    r = chip_smoke.run_kernel(kind, plan, bx, by, width,
-                                              seed=i)
+                    r = card_paths.measure_checked(kind, plan, bx, by, width,
+                                                    seed=i)
                     rec.update(fma_ms=r["ms"],
                                bytes_bound_ms=r["design_bound_ms"],
                                bound_3xtf32_ms=r["bound_3xtf32_ms"],
@@ -86,8 +91,8 @@ def turn(root, names, kinds, width):
                     continue
                 gatherk.gk_form = lambda *a, _f=form, **k: _f
                 try:
-                    r = chip_smoke.run_kernel(kind, plan, bx, by, width,
-                                              seed=i)
+                    r = card_paths.measure_checked(kind, plan, bx, by, width,
+                                                    seed=i)
                 finally:
                     gatherk.gk_form = choose
                 rec[f"{form}_ms"] = r["ms"]
@@ -96,7 +101,7 @@ def turn(root, names, kinds, width):
                 rec["bound_3xtf32_ms"] = r["bound_3xtf32_ms"]
                 rec["library_ms"] = r["library_ms"]
             steps.append(rec)
-    print(json.dumps({"root": root, "card": chip_smoke.card_line(),
+    print(json.dumps({"root": root, "card": card_paths.card_line(),
                       "ptxas": ptxas, "steps": steps}), flush=True)
 
 

@@ -1,12 +1,12 @@
 """Where the port's main path spends its time on the card.
 
 Runs the n30 m14 sliced contraction of a committed plan (one of the
-workloads of ``chip_smoke.py``, by ``--workload``: the sparse ``1k``,
+workloads of ``card_paths.py``, by ``--workload``: the sparse ``1k``,
 ``10k`` or ``1k-sc25``, or ``dense``, the whole 2^30-amplitude state; or
 ``1k-planned``, the 1k batch planned by the port as
 ``quantum_circuit_simulation(..., sc_target=24)`` plans it, under
-``PYTHONHASHSEED=0`` as ``chip_smoke.py`` runs it: the script re-executes
-itself so; its
+``PYTHONHASHSEED=0`` (the planner's plans depend on the string hash
+seed): the script re-executes itself so; its
 scheme in ``--form``: "default", what ``load_plan`` compiles, or "off",
 ``contraction_scheme_sparse(..., fuse=False, negotiate=False)`` or
 ``scheme.contraction_scheme(..., fuse=False, negotiate=False)``) at
@@ -65,8 +65,8 @@ WORKLOADS = {   # name: (plan, amplitude fixture)
     "dense": ("rcs_n30_m14_s0_dense_sc30.json", None),
     "1k-planned": (None, "rcs_n30_m14_s0_amps1000.txt"),
 }
-PLANNED_SC = 24          # chip_smoke.PLANNED_SC
-PLAN_HASH_SEED = "0"     # chip_smoke.PLAN_HASH_SEED
+PLANNED_SC = 24          # the planned 1k path's sc_target
+PLAN_HASH_SEED = "0"     # the hash seed the 1k batch is planned under
 
 FAMILIES = (   # (family, substrings of the kernel name), first match wins
     ("gatherk.cu (GGK stream)", ("ggk_stream_kernel",)),
@@ -312,7 +312,7 @@ def main():
     ap.add_argument("--slice-batch", type=int, default=0,
                     help="slices per group (default: the model's width)")
     ap.add_argument("--workload", default="1k", choices=list(WORKLOADS),
-                    help="the workload of chip_smoke.py to profile")
+                    help="the workload of card_paths.py to profile")
     ap.add_argument("--form", default="default", choices=("off", "default"),
                     help="the scheme's form")
     ap.add_argument("--ab-rgflat", action="store_true",

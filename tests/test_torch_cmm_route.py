@@ -216,18 +216,18 @@ def test_dot_copy_elems_holds_both_components_of_a_routed_product(
     (29, 14, 28, False)])    # the capture recorded 15 (not a group's 14)
 def test_chip_smoke_holds_cmm_runs_to_the_routed_products(made, launches,
                                                           ran, ok):
-    """``chip_smoke.cmm_held``: a capture records a group's routed dot
+    """``card_paths.cmm_held``: a capture records a group's routed dot
     products without launching them (``dot.cmm`` made less launched, over
     the captures, is a group's); the warm-up groups launch as many each
     and the card runs those launches and every replay's group."""
-    import chip_smoke
+    import card_paths
 
     st = dict(captures=1, warmup_groups=1, replays=1 if ran < 40 else 2)
     cmm = dict(made=made, launches=launches, runs={"cmm": ran})
     once = launches > made - launches
     if not ok:
-        with pytest.raises(chip_smoke.SmokeFailure):
-            chip_smoke.cmm_held("p", cmm, st, once=once)
+        with pytest.raises(card_paths.CardCheckError):
+            card_paths.cmm_held("p", cmm, st, once=once)
         return
-    got = chip_smoke.cmm_held("p", cmm, st, once=once)
+    got = card_paths.cmm_held("p", cmm, st, once=once)
     assert got["per_group"] == 14 and got["device_launches"] == ran

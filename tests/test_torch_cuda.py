@@ -1,7 +1,10 @@
 """The CUDA kernels on the card: each wrapper against its plain version on
-the same CUDA tensors, and the n30 main path against the JAX fixture.
+the same CUDA tensors, at small and ragged shapes, and the executors and
+layers above them on small circuits (the full-size n30 paths are
+``tests/test_torch_card_paths.py``'s).
 
-Marked ``gpu``: skipped where no card is present.  On a machine with one
+Marked ``gpu``: skipped where no card is present, and failed there in a
+run that asks for the card tests (``-m gpu``).  On a machine with one
 (``--noconftest``: ``tests/conftest.py`` imports JAX, which the port's
 machine need not have):
 
@@ -14,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import card_paths
 from artensor_tpu_torch.ops import pallas_mm
 from artensor_tpu_torch.runtime import gatherk, lanes
 
@@ -24,9 +28,8 @@ DATA = os.path.join(os.path.dirname(__file__), "..", "artensor_tpu_torch",
 
 
 @pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
+def cuda(request):
+    card_paths.require_card(request.config)
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -638,13 +641,13 @@ def test_complex_matmul_kernel_matches_plain(cuda, bmkn):
 
 
 @pytest.mark.parametrize("passes", [3, 1])
-@pytest.mark.parametrize("bmkn", [(32, 1024, 256, 1024), (2, 256, 64, 256),
-                                  (3, 130, 36, 68)])
+@pytest.mark.parametrize("bmkn", [(3, 130, 36, 68)])
 def test_complex_matmul_wgmma_shapes(cuda, bmkn, passes):
-    """The complex matmul on the wgmma core at ``chip_smoke.CMM_SHAPES``
-    and at a shape of ragged M and N tiles with K and N on the 4-float
-    grid, against the plain version (its TF32 form for one pass); the
-    kernel counts its launches in ``pair_runs``' second slot."""
+    """The complex matmul on the wgmma core at a shape of ragged M and N
+    tiles with K and N on the 4-float grid, against the plain version (its
+    TF32 form for one pass); the kernel counts its launches in
+    ``pair_runs``' second slot.  ``card_paths.CMM_SHAPES`` are
+    ``tests/test_torch_card_paths.py``'s."""
     from artensor_tpu_torch.kernels import device_runs
 
     B, M, K, N = bmkn
@@ -828,118 +831,38 @@ def test_dot_products_run_on_the_complex_matmul(cuda, monkeypatch, mode,
     assert tracing.counters().get("dot.cmm", 0) == before and not ran
 
 
-@pytest.mark.parametrize("n_bits,plan", [
-    (1000, "rcs_n30_m14_s0_sparse_sc24.json"),
-    (10000, "rcs_n30_m14_s0_sparse10k_sc24.json"),
-    (1000, "rcs_n30_m14_s0_sparse_sc25.json")])
-def test_n30_main_path_matches_fixture(cuda, n_bits, plan):
-    from artensor_tpu_torch import TensorNetworkSimulation, random_circuit
-
-    ref = {}
-    with open(os.path.join(DATA, f"rcs_n30_m14_s0_amps{n_bits}.txt")) as f:
-        for ln in f:
-            b, re, im = ln.split()
-            ref[b] = complex(float(re), float(im))
-    sim = TensorNetworkSimulation.from_circuit(
-        random_circuit(5, 6, 14, seed=0), list(ref)).load_plan(
-        os.path.join(DATA, plan))
-    amps = sim.contraction(slice_batch=16)
-    r = np.array([ref[b] for b in sim.bitstrings_sorted])
-    rms = np.sqrt(np.mean(np.abs(r) ** 2))
-    assert (np.abs(amps - r) <= 1e-3 * np.abs(r) + 1e-6 * rms).all()
-
-
-DEFAULT_RECORD = os.path.join(os.path.dirname(__file__), "data",
-                              "torch_port_default_schemes.json")
-N30_WORKLOADS = {"1k": (1000, "rcs_n30_m14_s0_sparse_sc24.json"),
-                 "10k": (10000, "rcs_n30_m14_s0_sparse10k_sc24.json"),
-                 "1k-sc25": (1000, "rcs_n30_m14_s0_sparse_sc25.json")}
-
-
-@pytest.fixture(scope="module", params=sorted(N30_WORKLOADS))
-def n30_default(request):
-    """A workload's simulation as ``load_plan`` compiles it (the default
-    form) on this host, with its device steps."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    from artensor_tpu_torch import TensorNetworkSimulation, random_circuit
-    from artensor_tpu_torch.runtime.executor import precompute_static_steps
-
-    n_bits, plan = N30_WORKLOADS[request.param]
-    with open(os.path.join(DATA, f"rcs_n30_m14_s0_amps{n_bits}.txt")) as f:
-        bits = [ln.split()[0] for ln in f if ln.strip()]
-    sim = TensorNetworkSimulation.from_circuit(
-        random_circuit(5, 6, 14, seed=0), bits).load_plan(
-        os.path.join(DATA, plan))
-    run_steps, host = precompute_static_steps(
-        sim.steps, [sim.tensors[i] for i in range(len(sim.tensors))],
-        sim.slicing_axes)
-    return request.param, sim, run_steps, host
-
-
-def test_n30_default_scheme_as_on_the_cpu(cuda, n30_default):
+@pytest.mark.parametrize("name", sorted(card_paths.PATHS))
+def test_n30_default_scheme_as_on_the_cpu(cuda, name):
     """The default form compiled on the card's host makes the scheme that
-    the CPU compile recorded (``scripts/default_schemes_torch_port.py``)."""
+    the CPU compile recorded (``scripts/default_schemes_torch_port.py``):
+    its census, digest, width and kernel steps there."""
     import json
     from collections import Counter
 
     from artensor_tpu_torch.runtime.sparse import kernel_kind, scheme_digest
 
-    name, sim, _, _ = n30_default
-    with open(DEFAULT_RECORD) as f:
+    path = card_paths.compile_default_path(name)
+    with open(card_paths.DEFAULT_RECORD) as f:
         want = json.load(f)[name]
-    census = Counter(kernel_kind(s) or "dot" for s in sim.steps)
+    steps = path["sim"].steps
+    census = Counter(kernel_kind(s) or "dot" for s in steps)
     assert dict(census) == want["census"]
-    assert scheme_digest(sim.steps) == want["digest"]
-
-
-def test_n30_default_width_peak_is_modeled(cuda, n30_default):
-    """At the width the wall estimate picks, the modeled peak (the live
-    set at that width with the dot fallback's operand copies and the GK
-    tables, ``metrics.scheme_device_peak_bytes``, plus what the model
-    leaves out: the staged operands and the runtime's reserve,
-    ``PEAK_RESERVE_BYTES``) is at least the peak the run allocates, and
-    the model alone at least 90% of it: the graph run (warm-up group and
-    capture included) is held to the model of the eager one."""
-    from artensor_tpu_torch.planner.cost import PEAK_RESERVE_BYTES
-    from artensor_tpu_torch.runtime import metrics
-
-    name, sim, run_steps, host = n30_default
-    W = metrics.dividing_slice_width(run_steps, len(sim.slicing_bonds),
-                                     sim.slicing_axes)
-    model = metrics.scheme_device_peak_bytes(run_steps, W,
-                                             sim.slicing_axes)
-    staged = sum(8 * int(np.prod(np.shape(a))) for a in host)
-    # the run's own allocations: its warm-up group, its graph capture and
-    # two replays (no workspace or cached block of an earlier test)
-    torch.cuda.synchronize()
-    torch._C._cuda_clearCublasWorkspaces()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    run = sim.prepare(slice_batch=W, device="cuda")
-    run()
-    out = run()
-    torch.cuda.synchronize()
-    measured = torch.cuda.max_memory_allocated()
-    del run, out
-    torch.cuda.empty_cache()
-    assert measured <= model + staged + PEAK_RESERVE_BYTES, \
-        (name, W, measured, model, staged)
-    assert model >= 0.9 * measured
+    assert scheme_digest(steps) == want["digest"]
+    assert card_paths.step_cases(path) == (want["width"],
+                                           want["kernel_steps"])
 
 
 DENSE_PLAN = os.path.join(DATA, "rcs_n30_m14_s0_dense_sc30.json")
 
 
 @pytest.fixture(scope="module")
-def dense_gk_steps():
+def dense_gk_steps(request):
     """The GK steps of the n30 dense path with their operands' width axes:
     ``whole``, the whole-state default scheme (unbatched, X up to 2^30
     elements); ``block``, the scheme of one of the 64 output blocks of
     ``contraction_output_blocks(6)`` (width 1 on the operands that carry
     a sliced open leg)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
+    card_paths.require_card(request.config)
     from artensor_tpu_torch import TensorNetworkSimulation, random_circuit
     from artensor_tpu_torch.runtime.executor import precompute_static_steps
     from artensor_tpu_torch.runtime.sparse import kernel_kind

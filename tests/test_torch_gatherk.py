@@ -411,10 +411,11 @@ def test_wrappers_validate_operands(low_thresholds):
 
 @pytest.mark.parametrize("name", sorted(GK_CASES))
 def test_gk_einsum_yardstick_matches_plain(low_thresholds, name):
-    """The one-call ``torch.einsum`` that ``chip_smoke.py`` times beside
-    the GK kernel (X in its logical shape from ``x_dims`` / ``x_roles``)
-    computes what the plain GK version computes."""
-    import chip_smoke
+    """The one-call ``torch.einsum`` that the card tests and
+    ``chip_smoke.py`` run beside the GK kernel (X in
+    its logical shape from ``x_dims`` / ``x_roles``) computes what the
+    plain GK version computes."""
+    import card_paths
 
     _, plan = _plans(GK_CASES[name])
     assert plan is not None, pgk.LAST_REJECT
@@ -424,13 +425,13 @@ def test_gk_einsum_yardstick_matches_plain(low_thresholds, name):
     W = 3
     x = [torch.randn((W, plan.x_elems), generator=gen) for _ in "ri"]
     w = [torch.randn((plan.H * plan.K,), generator=gen) for _ in "ri"]
-    call, view, shape = chip_smoke.gk_library(plan, *x, *w, True, False)
+    call, view, shape = card_paths.gk_library(plan, *x, *w, True, False)
     pr, pi = pgk.gk_plain(plan, *x, *w, True, False)
     np.testing.assert_allclose(call().reshape(shape).numpy(),
                                view(pr, pi).numpy(), **TOL)
 
 
-# the GGK steps of the n30 paths as chip_smoke.py runs them (width 32):
+# the GGK steps of the n30 off-form paths (card_paths.py, width 32):
 # (K, H, F, G) -> the form gatherk.gk_form picks.  The 1k K 16 H 16 step
 # runs on the tensor cores (wgmma: X slice-invariant, its N tile 16 wide
 # and its K chunk 16 deep); the F 64 steps stream (no 128-row tile fits
@@ -457,9 +458,9 @@ def test_ggk_form_of_every_path_step(name):
     step's operand batching: bytes against flops as for GK, counting only
     the rows the targets name, and stream wherever the f run does not
     fill the mma form's 128-wide tile or K is below ``GGK_MMA_K_MIN``."""
-    import chip_smoke
+    import card_paths
 
-    path = chip_smoke.compile_path(name, 32)
+    path = card_paths.compile_path(name, 32)
     got = {}
     for plan, bx, by in path["cases"]["ggk"]:
         xs, ws = (bx, by) if plan.w_is_j else (by, bx)
@@ -475,14 +476,14 @@ def test_ggk_form_of_every_path_step(name):
 @pytest.mark.parametrize("name,width", sorted(GGK_DEFAULT_WIDTH_FORMS))
 def test_ggk_form_at_default_widths(name, width):
     """``gk_form`` on each GGK step at the default form's width (and at
-    width 1, where ``chip_smoke.py`` also runs the largest step), with the
+    width 1, where the card tests also run the largest step), with the
     step's real batching: the 1k K 16 H 16 step's X is slice-invariant and
     its W batched; bytes against flops then count X once.  The mma form
     is the faster one there at widths 1, 32 and 64 on the card
     (``scripts/ggk_wgmma_torch_port.py``)."""
-    import chip_smoke
+    import card_paths
 
-    path = chip_smoke.compile_path(name, width)
+    path = card_paths.compile_path(name, width)
     got = {}
     for plan, bx, by in path["cases"]["ggk"]:
         xs, ws = (bx, by) if plan.w_is_j else (by, bx)
@@ -631,15 +632,15 @@ RGF_PATH_GEOMETRY = {
 def test_rgflat_kernel_model_matches_plain(monkeypatch, name):
     """The numpy model of the RGFlat kernel's index scheme equals
     ``rgflat_plain`` on the RGFlat step of the 10k and 1k-sc25 paths (as
-    ``chip_smoke.py`` compiles them) and of the committed small plan,
+    ``card_paths.py`` compiles them) and of the committed small plan,
     with X batched and W as the path batches it; the path steps take
     the staged route with 16-byte copies, V = 4 and W staged."""
-    import chip_smoke
+    import card_paths
 
     if name == "rcs15":
         plan, w_batched = _rcs15_rgflat(monkeypatch), True
     else:
-        path = chip_smoke.compile_path(name, 32)
+        path = card_paths.compile_path(name, 32)
         ((plan, bx, by),) = path["cases"]["rgflat"]
         w_batched = by if plan.w_is_j else bx
         shape, geometry = RGF_PATH_GEOMETRY[name]

@@ -1,5 +1,6 @@
-"""The port stands alone: importing it (and chip_smoke.py) loads neither JAX
-nor the JAX package, and its entry points never fall back to the CPU."""
+"""The port stands alone: importing it (and chip_smoke.py and card_paths.py,
+which the card tests and scripts share) loads neither JAX nor the JAX
+package, and its entry points never fall back to the CPU."""
 
 import os
 import shutil
@@ -14,7 +15,7 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 
 PROBE = """
 import importlib, pkgutil, sys
-import artensor_tpu_torch, chip_smoke
+import artensor_tpu_torch, card_paths, chip_smoke
 for m in pkgutil.walk_packages(artensor_tpu_torch.__path__,
                                "artensor_tpu_torch."):
     importlib.import_module(m.name)
@@ -119,20 +120,48 @@ def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):
     assert '"ok": true' not in r.stdout
 
 
-def test_card_tests_run_without_jax(tmp_path):
-    """The card's unit tests run on a machine without JAX by the command
-    the README gives (``--noconftest``: ``tests/conftest.py`` imports
-    JAX): with a ``jax`` that fails to import, they are collected and
-    (here, without a card) skipped, and nothing fails."""
+CARD_FILES = ("tests/test_torch_cuda.py", "tests/test_torch_card_paths.py")
+
+
+def _card_run(tmp_path, marks, files=CARD_FILES, *extra):
+    """Card test files under ``-m marks`` by the command the README gives
+    (``--noconftest``: ``tests/conftest.py`` imports JAX), with a ``jax``
+    that fails to import."""
     fake = tmp_path / "jax"
-    fake.mkdir()
+    fake.mkdir(exist_ok=True)
     (fake / "__init__.py").write_text(
         "raise ImportError('no JAX on this machine')\n")
     env = _clean_env()
     env["PYTHONPATH"] = str(tmp_path)
     cmd = [sys.executable, "-m", "pytest", "--noconftest", "-p",
-           "no:cacheprovider", "-q", "-m", "gpu", "tests/test_torch_cuda.py"]
-    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                       timeout=300, env=env)
+           "no:cacheprovider", "-q", "-m", marks, *extra, *files]
+    return subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=300, env=env)
+
+
+def test_card_tests_run_without_jax(tmp_path):
+    """The card tests run on a machine without JAX: each file is collected
+    (pytest's exit code 1, a test failed, and not 2, a collection error),
+    and here, in a run that asks for the card tests (``-m gpu``) without a
+    card, its first card test fails for want of one rather than passing
+    as skipped."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for f in CARD_FILES:
+        r = _card_run(tmp_path, "gpu", (f,), "-x")
+        out = r.stdout + r.stderr
+        assert r.returncode == 1, (f, out[-3000:])
+        assert "needs a CUDA card" in r.stdout, (f, out[-3000:])
+        assert "ImportError" not in out, (f, out[-3000:])
+
+
+def test_card_tests_skip_outside_a_card_run(tmp_path):
+    """Run by a mark expression that does not ask for the card tests (the
+    CPU suite's ``-m "not slow"``), without a card, they are skipped and
+    nothing fails."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = _card_run(tmp_path, "not slow")
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
     assert "error" not in r.stdout.lower()
+    assert "failed" not in r.stdout.lower()

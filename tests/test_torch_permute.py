@@ -357,7 +357,7 @@ def test_wrappers_on_the_cpu_are_plain_pytorch():
     assert permute.permute_copy.launches == before
 
 
-# chip_smoke.permute_held on counts as a run reports them: (reorders made,
+# card_paths.permute_held on counts as a run reports them: (reorders made,
 # launches, runs on the card, captures, warm-up groups, replays, block
 # walk, accepted)
 HELD = [
@@ -379,17 +379,17 @@ def test_chip_smoke_holds_permute_runs_to_the_groups(case):
     (made - launched) / captures is a group's; the warm-up groups launch
     as many each (a block walk also its steps run once) and the card runs
     those launches and every replay's group."""
-    import chip_smoke
+    import card_paths
 
     _, made, launches, ran, caps, warm, replays, once, ok = case
     perm = dict(made=made, launches=launches,
                 runs={"row": ran // 3, "tile": ran - ran // 3})
     st = dict(captures=caps, warmup_groups=warm, replays=replays)
     if not ok:
-        with pytest.raises(chip_smoke.SmokeFailure):
-            chip_smoke.permute_held("p", perm, st, once=once)
+        with pytest.raises(card_paths.CardCheckError):
+            card_paths.permute_held("p", perm, st, once=once)
         return
-    got = chip_smoke.permute_held("p", perm, st, once=once)
+    got = card_paths.permute_held("p", perm, st, once=once)
     per = (made - launches) // caps
     assert got["per_group"] == per and got["device_launches"] == ran
     assert got["once"] == launches - per * warm

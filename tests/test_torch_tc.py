@@ -23,14 +23,14 @@ from artensor_tpu_torch.runtime.sparse import kernel_kind
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "artensor_tpu_torch",
                     "data")
-PATHS = {   # name: (plan, fixture), as chip_smoke.py drives them
+PATHS = {   # name: (plan, fixture), as card_paths.py has them
     "1k": ("rcs_n30_m14_s0_sparse_sc24.json", "rcs_n30_m14_s0_amps1000.txt"),
     "10k": ("rcs_n30_m14_s0_sparse10k_sc24.json",
             "rcs_n30_m14_s0_amps10000.txt"),
     "1k-sc25": ("rcs_n30_m14_s0_sparse_sc25.json",
                 "rcs_n30_m14_s0_amps1000.txt"),
 }
-WIDTH = 32   # chip_smoke.py's slice width
+WIDTH = 32   # card_paths.OFF_WIDTH
 # the mma steps of each off-form path as (K, H, F, G), the pre-permuted
 # steps' f runs cut to gatherk.PRE_TAIL_F; every other GK step streams
 MMA_STEPS = {
@@ -62,7 +62,7 @@ def _gk_steps(name):
         bits = [ln.split()[0] for ln in f if ln.strip()]
     with open(os.path.join(DATA, plan)) as f:
         pd = json.load(f)
-    # the off form, as chip_smoke.py's off paths compile it
+    # the off form, as card_paths.compile_path compiles it
     sim = TensorNetworkSimulation.from_circuit(
         random_circuit(5, 6, 14, seed=0), bits)
     sim.order, sim.slicing_bonds, sim.ctree = plan_from_dict(pd)
@@ -154,7 +154,8 @@ def _product(a, b, passes):
     without rounding to nearest, which this does not model (so a kernel
     that adds all of K into the mma accumulators would pass here).  The
     kernel's own accuracy is held on the card, against float64, by
-    chip_smoke.py and the card tests."""
+    the card tests (``tests/test_torch_cuda.py``,
+    ``tests/test_torch_card_paths.py``)."""
     ah = _tf32(a)
     bh = _tf32(b)
     terms = [(ah, bh)]

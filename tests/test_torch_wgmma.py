@@ -9,8 +9,8 @@ Three things are held here without a card:
   ``kernels.wgmma_promote()`` slices that accumulator is added into
   float32 rounding to nearest.  It checks the scheme's arithmetic, not the
   kernel (as ``tests/test_torch_tc.py`` does for the split): the kernel's own
-  accuracy is held on the card, against float64, by ``chip_smoke.py`` and
-  the card tests;
+  accuracy is held on the card, against float64, by the card tests
+  (``tests/test_torch_cuda.py``, ``tests/test_torch_card_paths.py``);
 * the host rules: that every Pair and GK mma step of the three committed
   n30 plans runs on the wgmma core with 16-byte copies, in which
   orientation, and which shapes and buffers take its 4-byte copies;
